@@ -1,0 +1,2 @@
+"""Hand-written Hopper kernels of the port (CUDA C++ under ``csrc/``),
+each beside its plain PyTorch version."""

@@ -1,0 +1,4 @@
+from repro_torch.models.common import ModelConfig
+from repro_torch.models.model import Model, build_model
+
+__all__ = ["ModelConfig", "Model", "build_model"]

@@ -1,0 +1,186 @@
+"""Paged GQA attention with RoPE — the port's subset of
+``repro.models.attention``: the fused decode and mixed-iteration paths
+over the global block pool.
+
+Shapes follow the JAX package: activations ``x [B, T, D]``, a pool slice
+``[NB, BS, Hkv, Dh]`` per layer, block tables ``[B, NBT]`` int32. Pool
+writes are IN PLACE (``index_put_``): a functional copy would duplicate
+the multi-GB pool per layer per step, so each function returns the pool
+it was given, updated.
+"""
+from __future__ import annotations
+
+import functools
+from typing import NamedTuple, Optional
+
+import torch
+
+from repro_torch.kernels.mixed_attention import paged_mixed_attention
+from repro_torch.models.common import ModelConfig
+
+
+# --------------------------------------------------------------------------
+# Rotary embeddings
+# --------------------------------------------------------------------------
+@functools.lru_cache(maxsize=8)
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    """[Dh/2] f32 inverse frequencies, cached per (Dh, theta, device) so a
+    decode step does not rebuild them per layer."""
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x [B, T, H, Dh]; positions [B, T] (int)."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)             # [Dh/2]
+    angles = positions[..., None].float() * freqs                # [B, T, Dh/2]
+    cos, sin = torch.cos(angles)[:, :, None], torch.sin(angles)[:, :, None]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def _project_qkv(p, cfg: ModelConfig, x: torch.Tensor):
+    B, T, _ = x.shape
+    q = x @ p["wq"]
+    k = x @ p["wk"]
+    v = x @ p["wv"]
+    if "bq" in p:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    dh = cfg.head_dim
+    return (q.reshape(B, T, -1, dh), k.reshape(B, T, -1, dh),
+            v.reshape(B, T, -1, dh))
+
+
+# --------------------------------------------------------------------------
+# The paged pool
+# --------------------------------------------------------------------------
+class KVCache(NamedTuple):
+    k: torch.Tensor     # [(L,) NB, BS, Hkv, Dh]
+    v: torch.Tensor
+
+
+def make_paged_pool(cfg: ModelConfig, num_blocks: int, block_size: int,
+                    dtype: Optional[torch.dtype] = None,
+                    device="cuda") -> KVCache:
+    """Zeroed global block pool for ONE layer: [NB, BS, Hkv, Dh]."""
+    shape = (num_blocks, block_size, cfg.num_kv_heads, cfg.head_dim)
+    dt = dtype or cfg.dtype
+    return KVCache(torch.zeros(shape, dtype=dt, device=device),
+                   torch.zeros(shape, dtype=dt, device=device))
+
+
+def scatter_pool(pool_l: KVCache, blk: torch.Tensor, off: torch.Tensor,
+                 k: torch.Tensor, v: torch.Tensor) -> KVCache:
+    """Write new K/V rows into one layer's pool slice at physical
+    ``(blk, off)``, in place. ``blk``/``off`` are integer tensors of a
+    matching shape S; ``k``/``v`` are [*S, Hkv, Dh]."""
+    idx = (blk.long(), off.long())
+    pool_l.k.index_put_(idx, k.to(pool_l.k.dtype))
+    pool_l.v.index_put_(idx, v.to(pool_l.v.dtype))
+    return pool_l
+
+
+def paged_gather(pool: torch.Tensor, block_tables: torch.Tensor):
+    """pool [NB, BS, Hkv, Dh]; block_tables [B, NBT] -> contiguous
+    per-request view [B, NBT*BS, Hkv, Dh] (rows past a request's length
+    come from padding entries and must be masked by the caller)."""
+    B, NBT = block_tables.shape
+    g = pool[block_tables.long()]
+    return g.reshape(B, NBT * pool.shape[1], *pool.shape[2:])
+
+
+def _table_entry(block_tables: torch.Tensor, pos: torch.Tensor, BS: int):
+    """Physical block of logical position ``pos`` per row. Dead rows carry
+    ``pos = -1``; the JAX gather wraps that to the table's last column,
+    which here is an explicit floor-mod (every entry of a dead row is the
+    garbage block, so any column would do)."""
+    col = torch.remainder(torch.div(pos, BS, rounding_mode="floor"),
+                          block_tables.shape[1])
+    return torch.gather(block_tables, 1, col.long())
+
+
+# --------------------------------------------------------------------------
+# Decode and the fused mixed iteration
+# --------------------------------------------------------------------------
+def attention_decode_paged(p, cfg: ModelConfig, x: torch.Tensor,
+                           pool_l: KVCache, block_tables: torch.Tensor,
+                           pos: torch.Tensor, *,
+                           attn_num_work: Optional[int] = None):
+    """x [B, 1, D]; pool_l one layer's slice; block_tables [B, NBT] int32;
+    pos [B] int32 tokens already cached (-1 = dead slot: its write lands
+    in the garbage block and its attention length is 0). Writes the new
+    token's K/V, then runs the fused kernel with all-decode tags
+    (ctx = pos, seg = 1). Returns (out [B, 1, D], pool_l)."""
+    assert not cfg.sliding_window, "paged decode is full-attention only"
+    B = x.shape[0]
+    q, k, v = _project_qkv(p, cfg, x)
+    if not cfg.learned_pos:
+        q = apply_rope(q, pos[:, None], cfg.rope_theta)
+        k = apply_rope(k, pos[:, None], cfg.rope_theta)
+    BS = pool_l.k.shape[1]
+    blk = _table_entry(block_tables, pos[:, None], BS)[:, 0]
+    scatter_pool(pool_l, blk, torch.remainder(pos, BS), k[:, 0], v[:, 0])
+    o = paged_mixed_attention(
+        q.contiguous(), pool_l.k, pool_l.v, block_tables, pos,
+        torch.ones_like(pos), torch.zeros_like(pos), num_work=attn_num_work)
+    return o.reshape(B, 1, -1) @ p["wo"], pool_l
+
+
+def attention_mixed_paged(p, cfg: ModelConfig, x_dec: torch.Tensor,
+                          x_ck: torch.Tensor, pool_l: KVCache,
+                          bt_dec: torch.Tensor, bt_ck: torch.Tensor,
+                          pos: torch.Tensor, ctx_len: torch.Tensor,
+                          chunk_len: torch.Tensor, *,
+                          attn_num_work: Optional[int] = None):
+    """ONE fused attention launch for a whole mixed iteration.
+
+    x_dec [Bd, 1, D] — the decode batch (``pos = -1`` marks dead slots);
+    x_ck [Bp, C, D] — prompt chunks (rows past ``chunk_len`` are
+    padding); bt_dec [Bd, NBT] / bt_ck [Bp, NBT'] block tables, padded to
+    a common width here; pos [Bd]; ctx_len / chunk_len [Bp] int32.
+    Projection, RoPE and ``wo`` run per half; the attention runs as one
+    tagged launch: decode segments (tag 0, ctx = pos, seg = 1), then the
+    chunks (tag 1). Returns ``(out_dec [Bd, 1, D], out_ck [Bp, C, D],
+    pool_l)``.
+    """
+    assert not cfg.sliding_window, "paged mixed step is full-attention only"
+    assert not cfg.use_mrope, "paged mixed step: RoPE / learned-pos only"
+    Bd = x_dec.shape[0]
+    Bp, C, _ = x_ck.shape
+    ctx = ctx_len.to(torch.int32)
+    clen = chunk_len.to(torch.int32)
+    positions = ctx[:, None] + torch.arange(C, dtype=torch.int32,
+                                            device=ctx.device)[None]
+
+    qd, kd, vd = _project_qkv(p, cfg, x_dec)
+    qc, kc, vc = _project_qkv(p, cfg, x_ck)
+    if not cfg.learned_pos:
+        qd = apply_rope(qd, pos[:, None], cfg.rope_theta)
+        kd = apply_rope(kd, pos[:, None], cfg.rope_theta)
+        qc = apply_rope(qc, positions, cfg.rope_theta)
+        kc = apply_rope(kc, positions, cfg.rope_theta)
+
+    BS = pool_l.k.shape[1]
+    blk_d = _table_entry(bt_dec, pos[:, None], BS)[:, 0]
+    blk_c = _table_entry(bt_ck, positions, BS)
+    scatter_pool(pool_l, blk_d, torch.remainder(pos, BS), kd[:, 0], vd[:, 0])
+    scatter_pool(pool_l, blk_c, torch.remainder(positions, BS), kc, vc)
+
+    # decode q rides in row 0 of a chunk-wide tile; tables pad to a common
+    # width (padded entries lie past every segment's total: never read)
+    NBT = max(bt_dec.shape[1], bt_ck.shape[1])
+    pad = torch.nn.functional.pad
+    bt_all = torch.cat([pad(bt_dec, (0, NBT - bt_dec.shape[1])),
+                        pad(bt_ck, (0, NBT - bt_ck.shape[1]))])
+    q_all = torch.cat([pad(qd, (0, 0, 0, 0, 0, C - 1)), qc])
+    o = paged_mixed_attention(
+        q_all, pool_l.k, pool_l.v, bt_all, torch.cat([pos, ctx]),
+        torch.cat([torch.ones_like(pos), clen]),
+        torch.cat([torch.zeros_like(pos), torch.ones_like(ctx)]),
+        num_work=attn_num_work)
+    out_d, out_c = o[:Bd, :1], o[Bd:]
+    return (out_d.reshape(Bd, 1, -1) @ p["wo"],
+            out_c.reshape(Bp, C, -1) @ p["wo"], pool_l)

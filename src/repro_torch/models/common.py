@@ -1,0 +1,140 @@
+"""Shared model components: config, norms, activations, initializers.
+
+The port's counterpart of ``repro.models.common``. Parameters keep the JAX
+package's layout so a bridge between the two is a renaming: a nested dict
+of tensors, ``x @ W`` with ``W [in, out]``, and every per-layer weight
+stacked on a leading ``num_layers`` axis.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable, Sequence
+
+import torch
+import torch.nn.functional as F
+
+Params = Any  # nested dict of torch.Tensor
+
+
+# --------------------------------------------------------------------------
+# Config
+# --------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    """One config per architecture (src/repro_torch/configs/). Field for
+    field the JAX ``ModelConfig``, minus its sharding hints; ``dtype`` is
+    a ``torch.dtype``."""
+
+    name: str
+    family: str  # dense | moe | ssm | hybrid | encdec | vlm
+    num_layers: int
+    d_model: int
+    num_heads: int          # 0 for attention-free (rwkv6)
+    num_kv_heads: int
+    d_ff: int               # dense FFN dim (per-expert dim for MoE)
+    vocab_size: int
+    head_dim: int = 0       # 0 -> d_model // num_heads
+
+    # --- MoE ---
+    num_experts: int = 0
+    experts_per_token: int = 0
+    dense_residual: bool = False
+    router_aux_coef: float = 0.01
+    moe_impl: str = "dense"
+
+    # --- positional / attention flavor ---
+    rope_theta: float = 10_000.0
+    use_mrope: bool = False
+    qkv_bias: bool = False
+    sliding_window: int = 0
+    learned_pos: bool = False
+    max_position: int = 131_072
+
+    # --- SSM / hybrid ---
+    ssm_state: int = 0
+    ssm_head_dim: int = 64
+    ssm_chunk: int = 0
+    attn_every: int = 0
+
+    # --- enc-dec (whisper) ---
+    encoder_layers: int = 0
+    encoder_seq: int = 0
+
+    # --- numerics ---
+    act: str = "swiglu"            # swiglu | gelu
+    norm_eps: float = 1e-5
+    tie_embeddings: bool = False
+    dtype: torch.dtype = torch.float32
+    source: str = ""
+
+    def __post_init__(self):
+        if self.head_dim == 0 and self.num_heads:
+            object.__setattr__(self, "head_dim", self.d_model // self.num_heads)
+
+    def reduced(self, **over) -> "ModelConfig":
+        """Smoke-test variant: <=2 layers, d_model<=256, <=4 experts."""
+        small = dict(
+            num_layers=2,
+            d_model=min(self.d_model, 256),
+            num_heads=min(self.num_heads, 4) if self.num_heads else 0,
+            num_kv_heads=min(self.num_kv_heads, 2) if self.num_kv_heads else 0,
+            head_dim=64 if self.num_heads else 0,
+            d_ff=min(self.d_ff, 512),
+            vocab_size=min(self.vocab_size, 512),
+            num_experts=min(self.num_experts, 4),
+            experts_per_token=min(self.experts_per_token, 2),
+            encoder_layers=min(self.encoder_layers, 2),
+            encoder_seq=min(self.encoder_seq, 16) if self.encoder_seq else 0,
+            ssm_state=min(self.ssm_state, 16) if self.ssm_state else 0,
+            ssm_head_dim=32 if self.ssm_state else self.ssm_head_dim,
+            attn_every=2 if self.attn_every else 0,
+            sliding_window=min(self.sliding_window, 64) if self.sliding_window else 0,
+            max_position=4096,
+            name=self.name + "-reduced",
+        )
+        small.update(over)
+        return dataclasses.replace(self, **small)
+
+
+# --------------------------------------------------------------------------
+# Initializers: normal draws from an explicit torch.Generator, made in f32
+# on the generator's device and cast (the JAX package's scheme; the draws
+# themselves differ from jax.random, so cross-framework tests bridge the
+# JAX weights instead).
+# --------------------------------------------------------------------------
+def dense_init(gen: torch.Generator, shape: Sequence[int], dtype: torch.dtype,
+               scale: float = 1.0, fan_in: int | None = None) -> torch.Tensor:
+    """``normal * scale / sqrt(fan_in)``; ``fan_in`` defaults to
+    ``shape[0]`` (pass it explicitly for layer-stacked ``[L, in, out]``)."""
+    if fan_in is None:
+        fan_in = shape[0] if len(shape) >= 2 else max(shape[-1], 1)
+    x = torch.randn(tuple(shape), generator=gen, device=gen.device,
+                    dtype=torch.float32)
+    return x.mul_(scale / math.sqrt(fan_in)).to(dtype)
+
+
+def embed_init(gen: torch.Generator, shape: Sequence[int],
+               dtype: torch.dtype) -> torch.Tensor:
+    x = torch.randn(tuple(shape), generator=gen, device=gen.device,
+                    dtype=torch.float32)
+    return x.mul_(0.02).to(dtype)
+
+
+# --------------------------------------------------------------------------
+# Normalization / activations
+# --------------------------------------------------------------------------
+def rms_norm(x: torch.Tensor, weight: torch.Tensor,
+             eps: float = 1e-5) -> torch.Tensor:
+    dt = x.dtype
+    x = x.float()
+    x = x * torch.rsqrt((x * x).mean(dim=-1, keepdim=True) + eps)
+    return (x * weight.float()).to(dt)
+
+
+def act_fn(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
+    if name == "swiglu":
+        return F.silu
+    if name == "gelu":
+        return lambda x: F.gelu(x, approximate="tanh")
+    raise ValueError(f"unknown activation {name!r}")

@@ -1,0 +1,140 @@
+"""Decoder-only transformer stack (dense GQA) on the paged pool — the
+port's subset of ``repro.models.transformer``.
+
+Per-layer weights are stacked on a leading ``L`` axis as in the JAX
+package; the ``lax.scan`` over layers becomes a Python loop over ``[l]``
+slices (views, no copies). The pool ``[L, NB, BS, Hkv, Dh]`` is updated in
+place, layer by layer.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models import attention as attn
+from repro_torch.models.attention import KVCache
+from repro_torch.models.common import (ModelConfig, dense_init, embed_init,
+                                       rms_norm)
+from repro_torch.models.mlp import ffn, init_ffn
+
+
+# --------------------------------------------------------------------------
+# Init
+# --------------------------------------------------------------------------
+def init_decoder(gen: torch.Generator, cfg: ModelConfig):
+    """Random weights on ``gen``'s device, drawn directly in the stacked
+    layout (no per-layer copies to stack)."""
+    d, h, hk, dh, L = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+                       cfg.head_dim, cfg.num_layers)
+    dev, dt = gen.device, cfg.dtype
+    att = {
+        "wq": dense_init(gen, (L, d, h * dh), dt, fan_in=d),
+        "wk": dense_init(gen, (L, d, hk * dh), dt, fan_in=d),
+        "wv": dense_init(gen, (L, d, hk * dh), dt, fan_in=d),
+        "wo": dense_init(gen, (L, h * dh, d), dt, fan_in=h * dh),
+    }
+    if cfg.qkv_bias:
+        att["bq"] = torch.zeros((L, h * dh), dtype=dt, device=dev)
+        att["bk"] = torch.zeros((L, hk * dh), dtype=dt, device=dev)
+        att["bv"] = torch.zeros((L, hk * dh), dtype=dt, device=dev)
+    p = {
+        "embed": embed_init(gen, (cfg.vocab_size, d), dt),
+        "layers": {
+            "ln_attn": torch.ones((L, d), dtype=dt, device=dev),
+            "ln_mlp": torch.ones((L, d), dtype=dt, device=dev),
+            "attn": att,
+            "ffn": init_ffn(gen, cfg, L),
+        },
+        "ln_f": torch.ones((d,), dtype=dt, device=dev),
+    }
+    if not cfg.tie_embeddings:
+        p["unembed"] = dense_init(gen, (d, cfg.vocab_size), dt)
+    return p
+
+
+def layer_params(layers, l: int):
+    """Layer ``l``'s slice of the stacked weights (views)."""
+    return {k: (layer_params(v, l) if isinstance(v, dict) else v[l])
+            for k, v in layers.items()}
+
+
+# --------------------------------------------------------------------------
+# Embedding in/out, MLP half of a block
+# --------------------------------------------------------------------------
+def embed_tokens(p, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
+    return F.embedding(tokens.long(), p["embed"])
+
+
+def unembed(p, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    w = p["embed"].T if cfg.tie_embeddings else p["unembed"]
+    return x @ w
+
+
+def _mlp_part(pl, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    return ffn(pl["ffn"], cfg, rms_norm(x, pl["ln_mlp"], cfg.norm_eps))
+
+
+# --------------------------------------------------------------------------
+# Full-stack passes over the paged pool
+# --------------------------------------------------------------------------
+def forward_decode_paged(p, cfg: ModelConfig, token: torch.Tensor,
+                         pool: KVCache, block_tables: torch.Tensor,
+                         pos: torch.Tensor, *, attn_num_work=None):
+    """token [B] int; pool leaves [L, NB, BS, Hkv, Dh]; block_tables
+    [B, NBT] int32; pos [B] int32 (-1 = dead slot). Returns
+    (logits [B, V], pool) — the pool updated in place."""
+    x = embed_tokens(p, cfg, token[:, None])
+    for l in range(cfg.num_layers):
+        pl = layer_params(p["layers"], l)
+        h = rms_norm(x, pl["ln_attn"], cfg.norm_eps)
+        a, _ = attn.attention_decode_paged(
+            pl["attn"], cfg, h, KVCache(pool.k[l], pool.v[l]), block_tables,
+            pos, attn_num_work=attn_num_work)
+        x = x + a
+        x = x + _mlp_part(pl, cfg, x)
+    x = rms_norm(x, p["ln_f"], cfg.norm_eps)
+    return unembed(p, cfg, x)[:, 0], pool
+
+
+def forward_mixed(p, cfg: ModelConfig, dec_token: torch.Tensor,
+                  ck_tokens: torch.Tensor, pool: KVCache,
+                  bt_dec: torch.Tensor, bt_ck: torch.Tensor,
+                  pos: torch.Tensor, ctx_len: torch.Tensor,
+                  chunk_len: torch.Tensor, *, attn_num_work=None):
+    """One whole MIXED iteration through the stack: the decode batch
+    (``dec_token [Bd]``, ``pos [Bd]``, -1 = dead slot) advances one token
+    while prompt chunks (``ck_tokens [Bp, C]``, ``ctx_len``/``chunk_len``
+    [Bp]) prefill beside it — ONE fused attention launch per layer.
+    Returns ``(dec_logits [Bd, V], ck_logits [Bp, V], pool)``, ck_logits
+    at each chunk's last real position."""
+    x_dec = embed_tokens(p, cfg, dec_token[:, None])
+    x_ck = embed_tokens(p, cfg, ck_tokens)
+    for l in range(cfg.num_layers):
+        pl = layer_params(p["layers"], l)
+        hd = rms_norm(x_dec, pl["ln_attn"], cfg.norm_eps)
+        hc = rms_norm(x_ck, pl["ln_attn"], cfg.norm_eps)
+        ad, ac, _ = attn.attention_mixed_paged(
+            pl["attn"], cfg, hd, hc, KVCache(pool.k[l], pool.v[l]), bt_dec,
+            bt_ck, pos, ctx_len, chunk_len, attn_num_work=attn_num_work)
+        x_dec = x_dec + ad
+        x_ck = x_ck + ac
+        x_dec = x_dec + _mlp_part(pl, cfg, x_dec)
+        x_ck = x_ck + _mlp_part(pl, cfg, x_ck)
+    x_dec = rms_norm(x_dec, p["ln_f"], cfg.norm_eps)
+    last = (chunk_len.long() - 1)[:, None, None].expand(-1, 1,
+                                                        x_ck.shape[-1])
+    x_ck = rms_norm(torch.gather(x_ck, 1, last), p["ln_f"], cfg.norm_eps)
+    return (unembed(p, cfg, x_dec)[:, 0], unembed(p, cfg, x_ck)[:, 0], pool)
+
+
+def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
+                     dtype=None, device="cuda") -> KVCache:
+    """Global paged KV pool: leaves [L, NB, BS, Hkv, Dh], zeroed. Blocks
+    are owned by requests via the engine's BlockAllocator; the model
+    only sees block tables."""
+    assert not cfg.sliding_window, "paged cache is full-attention only"
+    shape = (cfg.num_layers, num_blocks, block_size, cfg.num_kv_heads,
+             cfg.head_dim)
+    dt = dtype or cfg.dtype
+    return KVCache(torch.zeros(shape, dtype=dt, device=device),
+                   torch.zeros(shape, dtype=dt, device=device))

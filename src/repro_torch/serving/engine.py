@@ -1,0 +1,559 @@
+"""Single-instance inference engine on a paged, device-resident KV pool —
+the port of ``repro.serving.engine``'s default path.
+
+One global block pool ``[L, num_blocks + 1, BS, Hkv, Dh]`` (the extra
+block is the *garbage block*: dead batch slots and padded table rows write
+and read there by construction, so the fixed-width batch cannot corrupt
+live blocks), a per-request block table managed by ``BlockAllocator``, and
+admission by worst-case block reservations.
+
+Every ``step()`` is one **mixed** continuous-batching iteration: up to
+``prefill_token_budget`` prompt-chunk tokens (resuming partial prompts
+oldest-first, then admitting FCFS) run beside the whole ``max_slots``-wide
+decode batch in ONE attention-bearing forward — one fused kernel launch
+per layer. Steps without chunks decode (``step(burst=n)`` runs up to ``n``
+decode iterations before the host looks at the tokens). Block tables,
+lengths and last tokens live on the device, greedy argmax runs there, and
+each step makes exactly ONE device-to-host transfer (:func:`d2h`), none
+on a step that only prefills. Host-to-device uploads go through pinned
+buffers and never block the host. The prefix cache shares the full
+prompt blocks of earlier requests at admission. A warm request then
+decodes the cold request's greedy tokens; in bf16 on the card that holds
+bit for bit only where its tail chunk has the shapes of the cold run's
+final chunk (cuBLAS may round another row count differently). In f32
+with TF32 off such rounding differences are small enough that
+``chip_smoke.py`` phase 5 sees the cold tokens at shapes that differ.
+
+Not ported yet: tensor parallelism, int8 KV, the host-RAM tier, SLO
+preemption, the monolithic/host loop, migration export/import and the
+non-chunked prefill path.
+"""
+from __future__ import annotations
+
+import weakref
+from collections import deque
+from typing import Deque, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.cost import pow2_bucket
+from repro_torch.models.model import Model
+from repro_torch.serving.block_pool import (BlockAllocator, blocks_for,
+                                            chain_hash, prompt_chain)
+from repro_torch.serving.request import ServeRequest, State
+
+DEFAULT_BLOCK_SIZE = 16
+# Per-iteration prompt-chunk token budget of the mixed scheduler.
+DEFAULT_PREFILL_BUDGET = 256
+
+# Running count of device->host transfers by all engines of the process.
+D2H_CALLS = 0
+
+# Weakrefs to every engine constructed in this process (drain checks).
+_LIVE_ENGINES: List["weakref.ref"] = []
+
+
+def d2h(x: torch.Tensor) -> np.ndarray:
+    """The engine's ONLY device-to-host transfer. Every token that reaches
+    Python crosses here, so ``D2H_CALLS`` (and a test shim patching this
+    function) counts host round trips exactly. A CUDA sync-debug mode is
+    relaxed for this one copy and nowhere else."""
+    global D2H_CALLS
+    D2H_CALLS += 1
+    if x.device.type != "cuda":
+        return x.numpy()
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode(0)
+    try:
+        return x.cpu().numpy()
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+
+
+# Running count of attention-bearing forwards (each is one fused kernel
+# launch per layer): a fused mixed step makes exactly ONE.
+ATTN_CALLS = 0
+
+
+def attn_call(fn, *args, **kwargs):
+    """Issue one attention-bearing forward (and count it)."""
+    global ATTN_CALLS
+    ATTN_CALLS += 1
+    return fn(*args, **kwargs)
+
+
+def h2d(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """Host-to-device upload that never blocks the host: on CUDA through
+    a pinned staging copy (the caching host allocator keeps it alive until
+    the copy has run)."""
+    t = torch.from_numpy(np.ascontiguousarray(arr))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
+_next_pow2 = pow2_bucket
+
+
+def _pow2_floor(n: int) -> int:
+    assert n >= 1
+    return 1 << (n.bit_length() - 1)
+
+
+class Engine:
+    def __init__(self, engine_id: int, model: Model, params, *,
+                 max_slots: int = 8, max_seq: int = 512,
+                 token_budget: Optional[int] = None,
+                 block_size: int = DEFAULT_BLOCK_SIZE,
+                 prefill_token_budget: Optional[int] = None):
+        """The engine runs on the device of ``params["embed"]``."""
+        self.id = engine_id
+        self.model = model
+        self.params = params
+        self.device = params["embed"].device
+        self.max_slots = max_slots
+        self.max_seq = max_seq
+        self.block_size = block_size
+        self.num_blocks = (token_budget or max_slots * max_seq) // block_size
+        assert self.num_blocks > 0, "token_budget < one block"
+        # capacity is block-granular
+        self.token_budget = self.num_blocks * block_size
+        self.allocator = BlockAllocator(self.num_blocks, block_size)
+        # +1 garbage block (id num_blocks, never allocated)
+        self.garbage_block = self.num_blocks
+        self.cache = model.init_paged_cache(self.num_blocks + 1, block_size,
+                                            device=self.device)
+        self.block_tables: List[List[int]] = [[] for _ in range(max_slots)]
+        # device mirrors of the decode batch: tables (pow2 width), cache
+        # lengths (0 = dead slot) and last tokens
+        self._nbt_cap = 1
+        self._dev_bt = torch.full((max_slots, 1), self.garbage_block,
+                                  dtype=torch.int32, device=self.device)
+        self._dev_len = torch.zeros(max_slots, dtype=torch.int32,
+                                    device=self.device)
+        self._dev_tok = torch.zeros(max_slots, dtype=torch.int32,
+                                    device=self.device)
+        self._pending_first: List[Tuple[ServeRequest, torch.Tensor]] = []
+        self.prefill_token_budget = (prefill_token_budget
+                                     or DEFAULT_PREFILL_BUDGET)
+        self._prefill_order: List[int] = []   # slots mid-prefill, oldest 1st
+        self._slot_rblocks = [0] * max_slots   # reserved blocks per slot
+        self._slot_shared = [0] * max_slots    # shared table-head blocks
+        self.slot_len = np.zeros(max_slots, np.int32)       # tokens in cache
+        self.slots: List[Optional[ServeRequest]] = [None] * max_slots
+        self.waiting: Deque[ServeRequest] = deque()
+        self.steps = 0
+        # prefill cost counters: block-work run by prefill (Σ per chunk
+        # ceil((ctx+clen)/BS)) vs prompt tokens served by the prefix index
+        self.prefill_work_blocks = 0
+        self.cached_prompt_tokens_total = 0
+        # last step's grid accounting: flat_items = the TPU work bucket,
+        # real_items = Σ ceil(total/BS), padded_items = B·max ceil(total/BS)
+        self.last_grid: Dict[str, int] = {}
+        _LIVE_ENGINES.append(weakref.ref(self))
+
+    # ---- drain-time leak check -------------------------------------------
+    def check_drained(self) -> None:
+        """Assert this engine holds no request state: no slot, queue or
+        prefill order entry, and an allocator with nothing reserved."""
+        assert all(r is None for r in self.slots), \
+            f"engine {self.id}: undrained slots"
+        assert not self.waiting, f"engine {self.id}: undrained queue"
+        assert not self._prefill_order, \
+            f"engine {self.id}: dangling prefill order"
+        self.allocator.check_invariants()
+        self.allocator.check_drained()
+
+    def shutdown(self) -> None:
+        """Asserts the engine drained clean, then drops its device pool."""
+        self.check_drained()
+        self.cache = None
+        self.block_tables = [[] for _ in self.block_tables]
+
+    # ---- load views --------------------------------------------------------
+    def used_tokens(self) -> int:
+        """Tokens of cache memory pinned by running requests."""
+        return self.allocator.allocated_tokens()
+
+    def free_tokens(self) -> int:
+        """Unpinned cache budget; the admission invariant keeps it >= 0."""
+        return self.token_budget - self.used_tokens()
+
+    # ---- prefix cache ------------------------------------------------------
+    def _req_digests(self, req: ServeRequest) -> List[int]:
+        """Chain digests of the prompt's full blocks, capped at
+        ``(len-1)//BS`` so a fully cached prompt still computes >= 1 token;
+        memoized on the request (the prompt is immutable)."""
+        cache = req.prefix_digests_memo
+        if cache is None or cache[0] != self.block_size:
+            cache = (self.block_size, prompt_chain(
+                req.prompt, self.block_size,
+                limit=(len(req.prompt) - 1) // self.block_size))
+            req.prefix_digests_memo = cache
+        return cache[1]
+
+    def _cached_chain(self, req: ServeRequest) -> List[int]:
+        """Longest resident block chain for this prompt."""
+        return self.allocator.lookup(self._req_digests(req))
+
+    def _publish_prompt(self, req: ServeRequest, slot: int) -> None:
+        """Prefill finished: publish the prompt's FULL blocks into the
+        prefix index (first writer wins; the partial tail block is never
+        published)."""
+        table = self.block_tables[slot]
+        digests = list(self._req_digests(req))
+        n_full = len(req.prompt) // self.block_size
+        if len(digests) < n_full:           # len(prompt) % BS == 0
+            parent = digests[-1] if digests else 0
+            start = len(digests) * self.block_size
+            digests.append(chain_hash(
+                parent, req.prompt[start:start + self.block_size]))
+        for j, h in enumerate(digests[:n_full]):
+            self.allocator.publish(table[j], h)
+
+    # ---- intake -------------------------------------------------------------
+    def submit(self, req: ServeRequest) -> None:
+        req.state = State.WAITING
+        self.waiting.append(req)
+
+    def _free_slot(self) -> Optional[int]:
+        for i, r in enumerate(self.slots):
+            if r is None:
+                return i
+        return None
+
+    def _worst_tokens(self, req: ServeRequest) -> int:
+        """Upper bound on this request's final cache length."""
+        return min(len(req.prompt) + req.max_new_tokens, self.max_seq)
+
+    def can_accept(self, req: ServeRequest) -> bool:
+        """Slot + worst-case block budget check. Admission reserves only
+        the uncached tail, but sharing a reclaimable (refcount-0) chain revives
+        it, so the gate charges that revival too."""
+        if self._free_slot() is None or len(req.prompt) + 1 > self.max_seq:
+            return False
+        need = blocks_for(self._worst_tokens(req), self.block_size)
+        chain = self._cached_chain(req)
+        need += self.allocator.revival_cost(chain) - len(chain)
+        return self.allocator.can_reserve(need)
+
+    def _reserve(self, req: ServeRequest, slot: int,
+                 cached_blocks: int = 0) -> None:
+        rb = blocks_for(self._worst_tokens(req), self.block_size) \
+            - cached_blocks
+        self.allocator.reserve(rb)
+        self._slot_rblocks[slot] = rb
+
+    # ---- device mirrors -------------------------------------------------------
+    def _ensure_nbt_cap(self, need: int) -> None:
+        """Grow the device table width to a pow2 >= need (capped at the
+        max_seq block count)."""
+        if need <= self._nbt_cap:
+            return
+        new = min(_next_pow2(need), blocks_for(self.max_seq, self.block_size))
+        assert new >= need
+        self._dev_bt = F.pad(self._dev_bt, (0, new - self._nbt_cap),
+                             value=self.garbage_block)
+        self._nbt_cap = new
+
+    def _dev_set_table(self, slot: int, ids: List[int]) -> None:
+        row = np.full((self._nbt_cap,), self.garbage_block, np.int32)
+        row[:len(ids)] = ids
+        self._dev_bt[slot] = h2d(row, self.device)
+
+    def _dev_clear_slot(self, slot: int) -> None:
+        # fill_ takes the scalar as a kernel argument; item assignment of
+        # a Python number would upload it with a blocking copy
+        self._dev_bt[slot].fill_(self.garbage_block)
+        self._dev_len[slot].fill_(0)
+
+    # ---- chunked prefill: the mixed iteration's prompt side -----------------
+    def _plan_chunks(self) -> Tuple[List[ServeRequest],
+                                    List[Tuple[int, int]]]:
+        """Admission + chunk planning of the mixed iteration — host
+        bookkeeping only. Returns (rejected, plan), plan = [(slot,
+        chunk_len)] under the prefill token budget."""
+        rejected: List[ServeRequest] = []
+        budget = self.prefill_token_budget
+        plan: List[Tuple[int, int]] = []
+        for slot in list(self._prefill_order):      # oldest admitted first
+            if budget <= 0:
+                break
+            req = self.slots[slot]
+            clen = min(req.prefill_target_len - req.ctx_done, budget)
+            plan.append((slot, clen))
+            budget -= clen
+        while self.waiting and budget > 0:
+            req = self.waiting[0]
+            if len(req.prompt) + 1 > self.max_seq:  # can NEVER fit: fail
+                self.waiting.popleft()
+                req.rejected = True
+                req.state = State.FINISHED
+                req.first_token_step = self.steps
+                req.finish_step = self.steps
+                rejected.append(req)
+                continue
+            if not self.can_accept(req):
+                break
+            slot = self._free_slot()
+            self.waiting.popleft()
+            # the longest cached chain is shared (refcount++, no copies);
+            # chunking starts at ctx_done = cached_tokens
+            shared = self._cached_chain(req)
+            self._reserve(req, slot, cached_blocks=len(shared))
+            self._slot_shared[slot] = len(shared)
+            if shared:
+                self.allocator.share(shared)
+            req.cached_tokens = len(shared) * self.block_size
+            self.cached_prompt_tokens_total += req.cached_tokens
+            req.state = State.RUNNING
+            req.engine_id = self.id
+            req.slot = slot
+            req.ctx_done = req.cached_tokens
+            self.block_tables[slot] = list(shared)
+            self.slots[slot] = req
+            self.slot_len[slot] = req.ctx_done
+            self._prefill_order.append(slot)
+            clen = min(req.prefill_target_len - req.ctx_done, budget)
+            plan.append((slot, clen))
+            budget -= clen
+        return rejected, plan
+
+    def _prepare_chunk_arrays(self, plan: List[Tuple[int, int]]):
+        """Device arrays for all of the step's planned chunks, padded to a
+        common pow2 chunk bucket and a common pow2 table width. Each
+        chunk's blocks are allocated here (covered by its reservation);
+        table tails are the garbage block, so padding rows never touch
+        live data. Returns ``(tokens [B, C], tables [B, nbt], ctx [B],
+        clen [B])``."""
+        B = len(plan)
+        C = _next_pow2(max(clen for _, clen in plan))
+        nbt = 1
+        for slot, clen in plan:
+            req = self.slots[slot]
+            need = blocks_for(req.ctx_done + clen, self.block_size)
+            table = self.block_tables[slot]
+            if need > len(table):
+                table.extend(self.allocator.allocate(need - len(table)))
+            nbt = max(nbt, blocks_for(req.ctx_done + C, self.block_size))
+            self.prefill_work_blocks += need
+        nbt = _next_pow2(nbt)
+        toks = np.zeros((B, C), np.int32)
+        bt = np.full((B, nbt), self.garbage_block, np.int32)
+        ctxs = np.zeros((B,), np.int32)
+        clens = np.zeros((B,), np.int32)
+        for j, (slot, clen) in enumerate(plan):
+            req = self.slots[slot]
+            ctx = req.ctx_done
+            toks[j, :clen] = req.prompt[ctx:ctx + clen]
+            table = self.block_tables[slot]
+            bt[j, :len(table)] = table
+            ctxs[j] = ctx
+            clens[j] = clen
+        return tuple(h2d(a, self.device) for a in (toks, bt, ctxs, clens))
+
+    def _finish_chunks(self, plan: List[Tuple[int, int]],
+                       first_toks: torch.Tensor,
+                       completed: List[ServeRequest]) -> None:
+        """Advance ``ctx_done``; for requests whose LAST chunk just landed,
+        publish the prompt and keep the first token (``first_toks[j]``) on
+        the device until the step's single d2h. The completing slot was
+        dead during this step's forward, so it first decodes next step."""
+        for j, (slot, clen) in enumerate(plan):
+            req = self.slots[slot]
+            T = req.prefill_target_len
+            req.ctx_done += clen
+            self.slot_len[slot] = req.ctx_done
+            if req.ctx_done < T:
+                continue
+            self._publish_prompt(req, slot)
+            self._prefill_order.remove(slot)
+            tok_dev = first_toks[j]
+            req.first_token_step = self.steps
+            req.tokens_by_engine[self.id] = \
+                req.tokens_by_engine.get(self.id, 0) + 1
+            self.slot_len[slot] = T + 1
+            table = self.block_tables[slot]
+            self._ensure_nbt_cap(len(table))
+            self._dev_set_table(slot, table)
+            self._dev_len[slot].fill_(T + 1)
+            self._dev_tok[slot] = tok_dev
+            self._pending_first.append((req, tok_dev))
+            completed.append(req)
+
+    # ---- one continuous-batching iteration ----------------------------------
+    @torch.no_grad()
+    def step(self, burst: int = 1) -> List[ServeRequest]:
+        """Advance the engine and return the requests that finished.
+
+        ``burst > 1`` runs up to that many decode iterations before the
+        step's single transfer, clamped so no request can reach its
+        token-count or max_seq finish before the last one; a step with
+        waiting or mid-prefill requests never bursts."""
+        self.steps += 1
+        base = self.steps
+        finished: List[ServeRequest] = []
+        self._pending_first = []
+        prefill_done: List[ServeRequest] = []
+        rejected, chunk_plan = self._plan_chunks()
+        finished.extend(rejected)
+        # requests still mid-prefill hold their slot but do NOT decode:
+        # their device row is all-garbage and their length 0
+        live = [(i, r) for i, r in enumerate(self.slots)
+                if r is not None and not r.prefilling]
+        h = 0
+        toks = None
+        if chunk_plan:
+            # ---- ONE fused forward: decode batch + prompt chunks ----
+            h = 1
+            for i, _ in live:   # pre-grow decode tables for this write
+                need = blocks_for(int(self.slot_len[i]), self.block_size)
+                table = self.block_tables[i]
+                if need > len(table):
+                    table.extend(self.allocator.allocate(need - len(table)))
+                    self._ensure_nbt_cap(need)
+                    self._dev_set_table(i, table)
+            ck_toks, bt_ck, ctxs, clens = \
+                self._prepare_chunk_arrays(chunk_plan)
+            dec_blocks = [blocks_for(int(self.slot_len[i]), self.block_size)
+                          for i, _ in live]
+            ck_blocks = [blocks_for(self.slots[s].ctx_done + c,
+                                    self.block_size) for s, c in chunk_plan]
+            num_work = ((_next_pow2(sum(dec_blocks)) if live else 0)
+                        + _next_pow2(sum(ck_blocks)))
+            self.last_grid = {
+                "backend": "fused",
+                "flat_items": num_work,
+                "real_items": sum(dec_blocks) + sum(ck_blocks),
+                "padded_items": (len(dec_blocks) + len(ck_blocks))
+                * max(dec_blocks + ck_blocks),
+            }
+            new_tok, ck_tok = attn_call(self._mixed, num_work, ck_toks,
+                                        bt_ck, ctxs, clens)
+            if live:
+                toks = new_tok[None]    # one horizon row for the step sync
+            else:
+                h = 0
+            chunk_completed: List[ServeRequest] = []
+            self._finish_chunks(chunk_plan, ck_tok, chunk_completed)
+            for r in chunk_completed:
+                if r.max_new_tokens <= 1:       # finishes at prefill; its
+                    prefill_done.append(r)      # token lands after the sync
+                    self._release(r.slot)
+        elif live:
+            # nobody may cross a count/capacity finish before the burst's
+            # last iteration (eos finishes are cut after the transfer)
+            cap = 1 if (self.waiting or self._prefill_order) else burst
+            h = _pow2_floor(max(1, min(
+                [cap] + [min(r.max_new_tokens - len(r.generated),
+                             self.max_seq - int(self.slot_len[i]))
+                         for i, r in live])))
+            # pre-grow tables for every write of the burst (positions
+            # slot_len-1 .. slot_len+h-2), covered by the reservations
+            for i, _ in live:
+                need = blocks_for(int(self.slot_len[i]) + h - 1,
+                                  self.block_size)
+                table = self.block_tables[i]
+                if need > len(table):
+                    table.extend(self.allocator.allocate(need - len(table)))
+                    self._ensure_nbt_cap(need)
+                    self._dev_set_table(i, table)
+            real = sum(blocks_for(int(self.slot_len[i]) + h - 1,
+                                  self.block_size) for i, _ in live)
+            dec_blocks = [blocks_for(int(self.slot_len[i]), self.block_size)
+                          for i, _ in live]
+            self.last_grid = {
+                "backend": "fused",
+                "flat_items": _next_pow2(real),
+                "real_items": sum(dec_blocks),
+                "padded_items": len(live) * max(dec_blocks),
+            }
+            toks = torch.stack([attn_call(self._decode, _next_pow2(real))
+                                for _ in range(h)])
+        # ---- the step's single device->host transfer ----
+        pending = list(self._pending_first)
+        parts = [torch.stack([t for _, t in pending])] if pending else []
+        if toks is not None:
+            parts.append(toks.reshape(-1))
+        host = d2h(torch.cat(parts)) if parts else np.zeros(0, np.int32)
+        first = host[:len(pending)]
+        rest = host[len(pending):].reshape(h, self.max_slots) if h else None
+        for (r, _), tok in zip(pending, first):
+            r.generated.append(int(tok))
+        for r in prefill_done:
+            r.state = State.FINISHED
+            r.finish_step = base
+            finished.append(r)
+        # an admitted request whose FIRST token was eos is done before the
+        # burst tokens; its decodes wrote only its own pre-grown blocks
+        for i, r in live:
+            if r.state is State.RUNNING and r.done:
+                r.state = State.FINISHED
+                r.finish_step = base
+                finished.append(r)
+                self._release(i)
+        for s in range(h):
+            for i, r in live:
+                if r.state is State.FINISHED:
+                    continue
+                r.generated.append(int(rest[s, i]))
+                r.tokens_by_engine[self.id] = \
+                    r.tokens_by_engine.get(self.id, 0) + 1
+                self.slot_len[i] += 1
+                if r.done or self.slot_len[i] >= self.max_seq:
+                    r.state = State.FINISHED
+                    r.finish_step = base + s
+                    finished.append(r)
+                    self._release(i)
+        self.steps = base + max(h - 1, 0)
+        assert self.free_tokens() >= 0, "admission let the budget go negative"
+        return finished
+
+    def _mixed(self, num_work: int, ck_tokens, bt_ck, ctx, clen):
+        """The fused forward of a mixed iteration; advances the device
+        mirrors. Returns (decode tokens [max_slots], chunk first tokens)."""
+        live = self._dev_len > 0
+        pos = self._dev_len - 1            # dead slots: -1 -> 0 attn length
+        dec_logits, ck_logits, self.cache = self.model.mixed_step(
+            self.params, self.cache, self._dev_tok, ck_tokens, self._dev_bt,
+            bt_ck, pos, ctx, clen, attn_num_work=num_work)
+        new_tok = torch.argmax(dec_logits, dim=-1).to(torch.int32)
+        self._dev_tok = torch.where(live, new_tok, self._dev_tok)
+        self._dev_len = torch.where(live, self._dev_len + 1, self._dev_len)
+        return new_tok, torch.argmax(ck_logits, dim=-1).to(torch.int32)
+
+    def _decode(self, num_work: int) -> torch.Tensor:
+        """One decode iteration of the whole batch on the device mirrors.
+        Returns the sampled tokens [max_slots]."""
+        live = self._dev_len > 0
+        pos = self._dev_len - 1
+        logits, self.cache = self.model.decode_step_paged(
+            self.params, self.cache, self._dev_tok, self._dev_bt, pos,
+            attn_num_work=num_work)
+        new_tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        self._dev_tok = torch.where(live, new_tok, self._dev_tok)
+        self._dev_len = torch.where(live, self._dev_len + 1, self._dev_len)
+        return new_tok
+
+    def _release(self, slot: int) -> None:
+        if slot in self._prefill_order:     # evicted mid-prefill
+            self._prefill_order.remove(slot)
+        # shared prefix blocks drop a borrowed reference; the private
+        # remainder releases as owner (published blocks at refcount 0
+        # stay cached, warm for the next identical prefix)
+        s = self._slot_shared[slot]
+        self._slot_shared[slot] = 0
+        table = self.block_tables[slot]
+        if s:
+            self.allocator.release(table[:s], owned=False)
+            self.allocator.release(table[s:], owned=True)
+        else:
+            self.allocator.release(table, owned=True)
+        self.block_tables[slot] = []
+        self.allocator.unreserve(self._slot_rblocks[slot])
+        self._slot_rblocks[slot] = 0
+        self._dev_clear_slot(slot)
+        self.slots[slot] = None
+        self.slot_len[slot] = 0

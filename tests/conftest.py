@@ -92,6 +92,12 @@ def _engine_leak_check():
     eng_mod._LIVE_ENGINES[:] = live
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card; skips without one (run on the "
+        "card with `python -m pytest -m gpu tests/test_torch_kernels.py`)")
+
+
 @pytest.fixture(scope="session")
 def rng():
     return np.random.default_rng(0)
