@@ -2,7 +2,8 @@
 
 The port keeps the JAX layout at its public functions (``x @ W`` with
 ``W [in, out]``, layer-stacked leaves, pools ``[L, NB, BS, Hkv, Dh]``), so
-converting is a renaming. The bridge imports no JAX: a caller holding
+converting is a renaming; migration pieces cross the same way. The
+bridge imports no JAX: a caller holding
 JAX arrays maps them to numpy first (``jax.tree.map(np.asarray, params)``).
 """
 from __future__ import annotations
@@ -61,13 +62,18 @@ def params_from_numpy(tree: Mapping, cfg: ModelConfig, device="cuda"):
 
 
 def pool_from_numpy(pool: Any, device="cuda", dtype=None) -> KVCache:
-    """A KV pool ``(k, v)`` of numpy arrays (a JAX ``KVCache`` mapped to
-    numpy) -> the port's :class:`KVCache` on ``device``."""
+    """A KV pool or a migration piece ``(k, v)`` of numpy arrays (a JAX
+    ``KVCache`` mapped to numpy; a piece's leaves are the contiguous
+    ``[L, 1, written, Hkv, Dh]`` wire format) -> the port's
+    :class:`KVCache` on ``device``, which an engine's
+    ``import_request`` takes."""
     k, v = pool
     return KVCache(_to_tensor(k, dtype, device), _to_tensor(v, dtype, device))
 
 
 def pool_to_numpy(pool: KVCache) -> KVCache:
-    """The port's pool -> a :class:`KVCache` of f32 numpy arrays."""
+    """The port's pool, or a piece from ``Engine.export_slot`` -> a
+    :class:`KVCache` of f32 numpy arrays (the JAX package's engines
+    import such a piece as ``KVCache(jnp.asarray(k), jnp.asarray(v))``)."""
     return KVCache(pool.k.detach().float().cpu().numpy(),
                    pool.v.detach().float().cpu().numpy())

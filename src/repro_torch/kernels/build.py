@@ -22,7 +22,8 @@ from typing import Dict, Iterable, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = {"mixed_attention": CSRC / "mixed_attention.cu"}
+SOURCES = {name: CSRC / f"{name}.cu" for name in
+           ("mixed_attention", "decode_attention", "prefill_attention")}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
@@ -43,7 +44,10 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = SOURCES[name].read_bytes()
+    """The library's path; its name hashes the source, the shared headers
+    of ``csrc/`` and the flags."""
+    src = SOURCES[name].read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 

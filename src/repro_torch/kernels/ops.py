@@ -3,7 +3,8 @@
 The port's counterpart of the framework-level parts of
 ``repro.kernels.ops``. The online-softmax block core that the Pallas
 kernels share (``_flash_block_update``/``_flash_init``/``_flash_finish``)
-lives inside the CUDA kernel here (``csrc/mixed_attention.cu``).
+lives inside the CUDA kernels here: ``csrc/mixed_attention.cu`` and, for
+the ``flat`` pair, ``csrc/flash_core.cuh``.
 """
 from __future__ import annotations
 
@@ -38,3 +39,37 @@ def flat_work_list(lengths: torch.Tensor, nbt: int, block_s: int,
     pad = w >= total
     return (torch.where(pad, last_b, b).to(torch.int32),
             torch.where(pad, torch.full_like(j, nbt), j).to(torch.int32))
+
+
+def check_paged_operands(name: str, q: torch.Tensor, k_pool: torch.Tensor,
+                         v_pool: torch.Tensor, block_tables: torch.Tensor,
+                         per_row, head_dims=(64, 128), max_group=None):
+    """Raise unless the operands of a paged-attention kernel are what its
+    CUDA build takes: f32/bf16 ``q`` and pools of one dtype, a head dim in
+    ``head_dims``, ``H % Hkv == 0`` (and ``H // Hkv <= max_group``), int32
+    tables ``[B, NBT]`` and int32 per-row lengths ``[B]``, all contiguous
+    on one device."""
+    B, H, Dh = q.shape[0], q.shape[-2], q.shape[-1]
+    Hkv = k_pool.shape[2]
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name}: dtype {q.dtype} is not float32/bfloat16")
+    if k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
+        raise TypeError(f"{name}: pools must share q's dtype")
+    if Dh not in head_dims:
+        raise ValueError(f"{name}: head dim {Dh} not in {head_dims}")
+    if (k_pool.dim() != 4 or k_pool.shape[3] != Dh
+            or v_pool.shape != k_pool.shape or H % Hkv
+            or (max_group is not None and H // Hkv > max_group)):
+        raise ValueError(f"{name}: q {tuple(q.shape)} vs pools "
+                         f"{tuple(k_pool.shape)}/{tuple(v_pool.shape)}")
+    ints = (block_tables, *per_row)
+    if any(t.dtype != torch.int32 for t in ints):
+        raise TypeError(f"{name}: tables and lengths are int32")
+    if (block_tables.dim() != 2 or block_tables.shape[0] != B
+            or any(tuple(t.shape) != (B,) for t in per_row)):
+        raise ValueError(f"{name}: tables [B, NBT], lengths [B]")
+    tensors = (q, k_pool, v_pool) + ints
+    if any(t.device != q.device for t in tensors):
+        raise ValueError(f"{name}: tensors on several devices")
+    if any(not t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name}: inputs must be contiguous")

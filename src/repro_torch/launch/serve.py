@@ -1,0 +1,133 @@
+"""Serving launcher: a CascadeInfer MILS cluster over the port's torch
+engines — the port of ``repro.launch.serve``.
+
+Replays a ShareGPT-shaped ``sim.workload`` trace open-loop against the
+engines (arrival times mapped to server steps) through the control
+plane, then prints the server's summary and its final stage bounds.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
+        --arch smollm-360m --engines 4 --requests 12
+
+It runs on the card unless ``--device cpu`` is given. The flags are the
+reference launcher's for what the port has, plus ``--device``; chaos
+injection, preemption, the host KV tier, int8 KV and tensor parallelism
+are not ported yet.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+from typing import List, Optional
+
+import numpy as np
+
+from repro_torch.configs import get_config
+from repro_torch.core.partition import PipelinePlan, Stage
+from repro_torch.core.qoe import QoEModel
+from repro_torch.models import build_model
+from repro_torch.models.attention import PAGED_BACKENDS
+from repro_torch.sched import assign_classes, parse_class_mix
+from repro_torch.serving.server import (MILSServer, ServerConfig,
+                                        requests_from_trace)
+from repro_torch.sim.workload import WorkloadSpec, generate
+
+# the reference launcher's fitted QoE coefficients (F = [1, n, ΣI, ΣI², ΣL])
+DEFAULT_QOE = (1e-3, 1e-4, 1e-6, 0.0, 1e-6)
+
+
+def default_plan(num_engines: int, max_seq: int) -> PipelinePlan:
+    """Two length stages splitting the engine pool at ``max_seq / 4``
+    (bootstrapping plan; production planning uses ``core.partition`` on
+    profiled stats)."""
+    if num_engines == 1:
+        return PipelinePlan([Stage(0.0, float("inf"), 1)], 0.0)
+    half = num_engines // 2
+    return PipelinePlan(
+        [Stage(0.0, max_seq / 4, num_engines - half),
+         Stage(max_seq / 4, float("inf"), half)], 0.0)
+
+
+def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", default="smollm-360m")
+    ap.add_argument("--device", default="cuda",
+                    help="device of the weights and KV pools (default: the "
+                         "card; 'cpu' runs the kernels' plain versions)")
+    ap.add_argument("--engines", type=int, default=4)
+    ap.add_argument("--requests", type=int, default=12)
+    ap.add_argument("--policy", default="cascade",
+                    choices=["cascade", "round-robin", "least-loaded"])
+    ap.add_argument("--refinement", default="adaptive",
+                    choices=["adaptive", "quantity", "memory", "none"])
+    ap.add_argument("--balancing", default="full",
+                    choices=["full", "inter-stage", "rr"])
+    ap.add_argument("--max-seq", type=int, default=128)
+    ap.add_argument("--max-slots", type=int, default=3)
+    ap.add_argument("--attn-backend", default=None,
+                    choices=list(PAGED_BACKENDS),
+                    help="paged attention backend: 'fused' (default) runs "
+                         "one kernel per layer per step; 'flat' runs the "
+                         "chunked prefill kernel, then the flat decode "
+                         "kernel")
+    ap.add_argument("--prefill-budget", type=int, default=None,
+                    help="prompt-chunk tokens packed per mixed iteration "
+                         "(default 256)")
+    ap.add_argument("--arrival-rate", type=float, default=2.0,
+                    help="workload arrivals/s, replayed at 1 step/s")
+    ap.add_argument("--slo-class-mix", default=None,
+                    help="SLO service-class mix of the replayed trace, "
+                         "e.g. 'interactive:0.5,standard:0.3,batch:0.2' "
+                         "(default: all standard)")
+    ap.add_argument("--slo-scale", type=float, default=1.0,
+                    help="SLO-scale sweep knob (paper §6.4)")
+    ap.add_argument("--slo-time-scale", type=float, default=1.0,
+                    help="engine steps per abstract SLO second")
+    ap.add_argument("--seed", type=int, default=0)
+    return ap.parse_args(argv)
+
+
+def build_server(args: argparse.Namespace) -> MILSServer:
+    """The launcher's cluster: reduced ``--arch`` weights from seed 0 on
+    ``--device``, shared by ``--engines`` engines under the default
+    two-stage plan, and the replayed trace on its arrival schedule."""
+    cfg = get_config(args.arch).reduced()
+    model = build_model(cfg)
+    params = model.init(0, device=args.device)
+    srv = MILSServer(model, params, default_plan(args.engines, args.max_seq),
+                     QoEModel(np.array(DEFAULT_QOE)),
+                     ServerConfig(policy=args.policy,
+                                  refinement=args.refinement,
+                                  balancing=args.balancing, seed=args.seed,
+                                  slo_scale=args.slo_scale,
+                                  slo_time_scale=args.slo_time_scale),
+                     max_slots=args.max_slots, max_seq=args.max_seq,
+                     attn_backend=args.attn_backend,
+                     prefill_token_budget=args.prefill_budget)
+    spec = WorkloadSpec(rate=args.arrival_rate,
+                        duration=args.requests / args.arrival_rate,
+                        seed=args.seed)
+    trace = generate(spec)[:args.requests]
+    if args.slo_class_mix:
+        classes = assign_classes(len(trace),
+                                 parse_class_mix(args.slo_class_mix),
+                                 np.random.default_rng(args.seed))
+        trace = [dataclasses.replace(r, slo_class=c)
+                 for r, c in zip(trace, classes)]
+    for req, step in requests_from_trace(trace, vocab_size=cfg.vocab_size,
+                                         max_seq=args.max_seq,
+                                         seed=args.seed):
+        srv.submit_at(req, step)
+    return srv
+
+
+def main(argv: Optional[List[str]] = None) -> None:
+    args = parse_args(argv)
+    srv = build_server(args)
+    srv.run(max_steps=100 * args.requests)
+    print("summary:", {k: round(v, 2) if isinstance(v, float) else v
+                       for k, v in srv.summary().items()})
+    print("stage bounds:", srv.stage_bounds)
+
+
+if __name__ == "__main__":
+    main()

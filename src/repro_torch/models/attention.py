@@ -1,6 +1,7 @@
 """Paged GQA attention with RoPE — the port's subset of
-``repro.models.attention``: the fused decode and mixed-iteration paths
-over the global block pool.
+``repro.models.attention``: the decode, chunked-prefill and
+mixed-iteration paths over the global block pool, on the ``flat`` kernel
+pair or the ``fused`` kernel.
 
 Shapes follow the JAX package: activations ``x [B, T, D]``, a pool slice
 ``[NB, BS, Hkv, Dh]`` per layer, block tables ``[B, NBT]`` int32. Pool
@@ -15,8 +16,27 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch.kernels.decode_attention import paged_decode_attention_flat
 from repro_torch.kernels.mixed_attention import paged_mixed_attention
+from repro_torch.kernels.prefill_attention import paged_prefill_attention
 from repro_torch.models.common import ModelConfig
+
+# Paged attention backends of the port (the JAX package's "dense" and
+# "grid" wait: on the CPU the plain versions do the dense path's job, and
+# "grid" needs the kernel of its own):
+#   flat  — decode by the flat work-list kernel, prompt chunks by the
+#           chunked prefill kernel: a mixed step makes two calls.
+#   fused — one tagged kernel over decode rows and chunks: one call.
+PAGED_BACKENDS = ("flat", "fused")
+
+
+def resolve_paged_backend(backend: Optional[str] = None) -> str:
+    """The backend to run: an explicit argument wins, else ``fused``."""
+    choice = backend or "fused"
+    if choice not in PAGED_BACKENDS:
+        raise ValueError(f"unknown paged backend {choice!r}; the port has "
+                         f"{PAGED_BACKENDS}")
+    return choice
 
 
 # --------------------------------------------------------------------------
@@ -107,13 +127,17 @@ def _table_entry(block_tables: torch.Tensor, pos: torch.Tensor, BS: int):
 # --------------------------------------------------------------------------
 def attention_decode_paged(p, cfg: ModelConfig, x: torch.Tensor,
                            pool_l: KVCache, block_tables: torch.Tensor,
-                           pos: torch.Tensor, *,
-                           attn_num_work: Optional[int] = None):
+                           pos: torch.Tensor, *, attn_backend: str = "fused",
+                           attn_num_work: Optional[int] = None,
+                           attn_work_list=None):
     """x [B, 1, D]; pool_l one layer's slice; block_tables [B, NBT] int32;
     pos [B] int32 tokens already cached (-1 = dead slot: its write lands
     in the garbage block and its attention length is 0). Writes the new
-    token's K/V, then runs the fused kernel with all-decode tags
-    (ctx = pos, seg = 1). Returns (out [B, 1, D], pool_l)."""
+    token's K/V, then runs the flat decode kernel (lengths = pos + 1,
+    ``attn_num_work`` work items; ``attn_work_list`` is their flat work
+    list when the caller built it once for all layers) or the fused
+    kernel with all-decode tags (ctx = pos, seg = 1). Returns
+    (out [B, 1, D], pool_l)."""
     assert not cfg.sliding_window, "paged decode is full-attention only"
     B = x.shape[0]
     q, k, v = _project_qkv(p, cfg, x)
@@ -123,10 +147,54 @@ def attention_decode_paged(p, cfg: ModelConfig, x: torch.Tensor,
     BS = pool_l.k.shape[1]
     blk = _table_entry(block_tables, pos[:, None], BS)[:, 0]
     scatter_pool(pool_l, blk, torch.remainder(pos, BS), k[:, 0], v[:, 0])
-    o = paged_mixed_attention(
-        q.contiguous(), pool_l.k, pool_l.v, block_tables, pos,
-        torch.ones_like(pos), torch.zeros_like(pos), num_work=attn_num_work)
+    if attn_backend == "flat":
+        o = paged_decode_attention_flat(
+            q[:, 0].contiguous(), pool_l.k, pool_l.v, block_tables, pos + 1,
+            num_work=attn_num_work, work_list=attn_work_list)
+    else:
+        o = paged_mixed_attention(
+            q.contiguous(), pool_l.k, pool_l.v, block_tables, pos,
+            torch.ones_like(pos), torch.zeros_like(pos),
+            num_work=attn_num_work)
     return o.reshape(B, 1, -1) @ p["wo"], pool_l
+
+
+def attention_prefill_chunk_paged(p, cfg: ModelConfig, x: torch.Tensor,
+                                  pool_l: KVCache,
+                                  block_tables: torch.Tensor,
+                                  ctx_len: torch.Tensor,
+                                  chunk_len: torch.Tensor, *,
+                                  attn_backend: str = "fused"):
+    """Chunked prefill against the paged pool: x [B, C, D] — B prompt
+    chunks of C tokens (rows past ``chunk_len`` are padding);
+    block_tables [B, NBT] covering ``ceil((ctx_len + C)/BS)`` rows (the
+    tail on the garbage block); ctx_len / chunk_len [B] int32. Writes the
+    chunk's K/V at positions ``ctx..ctx+C-1`` (RoPE at the true
+    positions), then attends each query causally over the written context
+    and its own chunk: the chunked prefill kernel (``flat``) or the fused
+    kernel with all-chunk tags. Returns (out [B, C, D], pool_l); rows past
+    ``chunk_len`` are zeros."""
+    assert not cfg.sliding_window, "paged prefill is full-attention only"
+    B, C, _ = x.shape
+    ctx = ctx_len.to(torch.int32)
+    clen = chunk_len.to(torch.int32)
+    positions = ctx[:, None] + torch.arange(C, dtype=torch.int32,
+                                            device=ctx.device)[None]
+    q, k, v = _project_qkv(p, cfg, x)
+    if not cfg.learned_pos:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    BS = pool_l.k.shape[1]
+    scatter_pool(pool_l, _table_entry(block_tables, positions, BS),
+                 torch.remainder(positions, BS), k, v)
+    q = q.contiguous()
+    if attn_backend == "flat":
+        o = paged_prefill_attention(q, pool_l.k, pool_l.v, block_tables,
+                                    ctx, clen)
+    else:
+        o = paged_mixed_attention(q, pool_l.k, pool_l.v, block_tables, ctx,
+                                  clen, torch.ones_like(ctx))
+    return o.reshape(B, C, -1) @ p["wo"], pool_l
 
 
 def attention_mixed_paged(p, cfg: ModelConfig, x_dec: torch.Tensor,
@@ -134,8 +202,12 @@ def attention_mixed_paged(p, cfg: ModelConfig, x_dec: torch.Tensor,
                           bt_dec: torch.Tensor, bt_ck: torch.Tensor,
                           pos: torch.Tensor, ctx_len: torch.Tensor,
                           chunk_len: torch.Tensor, *,
+                          attn_backend: str = "fused",
                           attn_num_work: Optional[int] = None):
-    """ONE fused attention launch for a whole mixed iteration.
+    """The attention of a whole mixed iteration: ONE fused launch, or on
+    the ``flat`` backend the flat decode kernel for the decode half and
+    the chunked prefill kernel for the chunks (``attn_num_work`` is then
+    not taken: the decode half runs the worst-case bucket).
 
     x_dec [Bd, 1, D] — the decode batch (``pos = -1`` marks dead slots);
     x_ck [Bp, C, D] — prompt chunks (rows past ``chunk_len`` are
@@ -169,6 +241,13 @@ def attention_mixed_paged(p, cfg: ModelConfig, x_dec: torch.Tensor,
     scatter_pool(pool_l, blk_d, torch.remainder(pos, BS), kd[:, 0], vd[:, 0])
     scatter_pool(pool_l, blk_c, torch.remainder(positions, BS), kc, vc)
 
+    if attn_backend == "flat":
+        out_d = paged_decode_attention_flat(
+            qd[:, 0].contiguous(), pool_l.k, pool_l.v, bt_dec, pos + 1)
+        out_c = paged_prefill_attention(qc.contiguous(), pool_l.k, pool_l.v,
+                                        bt_ck, ctx, clen)
+        return (out_d.reshape(Bd, 1, -1) @ p["wo"],
+                out_c.reshape(Bp, C, -1) @ p["wo"], pool_l)
     # decode q rides in row 0 of a chunk-wide tile; tables pad to a common
     # width (padded entries lie past every segment's total: never read)
     NBT = max(bt_dec.shape[1], bt_ck.shape[1])

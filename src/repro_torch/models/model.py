@@ -6,6 +6,7 @@ serving path:
     params = model.init(seed, device="cuda")
     pool = model.init_paged_cache(num_blocks, block_size, device="cuda")
     logits, pool = model.decode_step_paged(params, pool, token, bt, pos)
+    logits, pool = model.prefill_chunk(params, pool, tokens, bt, ctx, clen)
     dec_logits, ck_logits, pool = model.mixed_step(
         params, pool, dec_token, ck_tokens, bt_dec, bt_ck, pos, ctx, clen)
 
@@ -31,11 +32,14 @@ class Model:
     # init_paged_cache(num_blocks, block_size, device="cuda")
     #     -> pool [L, NB, BS, Hkv, Dh]
     init_paged_cache: Callable[..., Any]
-    # decode_step_paged(params, pool, token, block_tables, pos)
-    #     -> (logits [B, V], pool)
+    # decode_step_paged(params, pool, token, block_tables, pos, *,
+    #                   attn_backend, attn_num_work) -> (logits [B, V], pool)
     decode_step_paged: Callable[..., Any]
+    # prefill_chunk(params, pool, tokens, block_tables, ctx_len, chunk_len,
+    #               *, attn_backend) -> (last-real-token logits [B, V], pool)
+    prefill_chunk: Callable[..., Any]
     # mixed_step(params, pool, dec_token, ck_tokens, bt_dec, bt_ck, pos,
-    #            ctx_len, chunk_len, *, attn_num_work)
+    #            ctx_len, chunk_len, *, attn_backend, attn_num_work)
     #     -> (dec_logits [Bd, V], ck_logits [Bp, V], pool)
     mixed_step: Callable[..., Any]
 
@@ -55,18 +59,27 @@ def _decoder_model(cfg: ModelConfig) -> Model:
                                             dtype=dtype, device=device)
 
     def decode_step_paged(params, pool, token, block_tables, pos, *,
-                          attn_num_work=None):
+                          attn_backend="fused", attn_num_work=None):
         return transformer.forward_decode_paged(
             params, cfg, token, pool, block_tables, pos,
-            attn_num_work=attn_num_work)
+            attn_backend=attn_backend, attn_num_work=attn_num_work)
+
+    def prefill_chunk(params, pool, tokens, block_tables, ctx_len, chunk_len,
+                      *, attn_backend="fused"):
+        return transformer.forward_prefill_chunk(
+            params, cfg, tokens, pool, block_tables, ctx_len, chunk_len,
+            attn_backend=attn_backend)
 
     def mixed_step(params, pool, dec_token, ck_tokens, bt_dec, bt_ck, pos,
-                   ctx_len, chunk_len, *, attn_num_work=None):
+                   ctx_len, chunk_len, *, attn_backend="fused",
+                   attn_num_work=None):
         return transformer.forward_mixed(
             params, cfg, dec_token, ck_tokens, pool, bt_dec, bt_ck, pos,
-            ctx_len, chunk_len, attn_num_work=attn_num_work)
+            ctx_len, chunk_len, attn_backend=attn_backend,
+            attn_num_work=attn_num_work)
 
-    return Model(cfg, init, init_paged_cache, decode_step_paged, mixed_step)
+    return Model(cfg, init, init_paged_cache, decode_step_paged,
+                 prefill_chunk, mixed_step)
 
 
 def build_model(cfg: ModelConfig) -> Model:

@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.ops import flat_work_list
 from repro_torch.models import attention as attn
 from repro_torch.models.attention import KVCache
 from repro_torch.models.common import (ModelConfig, dense_init, embed_init,
@@ -79,17 +80,25 @@ def _mlp_part(pl, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 # --------------------------------------------------------------------------
 def forward_decode_paged(p, cfg: ModelConfig, token: torch.Tensor,
                          pool: KVCache, block_tables: torch.Tensor,
-                         pos: torch.Tensor, *, attn_num_work=None):
+                         pos: torch.Tensor, *, attn_backend: str = "fused",
+                         attn_num_work=None):
     """token [B] int; pool leaves [L, NB, BS, Hkv, Dh]; block_tables
     [B, NBT] int32; pos [B] int32 (-1 = dead slot). Returns
-    (logits [B, V], pool) — the pool updated in place."""
+    (logits [B, V], pool) — the pool updated in place. On the ``flat``
+    backend the layers share one flat work list."""
+    work_list = None
+    if attn_backend == "flat":
+        B, NBT = block_tables.shape
+        work_list = flat_work_list(pos + 1, NBT, pool.k.shape[2],
+                                   attn_num_work or B * NBT)
     x = embed_tokens(p, cfg, token[:, None])
     for l in range(cfg.num_layers):
         pl = layer_params(p["layers"], l)
         h = rms_norm(x, pl["ln_attn"], cfg.norm_eps)
         a, _ = attn.attention_decode_paged(
             pl["attn"], cfg, h, KVCache(pool.k[l], pool.v[l]), block_tables,
-            pos, attn_num_work=attn_num_work)
+            pos, attn_backend=attn_backend, attn_num_work=attn_num_work,
+            attn_work_list=work_list)
         x = x + a
         x = x + _mlp_part(pl, cfg, x)
     x = rms_norm(x, p["ln_f"], cfg.norm_eps)
@@ -100,11 +109,13 @@ def forward_mixed(p, cfg: ModelConfig, dec_token: torch.Tensor,
                   ck_tokens: torch.Tensor, pool: KVCache,
                   bt_dec: torch.Tensor, bt_ck: torch.Tensor,
                   pos: torch.Tensor, ctx_len: torch.Tensor,
-                  chunk_len: torch.Tensor, *, attn_num_work=None):
+                  chunk_len: torch.Tensor, *, attn_backend: str = "fused",
+                  attn_num_work=None):
     """One whole MIXED iteration through the stack: the decode batch
     (``dec_token [Bd]``, ``pos [Bd]``, -1 = dead slot) advances one token
     while prompt chunks (``ck_tokens [Bp, C]``, ``ctx_len``/``chunk_len``
-    [Bp]) prefill beside it — ONE fused attention launch per layer.
+    [Bp]) prefill beside it — ONE fused attention launch per layer (two
+    on the ``flat`` backend).
     Returns ``(dec_logits [Bd, V], ck_logits [Bp, V], pool)``, ck_logits
     at each chunk's last real position."""
     x_dec = embed_tokens(p, cfg, dec_token[:, None])
@@ -115,16 +126,45 @@ def forward_mixed(p, cfg: ModelConfig, dec_token: torch.Tensor,
         hc = rms_norm(x_ck, pl["ln_attn"], cfg.norm_eps)
         ad, ac, _ = attn.attention_mixed_paged(
             pl["attn"], cfg, hd, hc, KVCache(pool.k[l], pool.v[l]), bt_dec,
-            bt_ck, pos, ctx_len, chunk_len, attn_num_work=attn_num_work)
+            bt_ck, pos, ctx_len, chunk_len, attn_backend=attn_backend,
+            attn_num_work=attn_num_work)
         x_dec = x_dec + ad
         x_ck = x_ck + ac
         x_dec = x_dec + _mlp_part(pl, cfg, x_dec)
         x_ck = x_ck + _mlp_part(pl, cfg, x_ck)
     x_dec = rms_norm(x_dec, p["ln_f"], cfg.norm_eps)
-    last = (chunk_len.long() - 1)[:, None, None].expand(-1, 1,
-                                                        x_ck.shape[-1])
-    x_ck = rms_norm(torch.gather(x_ck, 1, last), p["ln_f"], cfg.norm_eps)
+    x_ck = rms_norm(_last_real(x_ck, chunk_len), p["ln_f"], cfg.norm_eps)
     return (unembed(p, cfg, x_dec)[:, 0], unembed(p, cfg, x_ck)[:, 0], pool)
+
+
+def _last_real(x: torch.Tensor, chunk_len: torch.Tensor) -> torch.Tensor:
+    """x [B, C, D] -> [B, 1, D] at each chunk's last real row."""
+    last = (chunk_len.long() - 1)[:, None, None].expand(-1, 1, x.shape[-1])
+    return torch.gather(x, 1, last)
+
+
+def forward_prefill_chunk(p, cfg: ModelConfig, tokens: torch.Tensor,
+                          pool: KVCache, block_tables: torch.Tensor,
+                          ctx_len: torch.Tensor, chunk_len: torch.Tensor, *,
+                          attn_backend: str = "fused"):
+    """Prompt chunks through the stack against the paged pool: tokens
+    [B, C] int (rows past ``chunk_len`` are padding), block_tables
+    [B, NBT], ctx_len / chunk_len [B] int32. Every layer writes the
+    chunk's K/V into its pool slice and attends over the written context
+    plus the chunk, so chunk-by-chunk calls reproduce the whole prompt's
+    cache rows. Returns (logits [B, V] at each chunk's last real token,
+    pool) — on a prompt's final chunk, its first-token distribution."""
+    x = embed_tokens(p, cfg, tokens)
+    for l in range(cfg.num_layers):
+        pl = layer_params(p["layers"], l)
+        h = rms_norm(x, pl["ln_attn"], cfg.norm_eps)
+        a, _ = attn.attention_prefill_chunk_paged(
+            pl["attn"], cfg, h, KVCache(pool.k[l], pool.v[l]), block_tables,
+            ctx_len, chunk_len, attn_backend=attn_backend)
+        x = x + a
+        x = x + _mlp_part(pl, cfg, x)
+    x = rms_norm(_last_real(x, chunk_len), p["ln_f"], cfg.norm_eps)
+    return unembed(p, cfg, x)[:, 0], pool
 
 
 def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int,

@@ -96,6 +96,7 @@ class BlockAllocator:
         self._refs = [0] * self.num_blocks          # per-block refcount
         self._hash_of: Dict[int, int] = {}          # cached block -> digest
         self._index: Dict[int, int] = {}            # digest -> block id
+        self._head_digests: set = set()             # depth-1 digests
         # refcount-0 cached blocks, LRU order (dict preserves insertion;
         # least-recently-released first)
         self._reclaimable: Dict[int, None] = {}
@@ -161,7 +162,9 @@ class BlockAllocator:
         b = next(iter(self._reclaimable))
         del self._reclaimable[b]
         assert self._refs[b] == 0
-        self._index.pop(self._hash_of.pop(b), None)
+        h = self._hash_of.pop(b)
+        self._index.pop(h, None)
+        self._head_digests.discard(h)
         self._free.append(b)
         self._free_set.add(b)
 
@@ -212,12 +215,14 @@ class BlockAllocator:
             self._refs[b] += 1
 
     # ---- prefix index --------------------------------------------------------
-    def publish(self, block_id: int, digest: int) -> bool:
+    def publish(self, block_id: int, digest: int, *,
+                head: bool = False) -> bool:
         """Register a FULL, written block under its chain digest. First
         writer wins: if the digest is already indexed (a concurrent
         request published the same content) the block stays private and
         ``False`` is returned. The block must be live — its publisher
-        still references it."""
+        still references it. ``head`` marks a chain's first block, which
+        :meth:`head_digests` advertises."""
         if digest in self._index:
             return False
         assert self._refs[block_id] > 0, "publish of an unreferenced block"
@@ -226,6 +231,8 @@ class BlockAllocator:
         self._hash_of[block_id] = digest
         # no accounting change: the block stays covered by its publisher's
         # reservation until the publisher releases it (see ``release``)
+        if head:
+            self._head_digests.add(digest)
         return True
 
     def lookup(self, digests: Sequence[int]) -> List[int]:
@@ -239,6 +246,11 @@ class BlockAllocator:
                 break
             out.append(b)
         return out
+
+    def head_digests(self) -> frozenset:
+        """Depth-1 digests currently indexed — the compact per-instance
+        advertisement within-stage dispatch tie-breaks on."""
+        return frozenset(self._head_digests)
 
     def revival_cost(self, block_ids: Sequence[int]) -> int:
         """Implicit reservation units ``share`` of these blocks would add:
@@ -263,6 +275,7 @@ class BlockAllocator:
                                              if self._refs[b] > 0)
         assert self._reserved + self._cached_live <= self.num_blocks
         assert {h: b for b, h in self._hash_of.items()} == self._index
+        assert self._head_digests <= set(self._index)
 
     def check_drained(self) -> None:
         """A drained allocator holds NOTHING on behalf of requests: no

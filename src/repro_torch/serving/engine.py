@@ -10,9 +10,13 @@ admission by worst-case block reservations.
 Every ``step()`` is one **mixed** continuous-batching iteration: up to
 ``prefill_token_budget`` prompt-chunk tokens (resuming partial prompts
 oldest-first, then admitting FCFS) run beside the whole ``max_slots``-wide
-decode batch in ONE attention-bearing forward — one fused kernel launch
-per layer. Steps without chunks decode (``step(burst=n)`` runs up to ``n``
-decode iterations before the host looks at the tokens). Block tables,
+decode batch. On the ``fused`` attention backend that is ONE
+attention-bearing forward (one fused kernel launch per layer); on
+``flat`` it is two: the chunks' forward (the chunked prefill kernel), then
+the decode forward (the flat decode kernel), in which a request whose
+last chunk just landed already decodes. Steps without chunks decode
+(``step(burst=n)`` runs up to ``n`` decode iterations before the host
+looks at the tokens). Block tables,
 lengths and last tokens live on the device, greedy argmax runs there, and
 each step makes exactly ONE device-to-host transfer (:func:`d2h`), none
 on a step that only prefills. Host-to-device uploads go through pinned
@@ -24,9 +28,13 @@ final chunk (cuBLAS may round another row count differently). In f32
 with TF32 off such rounding differences are small enough that
 ``chip_smoke.py`` phase 5 sees the cold tokens at shapes that differ.
 
+Live migration exports a request's KV as the reference's contiguous
+``[L, 1, written, Hkv, Dh]`` piece (mid-prefill: its ``ctx_done`` rows,
+resumed by chunking on the receiver) and imports such pieces, whatever
+engine or framework wrote them.
+
 Not ported yet: tensor parallelism, int8 KV, the host-RAM tier, SLO
-preemption, the monolithic/host loop, migration export/import and the
-non-chunked prefill path.
+preemption, the monolithic/host loop and the non-chunked prefill path.
 """
 from __future__ import annotations
 
@@ -38,7 +46,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.migration import (gather_kv_blocks, kv_bytes,
+                                        scatter_kv_blocks)
 from repro_torch.kernels.cost import pow2_bucket
+from repro_torch.models.attention import KVCache, resolve_paged_backend
 from repro_torch.models.model import Model
 from repro_torch.serving.block_pool import (BlockAllocator, blocks_for,
                                             chain_hash, prompt_chain)
@@ -72,8 +83,8 @@ def d2h(x: torch.Tensor) -> np.ndarray:
         torch.cuda.set_sync_debug_mode(prev)
 
 
-# Running count of attention-bearing forwards (each is one fused kernel
-# launch per layer): a fused mixed step makes exactly ONE.
+# Running count of attention-bearing forwards (each is one kernel launch
+# per layer): a fused mixed step makes exactly ONE, a flat one two.
 ATTN_CALLS = 0
 
 
@@ -107,8 +118,11 @@ class Engine:
                  max_slots: int = 8, max_seq: int = 512,
                  token_budget: Optional[int] = None,
                  block_size: int = DEFAULT_BLOCK_SIZE,
-                 prefill_token_budget: Optional[int] = None):
-        """The engine runs on the device of ``params["embed"]``."""
+                 prefill_token_budget: Optional[int] = None,
+                 attn_backend: Optional[str] = None):
+        """The engine runs on the device of ``params["embed"]``; several
+        engines may share one ``params`` (each owns only its KV pool).
+        ``attn_backend`` is ``"fused"`` (default) or ``"flat"``."""
         self.id = engine_id
         self.model = model
         self.params = params
@@ -126,6 +140,9 @@ class Engine:
         self.cache = model.init_paged_cache(self.num_blocks + 1, block_size,
                                             device=self.device)
         self.block_tables: List[List[int]] = [[] for _ in range(max_slots)]
+        self.attn_backend = resolve_paged_backend(attn_backend)
+        # fused: chunks and decodes share ONE forward; flat: two forwards
+        self.fused_mixed = self.attn_backend == "fused"
         # device mirrors of the decode batch: tables (pow2 width), cache
         # lengths (0 = dead slot) and last tokens
         self._nbt_cap = 1
@@ -145,6 +162,7 @@ class Engine:
         self.slots: List[Optional[ServeRequest]] = [None] * max_slots
         self.waiting: Deque[ServeRequest] = deque()
         self.steps = 0
+        self.tokens_out = 0
         # prefill cost counters: block-work run by prefill (Σ per chunk
         # ceil((ctx+clen)/BS)) vs prompt tokens served by the prefix index
         self.prefill_work_blocks = 0
@@ -155,16 +173,20 @@ class Engine:
         _LIVE_ENGINES.append(weakref.ref(self))
 
     # ---- drain-time leak check -------------------------------------------
-    def check_drained(self) -> None:
-        """Assert this engine holds no request state: no slot, queue or
-        prefill order entry, and an allocator with nothing reserved."""
-        assert all(r is None for r in self.slots), \
-            f"engine {self.id}: undrained slots"
-        assert not self.waiting, f"engine {self.id}: undrained queue"
-        assert not self._prefill_order, \
-            f"engine {self.id}: dangling prefill order"
+    def check_drained(self, strict: bool = True) -> None:
+        """Assert this engine holds no request state. ``strict`` requires
+        empty slots, queue and prefill order and an allocator with nothing
+        reserved (a drained server); non-strict only checks the
+        allocator's invariants (engines may still hold live requests)."""
+        if strict:
+            assert all(r is None for r in self.slots), \
+                f"engine {self.id}: undrained slots"
+            assert not self.waiting, f"engine {self.id}: undrained queue"
+            assert not self._prefill_order, \
+                f"engine {self.id}: dangling prefill order"
         self.allocator.check_invariants()
-        self.allocator.check_drained()
+        if strict:
+            self.allocator.check_drained()
 
     def shutdown(self) -> None:
         """Asserts the engine drained clean, then drops its device pool."""
@@ -172,14 +194,35 @@ class Engine:
         self.cache = None
         self.block_tables = [[] for _ in self.block_tables]
 
-    # ---- load views --------------------------------------------------------
+    # ---- load views (what the control plane reads) ---------------------------
+    def active(self) -> List[ServeRequest]:
+        return [r for r in self.slots if r is not None]
+
     def used_tokens(self) -> int:
         """Tokens of cache memory pinned by running requests."""
         return self.allocator.allocated_tokens()
 
+    def queued_tokens(self) -> int:
+        """Un-prefilled, uncached prompt tokens: whole waiting prompts
+        (minus their prefix-cache hit, estimated at submit) plus the
+        unwritten remainder of requests mid-prefill. The written part is
+        pinned cache (``used_tokens``): no token counts twice."""
+        q = sum(r.prefill_target_len - r.cached_tokens for r in self.waiting)
+        q += sum(r.prefill_target_len - r.ctx_done
+                 for r in self.active() if r.prefilling)
+        return int(q)
+
     def free_tokens(self) -> int:
         """Unpinned cache budget; the admission invariant keeps it >= 0."""
         return self.token_budget - self.used_tokens()
+
+    def load(self) -> float:
+        """Scheduling pressure: pinned cache + queued prompt tokens."""
+        return float(self.used_tokens() + self.queued_tokens())
+
+    def request_view(self) -> List[Tuple[float, float]]:
+        """(input_len, current_len) of every slotted request."""
+        return [(float(len(r.prompt)), float(r.length)) for r in self.active()]
 
     # ---- prefix cache ------------------------------------------------------
     def _req_digests(self, req: ServeRequest) -> List[int]:
@@ -198,6 +241,23 @@ class Engine:
         """Longest resident block chain for this prompt."""
         return self.allocator.lookup(self._req_digests(req))
 
+    def prefix_hint(self, req: ServeRequest):
+        """(head_digest, cached_tokens, host_blocks) for dispatch: the
+        digest of the prompt's first full block (None for sub-block
+        prompts), the tokens resident here, and 0 host-tier blocks (the
+        port has no host tier yet). The digest is content-derived, so it
+        is the same on every engine."""
+        if len(req.prompt) <= self.block_size:
+            return None, 0, 0
+        digests = self._req_digests(req)
+        return (digests[0], len(self.allocator.lookup(digests))
+                * self.block_size, 0)
+
+    def prefix_digests(self) -> frozenset:
+        """Head digests of every cached chain — the compact advertisement
+        within-stage dispatch tie-breaks on."""
+        return self.allocator.head_digests()
+
     def _publish_prompt(self, req: ServeRequest, slot: int) -> None:
         """Prefill finished: publish the prompt's FULL blocks into the
         prefix index (first writer wins; the partial tail block is never
@@ -211,11 +271,14 @@ class Engine:
             digests.append(chain_hash(
                 parent, req.prompt[start:start + self.block_size]))
         for j, h in enumerate(digests[:n_full]):
-            self.allocator.publish(table[j], h)
+            self.allocator.publish(table[j], h, head=(j == 0))
 
     # ---- intake -------------------------------------------------------------
     def submit(self, req: ServeRequest) -> None:
         req.state = State.WAITING
+        # prefix-hit estimate for queued_tokens/load while the request
+        # waits (refreshed authoritatively at admission)
+        req.cached_tokens = len(self._cached_chain(req)) * self.block_size
         self.waiting.append(req)
 
     def _free_slot(self) -> Optional[int]:
@@ -229,14 +292,22 @@ class Engine:
         return min(len(req.prompt) + req.max_new_tokens, self.max_seq)
 
     def can_accept(self, req: ServeRequest) -> bool:
-        """Slot + worst-case block budget check. Admission reserves only
-        the uncached tail, but sharing a reclaimable (refcount-0) chain revives
-        it, so the gate charges that revival too."""
+        """Slot + worst-case block budget check, for admission AND inbound
+        migration. Admission reserves only the uncached tail, but sharing
+        a reclaimable (refcount-0) chain revives it, so the gate charges
+        that revival too. A migrated-in (RUNNING) request re-imports as
+        private, reserves its true length, and its remaining generation
+        must fit ``max_seq``."""
         if self._free_slot() is None or len(req.prompt) + 1 > self.max_seq:
             return False
         need = blocks_for(self._worst_tokens(req), self.block_size)
-        chain = self._cached_chain(req)
-        need += self.allocator.revival_cost(chain) - len(chain)
+        if req.state is State.RUNNING:
+            remaining = max(req.max_new_tokens - len(req.generated), 0)
+            if req.length + remaining > self.max_seq:
+                return False
+        else:
+            chain = self._cached_chain(req)
+            need += self.allocator.revival_cost(chain) - len(chain)
         return self.allocator.can_reserve(need)
 
     def _reserve(self, req: ServeRequest, slot: int,
@@ -270,6 +341,23 @@ class Engine:
         self._dev_len[slot].fill_(0)
 
     # ---- chunked prefill: the mixed iteration's prompt side -----------------
+    def _run_chunked_prefill(self) -> Tuple[List[ServeRequest],
+                                            List[ServeRequest]]:
+        """The flat path's chunk forward: plan, run every planned chunk in
+        ONE prefill forward, and finish them. Returns (rejected,
+        completed) — completed requests' first tokens stay on the device
+        until the step's single transfer."""
+        rejected, plan = self._plan_chunks()
+        completed: List[ServeRequest] = []
+        if plan:
+            arrays = self._prepare_chunk_arrays(plan)
+            logits, self.cache = attn_call(
+                self.model.prefill_chunk, self.params, self.cache, *arrays,
+                attn_backend=self.attn_backend)
+            self._finish_chunks(
+                plan, torch.argmax(logits, dim=-1).to(torch.int32), completed)
+        return rejected, completed
+
     def _plan_chunks(self) -> Tuple[List[ServeRequest],
                                     List[Tuple[int, int]]]:
         """Admission + chunk planning of the mixed iteration — host
@@ -359,8 +447,10 @@ class Engine:
                        completed: List[ServeRequest]) -> None:
         """Advance ``ctx_done``; for requests whose LAST chunk just landed,
         publish the prompt and keep the first token (``first_toks[j]``) on
-        the device until the step's single d2h. The completing slot was
-        dead during this step's forward, so it first decodes next step."""
+        the device until the step's single d2h. On the fused path the
+        completing slot was dead during this step's forward, so it first
+        decodes next step; on the flat path the decode forward that
+        follows already includes it."""
         for j, (slot, clen) in enumerate(plan):
             req = self.slots[slot]
             T = req.prefill_target_len
@@ -374,6 +464,7 @@ class Engine:
             req.first_token_step = self.steps
             req.tokens_by_engine[self.id] = \
                 req.tokens_by_engine.get(self.id, 0) + 1
+            self.tokens_out += 1
             self.slot_len[slot] = T + 1
             table = self.block_tables[slot]
             self._ensure_nbt_cap(len(table))
@@ -397,7 +488,16 @@ class Engine:
         finished: List[ServeRequest] = []
         self._pending_first = []
         prefill_done: List[ServeRequest] = []
-        rejected, chunk_plan = self._plan_chunks()
+        chunk_plan: List[Tuple[int, int]] = []
+        if self.fused_mixed:
+            # plan + admit only: the chunks run INSIDE the fused forward
+            rejected, chunk_plan = self._plan_chunks()
+        else:
+            rejected, prefilled = self._run_chunked_prefill()
+            for r in prefilled:
+                if r.max_new_tokens <= 1:       # finishes at prefill; its
+                    prefill_done.append(r)      # token lands after the sync
+                    self._release(r.slot)
         finished.extend(rejected)
         # requests still mid-prefill hold their slot but do NOT decode:
         # their device row is all-garbage and their length 0
@@ -444,10 +544,13 @@ class Engine:
                     self._release(r.slot)
         elif live:
             # nobody may cross a count/capacity finish before the burst's
-            # last iteration (eos finishes are cut after the transfer)
+            # last iteration (eos finishes are cut after the transfer); a
+            # first token still on the device counts as generated
+            pend = {id(r) for r, _ in self._pending_first}
             cap = 1 if (self.waiting or self._prefill_order) else burst
             h = _pow2_floor(max(1, min(
-                [cap] + [min(r.max_new_tokens - len(r.generated),
+                [cap] + [min(r.max_new_tokens - len(r.generated)
+                             - (id(r) in pend),
                              self.max_seq - int(self.slot_len[i]))
                          for i, r in live])))
             # pre-grow tables for every write of the burst (positions
@@ -465,7 +568,7 @@ class Engine:
             dec_blocks = [blocks_for(int(self.slot_len[i]), self.block_size)
                           for i, _ in live]
             self.last_grid = {
-                "backend": "fused",
+                "backend": self.attn_backend,
                 "flat_items": _next_pow2(real),
                 "real_items": sum(dec_blocks),
                 "padded_items": len(live) * max(dec_blocks),
@@ -501,6 +604,7 @@ class Engine:
                 r.generated.append(int(rest[s, i]))
                 r.tokens_by_engine[self.id] = \
                     r.tokens_by_engine.get(self.id, 0) + 1
+                self.tokens_out += 1
                 self.slot_len[i] += 1
                 if r.done or self.slot_len[i] >= self.max_seq:
                     r.state = State.FINISHED
@@ -531,7 +635,7 @@ class Engine:
         pos = self._dev_len - 1
         logits, self.cache = self.model.decode_step_paged(
             self.params, self.cache, self._dev_tok, self._dev_bt, pos,
-            attn_num_work=num_work)
+            attn_backend=self.attn_backend, attn_num_work=num_work)
         new_tok = torch.argmax(logits, dim=-1).to(torch.int32)
         self._dev_tok = torch.where(live, new_tok, self._dev_tok)
         self._dev_len = torch.where(live, self._dev_len + 1, self._dev_len)
@@ -557,3 +661,77 @@ class Engine:
         self._dev_clear_slot(slot)
         self.slots[slot] = None
         self.slot_len[slot] = 0
+
+    # ---- migration -----------------------------------------------------------
+    def export_slot(self, slot: int):
+        """(request, KV piece, piece bytes) for live migration. The piece
+        is the wire format: contiguous ``[L, 1, written, Hkv, Dh]`` leaves
+        gathered from the request's blocks. ``written = slot_len - 1``
+        for a decoding request (its newest sampled token's KV is written
+        by the next decode, on whichever engine runs it); a request still
+        mid-prefill ships its ``ctx_done`` rows and the receiver resumes
+        chunking."""
+        req = self.slots[slot]
+        assert req is not None
+        length = int(self.slot_len[slot]) - (0 if req.prefilling else 1)
+        ids = h2d(np.asarray(self.block_tables[slot], np.int64), self.device)
+        piece = KVCache(*(
+            a.reshape(a.shape[0], 1, -1, *a.shape[3:])[:, :, :length]
+            for a in gather_kv_blocks(self.cache, ids)))
+        return req, piece, kv_bytes(piece)
+
+    def evict_slot(self, slot: int) -> None:
+        self._release(slot)
+
+    def import_request(self, req: ServeRequest, piece: KVCache) -> bool:
+        """Adopt a migrated request and its KV piece — still decoding, or
+        still mid-prefill (the piece then holds its ``ctx_done`` rows and
+        this engine resumes chunking). Refuses (``can_accept``) when no
+        slot is free, the remaining generation cannot fit ``max_seq`` or
+        the worst-case footprint exceeds the free budget. A migrated
+        shared prefix re-imports as private: the receiver allocates fresh
+        blocks and reserves the true length."""
+        if not self.can_accept(req):
+            return False
+        slot = self._free_slot()
+        req.cached_tokens = 0
+        self._reserve(req, slot)
+        # cache length: the written rows (mid-prefill), or the rows plus
+        # the newest token, whose KV the next decode writes
+        length = req.ctx_done if req.prefilling else req.length
+        ids = self.allocator.allocate(blocks_for(length, self.block_size))
+        self.block_tables[slot] = ids
+        if ids:
+            self._write_prompt_blocks(piece, ids)
+        if req.prefilling:
+            # device mirrors stay cleared (all-garbage table, length 0):
+            # the decode batch treats a mid-prefill slot as dead
+            self._prefill_order.append(slot)
+        else:
+            # an adopted decode carries >= 1 generated token: the mirrors
+            # seed from host values (fill_, no blocking upload)
+            self._ensure_nbt_cap(len(ids))
+            self._dev_set_table(slot, ids)
+            self._dev_len[slot].fill_(length)
+            self._dev_tok[slot].fill_(int(req.generated[-1]))
+        req.engine_id = self.id
+        req.slot = slot
+        req.state = State.RUNNING
+        # the adopting engine appears in the per-engine token ledger even
+        # before its first token (load-balance accounting, Fig. 16)
+        req.tokens_by_engine.setdefault(self.id, 0)
+        self.slots[slot] = req
+        self.slot_len[slot] = length
+        return True
+
+    def _write_prompt_blocks(self, piece: KVCache, block_ids: List[int]):
+        """Scatter a contiguous piece (leaves ``[L, 1, T, ...]``, T <=
+        len(block_ids) * BS) into physical blocks ``block_ids``."""
+        nb, BS = len(block_ids), self.block_size
+
+        def pack(p):
+            p = p.to(self.device)
+            p = F.pad(p, (0, 0, 0, 0, 0, nb * BS - p.shape[2]))
+            return p[:, 0].reshape(p.shape[0], nb, BS, *p.shape[3:])
+        scatter_kv_blocks(self.cache, KVCache(*(pack(p) for p in piece)),
+                          h2d(np.asarray(block_ids, np.int64), self.device))
