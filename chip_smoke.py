@@ -14,38 +14,58 @@ the last line:
    llama3.2-3b shapes of the main paths (f32 within 1e-4, bf16 within
    5e-3), with its time, the plain version's, one PyTorch library call's,
    and the least time the card could take (bytes at 3.35 TB/s or flops at
-   989 TFLOP/s bf16): the fused mixed kernel, the flat decode kernel
+   989 TFLOP/s bf16): the fused mixed kernel, its int8 mode (int8 pool,
+   f32 scales; also held to the bf16 kernel on the unquantized pool, per
+   live row cos >= 0.999 and max abs <= 0.05), the flat decode kernel
    (rows over 24, 3300, 650 and 770 tokens and a dead slot) and the
    chunked prefill kernel (chunks of 256 at ctx 2800 and 0, one of 100);
 4. a full-width llama3.2-3b engine (bf16, random seeded weights, fused
-   backend) serving 8 requests with prompts of 16..5897 tokens, under
-   CUDA sync-debug "error" mode: every request finishes with its token
-   count, the kernel launches equal layers x attention calls, at most one
-   device-to-host transfer per step; then a warm prefix resubmit gives
-   the same tokens (in bf16 only where the warm tail chunk and the cold
-   final chunk have the same shapes, as this trace arranges);
+   backend, preemption off) serving 8 requests with prompts of 16..5897
+   tokens, under CUDA sync-debug "error" mode: every request finishes
+   with its token count, the kernel launches equal layers x attention
+   calls, at most one device-to-host transfer per step; then a warm
+   prefix resubmit gives the same tokens (in bf16 only where the warm
+   tail chunk and the cold final chunk have the same shapes, as this
+   trace arranges);
 5. a 2-layer full-width f32 llama3.2-3b on the card and on the CPU, same
    weights: identical greedy streams, and on each a warm resubmit at a
    length where the warm and cold last chunks differ in shape gives the
    cold tokens;
 6. the length-aware cluster at full width: ``MILSServer`` with 4 engines
    on the one card (``repro_torch.launch.serve``'s plan, two stages split
-   at 2048 tokens), the flat backend, bf16 llama3.2-3b with one shared
-   seeded weight set, 16 requests arriving over 8 steps (prompts 16..6000
-   tokens, five just below 2048 that cross the boundary while decoding),
-   under sync-debug "error": every request finishes, at least 2 live
-   migrations, every engine drains clean, each engine step makes at most
-   one device-to-host transfer and two attention-bearing forwards, and the
-   flat kernels launch on every layer of those forwards;
-7. the same cluster, f32, 2 layers, 2 engines, 6 requests, once on the
-   card and once on the CPU: identical decision logs and token streams;
-8. one JSON line of every kernel, then, last, ``{"ok": true, ...}``.
+   at 2048 tokens), the flat backend, preemption off, bf16 llama3.2-3b
+   with one shared seeded weight set, 16 requests arriving over 8 steps
+   (prompts 16..6000 tokens, five just below 2048 that cross the boundary
+   while decoding), under sync-debug "error": every request finishes, at
+   least 2 live migrations, every engine drains clean, each engine step
+   makes at most one device-to-host transfer and two attention-bearing
+   forwards, and the flat kernels launch on every layer of those
+   forwards;
+7. the same cluster, f32, 2 layers, 2 engines, 6 requests, preemption
+   off, once on the card and once on the CPU: identical decision logs and
+   token streams;
+8. the cluster with int8 pools, preemption, the host tier and faults
+   on: 4 full-width bf16
+   engines on int8 pools (fused backend), SLO preemption over an
+   interactive/standard/batch mix, a host KV tier on every engine, engine
+   1 crashed and rejoined, 30% of transfers lost; under sync-debug
+   "error": at least one park, recompute, demote, promote, handover
+   migration, redispatch of a crashed engine's residents, rejoin and
+   retried lost transfer; every request finished or failed, live engines
+   drain clean, at most one device-to-host transfer per engine step, and
+   int8 launches equal layers x fused forwards;
+9. the same configuration at 2 layers, f32, on 3 engines, once on the
+   card and once on the CPU: identical decision logs, streams and
+   summary counters; the parked, recomputed and redispatched requests'
+   streams equal those of a run with preemption and faults off;
+10. one JSON line of every kernel, then, last, ``{"ok": true, ...}``.
 
 It needs one CUDA card and fails without one; it imports nothing of JAX.
 """
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import subprocess
@@ -207,19 +227,99 @@ def phase_kernels(np, torch, F, tk, flush):
     }
 
 
-def work_bound(bt, ctx, seg, tags, BS, H, Hkv, Dh, out_rows):
+def work_bound(bt, ctx, seg, tags, BS, H, Hkv, Dh, out_rows,
+               kv_row_bytes=None):
     """(bound ms, "bytes"|"operations", bytes, flops): each needed byte
     moved once (live q rows, the K/V rows the totals cover, shared blocks
     once, ``out_rows`` output rows, tables and lengths), 4*Dh flops per
-    (query head, visible key)."""
+    (query head, visible key). ``kv_row_bytes`` is one kv head's K (or V)
+    row: 2*Dh in bf16, Dh + 4 in int8 with its f32 scale."""
     rows, keys, kv_rows = attention_work(bt, ctx, seg, tags, BS)
-    nbytes = (rows * H * Dh * 2 + kv_rows * Hkv * Dh * 2 * 2
+    kv_row_bytes = 2 * Dh if kv_row_bytes is None else kv_row_bytes
+    nbytes = (rows * H * Dh * 2 + kv_rows * Hkv * kv_row_bytes * 2
               + out_rows * H * Dh * 2 + bt.size * 4 + 3 * len(ctx) * 4)
     flops = 4.0 * keys * H * Dh
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / BF16_FLOPS_PER_S * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
             "operations", nbytes, flops)
+
+
+def phase_int8_kernel(np, torch, F, tk, flush):
+    """The int8 mode of the fused kernel at phase 3's segments: vs its
+    plain version (f32 and bf16 q), vs the bf16 kernel on the unquantized
+    pool (per live row cos >= 0.999, max abs <= 0.05), times and bound."""
+    from repro_torch.models.attention import quantize_kv
+    H, Hkv, Dh, BS, C = 24, 8, 128, 16, 256
+    G = H // Hkv
+    segs = [("dec", 24), ("ck", 2800, 256), ("dec", 3300), ("dec", 0),
+            ("ck", 0, 256), ("dec", 650), ("dec", 770)]
+    q, kp, vp, bt, ctx, seg, tags = mixed_case(np, segs, C, H, Hkv, Dh, BS,
+                                               (5, 6, 10), SEED)
+    dev = torch.device("cuda")
+    ints = [torch.from_numpy(a).to(dev) for a in (bt, ctx, seg, tags)]
+    (kq, ks), (vq, vs) = (quantize_kv(torch.from_numpy(a).to(dev))
+                          for a in (kp, vp))
+    pools = (kq, vq)
+    scales = (ks, vs)
+    errs = {}
+    for name, dt, tol in (("f32", torch.float32, 1e-4),
+                          ("bf16", torch.bfloat16, 5e-3)):
+        qd = torch.from_numpy(q).to(dev, dt)
+        got = tk.paged_mixed_attention(qd, *pools, *ints, *scales)
+        torch.cuda.synchronize()
+        errs[name] = hold(torch, f"int8 mode {name}", got,
+                          tk.paged_mixed_attention_plain(qd, *pools, *ints,
+                                                         *scales), tol)
+        log(f"phase 3: int8 mode vs plain {name}: max_abs_err="
+            f"{errs[name]:.3e} (tolerance {tol})")
+    # against the bf16 kernel on the unquantized pool, every live row
+    full = tk.paged_mixed_attention(
+        qd, *(torch.from_numpy(a).to(dev, torch.bfloat16) for a in (kp, vp)),
+        *ints).float()
+    got = got.float()
+    worst_cos, worst_abs = 1.0, 0.0
+    for i, sg in enumerate(segs):
+        if sg == ("dec", 0):
+            continue
+        n = 1 if sg[0] == "dec" else sg[2]
+        a, b = got[i, :n].reshape(n, -1), full[i, :n].reshape(n, -1)
+        cos = (a * b).sum(-1) / (a.norm(dim=-1) * b.norm(dim=-1)).clamp(
+            min=1e-12)
+        worst_cos = min(worst_cos, cos.min().item())
+        worst_abs = max(worst_abs, (a - b).abs().max().item())
+    check(worst_cos >= 0.999 and worst_abs <= 0.05,
+          f"int8 mode vs unquantized bf16 kernel: cos {worst_cos}, "
+          f"abs {worst_abs}")
+    log(f"phase 3: int8 mode vs bf16 kernel on the unquantized pool: "
+        f"worst live-row cos {worst_cos:.6f} (>= 0.999), max abs "
+        f"{worst_abs:.3e} (<= 0.05)")
+    kernel_ms = time_ms(torch, lambda: tk.paged_mixed_attention(
+        qd, *pools, *ints, *scales), 50, flush)
+    plain_ms = time_ms(torch, lambda: tk.paged_mixed_attention_plain(
+        qd, *pools, *ints, *scales), 10, flush)
+    # library yardstick: one SDPA on K/V dequantized beforehand (bf16)
+    S = bt.shape[1] * BS
+    kg, vg = sdpa_inputs(torch, [(p.float() * sc[..., None]).to(
+        torch.bfloat16) for p, sc in zip(pools, scales)], ints[0], G)
+    qs = qd.transpose(1, 2).contiguous()
+    r = torch.arange(C, device=dev)[None]
+    c_, s_, t_ = (x.long()[:, None] for x in ints[1:])
+    limit = torch.where(t_ == 1, torch.minimum(c_ + s_, c_ + r + 1), c_ + s_)
+    mask = (torch.arange(S, device=dev)[None, None]
+            < limit[..., None])[:, None]
+    library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        qs, kg, vg, attn_mask=mask), 20, flush)
+    bound_ms, by, nb, fo = work_bound(bt, ctx, seg, tags, BS, H, Hkv, Dh,
+                                      len(segs) * C, kv_row_bytes=Dh + 4)
+    log(f"phase 3: int8 mode (bf16 q) kernel {kernel_ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, library sdpa on pre-dequantized K/V "
+        f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({by}: "
+        f"{nb / 1e6:.1f} MB, {fo / 1e9:.2f} GFLOP)")
+    return {"max_abs_err": errs["bf16"], "max_abs_err_f32": errs["f32"],
+            "cos_vs_bf16": worst_cos, "abs_vs_bf16": worst_abs,
+            "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": by}
 
 
 def hold(torch, name, out, ref, tol):
@@ -355,7 +455,8 @@ def phase_engine(np, torch, cfg_mod, model_mod, engine_mod, request_mod, tk):
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = model.init(SEED, device="cuda")
-    eng = engine_mod.Engine(0, model, params, max_slots=8, max_seq=8192)
+    eng = engine_mod.Engine(0, model, params, max_slots=8, max_seq=8192,
+                            preemption=False)
     torch.cuda.synchronize()
     log(f"phase 4: llama3.2-3b bf16 weights + pool ready in "
         f"{time.perf_counter() - t0:.1f} s (pool {eng.num_blocks + 1} "
@@ -470,7 +571,7 @@ def phase_devices(np, torch, cfg_mod, model_mod, engine_mod, request_mod):
     streams = {}
     for name, params in (("cuda", gpu_params), ("cpu", cpu_params)):
         eng = engine_mod.Engine(0, model, params, max_slots=3, max_seq=512,
-                                prefill_token_budget=64)
+                                prefill_token_budget=64, preemption=False)
         check(eng.device.type == name, f"engine on {eng.device}")
         rng = np.random.default_rng(SEED + 1)
         reqs = [request_mod.ServeRequest(
@@ -538,10 +639,11 @@ def phase_cluster(np, torch, cfg_mod, model_mod, engine_mod, request_mod,
         model, params, serve_mod.default_plan(4, 8192),
         qoe_mod.QoEModel(np.array(serve_mod.DEFAULT_QOE)),
         server_mod.ServerConfig(policy="cascade", refinement="adaptive",
-                                balancing="full", seed=SEED),
+                                balancing="full", seed=SEED,
+                                preemption=False),
         engine_factory=lambda i: engine_mod.Engine(
             i, model, params, max_slots=8, max_seq=8192, token_budget=32768,
-            attn_backend="flat"))
+            attn_backend="flat", preemption=False))
     torch.cuda.synchronize()
     e0 = srv.engines[0]
     log(f"phase 6: 4 engines, one bf16 llama3.2-3b weight set, pools of "
@@ -648,6 +750,7 @@ def phase_cluster(np, torch, cfg_mod, model_mod, engine_mod, request_mod,
     for eng in srv.engines:
         eng.shutdown()
     del srv, params
+    gc.collect()       # the counting wrappers hold their engines in a cycle
     torch.cuda.empty_cache()
     return summary
 
@@ -673,8 +776,9 @@ def phase_cluster_devices(np, torch, cfg_mod, model_mod, request_mod,
         srv = server_mod.MILSServer(
             model, params, serve_mod.default_plan(2, 512),
             qoe_mod.QoEModel(np.array(serve_mod.DEFAULT_QOE)),
-            server_mod.ServerConfig(seed=SEED), max_slots=4, max_seq=512,
-            prefill_token_budget=64, attn_backend="flat")
+            server_mod.ServerConfig(seed=SEED, preemption=False),
+            max_slots=4, max_seq=512, prefill_token_budget=64,
+            attn_backend="flat")
         check(all(e.device.type == name for e in srv.engines),
               f"engines not on {name}")
         reqs = _submit_trace(np, request_mod, srv, DEVICE_TRACE,
@@ -694,6 +798,335 @@ def phase_cluster_devices(np, torch, cfg_mod, model_mod, request_mod,
         f"engines, cuda == cpu: {len(runs['cuda'][0])} decisions "
         f"({runs['cuda'][2]} migrations), identical token streams (first "
         f"tokens {[g[:4] for g in runs['cuda'][1]]})")
+
+
+# --------------------------------------------------------------------------
+# Phases 8 and 9: int8 pools, SLO preemption, the host tier and faults
+# --------------------------------------------------------------------------
+# (prompt tokens, new tokens, arrival step, SLO class, shared-prefix
+# tokens): the prefix is one 1024-token run drawn once, shared by the
+# requests that give it. default_plan(4, 8192) splits the stages at 2048
+# tokens (engines 0-1 | 2-3).
+CHAOS_TRACE = (
+    # stage 1: three long batch prompts fill engines 2-3; a long
+    # interactive prompt then finds no memory: recompute-preempt
+    (3500, 48, 0, "batch", 0), (3600, 40, 0, "batch", 0),
+    (3400, 40, 1, "batch", 0),
+    # stage 0: a shared-prefix prompt that finishes early (its chain stays
+    # cached on its engine), short batch decodes filling the seats, and
+    # prompts just below 2048 that cross the boundary while decoding
+    (1400, 8, 0, "standard", 1024), (200, 64, 0, "batch", 0),
+    (300, 64, 1, "batch", 0), (2000, 64, 1, "standard", 0),
+    (150, 64, 2, "batch", 0), (2010, 56, 2, "standard", 0),
+    (250, 64, 3, "batch", 0), (120, 64, 3, "batch", 0),
+    # interactive arrivals: seats are full in stage 0 (park), memory is
+    # short in stage 1 (recompute)
+    (90, 16, 12, "interactive", 0), (2600, 16, 34, "interactive", 0),
+    (60, 16, 13, "interactive", 0),
+    # pressure on the surviving stage-0 engine while engine 1 is down,
+    # then the shared prefix again: demote, then promote
+    (1900, 24, 22, "standard", 0), (1950, 24, 23, "standard", 0),
+    (1800, 24, 24, "standard", 0), (1500, 16, 44, "standard", 1024),
+    (2030, 40, 26, "standard", 0), (400, 32, 46, "interactive", 0),
+    # a long prompt late in the trace, chunking for 23 steps
+    (5900, 16, 50, "standard", 0))
+CHAOS_FAULTS = dict(seed=3, crashes=((1, 10),), rejoins=((1, 40),),
+                    transfer_loss_p=0.3)
+CHAOS_ENGINE = dict(max_slots=4, max_seq=8192, token_budget=8192,
+                    attn_backend="fused", kv_dtype="int8",
+                    host_kv_budget=4096, preemption=True,
+                    slo_time_scale=20.0)
+
+
+def _chaos_requests(np, request_mod, trace, vocab, seed):
+    rng = np.random.default_rng(seed)
+    prefix = rng.integers(0, vocab, 1024).astype(np.int32)
+    out = []
+    for i, (n, new, at, cls, pre) in enumerate(trace):
+        p = rng.integers(0, vocab, n).astype(np.int32)
+        p[:pre] = prefix[:pre]
+        r = request_mod.ServeRequest(i, p, new)
+        r.slo_class = cls
+        out.append((r, at))
+    return out
+
+
+def chaos_server(np, model, params, server_mod, serve_mod, qoe_mod,
+                 engine_mod, faults, num_engines, max_seq, engine_kw,
+                 made):
+    """A ``MILSServer`` with int8 pools, preemption, the host tier and
+    faults on (as ``engine_kw`` and ``faults`` set them); every engine it
+    makes (the first ones, and the fresh ones a crash or a rejoin swaps
+    in) is appended to ``made``."""
+    from repro_torch.control.faults import FaultSpec
+
+    def factory(i):
+        eng = engine_mod.Engine(i, model, params, **engine_kw)
+        made.append(eng)
+        return eng
+
+    return server_mod.MILSServer(
+        model, params, serve_mod.default_plan(num_engines, max_seq),
+        qoe_mod.QoEModel(np.array(serve_mod.DEFAULT_QOE)),
+        server_mod.ServerConfig(
+            seed=SEED, kv_dtype=engine_kw["kv_dtype"],
+            preemption=engine_kw["preemption"],
+            host_kv_budget=engine_kw["host_kv_budget"],
+            slo_time_scale=engine_kw["slo_time_scale"],
+            faults=FaultSpec(**faults) if faults else None),
+        engine_factory=factory)
+
+
+def chaos_events(srv, made):
+    """Counts of the events phases 8 and 9 must see, over every engine the
+    server ever ran (a crash drops the carcass' counters from the
+    summary)."""
+    log = srv.plane.decisions
+    fails = {d[1] for d in log if d[0] == "mig_fail"}
+    retried = {d[1] for i, d in enumerate(log) if d[0] == "migrate"
+               and d[1] in fails
+               and any(e[0] == "mig_fail" and e[1] == d[1]
+                       for e in log[:i])}
+    total = {k: sum(getattr(e, k) for e in made)
+             for k in ("preemptions", "preempt_recomputes", "resumes",
+                       "cache_demotions", "cache_promotions")}
+    return {
+        "parks": total["preemptions"] - total["preempt_recomputes"],
+        "recomputes": total["preempt_recomputes"],
+        "resumes": total["resumes"],
+        "demotes": total["cache_demotions"],
+        "promotes": total["cache_promotions"],
+        "handovers": sum(n for (a, b), n in
+                         srv.plane.migrations_by_stage.items() if b > a),
+        "dead": sum(1 for d in log if d[0] == "dead"),
+        "redispatches": sum(1 for d in log if d[0] == "redispatch"),
+        "rejoins": sum(1 for d in log if d[0] == "rejoin"),
+        "retried_lost_transfers": len(retried),
+    }
+
+
+def phase_chaos_cluster(np, torch, cfg, model_mod, engine_mod, request_mod,
+                        server_mod, serve_mod, qoe_mod, tk):
+    """Phase 8: the full-width cluster with int8 pools, preemption, the
+    host tier and faults on, under sync-debug "error"."""
+    model = model_mod.build_model(cfg)
+    gc.collect()                    # earlier phases' weights and pools
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(SEED, device="cuda")
+    made = []
+    srv = chaos_server(np, model, params, server_mod, serve_mod, qoe_mod,
+                       engine_mod, CHAOS_FAULTS, 4, 8192, CHAOS_ENGINE,
+                       made)
+    torch.cuda.synchronize()
+    e0 = srv.engines[0]
+    kv_tok = e0._bytes_per_block / e0.block_size
+    kv_tok_bf16 = 2 * cfg.num_layers * cfg.num_kv_heads * cfg.head_dim * 2
+    log(f"phase 8: 4 engines, one bf16 {cfg.name} weight set, int8 pools "
+        f"of {e0.num_blocks + 1} blocks x {e0.block_size} tokens, "
+        f"{kv_tok:.0f} B of KV per token ({kv_tok_bf16} B in bf16, "
+        f"{kv_tok_bf16 / kv_tok:.3f}x), host tier "
+        f"{CHAOS_ENGINE['host_kv_budget']} tokens per engine; ready in "
+        f"{time.perf_counter() - t0:.1f} s")
+    reqs = []
+    for r, at in _chaos_requests(np, request_mod, CHAOS_TRACE,
+                                 cfg.vocab_size, SEED + 5):
+        srv.submit_at(r, at)
+        reqs.append(r)
+    real_step = engine_mod.Engine.step
+    worst = {"d2h": 0}
+
+    def counted(self, burst=1):
+        d0 = engine_mod.D2H_CALLS
+        out = real_step(self, burst)
+        worst["d2h"] = max(worst["d2h"], engine_mod.D2H_CALLS - d0)
+        return out
+
+    a0 = engine_mod.ATTN_CALLS
+    tk.INT8_LAUNCHES = 0
+    engine_mod.Engine.step = counted
+    t_end = {0: 0.0}
+    step_ms = []
+    t_start = time.perf_counter()
+    try:
+        while len(srv.finished) < srv.submitted:
+            check(srv.steps < 1500, "cluster did not drain")
+            t = time.perf_counter()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                srv.step()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t) * 1e3)
+            t_end[srv.steps] = time.perf_counter() - t_start
+    finally:
+        engine_mod.Engine.step = real_step
+    wall = time.perf_counter() - t_start
+    forwards = engine_mod.ATTN_CALLS - a0
+    launches = tk.INT8_LAUNCHES
+    for eng in srv.engines:
+        if eng.id not in srv.crashed:
+            eng.check_drained(strict=True)
+    # a crashed engine's pool is freed: what stays allocated is the weights
+    # and one pool per engine slot (the rejoined engine's, not two)
+    from repro_torch.core.migration import kv_bytes
+    weights = sum(t.numel() * t.element_size() for t in _leaves(params))
+    pools = sum(kv_bytes(e.cache) for e in srv.engines)
+    held = torch.cuda.memory_allocated() - base
+    check(held < weights + pools + 256 * 2 ** 20,
+          f"{held / 1e9:.2f} GB held after the run: weights "
+          f"{weights / 1e9:.2f} GB + 4 pools {pools / 1e9:.2f} GB")
+    check(len(made) == 6 and all(e.cache is None for e in made
+                                 if e not in srv.engines),
+          "a crashed engine kept its pool")
+    check(worst["d2h"] <= 1, f"an engine step made {worst['d2h']} d2h")
+    check(launches == cfg.num_layers * forwards > 0,
+          f"int8 launches {launches} != {cfg.num_layers} x {forwards} "
+          "fused forwards")
+    for r in reqs:
+        check(r.state.name == "FINISHED", f"request {r.req_id} unfinished")
+        check(r.failed or len(r.generated) == r.max_new_tokens,
+              f"request {r.req_id}: {len(r.generated)} tokens")
+        check(all(0 <= t < cfg.vocab_size for t in r.generated),
+              f"request {r.req_id}: token out of range")
+    ev = chaos_events(srv, made)
+    for k, v in ev.items():
+        check(v >= 1, f"phase 8: no {k} ({ev})")
+    summ = srv.summary()
+    served = [r for r in reqs if not r.failed and not r.rejected]
+    ttft_s = [t_end[r.first_token_step] - t_end[r.arrival_step]
+              for r in served]
+    e2e_s = [t_end[r.finish_step] - t_end[r.arrival_step] for r in served]
+    pct = {f"{name}_p{p}": float(np.percentile(v, p))
+           for name, v in (("ttft_s", ttft_s), ("e2e_s", e2e_s))
+           for p in (50, 95, 99)}
+    peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+    ntok = sum(len(r.generated) for r in reqs)
+    log(f"phase 8: {len(reqs)} requests ({summ['failed']} failed) drained "
+        f"in {srv.steps} steps, {wall:.3f} s; {ntok} tokens, "
+        f"{ntok / wall:.1f} tokens/s; {srv.migrations} migrations "
+        f"({srv.migrated_bytes / 1e6:.1f} MB moved); peak memory "
+        f"{peak_gb:.2f} GB (weights {weights / 1e9:.2f} GB, 4 pools "
+        f"{pools / 1e9:.2f} GB; {held / 1e9:.2f} GB held after the run, "
+        f"{len(made)} engines made, the 2 replaced ones freed); int8 "
+        f"launches {launches} = {cfg.num_layers} x {forwards} fused "
+        f"forwards")
+    log("phase 8: events " + json.dumps(ev))
+    log("phase 8: steps " + json.dumps(
+        {k: summ[k] for k in summ if k.startswith(("ttft_steps_p",
+                                                   "e2e_steps_p"))}))
+    log("phase 8: seconds " + json.dumps(pct))
+    log("phase 8: SLO " + json.dumps(
+        {k: summ[k] for k in summ if k.startswith("slo_")}))
+    log("phase 8: counters " + json.dumps(
+        {k: summ[k] for k in ("preemptions", "preempt_recomputes", "resumes",
+                              "tpot_skipped", "cache_demotions",
+                              "cache_drops", "cache_promotions",
+                              "promoted_blocks_total", "rejected", "failed",
+                              "redispatched", "retries", "downtime_total")}))
+    log(f"phase 8: server step ms mean {sum(step_ms) / len(step_ms):.2f} "
+        f"min {min(step_ms):.2f} max {max(step_ms):.2f}")
+    summary = {"steps": srv.steps, "wall_s": wall, "tokens": ntok,
+               "tokens_per_s": ntok / wall, "step_ms": step_ms,
+               "migrations": srv.migrations,
+               "migrated_bytes": srv.migrated_bytes,
+               "peak_memory_gb": peak_gb, "launches": launches,
+               "forwards": forwards, "events": ev, "summary": summ,
+               "kv_bytes_per_token": kv_tok,
+               "kv_bytes_per_token_bf16": kv_tok_bf16, **pct,
+               "ttft_s": ttft_s, "e2e_s": e2e_s,
+               "decisions": len(srv.plane.decisions)}
+    for eng in srv.engines:
+        if eng.id not in srv.crashed:
+            eng.shutdown()
+    del srv, params, made
+    torch.cuda.empty_cache()
+    return summary
+
+
+# phase 9: default_plan(3, 512) splits the stages at 128 tokens (engines
+# 0-1 | 2); (prompt, new, arrival, class, shared-prefix tokens)
+SMALL_CHAOS_TRACE = (
+    (150, 24, 0, "batch", 0), (160, 20, 0, "batch", 0),
+    (100, 12, 0, "standard", 64), (40, 30, 0, "batch", 0),
+    (50, 30, 1, "batch", 0), (110, 30, 1, "standard", 0),
+    (30, 16, 6, "interactive", 0), (170, 12, 9, "interactive", 0),
+    (90, 16, 12, "standard", 0), (95, 16, 13, "standard", 0),
+    (80, 8, 26, "standard", 64), (20, 12, 28, "interactive", 0))
+SMALL_CHAOS_FAULTS = dict(seed=0, crashes=((1, 8),), rejoins=((1, 24),),
+                          transfer_loss_p=0.3)
+SMALL_CHAOS_ENGINE = dict(max_slots=2, max_seq=512, token_budget=512,
+                          prefill_token_budget=64, attn_backend="fused",
+                          kv_dtype="int8", host_kv_budget=256,
+                          preemption=True, slo_time_scale=8.0)
+
+
+def phase_chaos_devices(np, torch, cfg, model_mod, engine_mod, request_mod,
+                        server_mod, serve_mod, qoe_mod):
+    """Phase 9: the phase-8 configuration at 2 layers, f32, 3 engines, on
+    the card and on the CPU; then, on the card, the same trace with
+    preemption and faults off."""
+    model = model_mod.build_model(cfg)
+    cpu_params = model.init(SEED, device="cpu")
+    gpu_params = _tree_to(cpu_params, torch.device("cuda"))
+    quiet = dict(SMALL_CHAOS_ENGINE, preemption=False)
+    runs = {}
+    for name, params, faults, kw in (
+            ("cuda", gpu_params, SMALL_CHAOS_FAULTS, SMALL_CHAOS_ENGINE),
+            ("cpu", cpu_params, SMALL_CHAOS_FAULTS, SMALL_CHAOS_ENGINE),
+            ("cuda_undisturbed", gpu_params, None, quiet)):
+        made = []
+        srv = chaos_server(np, model, params, server_mod, serve_mod,
+                           qoe_mod, engine_mod, faults, 3, 512, kw, made)
+        want = "cpu" if name == "cpu" else "cuda"
+        check(all(e.device.type == want for e in srv.engines),
+              f"engines not on {want}")
+        reqs = [r for r, _ in _chaos_requests(
+            np, request_mod, SMALL_CHAOS_TRACE, cfg.vocab_size, SEED + 6)]
+        for r, (_, _, at, _, _) in zip(reqs, SMALL_CHAOS_TRACE):
+            srv.submit_at(r, at)
+        srv.run(max_steps=800)          # asserts the live engines drained
+        check(len(srv.finished) == len(reqs), f"{name}: did not drain")
+        summ = srv.summary()
+        runs[name] = (list(srv.plane.decisions),
+                      [list(r.generated) for r in reqs],
+                      {k: v for k, v in summ.items()
+                       if not k.startswith(("ttft", "e2e"))},
+                      chaos_events(srv, made), reqs)
+    cuda, cpu, quiet_run = runs["cuda"], runs["cpu"], runs["cuda_undisturbed"]
+    check(cuda[0] == cpu[0], "decision logs differ: cuda "
+          f"{cuda[0]} cpu {cpu[0]}")
+    check(cuda[1] == cpu[1], f"token streams differ: cuda {cuda[1]} "
+          f"cpu {cpu[1]}")
+    check(cuda[2] == cpu[2], f"summaries differ: cuda {cuda[2]} "
+          f"cpu {cpu[2]}")
+    ev = cuda[3]
+    for k, v in ev.items():
+        check(v >= 1, f"phase 9: no {k} ({ev})")
+    reqs = cuda[4]
+    disturbed = [i for i, r in enumerate(reqs)
+                 if r.preemptions or r.redispatches]
+    check(any(reqs[i].redispatches for i in disturbed),
+          "no redispatched request")
+    same = [i for i in disturbed if cuda[1][i] == quiet_run[1][i]]
+    check(same == disturbed, "streams of preempted/redispatched requests "
+          f"{disturbed} differ from the undisturbed run at "
+          f"{sorted(set(disturbed) - set(same))}")
+    others = sum(a == b for a, b in zip(cuda[1], quiet_run[1]))
+    log(f"phase 9: 2-layer full-width f32 {cfg.name}, 3 int8 engines with "
+        f"preemption, host tier and faults, cuda == cpu: "
+        f"{len(cuda[0])} decisions, streams and summary counters "
+        f"identical; events {json.dumps(ev)}; the {len(disturbed)} "
+        f"preempted or redispatched requests {disturbed} decode their "
+        f"undisturbed streams ({others}/{len(reqs)} streams equal in all)")
+
+
+def _leaves(tree):
+    for v in tree.values():
+        yield from (_leaves(v) if isinstance(v, dict) else (v,))
 
 
 def _tree_to(tree, device):
@@ -733,7 +1166,7 @@ def main() -> int:
     log(f"phase 1: torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
 
-    # 2. build every kernel of the path from the checkout's sources
+    # 2. build every kernel of the paths from the checkout's sources
     t0 = time.perf_counter()
     logs = build.build(verbose=True)
     for name, text in logs.items():
@@ -746,6 +1179,7 @@ def main() -> int:
     flush = torch.empty(128 * 1024 * 1024, dtype=torch.float32,
                         device="cuda")
     kern = phase_kernels(np, torch, F, tk, flush)
+    int8 = phase_int8_kernel(np, torch, F, tk, flush)
     flat = phase_flat_kernels(np, torch, F, dk, pk, flush)
     del flush
 
@@ -767,7 +1201,19 @@ def main() -> int:
     phase_cluster_devices(np, torch, cfg_mod, model_mod, request_mod,
                           server_mod, serve_mod, qoe_mod)
 
-    # 8. results
+    # 8. int8 pools, preemption, the host tier and faults at full width
+    llama = cfg_mod.get_config("llama3.2-3b")
+    chaos = phase_chaos_cluster(
+        np, torch, dataclasses.replace(llama, dtype=torch.bfloat16),
+        model_mod, engine_mod, request_mod, server_mod, serve_mod, qoe_mod,
+        tk)
+
+    # 9. the same paths, 2 layers f32, cuda vs cpu
+    phase_chaos_devices(np, torch, dataclasses.replace(
+        llama, num_layers=2, dtype=torch.float32), model_mod, engine_mod,
+        request_mod, server_mod, serve_mod, qoe_mod)
+
+    # 10. results
     kernels = [{
         "name": "paged_mixed_attention", "ok": True, "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/mixed_attention.cu",
@@ -778,6 +1224,18 @@ def main() -> int:
         "ms": kern["ms"], "kernel_ms": kern["ms"],
         "plain_ms": kern["plain_ms"], "bound_ms": kern["bound_ms"],
         "bound_by": kern["bound_by"], "library_ms": kern["library_ms"],
+    }, {
+        "name": "paged_mixed_attention_int8", "ok": True, "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/mixed_attention.cu",
+        "replaces": "src/repro/kernels/mixed_attention.py:187",
+        "launches": chaos["launches"],
+        "max_abs_err": int8["max_abs_err"],
+        "max_abs_err_f32": int8["max_abs_err_f32"],
+        "cos_vs_bf16": int8["cos_vs_bf16"],
+        "abs_vs_bf16": int8["abs_vs_bf16"],
+        "ms": int8["ms"], "kernel_ms": int8["ms"],
+        "plain_ms": int8["plain_ms"], "bound_ms": int8["bound_ms"],
+        "bound_by": int8["bound_by"], "library_ms": int8["library_ms"],
     }]
     for key, name, src, tpu, launches in (
             ("decode", "paged_decode_attention_flat", "decode_attention.cu",
@@ -800,7 +1258,7 @@ def main() -> int:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke_report.json").write_text(json.dumps(
         {"device": smi, "kernels": kernels, "engine": eng_summary,
-         "cluster": cluster},
+         "cluster": cluster, "chaos_cluster": chaos},
         indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

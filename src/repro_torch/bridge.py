@@ -13,7 +13,7 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
-from repro_torch.models.attention import KVCache
+from repro_torch.models.attention import KVCache, QuantKVCache
 from repro_torch.models.common import ModelConfig
 
 
@@ -61,19 +61,27 @@ def params_from_numpy(tree: Mapping, cfg: ModelConfig, device="cuda"):
     return out
 
 
-def pool_from_numpy(pool: Any, device="cuda", dtype=None) -> KVCache:
-    """A KV pool or a migration piece ``(k, v)`` of numpy arrays (a JAX
-    ``KVCache`` mapped to numpy; a piece's leaves are the contiguous
-    ``[L, 1, written, Hkv, Dh]`` wire format) -> the port's
-    :class:`KVCache` on ``device``, which an engine's
-    ``import_request`` takes."""
-    k, v = pool
+def pool_from_numpy(pool: Any, device="cuda", dtype=None):
+    """A KV pool or a migration piece of numpy arrays (a JAX ``KVCache``
+    ``(k, v)`` or int8 ``QuantKVCache`` ``(k, v, k_scale, v_scale)``
+    mapped to numpy; a piece's leaves are the contiguous ``[L, 1,
+    written, Hkv, Dh]`` wire format) -> the port's :class:`KVCache` /
+    :class:`QuantKVCache` on ``device``. ``dtype`` casts the float K/V
+    leaves of a full-width pool; int8 values and f32 scales keep theirs."""
+    leaves = tuple(pool)
+    if len(leaves) == 4:
+        return QuantKVCache(*(_to_tensor(a, None, device) for a in leaves))
+    k, v = leaves
     return KVCache(_to_tensor(k, dtype, device), _to_tensor(v, dtype, device))
 
 
-def pool_to_numpy(pool: KVCache) -> KVCache:
-    """The port's pool, or a piece from ``Engine.export_slot`` -> a
-    :class:`KVCache` of f32 numpy arrays (the JAX package's engines
-    import such a piece as ``KVCache(jnp.asarray(k), jnp.asarray(v))``)."""
+def pool_to_numpy(pool):
+    """The port's pool, or a piece from ``Engine.export_slot`` -> the same
+    tuple type of numpy arrays: f32 K/V for a :class:`KVCache` (the JAX
+    package's engines import such a piece as ``KVCache(jnp.asarray(k),
+    jnp.asarray(v))``), int8 values and f32 scales for a
+    :class:`QuantKVCache`."""
+    if isinstance(pool, QuantKVCache):
+        return QuantKVCache(*(a.detach().cpu().numpy() for a in pool))
     return KVCache(pool.k.detach().float().cpu().numpy(),
                    pool.v.detach().float().cpu().numpy())

@@ -1,8 +1,9 @@
 """The port's copy of the backend-agnostic CascadeInfer control plane
 (paper §3–§5): length routing, growth-triggered handover with bid-ask
-negotiation, intra-stage rebalancing, boundary refinement and §5 flow
-control, driven through :class:`~repro_torch.control.protocol.InstanceView`
-and :class:`~repro_torch.control.protocol.ClusterOps` by
+negotiation, intra-stage rebalancing, boundary refinement, §5 flow
+control and the seeded fault model, driven through
+:class:`~repro_torch.control.protocol.InstanceView` and
+:class:`~repro_torch.control.protocol.ClusterOps` by
 :class:`repro_torch.serving.server.MILSServer` over torch engines.
 """
 from repro_torch.control.bidask import (Bid, MigRequest,  # noqa: F401
@@ -10,7 +11,9 @@ from repro_torch.control.bidask import (Bid, MigRequest,  # noqa: F401
                                         is_overloaded, select_receiver)
 from repro_torch.control.faults import (HEALTH_ALIVE,  # noqa: F401
                                         HEALTH_DEAD, HEALTH_SUSPECT,
-                                        BackoffPolicy)
+                                        XFER_LOST, XFER_OK, XFER_STALL,
+                                        BackoffPolicy, FaultInjector,
+                                        FaultSpec)
 from repro_torch.control.plane import (ControlConfig,  # noqa: F401
                                        ControlPlane, StageState)
 from repro_torch.control.protocol import (MIG_COMPLETED,  # noqa: F401

@@ -34,6 +34,16 @@
 // single decode rows, whose one block per (segment, kv head) leaves most SMs
 // idle.
 //
+// int8 mode (the TPU kernel's quantized=True variant, _flash_block_update
+// with k_scale/v_scale): the pool is int8 with one f32 scale per (block,
+// position, kv head). The kernel loads the int8 bytes from device memory as
+// they are (16 elements per 16-byte load, coalesced like the bf16 loads),
+// loads each key row's scale once per 16-element vector, and dequantizes in
+// registers (int8 -> f32 * scale) when it stages the tile in shared memory,
+// so the rest of the walk is the f32 one above. A decode row, bound by the
+// K/V bytes it reads, reads (Dh + 4) / (2 * Dh) of the bf16 mode's bytes.
+// No dequantized copy of the pool is made.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libmixed_attention.so mixed_attention.cu
 #include <cuda_bf16.h>
@@ -67,6 +77,12 @@ __device__ __forceinline__ void unpack(const uint4& raw, float* f,
   }
 }
 
+__device__ __forceinline__ void unpack(const uint4& raw, float* f, int8_t) {
+  const int8_t* b = reinterpret_cast<const int8_t*>(&raw);
+#pragma unroll
+  for (int e = 0; e < 16; ++e) f[e] = static_cast<float>(b[e]);
+}
+
 __device__ __forceinline__ void store4(float* dst, const float* v) {
   *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
 }
@@ -89,20 +105,26 @@ constexpr int smem_bytes() {
 // of which the first `tile_live` are live; each thread owns rows rg + 8*i
 // (i < RPT). Chunk tiles run RPT = kRowsPerThread; decode tiles run
 // RPT = 1, so a decode row's G <= 8 heads issue no work for other rows.
-template <typename T, int DH, int RPT>
+// T is q's and out's type, P the pool's: T, or int8_t with the scales
+// k_scale/v_scale [NB, BS, Hkv] (null otherwise).
+template <typename T, typename P, int DH, int RPT>
 __device__ __forceinline__ void attend_tile(
-    const T* __restrict__ q, const T* __restrict__ k_pool,
-    const T* __restrict__ v_pool, const int* __restrict__ bt,
+    const T* __restrict__ q, const P* __restrict__ k_pool,
+    const P* __restrict__ v_pool, const float* __restrict__ k_scale,
+    const float* __restrict__ v_scale, const int* __restrict__ bt,
     T* __restrict__ out, float* __restrict__ smem, int s, int h, int r0,
     int tile_live, int nkeys, int ctx, int total, bool chunk, int C, int H,
     int Hkv, int BS, float scale) {
-  constexpr int EPV = 16 / sizeof(T);       // elements per 16-byte load
-  constexpr int VPR = DH / EPV;             // 16-byte loads per row
+  constexpr bool kQuant = sizeof(P) == 1;   // int8 pool + f32 scales
+  constexpr int EPV = 16 / sizeof(T);       // q elements per 16-byte load
+  constexpr int VPR = DH / EPV;             // 16-byte q loads per row
+  constexpr int EPK = 16 / sizeof(P);       // pool elements per 16-byte load
+  constexpr int VPK = DH / EPK;             // 16-byte pool loads per row
   constexpr int KSTR = DH + 4;              // padded K row: no bank conflicts
-  constexpr int NV = kKeys * VPR / kThreads;  // K (and V) loads per thread
+  constexpr int NV = kKeys * VPK / kThreads;  // K (and V) loads per thread
   constexpr int NW = DH / kLanes / 4;       // float4 columns per thread
   constexpr int ROWS = kRowGroups * RPT;
-  static_assert(kKeys * VPR % kThreads == 0, "tile loads must split evenly");
+  static_assert(kKeys * VPK % kThreads == 0, "tile loads must split evenly");
   static_assert(ROWS <= kTileRows, "q tile exceeds its shared memory");
 
   float* q_s = smem;                        // [ROWS][DH], scaled
@@ -153,35 +175,54 @@ __device__ __forceinline__ void attend_tile(
   }
 
   // ---- K/V tiles: registers (prefetch) -> shared memory (f32) ----
+  // int8 mode: each 16-byte vector carries 16 elements of one key row, and
+  // the row's scale is loaded beside it (zero past the needed keys)
   uint4 kr[NV], vr[NV];
+  float ksr[NV], vsr[NV];
   auto fetch = [&](int j0) {
 #pragma unroll
     for (int n = 0; n < NV; ++n) {
-      const int v = tid + n * kThreads, kk = v / VPR, cv = v % VPR;
+      const int v = tid + n * kThreads, kk = v / VPK, cv = v % VPK;
       const int idx = j0 + kk;
       if (idx < nkeys) {
         const int phys = bt[idx / BS];
-        const int64_t off =
-            (((int64_t)phys * BS + idx % BS) * Hkv + h) * DH + cv * EPV;
+        const int64_t row = ((int64_t)phys * BS + idx % BS) * Hkv + h;
+        const int64_t off = row * DH + cv * EPK;
         kr[n] = *reinterpret_cast<const uint4*>(k_pool + off);
         vr[n] = *reinterpret_cast<const uint4*>(v_pool + off);
+        if constexpr (kQuant) {
+          ksr[n] = k_scale[row];
+          vsr[n] = v_scale[row];
+        }
       } else {  // past the keys this tile needs: zeros, never garbage
         kr[n] = make_uint4(0, 0, 0, 0);
         vr[n] = make_uint4(0, 0, 0, 0);
+        if constexpr (kQuant) {
+          ksr[n] = 0.f;
+          vsr[n] = 0.f;
+        }
       }
     }
   };
   auto stash = [&]() {
 #pragma unroll
     for (int n = 0; n < NV; ++n) {
-      const int v = tid + n * kThreads, kk = v / VPR, cv = v % VPR;
-      float f[EPV];
-      unpack(kr[n], f, T());
+      const int v = tid + n * kThreads, kk = v / VPK, cv = v % VPK;
+      float f[EPK];
+      unpack(kr[n], f, P());
+      if constexpr (kQuant) {
 #pragma unroll
-      for (int e = 0; e < EPV; e += 4) store4(k_s + kk * KSTR + cv * EPV + e, f + e);
-      unpack(vr[n], f, T());
+        for (int e = 0; e < EPK; ++e) f[e] *= ksr[n];
+      }
 #pragma unroll
-      for (int e = 0; e < EPV; e += 4) store4(v_s + kk * DH + cv * EPV + e, f + e);
+      for (int e = 0; e < EPK; e += 4) store4(k_s + kk * KSTR + cv * EPK + e, f + e);
+      unpack(vr[n], f, P());
+      if constexpr (kQuant) {
+#pragma unroll
+        for (int e = 0; e < EPK; ++e) f[e] *= vsr[n];
+      }
+#pragma unroll
+      for (int e = 0; e < EPK; e += 4) store4(v_s + kk * DH + cv * EPK + e, f + e);
     }
   };
 
@@ -294,10 +335,12 @@ __device__ __forceinline__ void attend_tile(
 }
 
 // Grid (row tile, kv head, segment); one block per tile of kTileRows rows.
-template <typename T, int DH>
+template <typename T, typename P, int DH>
 __global__ void __launch_bounds__(kThreads)
-mixed_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
-                       const T* __restrict__ v_pool,
+mixed_attention_kernel(const T* __restrict__ q, const P* __restrict__ k_pool,
+                       const P* __restrict__ v_pool,
+                       const float* __restrict__ k_scale,
+                       const float* __restrict__ v_scale,
                        const int* __restrict__ block_tables,
                        const int* __restrict__ ctx_lens,
                        const int* __restrict__ seg_lens,
@@ -322,16 +365,17 @@ mixed_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
           ? 0
           : (chunk ? min(total, ctx + (r0 + tile_live - 1) / G + 1) : total);
   if (chunk || G > kRowGroups) {
-    attend_tile<T, DH, kRowsPerThread>(q, k_pool, v_pool, bt, out, smem, s, h,
-                                       r0, tile_live, nkeys, ctx, total, chunk,
-                                       C, H, Hkv, BS, scale);
+    attend_tile<T, P, DH, kRowsPerThread>(q, k_pool, v_pool, k_scale, v_scale,
+                                          bt, out, smem, s, h, r0, tile_live,
+                                          nkeys, ctx, total, chunk, C, H, Hkv,
+                                          BS, scale);
     return;
   }
   // decode: at most G <= 8 live rows, one per row group; the tile's other
   // rows are padding and get zeros
-  attend_tile<T, DH, 1>(q, k_pool, v_pool, bt, out, smem, s, h, r0,
-                        tile_live, nkeys, ctx, total, chunk, C, H, Hkv, BS,
-                        scale);
+  attend_tile<T, P, DH, 1>(q, k_pool, v_pool, k_scale, v_scale, bt, out, smem,
+                           s, h, r0, tile_live, nkeys, ctx, total, chunk, C, H,
+                           Hkv, BS, scale);
   const int rows = C * G;
   const float zero[4] = {0.f, 0.f, 0.f, 0.f};
   for (int v = threadIdx.x; v < (kTileRows - kRowGroups) * (DH / 4);
@@ -343,30 +387,64 @@ mixed_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
   }
 }
 
-template <typename T, int DH>
+template <typename T, typename P, int DH>
 int launch(const void* q, const void* k_pool, const void* v_pool,
-           const void* block_tables, const void* ctx_lens,
-           const void* seg_lens, const void* tags, void* out, int B, int C,
-           int H, int Hkv, int BS, int NBT, cudaStream_t stream) {
+           const void* k_scale, const void* v_scale, const void* block_tables,
+           const void* ctx_lens, const void* seg_lens, const void* tags,
+           void* out, int B, int C, int H, int Hkv, int BS, int NBT,
+           cudaStream_t stream) {
   constexpr int smem = smem_bytes<DH>();
   // within the default dynamic shared memory limit: no attribute to set
   static_assert(smem <= 48 * 1024, "tile needs the opt-in smem attribute");
   const int G = H / Hkv;
   dim3 grid((C * G + kTileRows - 1) / kTileRows, Hkv, B);
-  mixed_attention_kernel<T, DH><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_pool),
-      static_cast<const T*>(v_pool), static_cast<const int*>(block_tables),
+  mixed_attention_kernel<T, P, DH><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const P*>(k_pool),
+      static_cast<const P*>(v_pool), static_cast<const float*>(k_scale),
+      static_cast<const float*>(v_scale), static_cast<const int*>(block_tables),
       static_cast<const int*>(ctx_lens), static_cast<const int*>(seg_lens),
       static_cast<const int*>(tags), static_cast<T*>(out), C, H, Hkv, BS, NBT,
       1.0f / sqrtf((float)DH));
   return (int)cudaGetLastError();
 }
 
+// q's type T; the pool is T, or int8 when the scales are given.
+template <typename T>
+int launch_dtype(const void* q, const void* k_pool, const void* v_pool,
+                 const void* k_scale, const void* v_scale,
+                 const void* block_tables, const void* ctx_lens,
+                 const void* seg_lens, const void* tags, void* out, int B,
+                 int C, int H, int Hkv, int Dh, int BS, int NBT,
+                 cudaStream_t st) {
+  const bool quant = k_scale != nullptr;
+  if (quant != (v_scale != nullptr)) return (int)cudaErrorInvalidValue;
+  if (Dh == 128 && !quant)
+    return launch<T, T, 128>(q, k_pool, v_pool, k_scale, v_scale, block_tables,
+                             ctx_lens, seg_lens, tags, out, B, C, H, Hkv, BS,
+                             NBT, st);
+  if (Dh == 64 && !quant)
+    return launch<T, T, 64>(q, k_pool, v_pool, k_scale, v_scale, block_tables,
+                            ctx_lens, seg_lens, tags, out, B, C, H, Hkv, BS,
+                            NBT, st);
+  if (Dh == 128 && quant)
+    return launch<T, int8_t, 128>(q, k_pool, v_pool, k_scale, v_scale,
+                                  block_tables, ctx_lens, seg_lens, tags, out,
+                                  B, C, H, Hkv, BS, NBT, st);
+  if (Dh == 64 && quant)
+    return launch<T, int8_t, 64>(q, k_pool, v_pool, k_scale, v_scale,
+                                 block_tables, ctx_lens, seg_lens, tags, out,
+                                 B, C, H, Hkv, BS, NBT, st);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 = launched).
+// dtype (of q and out): 0 = float32, 1 = bfloat16. k_scale/v_scale null:
+// the pools are q's dtype; given: the pools are int8 and the scales f32
+// [NB, BS, Hkv]. Returns a cudaError_t (0 = launched).
 extern "C" int repro_mixed_attention(const void* q, const void* k_pool,
-                                     const void* v_pool,
+                                     const void* v_pool, const void* k_scale,
+                                     const void* v_scale,
                                      const void* block_tables,
                                      const void* ctx_lens,
                                      const void* seg_lens, const void* tags,
@@ -377,19 +455,13 @@ extern "C" int repro_mixed_attention(const void* q, const void* k_pool,
   if (Hkv <= 0 || H % Hkv != 0 || BS <= 0 || NBT <= 0 || B > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && Dh == 128)
-    return launch<float, 128>(q, k_pool, v_pool, block_tables, ctx_lens,
-                              seg_lens, tags, out, B, C, H, Hkv, BS, NBT, st);
-  if (dtype == 0 && Dh == 64)
-    return launch<float, 64>(q, k_pool, v_pool, block_tables, ctx_lens,
-                             seg_lens, tags, out, B, C, H, Hkv, BS, NBT, st);
-  if (dtype == 1 && Dh == 128)
-    return launch<__nv_bfloat16, 128>(q, k_pool, v_pool, block_tables,
-                                      ctx_lens, seg_lens, tags, out, B, C, H,
-                                      Hkv, BS, NBT, st);
-  if (dtype == 1 && Dh == 64)
-    return launch<__nv_bfloat16, 64>(q, k_pool, v_pool, block_tables,
-                                     ctx_lens, seg_lens, tags, out, B, C, H,
-                                     Hkv, BS, NBT, st);
+  if (dtype == 0)
+    return launch_dtype<float>(q, k_pool, v_pool, k_scale, v_scale,
+                               block_tables, ctx_lens, seg_lens, tags, out, B,
+                               C, H, Hkv, Dh, BS, NBT, st);
+  if (dtype == 1)
+    return launch_dtype<__nv_bfloat16>(q, k_pool, v_pool, k_scale, v_scale,
+                                       block_tables, ctx_lens, seg_lens, tags,
+                                       out, B, C, H, Hkv, Dh, BS, NBT, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -8,10 +8,15 @@ plane, then prints the server's summary and its final stage bounds.
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
         --arch smollm-360m --engines 4 --requests 12
 
-It runs on the card unless ``--device cpu`` is given. The flags are the
-reference launcher's for what the port has, plus ``--device``; chaos
-injection, preemption, the host KV tier, int8 KV and tensor parallelism
-are not ported yet.
+It runs on the card unless ``--device cpu`` is given, on the reduced
+config of ``--arch`` unless ``--full-width`` keeps its published widths
+and depth. The flags are the reference launcher's under its names and
+defaults — int8 KV (``--kv-dtype``), the host KV tier
+(``--host-kv-budget``, on at 4096 tokens), SLO preemption (on), the fault
+model (``--crash``, ``--rejoin``, ``--transfer-loss-p``, ...) — plus
+``--device``, ``--full-width`` and ``--dtype``.
+Tensor parallelism, the host loop and the non-chunked prefill path are
+not ported yet.
 """
 from __future__ import annotations
 
@@ -20,12 +25,14 @@ import dataclasses
 from typing import List, Optional
 
 import numpy as np
+import torch
 
 from repro_torch.configs import get_config
+from repro_torch.control.faults import FaultSpec
 from repro_torch.core.partition import PipelinePlan, Stage
 from repro_torch.core.qoe import QoEModel
 from repro_torch.models import build_model
-from repro_torch.models.attention import PAGED_BACKENDS
+from repro_torch.models.attention import KV_DTYPES, PAGED_BACKENDS
 from repro_torch.sched import assign_classes, parse_class_mix
 from repro_torch.serving.server import (MILSServer, ServerConfig,
                                         requests_from_trace)
@@ -53,6 +60,12 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--device", default="cuda",
                     help="device of the weights and KV pools (default: the "
                          "card; 'cpu' runs the kernels' plain versions)")
+    ap.add_argument("--full-width", action="store_true",
+                    help="serve the arch at its published widths and depth "
+                         "(default: its reduced smoke config)")
+    ap.add_argument("--dtype", default="float32",
+                    choices=["float32", "bfloat16"],
+                    help="weights and activations (and bf16 KV pools)")
     ap.add_argument("--engines", type=int, default=4)
     ap.add_argument("--requests", type=int, default=12)
     ap.add_argument("--policy", default="cascade",
@@ -69,6 +82,17 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                          "one kernel per layer per step; 'flat' runs the "
                          "chunked prefill kernel, then the flat decode "
                          "kernel")
+    ap.add_argument("--kv-dtype", default="bf16", choices=list(KV_DTYPES),
+                    help="paged KV pool: 'bf16' keeps the model's dtype, "
+                         "'int8' halves KV bytes (int8 rows with f32 "
+                         "scales; needs the fused backend)")
+    ap.add_argument("--host-kv-budget", type=int, default=4096,
+                    help="host-RAM KV tier capacity in tokens per engine: "
+                         "evicted prefix chains demote here instead of "
+                         "dropping, and hits promote back (0 = off)")
+    ap.add_argument("--no-kv-tiering", dest="host_kv_budget",
+                    action="store_const", const=0,
+                    help="disable the host KV tier (--host-kv-budget 0)")
     ap.add_argument("--prefill-budget", type=int, default=None,
                     help="prompt-chunk tokens packed per mixed iteration "
                          "(default 256)")
@@ -78,19 +102,66 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                     help="SLO service-class mix of the replayed trace, "
                          "e.g. 'interactive:0.5,standard:0.3,batch:0.2' "
                          "(default: all standard)")
+    ap.add_argument("--preemption", dest="preemption",
+                    action="store_true", default=True,
+                    help="SLO-tiered preemptive scheduling (the default)")
+    ap.add_argument("--no-preemption", dest="preemption",
+                    action="store_false",
+                    help="disable preemption: FCFS queues")
     ap.add_argument("--slo-scale", type=float, default=1.0,
                     help="SLO-scale sweep knob (paper §6.4)")
     ap.add_argument("--slo-time-scale", type=float, default=1.0,
                     help="engine steps per abstract SLO second")
+    ap.add_argument("--crash", action="append", default=[],
+                    metavar="ENGINE:STEP",
+                    help="chaos: kill engine ENGINE at step STEP "
+                         "(repeatable)")
+    ap.add_argument("--rejoin", action="append", default=[],
+                    metavar="ENGINE:STEP",
+                    help="chaos: revive a crashed engine at step STEP "
+                         "(fresh state; its old residents were already "
+                         "redispatched)")
+    ap.add_argument("--transfer-loss-p", type=float, default=0.0,
+                    help="chaos: probability a migration transfer is lost "
+                         "on the wire (rolled back after the timeout)")
+    ap.add_argument("--transfer-stall-p", type=float, default=0.0,
+                    help="chaos: probability a transfer stalls past its "
+                         "deadline (treated as lost)")
+    ap.add_argument("--fault-seed", type=int, default=0,
+                    help="seed of the deterministic fault injector")
+    ap.add_argument("--migration-timeout-steps", type=int, default=4,
+                    help="steps before an in-flight transfer is rolled "
+                         "back to its sender")
+    ap.add_argument("--dead-after-steps", type=int, default=6,
+                    help="heartbeat-free steps before an engine is "
+                         "declared dead and its residents redispatched")
     ap.add_argument("--seed", type=int, default=0)
     return ap.parse_args(argv)
 
 
+def fault_spec(args: argparse.Namespace) -> Optional[FaultSpec]:
+    """The chaos flags as a ``FaultSpec`` (None when none is given)."""
+    def events(specs):
+        return tuple((int(e), float(t)) for e, t in
+                     (item.split(":", 1) for item in specs))
+    if not (args.crash or args.rejoin or args.transfer_loss_p > 0
+            or args.transfer_stall_p > 0):
+        return None
+    return FaultSpec(seed=args.fault_seed, crashes=events(args.crash),
+                     rejoins=events(args.rejoin),
+                     transfer_loss_p=args.transfer_loss_p,
+                     transfer_stall_p=args.transfer_stall_p)
+
+
 def build_server(args: argparse.Namespace) -> MILSServer:
-    """The launcher's cluster: reduced ``--arch`` weights from seed 0 on
-    ``--device``, shared by ``--engines`` engines under the default
-    two-stage plan, and the replayed trace on its arrival schedule."""
-    cfg = get_config(args.arch).reduced()
+    """The launcher's cluster: ``--arch`` weights (reduced unless
+    ``--full-width``) from seed 0 on ``--device``, shared by ``--engines``
+    engines under the default two-stage plan, and the replayed trace on
+    its arrival schedule."""
+    cfg = get_config(args.arch)
+    if not args.full_width:
+        cfg = cfg.reduced()
+    cfg = dataclasses.replace(cfg, dtype=getattr(torch, args.dtype))
     model = build_model(cfg)
     params = model.init(0, device=args.device)
     srv = MILSServer(model, params, default_plan(args.engines, args.max_seq),
@@ -98,10 +169,16 @@ def build_server(args: argparse.Namespace) -> MILSServer:
                      ServerConfig(policy=args.policy,
                                   refinement=args.refinement,
                                   balancing=args.balancing, seed=args.seed,
+                                  preemption=args.preemption,
                                   slo_scale=args.slo_scale,
-                                  slo_time_scale=args.slo_time_scale),
+                                  slo_time_scale=args.slo_time_scale,
+                                  host_kv_budget=args.host_kv_budget,
+                                  faults=fault_spec(args),
+                                  migration_timeout_steps=(
+                                      args.migration_timeout_steps),
+                                  dead_after_steps=args.dead_after_steps),
                      max_slots=args.max_slots, max_seq=args.max_seq,
-                     attn_backend=args.attn_backend,
+                     attn_backend=args.attn_backend, kv_dtype=args.kv_dtype,
                      prefill_token_budget=args.prefill_budget)
     spec = WorkloadSpec(rate=args.arrival_rate,
                         duration=args.requests / args.arrival_rate,

@@ -1,7 +1,9 @@
 """Paged GQA attention with RoPE — the port's subset of
 ``repro.models.attention``: the decode, chunked-prefill and
 mixed-iteration paths over the global block pool, on the ``flat`` kernel
-pair or the ``fused`` kernel.
+pair or the ``fused`` kernel, and the int8 pool (``QuantKVCache``:
+quantize-on-write, scales beside the rows), which only the ``fused``
+kernel reads.
 
 Shapes follow the JAX package: activations ``x [B, T, D]``, a pool slice
 ``[NB, BS, Hkv, Dh]`` per layer, block tables ``[B, NBT]`` int32. Pool
@@ -77,30 +79,117 @@ def _project_qkv(p, cfg: ModelConfig, x: torch.Tensor):
 # --------------------------------------------------------------------------
 # The paged pool
 # --------------------------------------------------------------------------
+KV_DTYPES = ("bf16", "int8")
+
+
 class KVCache(NamedTuple):
     k: torch.Tensor     # [(L,) NB, BS, Hkv, Dh]
     v: torch.Tensor
 
 
+class QuantKVCache(NamedTuple):
+    """int8 paged block pool (DESIGN.md §Quantized KV blocks): K/V rows are
+    symmetric int8 over the head dim with f32 per-(block, position,
+    kv-head) scales — (Dh + 4)/(2·Dh) of the bf16 bytes. A tuple of leaves
+    like :class:`KVCache`, so the block gather/scatter and migration
+    helpers run over it unchanged."""
+    k: torch.Tensor        # [(L,) NB, BS, Hkv, Dh] int8
+    v: torch.Tensor
+    k_scale: torch.Tensor  # [(L,) NB, BS, Hkv] f32
+    v_scale: torch.Tensor
+
+
+def layer_pool(pool, l: int):
+    """Layer ``l``'s slice of a layer-stacked pool (views)."""
+    return type(pool)(*(a[l] for a in pool))
+
+
 def make_paged_pool(cfg: ModelConfig, num_blocks: int, block_size: int,
-                    dtype: Optional[torch.dtype] = None,
-                    device="cuda") -> KVCache:
-    """Zeroed global block pool for ONE layer: [NB, BS, Hkv, Dh]."""
+                    dtype: Optional[torch.dtype] = None, device="cuda",
+                    kv_dtype: str = "bf16", layers: Optional[int] = None):
+    """Zeroed global block pool: [NB, BS, Hkv, Dh] for ONE layer, or
+    [layers, NB, BS, Hkv, Dh]. ``kv_dtype="int8"`` gives the quantized
+    layout with zero scales, so the garbage block (and any row never
+    written) dequantizes to exact zeros."""
+    assert kv_dtype in KV_DTYPES, kv_dtype
     shape = (num_blocks, block_size, cfg.num_kv_heads, cfg.head_dim)
+    if layers is not None:
+        shape = (layers,) + shape
+    if kv_dtype == "int8":
+        return QuantKVCache(
+            torch.zeros(shape, dtype=torch.int8, device=device),
+            torch.zeros(shape, dtype=torch.int8, device=device),
+            torch.zeros(shape[:-1], dtype=torch.float32, device=device),
+            torch.zeros(shape[:-1], dtype=torch.float32, device=device))
     dt = dtype or cfg.dtype
     return KVCache(torch.zeros(shape, dtype=dt, device=device),
                    torch.zeros(shape, dtype=dt, device=device))
 
 
-def scatter_pool(pool_l: KVCache, blk: torch.Tensor, off: torch.Tensor,
-                 k: torch.Tensor, v: torch.Tensor) -> KVCache:
+def quantize_kv(x: torch.Tensor):
+    """Symmetric int8 quantization over the last (head) axis, as the
+    reference computes it: ``scale = max(amax_f32 / 127, 1e-8)``, then
+    ``round(x_f32 / scale)`` (half to even) clipped to ±127 — a division,
+    not a product with the reciprocal, so the int8 values are the
+    reference's. Returns ``(int8 values, f32 scales [x.shape[:-1]])``."""
+    xf = x.float()
+    scale = torch.clamp(xf.abs().amax(-1) / 127.0, min=1e-8)
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def scatter_pool(pool_l, blk: torch.Tensor, off: torch.Tensor,
+                 k: torch.Tensor, v: torch.Tensor):
     """Write new K/V rows into one layer's pool slice at physical
-    ``(blk, off)``, in place. ``blk``/``off`` are integer tensors of a
-    matching shape S; ``k``/``v`` are [*S, Hkv, Dh]."""
+    ``(blk, off)``, in place — quantize-on-write when the pool is int8.
+    ``blk``/``off`` are integer tensors of a matching shape S; ``k``/``v``
+    are [*S, Hkv, Dh] in compute dtype."""
     idx = (blk.long(), off.long())
+    if isinstance(pool_l, QuantKVCache):
+        kq, ks = quantize_kv(k)
+        vq, vs = quantize_kv(v)
+        pool_l.k.index_put_(idx, kq)
+        pool_l.v.index_put_(idx, vq)
+        pool_l.k_scale.index_put_(idx, ks)
+        pool_l.v_scale.index_put_(idx, vs)
+        return pool_l
     pool_l.k.index_put_(idx, k.to(pool_l.k.dtype))
     pool_l.v.index_put_(idx, v.to(pool_l.v.dtype))
     return pool_l
+
+
+def _pool_scales(pool_l):
+    """(k_scale, v_scale) kernel operands — (None, None) for full-width
+    pools."""
+    if isinstance(pool_l, QuantKVCache):
+        return pool_l.k_scale, pool_l.v_scale
+    return None, None
+
+
+def quantize_piece(piece: KVCache) -> QuantKVCache:
+    """Contiguous full-precision KV piece (leaves ``[..., Hkv, Dh]``) ->
+    its :class:`QuantKVCache` twin, for writing into an int8 pool."""
+    kq, ks = quantize_kv(piece.k)
+    vq, vs = quantize_kv(piece.v)
+    return QuantKVCache(kq, vq, ks, vs)
+
+
+def dequantize_piece(piece: QuantKVCache, dtype: torch.dtype) -> KVCache:
+    """:class:`QuantKVCache` piece -> contiguous full-precision
+    :class:`KVCache` in ``dtype`` (product in f32, then cast). Migration
+    exports cross this, so the wire stays full-width and bf16 and int8
+    engines interoperate."""
+    return KVCache(
+        (piece.k.float() * piece.k_scale[..., None]).to(dtype),
+        (piece.v.float() * piece.v_scale[..., None]).to(dtype))
+
+
+def _check_kv_backend(pool_l, attn_backend: str) -> None:
+    """int8 pools are read by the fused kernel only (the reference also
+    allows its ``dense`` backend, which the port does not have)."""
+    if isinstance(pool_l, QuantKVCache) and attn_backend != "fused":
+        raise ValueError(f"int8 KV pools need the 'fused' backend, got "
+                         f"{attn_backend!r}")
 
 
 def paged_gather(pool: torch.Tensor, block_tables: torch.Tensor):
@@ -144,6 +233,7 @@ def attention_decode_paged(p, cfg: ModelConfig, x: torch.Tensor,
     if not cfg.learned_pos:
         q = apply_rope(q, pos[:, None], cfg.rope_theta)
         k = apply_rope(k, pos[:, None], cfg.rope_theta)
+    _check_kv_backend(pool_l, attn_backend)
     BS = pool_l.k.shape[1]
     blk = _table_entry(block_tables, pos[:, None], BS)[:, 0]
     scatter_pool(pool_l, blk, torch.remainder(pos, BS), k[:, 0], v[:, 0])
@@ -155,7 +245,7 @@ def attention_decode_paged(p, cfg: ModelConfig, x: torch.Tensor,
         o = paged_mixed_attention(
             q.contiguous(), pool_l.k, pool_l.v, block_tables, pos,
             torch.ones_like(pos), torch.zeros_like(pos),
-            num_work=attn_num_work)
+            *_pool_scales(pool_l), num_work=attn_num_work)
     return o.reshape(B, 1, -1) @ p["wo"], pool_l
 
 
@@ -184,6 +274,7 @@ def attention_prefill_chunk_paged(p, cfg: ModelConfig, x: torch.Tensor,
     if not cfg.learned_pos:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
+    _check_kv_backend(pool_l, attn_backend)
     BS = pool_l.k.shape[1]
     scatter_pool(pool_l, _table_entry(block_tables, positions, BS),
                  torch.remainder(positions, BS), k, v)
@@ -193,7 +284,8 @@ def attention_prefill_chunk_paged(p, cfg: ModelConfig, x: torch.Tensor,
                                     ctx, clen)
     else:
         o = paged_mixed_attention(q, pool_l.k, pool_l.v, block_tables, ctx,
-                                  clen, torch.ones_like(ctx))
+                                  clen, torch.ones_like(ctx),
+                                  *_pool_scales(pool_l))
     return o.reshape(B, C, -1) @ p["wo"], pool_l
 
 
@@ -220,6 +312,7 @@ def attention_mixed_paged(p, cfg: ModelConfig, x_dec: torch.Tensor,
     """
     assert not cfg.sliding_window, "paged mixed step is full-attention only"
     assert not cfg.use_mrope, "paged mixed step: RoPE / learned-pos only"
+    _check_kv_backend(pool_l, attn_backend)
     Bd = x_dec.shape[0]
     Bp, C, _ = x_ck.shape
     ctx = ctx_len.to(torch.int32)
@@ -259,7 +352,7 @@ def attention_mixed_paged(p, cfg: ModelConfig, x_dec: torch.Tensor,
         q_all, pool_l.k, pool_l.v, bt_all, torch.cat([pos, ctx]),
         torch.cat([torch.ones_like(pos), clen]),
         torch.cat([torch.zeros_like(pos), torch.ones_like(ctx)]),
-        num_work=attn_num_work)
+        *_pool_scales(pool_l), num_work=attn_num_work)
     out_d, out_c = o[:Bd, :1], o[Bd:]
     return (out_d.reshape(Bd, 1, -1) @ p["wo"],
             out_c.reshape(Bp, C, -1) @ p["wo"], pool_l)

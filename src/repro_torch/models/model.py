@@ -4,7 +4,8 @@ serving path:
 
     model = build_model(cfg)
     params = model.init(seed, device="cuda")
-    pool = model.init_paged_cache(num_blocks, block_size, device="cuda")
+    pool = model.init_paged_cache(num_blocks, block_size, device="cuda",
+                                  kv_dtype="bf16")   # or "int8"
     logits, pool = model.decode_step_paged(params, pool, token, bt, pos)
     logits, pool = model.prefill_chunk(params, pool, tokens, bt, ctx, clen)
     dec_logits, ck_logits, pool = model.mixed_step(
@@ -29,8 +30,9 @@ class Model:
     cfg: ModelConfig
     # init(rng, device="cuda") -> params; rng is a seed or a torch.Generator
     init: Callable[..., Any]
-    # init_paged_cache(num_blocks, block_size, device="cuda")
-    #     -> pool [L, NB, BS, Hkv, Dh]
+    # init_paged_cache(num_blocks, block_size, device="cuda", dtype=None,
+    #                  kv_dtype="bf16") -> pool [L, NB, BS, Hkv, Dh]
+    #     (kv_dtype "int8": a QuantKVCache with scales [L, NB, BS, Hkv])
     init_paged_cache: Callable[..., Any]
     # decode_step_paged(params, pool, token, block_tables, pos, *,
     #                   attn_backend, attn_num_work) -> (logits [B, V], pool)
@@ -54,9 +56,10 @@ def _decoder_model(cfg: ModelConfig) -> Model:
         return transformer.init_decoder(gen, cfg)
 
     def init_paged_cache(num_blocks: int, block_size: int, device="cuda",
-                         dtype=None):
+                         dtype=None, kv_dtype: str = "bf16"):
         return transformer.init_paged_cache(cfg, num_blocks, block_size,
-                                            dtype=dtype, device=device)
+                                            dtype=dtype, device=device,
+                                            kv_dtype=kv_dtype)
 
     def decode_step_paged(params, pool, token, block_tables, pos, *,
                           attn_backend="fused", attn_num_work=None):

@@ -13,7 +13,8 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.ops import flat_work_list
 from repro_torch.models import attention as attn
-from repro_torch.models.attention import KVCache
+from repro_torch.models.attention import (KVCache, layer_pool,
+                                         make_paged_pool)
 from repro_torch.models.common import (ModelConfig, dense_init, embed_init,
                                        rms_norm)
 from repro_torch.models.mlp import ffn, init_ffn
@@ -82,7 +83,8 @@ def forward_decode_paged(p, cfg: ModelConfig, token: torch.Tensor,
                          pool: KVCache, block_tables: torch.Tensor,
                          pos: torch.Tensor, *, attn_backend: str = "fused",
                          attn_num_work=None):
-    """token [B] int; pool leaves [L, NB, BS, Hkv, Dh]; block_tables
+    """token [B] int; pool leaves [L, NB, BS, Hkv, Dh] (a ``KVCache``, or
+    an int8 ``QuantKVCache`` on the fused backend); block_tables
     [B, NBT] int32; pos [B] int32 (-1 = dead slot). Returns
     (logits [B, V], pool) — the pool updated in place. On the ``flat``
     backend the layers share one flat work list."""
@@ -96,7 +98,7 @@ def forward_decode_paged(p, cfg: ModelConfig, token: torch.Tensor,
         pl = layer_params(p["layers"], l)
         h = rms_norm(x, pl["ln_attn"], cfg.norm_eps)
         a, _ = attn.attention_decode_paged(
-            pl["attn"], cfg, h, KVCache(pool.k[l], pool.v[l]), block_tables,
+            pl["attn"], cfg, h, layer_pool(pool, l), block_tables,
             pos, attn_backend=attn_backend, attn_num_work=attn_num_work,
             attn_work_list=work_list)
         x = x + a
@@ -125,7 +127,7 @@ def forward_mixed(p, cfg: ModelConfig, dec_token: torch.Tensor,
         hd = rms_norm(x_dec, pl["ln_attn"], cfg.norm_eps)
         hc = rms_norm(x_ck, pl["ln_attn"], cfg.norm_eps)
         ad, ac, _ = attn.attention_mixed_paged(
-            pl["attn"], cfg, hd, hc, KVCache(pool.k[l], pool.v[l]), bt_dec,
+            pl["attn"], cfg, hd, hc, layer_pool(pool, l), bt_dec,
             bt_ck, pos, ctx_len, chunk_len, attn_backend=attn_backend,
             attn_num_work=attn_num_work)
         x_dec = x_dec + ad
@@ -159,7 +161,7 @@ def forward_prefill_chunk(p, cfg: ModelConfig, tokens: torch.Tensor,
         pl = layer_params(p["layers"], l)
         h = rms_norm(x, pl["ln_attn"], cfg.norm_eps)
         a, _ = attn.attention_prefill_chunk_paged(
-            pl["attn"], cfg, h, KVCache(pool.k[l], pool.v[l]), block_tables,
+            pl["attn"], cfg, h, layer_pool(pool, l), block_tables,
             ctx_len, chunk_len, attn_backend=attn_backend)
         x = x + a
         x = x + _mlp_part(pl, cfg, x)
@@ -168,13 +170,13 @@ def forward_prefill_chunk(p, cfg: ModelConfig, tokens: torch.Tensor,
 
 
 def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
-                     dtype=None, device="cuda") -> KVCache:
-    """Global paged KV pool: leaves [L, NB, BS, Hkv, Dh], zeroed. Blocks
-    are owned by requests via the engine's BlockAllocator; the model
-    only sees block tables."""
+                     dtype=None, device="cuda", kv_dtype: str = "bf16"):
+    """Global paged KV pool: leaves [L, NB, BS, Hkv, Dh], zeroed
+    (``kv_dtype="int8"``: the :class:`~repro_torch.models.attention.
+    QuantKVCache` layout, scales [L, NB, BS, Hkv] starting at zero).
+    Blocks are owned by requests via the engine's BlockAllocator; the
+    model only sees block tables."""
     assert not cfg.sliding_window, "paged cache is full-attention only"
-    shape = (cfg.num_layers, num_blocks, block_size, cfg.num_kv_heads,
-             cfg.head_dim)
-    dt = dtype or cfg.dtype
-    return KVCache(torch.zeros(shape, dtype=dt, device=device),
-                   torch.zeros(shape, dtype=dt, device=device))
+    return make_paged_pool(cfg, num_blocks, block_size, dtype=dtype,
+                           device=device, kv_dtype=kv_dtype,
+                           layers=cfg.num_layers)

@@ -31,16 +31,28 @@ with TF32 off such rounding differences are small enough that
 Live migration exports a request's KV as the reference's contiguous
 ``[L, 1, written, Hkv, Dh]`` piece (mid-prefill: its ``ctx_done`` rows,
 resumed by chunking on the receiver) and imports such pieces, whatever
-engine or framework wrote them.
+engine or framework wrote them. The wire stays full-width: an int8 engine
+dequantizes on export and quantizes on import, so bf16 and int8 engines
+interoperate.
 
-Not ported yet: tensor parallelism, int8 KV, the host-RAM tier, SLO
-preemption, the monolithic/host loop and the non-chunked prefill path.
+``kv_dtype="int8"`` keeps the pool as int8 rows with f32 scales (about
+half the bytes; fused backend only). ``host_kv_budget`` adds the host-RAM
+tier: reclaimed prefix blocks demote to pinned host memory (an async
+device-side copy issued before the allocation that overwrites them,
+waited for only at the end of the step) and promote back with one upload
+at admission. ``preemption=True`` keeps the waiting queue in SLO order
+and lets a blocked higher-class request park a lower-class decode (a
+slot shortage) or drop and recompute its KV (a memory shortage).
+
+Not ported yet: tensor parallelism, the monolithic/host loop and the
+non-chunked prefill path.
 """
 from __future__ import annotations
 
+import dataclasses
 import weakref
 from collections import deque
-from typing import Deque, Dict, List, Optional, Tuple
+from typing import Deque, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -49,8 +61,13 @@ import torch.nn.functional as F
 from repro_torch.core.migration import (gather_kv_blocks, kv_bytes,
                                         scatter_kv_blocks)
 from repro_torch.kernels.cost import pow2_bucket
-from repro_torch.models.attention import KVCache, resolve_paged_backend
+from repro_torch.models.attention import (KV_DTYPES, KVCache, QuantKVCache,
+                                          dequantize_piece, quantize_piece,
+                                          resolve_paged_backend)
 from repro_torch.models.model import Model
+from repro_torch.sched.policy import park_or_recompute
+from repro_torch.sched.slo import (aging_promotion, insert_sorted,
+                                   priority_of, queue_key, tpot_hopeless)
 from repro_torch.serving.block_pool import (BlockAllocator, blocks_for,
                                             chain_hash, prompt_chain)
 from repro_torch.serving.request import ServeRequest, State
@@ -95,14 +112,46 @@ def attn_call(fn, *args, **kwargs):
     return fn(*args, **kwargs)
 
 
-def h2d(arr: np.ndarray, device: torch.device) -> torch.Tensor:
-    """Host-to-device upload that never blocks the host: on CUDA through
-    a pinned staging copy (the caching host allocator keeps it alive until
-    the copy has run)."""
-    t = torch.from_numpy(np.ascontiguousarray(arr))
+def h2d(arr, device: torch.device) -> torch.Tensor:
+    """Host-to-device upload (of a numpy array or a CPU tensor) that never
+    blocks the host: on CUDA through a pinned staging copy (the caching
+    host allocator keeps it alive until the copy has run)."""
+    t = (arr if isinstance(arr, torch.Tensor)
+         else torch.from_numpy(np.ascontiguousarray(arr)))
     if device.type == "cuda":
-        return t.pin_memory().to(device, non_blocking=True)
+        return t.contiguous().pin_memory().to(device, non_blocking=True)
     return t.to(device)
+
+
+class _PendingDemote(NamedTuple):
+    """A demoted block's payload while its device-to-host copy may still
+    be in flight: host leaves ``[L, 1, BS, ...]`` (pinned on CUDA) and the
+    event recorded after the copy (None on the CPU)."""
+    leaves: tuple
+    event: Optional["torch.cuda.Event"]
+
+
+def _materialize(payload):
+    """A host-tier payload whose copy has landed: waits for a pending
+    demote's event (an explicit wait, outside the step's one d2h) and
+    returns its leaves."""
+    if isinstance(payload, _PendingDemote):
+        if payload.event is not None:
+            payload.event.synchronize()
+        return payload.leaves
+    return payload
+
+
+@dataclasses.dataclass
+class _Parked:
+    """A park-preempted request: off its batch slot, KV blocks (and the
+    covering reservation) intact. ``_unpark`` restores it into any free
+    slot with bit-identical continuation."""
+    req: ServeRequest
+    table: List[int]
+    shared: int          # shared prefix-head blocks (released owned=False)
+    rblocks: int         # reservation units the request still holds
+    slot_len: int
 
 
 _next_pow2 = pow2_bucket
@@ -119,10 +168,22 @@ class Engine:
                  token_budget: Optional[int] = None,
                  block_size: int = DEFAULT_BLOCK_SIZE,
                  prefill_token_budget: Optional[int] = None,
-                 attn_backend: Optional[str] = None):
+                 attn_backend: Optional[str] = None,
+                 kv_dtype: str = "bf16", host_kv_budget: int = 0,
+                 preemption: Optional[bool] = None,
+                 slo_time_scale: float = 1.0):
         """The engine runs on the device of ``params["embed"]``; several
         engines may share one ``params`` (each owns only its KV pool).
-        ``attn_backend`` is ``"fused"`` (default) or ``"flat"``."""
+        ``attn_backend`` is ``"fused"`` (default) or ``"flat"``;
+        ``kv_dtype`` ``"bf16"`` (the model's dtype) or ``"int8"`` (fused
+        only); ``host_kv_budget`` the host-RAM tier's tokens (0: off);
+        ``preemption`` SLO preemption (off unless asked, as in the
+        reference's direct construction)."""
+        if kv_dtype not in KV_DTYPES:
+            raise ValueError(f"kv_dtype {kv_dtype!r} not in {KV_DTYPES}")
+        self.attn_backend = resolve_paged_backend(attn_backend)
+        if kv_dtype == "int8" and self.attn_backend != "fused":
+            raise ValueError("int8 KV needs the 'fused' attention backend")
         self.id = engine_id
         self.model = model
         self.params = params
@@ -134,13 +195,23 @@ class Engine:
         assert self.num_blocks > 0, "token_budget < one block"
         # capacity is block-granular
         self.token_budget = self.num_blocks * block_size
-        self.allocator = BlockAllocator(self.num_blocks, block_size)
+        # host-RAM KV tier: reclaimed cached chains demote to a
+        # capacity-bounded host store instead of dying (0 = off)
+        self.host_kv_budget = int(host_kv_budget or 0)
+        self.allocator = BlockAllocator(
+            self.num_blocks, block_size,
+            host_blocks=self.host_kv_budget // block_size)
+        if self.allocator.host_tier_enabled:
+            self.allocator.set_demote_fetch(self._demote_snapshot)
         # +1 garbage block (id num_blocks, never allocated)
         self.garbage_block = self.num_blocks
+        self.kv_dtype = kv_dtype
         self.cache = model.init_paged_cache(self.num_blocks + 1, block_size,
-                                            device=self.device)
+                                            device=self.device,
+                                            kv_dtype=kv_dtype)
+        # pool bytes per block, scales included
+        self._bytes_per_block = kv_bytes(self.cache) / (self.num_blocks + 1)
         self.block_tables: List[List[int]] = [[] for _ in range(max_slots)]
-        self.attn_backend = resolve_paged_backend(attn_backend)
         # fused: chunks and decodes share ONE forward; flat: two forwards
         self.fused_mixed = self.attn_backend == "fused"
         # device mirrors of the decode batch: tables (pow2 width), cache
@@ -161,8 +232,25 @@ class Engine:
         self.slot_len = np.zeros(max_slots, np.int32)       # tokens in cache
         self.slots: List[Optional[ServeRequest]] = [None] * max_slots
         self.waiting: Deque[ServeRequest] = deque()
+        # SLO-tiered preemptive scheduling: the waiting queue sorted by
+        # sched.slo.queue_key; a blocked higher-class request may park
+        # (slot shortage) or recompute-preempt (memory shortage) the
+        # lowest-class resident decode
+        self.slo_sched = bool(preemption)
+        self.slo_time_scale = float(slo_time_scale)
+        self.parked: List[_Parked] = []
+        self._seq = 0                # submission tie-break for queue_key
+        self.preemptions = 0         # victim pauses (park + recompute)
+        self.preempt_recomputes = 0  # victims whose KV was dropped
+        self.resumes = 0             # park restores + recompute completions
+        # resumed decodes whose TPOT is already unrecoverable may not
+        # preempt healthy traffic (counted once per request)
+        self.tpot_skipped = 0
+        self._tpot_hopeless_ids: set = set()
         self.steps = 0
         self.tokens_out = 0
+        # host-tier blocks promoted back onto the device at admission
+        self.promoted_blocks_total = 0
         # prefill cost counters: block-work run by prefill (Σ per chunk
         # ceil((ctx+clen)/BS)) vs prompt tokens served by the prefix index
         self.prefill_work_blocks = 0
@@ -170,6 +258,7 @@ class Engine:
         # last step's grid accounting: flat_items = the TPU work bucket,
         # real_items = Σ ceil(total/BS), padded_items = B·max ceil(total/BS)
         self.last_grid: Dict[str, int] = {}
+        self._faulted = False        # set by a server that crashed it
         _LIVE_ENGINES.append(weakref.ref(self))
 
     # ---- drain-time leak check -------------------------------------------
@@ -182,6 +271,7 @@ class Engine:
             assert all(r is None for r in self.slots), \
                 f"engine {self.id}: undrained slots"
             assert not self.waiting, f"engine {self.id}: undrained queue"
+            assert not self.parked, f"engine {self.id}: undrained parked"
             assert not self._prefill_order, \
                 f"engine {self.id}: dangling prefill order"
         self.allocator.check_invariants()
@@ -238,25 +328,118 @@ class Engine:
         return cache[1]
 
     def _cached_chain(self, req: ServeRequest) -> List[int]:
-        """Longest resident block chain for this prompt."""
+        """Longest device-resident block chain for this prompt."""
         return self.allocator.lookup(self._req_digests(req))
+
+    def _tiered_chain(self, req: ServeRequest):
+        """(device block ids, host digest continuation): the two-tier chain
+        hit admission consumes — device blocks are shared for free, host
+        digests promote at a copy cost."""
+        return self.allocator.lookup_tiered(self._req_digests(req))
 
     def prefix_hint(self, req: ServeRequest):
         """(head_digest, cached_tokens, host_blocks) for dispatch: the
         digest of the prompt's first full block (None for sub-block
-        prompts), the tokens resident here, and 0 host-tier blocks (the
-        port has no host tier yet). The digest is content-derived, so it
-        is the same on every engine."""
+        prompts), the tokens resident here across both tiers, and how many
+        of those blocks are host-resident (routing prices their promote
+        copy). The digest is content-derived, so it is the same on every
+        engine."""
         if len(req.prompt) <= self.block_size:
             return None, 0, 0
         digests = self._req_digests(req)
-        return (digests[0], len(self.allocator.lookup(digests))
-                * self.block_size, 0)
+        dev, host = self.allocator.lookup_tiered(digests)
+        return digests[0], (len(dev) + len(host)) * self.block_size, len(host)
 
     def prefix_digests(self) -> frozenset:
-        """Head digests of every cached chain — the compact advertisement
-        within-stage dispatch tie-breaks on."""
-        return self.allocator.head_digests()
+        """Head digests of every cached chain (either tier) — the compact
+        advertisement within-stage dispatch tie-breaks on."""
+        return (self.allocator.head_digests()
+                | self.allocator.host_head_digests())
+
+    def tiered_digests(self) -> Dict[int, str]:
+        """Head digest -> tier tag ('device' | 'host'): the control plane's
+        warm filter prefers device-warm instances (a host hit pays the
+        promote copy)."""
+        out = {h: "device" for h in self.allocator.head_digests()}
+        for h in self.allocator.host_head_digests():
+            out.setdefault(h, "host")
+        return out
+
+    # ---- host-RAM KV tier ---------------------------------------------------
+    def _demote_snapshot(self, block_id: int) -> _PendingDemote:
+        """Payload fetch the allocator calls when it reclaims a cached
+        block with the host tier on: an ASYNC copy of the block's leaves
+        (``[L, 1, BS, ...]``; int8 pools carry their scale leaves) into
+        pinned host memory, then an event. Stream order makes the copy
+        read the block BEFORE the allocation that triggered the reclaim
+        overwrites it; only :meth:`_flush_demotes` (after the step's one
+        d2h) or a promote of the same block waits for the event."""
+        leaves = []
+        for a in self.cache:
+            src = a[:, block_id:block_id + 1]
+            if self.device.type == "cuda":
+                dst = torch.empty(src.shape, dtype=src.dtype,
+                                  pin_memory=True)
+                dst.copy_(src, non_blocking=True)
+            else:
+                dst = src.clone()
+            leaves.append(dst)
+        event = None
+        if self.device.type == "cuda":
+            event = torch.cuda.Event()
+            event.record()
+        return _PendingDemote(type(self.cache)(*leaves), event)
+
+    def _flush_demotes(self) -> None:
+        """Wait for this step's demote copies and keep their host leaves.
+        Not routed through :func:`d2h`: the one-d2h contract is about the
+        step's tokens; these copies were issued earlier and overlapped
+        the iteration that evicted them."""
+        if self.allocator.host_tier_enabled:
+            self.allocator.host_materialize(_materialize)
+
+    def _promote_blocks(self, req: ServeRequest, shared: List[int],
+                        promo: List[int]) -> List[int]:
+        """Promote a host-tier chain continuation onto the device: allocate
+        owned blocks (covered by the request's admission reservation),
+        upload all payloads in ONE pinned h2d (every leaf's bytes and the
+        block ids packed into one buffer), scatter them with one call, and
+        re-publish each digest with its chain links."""
+        # pop payloads BEFORE allocating: the allocation may reclaim (and
+        # demote) other device blocks, and the resulting host-capacity
+        # pressure must never evict the very entries being promoted
+        payloads = [_materialize(self.allocator.host_pop(h)) for h in promo]
+        ids = self.allocator.allocate(len(promo))
+        host = [torch.as_tensor(np.asarray(ids, np.int64))] + [
+            torch.cat([p[i] for p in payloads], dim=1)
+            for i in range(len(self.cache))]
+        buf = h2d(torch.cat([t.contiguous().reshape(-1).view(torch.uint8)
+                             for t in host]), self.device)
+        dev, at = [], 0
+        for t in host:
+            n = t.numel() * t.element_size()
+            dev.append(buf[at:at + n].view(t.dtype).view(t.shape))
+            at += n
+        scatter_kv_blocks(self.cache, type(self.cache)(*dev[1:]), dev[0])
+        digests = self._req_digests(req)
+        d0 = len(shared)
+        for j, (b, h) in enumerate(zip(ids, promo)):
+            parent = digests[d0 + j - 1] if d0 + j > 0 else 0
+            self.allocator.publish(b, h, head=(d0 + j == 0), parent=parent)
+        self.promoted_blocks_total += len(ids)
+        return ids
+
+    @property
+    def cache_demotions(self) -> int:
+        return self.allocator.cache_demotions
+
+    @property
+    def cache_drops(self) -> int:
+        return self.allocator.cache_drops
+
+    @property
+    def cache_promotions(self) -> int:
+        return self.allocator.cache_promotions
 
     def _publish_prompt(self, req: ServeRequest, slot: int) -> None:
         """Prefill finished: publish the prompt's FULL blocks into the
@@ -271,15 +454,25 @@ class Engine:
             digests.append(chain_hash(
                 parent, req.prompt[start:start + self.block_size]))
         for j, h in enumerate(digests[:n_full]):
-            self.allocator.publish(table[j], h, head=(j == 0))
+            self.allocator.publish(table[j], h, head=(j == 0),
+                                   parent=digests[j - 1] if j else 0)
 
     # ---- intake -------------------------------------------------------------
     def submit(self, req: ServeRequest) -> None:
         req.state = State.WAITING
         # prefix-hit estimate for queued_tokens/load while the request
-        # waits (refreshed authoritatively at admission)
-        req.cached_tokens = len(self._cached_chain(req)) * self.block_size
-        self.waiting.append(req)
+        # waits (refreshed authoritatively at admission); both tiers
+        # count: a host-resident chain still spares the prefill work
+        dev, host = self._tiered_chain(req)
+        req.cached_tokens = (len(dev) + len(host)) * self.block_size
+        if self.slo_sched:
+            self._seq += 1
+            req.sched_key = queue_key(req.slo_class, req.arrival_step,
+                                      self._worst_tokens(req), self._seq,
+                                      time_scale=self.slo_time_scale)
+            insert_sorted(self.waiting, req)
+        else:
+            self.waiting.append(req)
 
     def _free_slot(self) -> Optional[int]:
         for i, r in enumerate(self.slots):
@@ -364,6 +557,8 @@ class Engine:
         bookkeeping only. Returns (rejected, plan), plan = [(slot,
         chunk_len)] under the prefill token budget."""
         rejected: List[ServeRequest] = []
+        if self.slo_sched:
+            self._resume_ready()
         budget = self.prefill_token_budget
         plan: List[Tuple[int, int]] = []
         for slot in list(self._prefill_order):      # oldest admitted first
@@ -384,29 +579,38 @@ class Engine:
                 rejected.append(req)
                 continue
             if not self.can_accept(req):
+                if self.slo_sched and self._preempt_for(req):
+                    continue
                 break
             slot = self._free_slot()
             self.waiting.popleft()
-            # the longest cached chain is shared (refcount++, no copies);
+            # the longest cached chain across both tiers: device blocks
+            # are shared (refcount++, no copies), a host-tier continuation
+            # PROMOTES into owned blocks under this request's reservation;
             # chunking starts at ctx_done = cached_tokens
-            shared = self._cached_chain(req)
+            shared, promo = self._tiered_chain(req)
             self._reserve(req, slot, cached_blocks=len(shared))
             self._slot_shared[slot] = len(shared)
             if shared:
                 self.allocator.share(shared)
-            req.cached_tokens = len(shared) * self.block_size
+            promoted = (self._promote_blocks(req, shared, promo)
+                        if promo else [])
+            req.cached_tokens = (len(shared) + len(promoted)) \
+                * self.block_size
             self.cached_prompt_tokens_total += req.cached_tokens
             req.state = State.RUNNING
             req.engine_id = self.id
             req.slot = slot
             req.ctx_done = req.cached_tokens
-            self.block_tables[slot] = list(shared)
+            self.block_tables[slot] = list(shared) + promoted
             self.slots[slot] = req
             self.slot_len[slot] = req.ctx_done
             self._prefill_order.append(slot)
             clen = min(req.prefill_target_len - req.ctx_done, budget)
             plan.append((slot, clen))
             budget -= clen
+        if self.slo_sched:
+            self._resume_ready()
         return rejected, plan
 
     def _prepare_chunk_arrays(self, plan: List[Tuple[int, int]]):
@@ -435,7 +639,11 @@ class Engine:
         for j, (slot, clen) in enumerate(plan):
             req = self.slots[slot]
             ctx = req.ctx_done
-            toks[j, :clen] = req.prompt[ctx:ctx + clen]
+            # recompute-preempted and redispatched requests rebuild KV for
+            # the resume prefix (prompt + generated-so-far but the last)
+            src = (req.resume_tokens if req.resume_tokens is not None
+                   else req.prompt)
+            toks[j, :clen] = src[ctx:ctx + clen]
             table = self.block_tables[slot]
             bt[j, :len(table)] = table
             ctxs[j] = ctx
@@ -458,6 +666,12 @@ class Engine:
             self.slot_len[slot] = req.ctx_done
             if req.ctx_done < T:
                 continue
+            if req.prefill_target is not None:
+                # resume complete: rows 0..T-1 rebuilt, decoding continues
+                # from generated[-1] at position T; the chunk's last logits
+                # reproduce that token and are discarded
+                self._finish_resume(req, slot, T)
+                continue
             self._publish_prompt(req, slot)
             self._prefill_order.remove(slot)
             tok_dev = first_toks[j]
@@ -473,6 +687,203 @@ class Engine:
             self._dev_tok[slot] = tok_dev
             self._pending_first.append((req, tok_dev))
             completed.append(req)
+
+    # ---- SLO preemption ------------------------------------------------------
+    def _victim_slots(self, pr: int) -> List[int]:
+        """Preemptable slots for a priority-``pr`` preemptor: strictly
+        lower class (uniform-class traffic never preempts), fully
+        prefilled, with >= 1 synced generated token."""
+        return [i for i, r in enumerate(self.slots)
+                if r is not None and not r.prefilling and r.generated
+                and priority_of(r.slo_class) > pr]
+
+    def _mem_shortfall(self, req: ServeRequest) -> int:
+        """Blocks the allocator is short of admitting ``req`` (<= 0: the
+        blocker is a slot, not memory)."""
+        need = blocks_for(self._worst_tokens(req), self.block_size)
+        if req.state is not State.RUNNING:
+            chain = self._cached_chain(req)
+            need += self.allocator.revival_cost(chain) - len(chain)
+        return need - self.allocator.headroom_blocks
+
+    def _preempt_for(self, req: ServeRequest) -> bool:
+        """Make room for a blocked higher-class request by preempting the
+        lowest-class, largest resident victim: park it (slot shortage) or
+        drop and recompute its KV (memory shortage). Returns True if a
+        victim was preempted; the caller re-checks admission."""
+        if (req.generated and req.first_token_step is not None
+                and tpot_hopeless(req.slo_class, req.first_token_step,
+                                  self.steps, req.max_new_tokens,
+                                  time_scale=self.slo_time_scale)):
+            # TPOT-deadline admission: a resumed decode past recovery
+            # waits for organic capacity instead of preempting
+            if req.req_id not in self._tpot_hopeless_ids:
+                self._tpot_hopeless_ids.add(req.req_id)
+                self.tpot_skipped += 1
+            return False
+        pr = priority_of(req.slo_class)
+        short = self._mem_shortfall(req)
+        cands = self._victim_slots(pr)
+        if not cands:
+            # memory may be pinned only by parked lower-class requests
+            return short > 0 and self._preempt_parked(pr)
+        slot = max(cands, key=lambda i: (
+            priority_of(self.slots[i].slo_class), len(self.block_tables[i])))
+        mode = park_or_recompute(must_free_blocks=max(short, 0),
+                                 kv_tokens=int(self.slot_len[slot]) - 1)
+        if mode == "recompute":
+            self._preempt_recompute(slot)
+        else:
+            self._preempt_park(slot)
+        return True
+
+    def _preempt_park(self, slot: int) -> None:
+        """Pause a resident decode keeping its KV: its blocks pin via
+        ``BlockAllocator.park`` and its reservation stays, so resume is a
+        bookkeeping restore with a bit-identical continuation."""
+        req = self.slots[slot]
+        table = self.block_tables[slot]
+        self.allocator.park(table)
+        self._seq += 1
+        # size 0: a parked request outranks an equal-deadline waiting one
+        req.sched_key = queue_key(req.slo_class, req.arrival_step, 0.0,
+                                  self._seq, time_scale=self.slo_time_scale)
+        self.parked.append(_Parked(req, table, self._slot_shared[slot],
+                                   self._slot_rblocks[slot],
+                                   int(self.slot_len[slot])))
+        self._slot_shared[slot] = 0
+        self._slot_rblocks[slot] = 0
+        self.block_tables[slot] = []
+        self._dev_clear_slot(slot)
+        self.slots[slot] = None
+        self.slot_len[slot] = 0
+        req.slot = None
+        req.state = State.PREEMPTED
+        req.preemptions += 1
+        self.preemptions += 1
+
+    def _preempt_recompute(self, slot: int) -> None:
+        """Drop a resident decode's KV (blocks + reservation) and re-enqueue
+        it to rebuild by chunked prefill over its resume prefix."""
+        req = self.slots[slot]
+        written = int(self.slot_len[slot]) - 1
+        self._release(slot)
+        self._requeue_recompute(req, written)
+
+    def _preempt_parked(self, pr: int) -> bool:
+        """Recompute-preempt the largest parked request of a class below
+        ``pr``: the only way to free memory held by parked victims."""
+        cands = [p for p in self.parked if priority_of(p.req.slo_class) > pr]
+        if not cands:
+            return False
+        rec = max(cands, key=lambda p: (priority_of(p.req.slo_class),
+                                        len(p.table)))
+        self.parked.remove(rec)
+        self.allocator.unpark(rec.table)
+        if rec.shared:
+            self.allocator.release(rec.table[:rec.shared], owned=False)
+            self.allocator.release(rec.table[rec.shared:], owned=True)
+        else:
+            self.allocator.release(rec.table, owned=True)
+        self.allocator.unreserve(rec.rblocks)
+        self._requeue_recompute(rec.req, rec.slot_len - 1)
+        return True
+
+    def _requeue_recompute(self, req: ServeRequest, written: int) -> None:
+        """Re-enqueue a preempted decode as a resume job: prefill rebuilds
+        ``written`` rows (prompt + generated[:-1]); the last sampled token
+        then decodes at position ``written`` as it would have unpreempted."""
+        req.prefill_target = written
+        req.resume_tokens = np.concatenate(
+            [np.asarray(req.prompt, np.int32),
+             np.asarray(req.generated[:-1], np.int32)])
+        assert len(req.resume_tokens) == written
+        req.ctx_done = 0
+        req.cached_tokens = 0
+        req.slot = None
+        req.state = State.WAITING
+        req.preemptions += 1
+        req.preempted_step = self.steps      # aging clock starts now
+        self.preemptions += 1
+        self.preempt_recomputes += 1
+        self._seq += 1
+        req.sched_key = queue_key(req.slo_class, req.arrival_step,
+                                  self._worst_tokens(req), self._seq,
+                                  time_scale=self.slo_time_scale)
+        insert_sorted(self.waiting, req)
+
+    def _age_waiting(self) -> None:
+        """Starvation guard: a recompute-preempted request still waiting
+        climbs one priority class per TTFT budget elapsed since its
+        preemption (``sched.slo.aging_promotion``); its key keeps its
+        deadline, size and sequence components. The reference runs it
+        only on its whole-prompt admission path, which the port does not
+        have; its chunked path — the one both serve — does not age, and
+        the port keeps that so the two make the same decisions."""
+        changed = False
+        for req in self.waiting:
+            if req.preempted_step is None:
+                continue
+            promote = aging_promotion(req.slo_class, req.preempted_step,
+                                      self.steps,
+                                      time_scale=self.slo_time_scale)
+            if promote <= 0:
+                continue
+            key = queue_key(req.slo_class, req.arrival_step,
+                            self._worst_tokens(req), req.sched_key[3],
+                            time_scale=self.slo_time_scale, promote=promote)
+            if key != req.sched_key:
+                req.sched_key = key
+                changed = True
+        if changed:
+            ordered = sorted(self.waiting, key=lambda r: r.sched_key)
+            self.waiting.clear()
+            self.waiting.extend(ordered)
+
+    def _resume_ready(self) -> None:
+        """Restore parked requests into free slots — unless a waiting
+        request outranks the best parked one."""
+        while self.parked:
+            slot = self._free_slot()
+            if slot is None:
+                return
+            rec = min(self.parked, key=lambda p: p.req.sched_key)
+            if self.waiting and self.waiting[0].sched_key < rec.req.sched_key:
+                return
+            self.parked.remove(rec)
+            self._unpark(rec, slot)
+
+    def _unpark(self, rec: _Parked, slot: int) -> None:
+        req = rec.req
+        self.allocator.unpark(rec.table)
+        self.block_tables[slot] = rec.table
+        self._slot_shared[slot] = rec.shared
+        self._slot_rblocks[slot] = rec.rblocks
+        self.slots[slot] = req
+        self.slot_len[slot] = rec.slot_len
+        req.slot = slot
+        req.state = State.RUNNING
+        self.resumes += 1
+        self._ensure_nbt_cap(len(rec.table))
+        self._dev_set_table(slot, rec.table)
+        self._dev_len[slot].fill_(rec.slot_len)
+        self._dev_tok[slot].fill_(int(req.generated[-1]))
+
+    def _finish_resume(self, req: ServeRequest, slot: int, T: int) -> None:
+        """A recompute resume's last chunk landed: rows 0..T-1 are back;
+        re-arm decode so ``generated[-1]`` writes row T next. No token is
+        sampled and nothing is re-published."""
+        self._prefill_order.remove(slot)
+        req.prefill_target = None
+        req.resume_tokens = None
+        req.ctx_done = len(req.prompt)
+        self.slot_len[slot] = T + 1
+        self.resumes += 1
+        table = self.block_tables[slot]
+        self._ensure_nbt_cap(len(table))
+        self._dev_set_table(slot, table)
+        self._dev_len[slot].fill_(T + 1)
+        self._dev_tok[slot].fill_(int(req.generated[-1]))
 
     # ---- one continuous-batching iteration ----------------------------------
     @torch.no_grad()
@@ -547,7 +958,8 @@ class Engine:
             # last iteration (eos finishes are cut after the transfer); a
             # first token still on the device counts as generated
             pend = {id(r) for r, _ in self._pending_first}
-            cap = 1 if (self.waiting or self._prefill_order) else burst
+            cap = 1 if (self.waiting or self._prefill_order
+                        or self.parked) else burst
             h = _pow2_floor(max(1, min(
                 [cap] + [min(r.max_new_tokens - len(r.generated)
                              - (id(r) in pend),
@@ -612,6 +1024,7 @@ class Engine:
                     finished.append(r)
                     self._release(i)
         self.steps = base + max(h - 1, 0)
+        self._flush_demotes()
         assert self.free_tokens() >= 0, "admission let the budget go negative"
         return finished
 
@@ -675,9 +1088,13 @@ class Engine:
         assert req is not None
         length = int(self.slot_len[slot]) - (0 if req.prefilling else 1)
         ids = h2d(np.asarray(self.block_tables[slot], np.int64), self.device)
-        piece = KVCache(*(
+        gathered = gather_kv_blocks(self.cache, ids)
+        piece = type(gathered)(*(
             a.reshape(a.shape[0], 1, -1, *a.shape[3:])[:, :, :length]
-            for a in gather_kv_blocks(self.cache, ids)))
+            for a in gathered))
+        if isinstance(piece, QuantKVCache):
+            # the wire stays full-width: bf16 and int8 engines interoperate
+            piece = dequantize_piece(piece, self.model.cfg.dtype)
         return req, piece, kv_bytes(piece)
 
     def evict_slot(self, slot: int) -> None:
@@ -722,16 +1139,22 @@ class Engine:
         req.tokens_by_engine.setdefault(self.id, 0)
         self.slots[slot] = req
         self.slot_len[slot] = length
+        self._flush_demotes()       # the import's allocation may demote
         return True
 
-    def _write_prompt_blocks(self, piece: KVCache, block_ids: List[int]):
+    def _write_prompt_blocks(self, piece, block_ids: List[int]):
         """Scatter a contiguous piece (leaves ``[L, 1, T, ...]``, T <=
-        len(block_ids) * BS) into physical blocks ``block_ids``."""
+        len(block_ids) * BS) into physical blocks ``block_ids``; a
+        full-width piece headed for an int8 pool is quantized first (its
+        zero padding then has int8 0 and scale 0)."""
         nb, BS = len(block_ids), self.block_size
+        piece = type(piece)(*(p.to(self.device) for p in piece))
+        if (isinstance(self.cache, QuantKVCache)
+                and not isinstance(piece, QuantKVCache)):
+            piece = quantize_piece(piece)
 
         def pack(p):
-            p = p.to(self.device)
-            p = F.pad(p, (0, 0, 0, 0, 0, nb * BS - p.shape[2]))
+            p = F.pad(p, [0, 0] * (p.dim() - 3) + [0, nb * BS - p.shape[2]])
             return p[:, 0].reshape(p.shape[0], nb, BS, *p.shape[3:])
-        scatter_kv_blocks(self.cache, KVCache(*(pack(p) for p in piece)),
+        scatter_kv_blocks(self.cache, type(piece)(*(pack(p) for p in piece)),
                           h2d(np.asarray(block_ids, np.int64), self.device))

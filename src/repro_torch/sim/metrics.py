@@ -1,12 +1,14 @@
-"""The port's copy of the SLO formula of ``repro.sim.metrics``
-(framework-free): per-class attainment and goodput-under-SLO, which
-``MILSServer.summary`` reports. Entries are (slo_class, ttft, tpot,
-output_tokens) in abstract time units; ``time_scale`` converts the spec
-deadlines into the caller's clock (steps per unit for the server) and
-``scale`` is the paper's SLO-scale sweep knob (§6.4)."""
+"""The port's copy of the SLO and failure-accounting formulas of
+``repro.sim.metrics`` (framework-free): per-class attainment and
+goodput-under-SLO, and the rejected/failed/redispatched/retries/downtime
+counts, which ``MILSServer.summary`` reports. SLO entries are
+(slo_class, ttft, tpot, output_tokens) in abstract time units;
+``time_scale`` converts the spec deadlines into the caller's clock (steps
+per unit for the server) and ``scale`` is the paper's SLO-scale sweep
+knob (§6.4)."""
 from __future__ import annotations
 
-from typing import Dict, Iterable, Tuple
+from typing import Dict, Iterable, Optional, Tuple
 
 from repro_torch.sched.slo import slo_of
 
@@ -40,3 +42,28 @@ def class_slo_summary(entries: Iterable[Tuple[str, float, float, int]],
         d["attainment"] = d["slo_ok"] / max(d["requests"], 1)
         d["goodput_tok_s"] = d["goodput_tokens"] / dur
     return per
+
+
+def fault_summary(flags: Iterable[Tuple[bool, bool, int]], *,
+                  retries: int = 0,
+                  downtime: Optional[Dict[int, float]] = None
+                  ) -> Dict[str, float]:
+    """Failure accounting of a run: ``flags`` are (rejected, failed,
+    redispatches) per finished request; ``retries`` the control plane's
+    failed migration attempts; ``downtime`` per-instance time down."""
+    rejected = failed = redispatched = 0
+    for rej, fail, redisp in flags:
+        rejected += int(bool(rej))
+        failed += int(bool(fail))
+        redispatched += int(redisp > 0)
+    out: Dict[str, float] = {
+        "rejected": rejected,
+        "failed": failed,
+        "redispatched": redispatched,
+        "retries": int(retries),
+    }
+    downtime = downtime or {}
+    out["downtime_total"] = float(sum(downtime.values()))
+    for iid in sorted(downtime):
+        out[f"downtime_i{iid}"] = float(downtime[iid])
+    return out

@@ -30,12 +30,17 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "assert not bad, bad\n"
-        "print(len([n for n in sys.modules if n.startswith('repro_torch')]))\n")
+        "print(' '.join(n for n in sys.modules if n.startswith('repro_torch')))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 15       # every module imported
+    loaded = set(out.stdout.split())
+    assert len(loaded) >= 15                       # every module imported
+    # the modules of the int8, preemption, host tier and fault paths
+    assert {"repro_torch.sched.policy", "repro_torch.sched.slo",
+            "repro_torch.control.faults", "repro_torch.serving.block_pool",
+            "repro_torch.sim.metrics"} <= loaded
 
 
 @pytest.mark.parametrize("path", _port_files(),

@@ -1,4 +1,5 @@
-"""The port's fused mixed-attention kernel module vs the JAX reference.
+"""The port's fused mixed-attention kernel module vs the JAX reference
+(its int8 mode's CPU tests are in ``tests/test_torch_int8.py``).
 
 On the CPU the wrapper runs its plain PyTorch version, which is held
 against the Pallas kernel in interpret mode on the mixed case of
@@ -143,6 +144,34 @@ def test_cuda_kernel_matches_plain(cuda, dtype, tol):
         torch.cuda.synchronize()
         assert tk.LAUNCHES == launches + 1
         plain = tk.paged_mixed_attention_plain(*floats, *ints)
+        torch.testing.assert_close(out.float(), plain.float(), atol=tol,
+                                   rtol=tol)
+        assert math.isfinite(out.float().abs().max().item())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4),
+                                       ("bfloat16", 5e-3)])
+def test_cuda_int8_kernel_matches_plain(cuda, dtype, tol):
+    """The int8 mode (int8 pools, f32 per-row scales, dequantized in
+    registers) == its plain version on the card, at llama3.2-3b heads and
+    at Dh 64; it counts on INT8_LAUNCHES, not LAUNCHES. The scales are
+    amax/127 of each pool row, as quantize-on-write makes them."""
+    from repro_torch.models.attention import quantize_kv
+    dt = getattr(torch, dtype)
+    for H, Hkv, Dh, C in ((24, 8, 128, 64), (8, 2, 64, 48)):
+        q, kp, vp, bt, ctx, seg, tags = mixed_case(
+            SEGS, C, H, Hkv, Dh, 16, alias=ALIAS)
+        qd = torch.from_numpy(q).to(cuda, dt)
+        (kq, ks), (vq, vs) = (quantize_kv(torch.from_numpy(a).to(cuda))
+                              for a in (kp, vp))
+        ints = [torch.from_numpy(a).to(cuda) for a in (bt, ctx, seg, tags)]
+        launches, int8_launches = tk.LAUNCHES, tk.INT8_LAUNCHES
+        out = tk.paged_mixed_attention(qd, kq, vq, *ints, ks, vs)
+        torch.cuda.synchronize()
+        assert (tk.LAUNCHES, tk.INT8_LAUNCHES) == (launches,
+                                                   int8_launches + 1)
+        plain = tk.paged_mixed_attention_plain(qd, kq, vq, *ints, ks, vs)
         torch.testing.assert_close(out.float(), plain.float(), atol=tol,
                                    rtol=tol)
         assert math.isfinite(out.float().abs().max().item())

@@ -41,7 +41,8 @@ def build(np, model, params, backend):
     from repro_torch.serving.engine import Engine
     from repro_torch.serving.server import MILSServer, ServerConfig
     srv = MILSServer(model, params, default_plan(4, 8192),
-                     QoEModel(np.array(DEFAULT_QOE)), ServerConfig(seed=SEED),
+                     QoEModel(np.array(DEFAULT_QOE)),
+                     ServerConfig(seed=SEED, preemption=False),
                      engine_factory=lambda i: Engine(
                          i, model, params, max_slots=8, max_seq=8192,
                          token_budget=32768, attn_backend=backend))
