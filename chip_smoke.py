@@ -17,8 +17,12 @@ the last line:
    989 TFLOP/s bf16): the fused mixed kernel, its int8 mode (int8 pool,
    f32 scales; also held to the bf16 kernel on the unquantized pool, per
    live row cos >= 0.999 and max abs <= 0.05), the flat decode kernel
-   (rows over 24, 3300, 650 and 770 tokens and a dead slot) and the
-   chunked prefill kernel (chunks of 256 at ctx 2800 and 0, one of 100);
+   (rows over 24, 3300, 650 and 770 tokens and a dead slot), the chunked
+   prefill kernel (chunks of 256 at ctx 2800 and 0, one of 100), the grid
+   decode kernel at the flat one's rows (also held to the flat kernel's
+   output), the contiguous decode kernel padded and ragged at the paper's
+   200v10000 setup (batch 512, bf16; f32 on 64 of its rows) and the
+   contiguous causal prefill kernel at B 2, T 4096, lengths 4096/4059;
 4. a full-width llama3.2-3b engine (bf16, random seeded weights, fused
    backend, preemption off) serving 8 requests with prompts of 16..5897
    tokens, under CUDA sync-debug "error" mode: every request finishes
@@ -40,7 +44,7 @@ the last line:
    least 2 live migrations, every engine drains clean, each engine step
    makes at most one device-to-host transfer and two attention-bearing
    forwards, and the flat kernels launch on every layer of those
-   forwards;
+   forwards and no other kernel runs;
 7. the same cluster, f32, 2 layers, 2 engines, 6 requests, preemption
    off, once on the card and once on the CPU: identical decision logs and
    token streams;
@@ -58,7 +62,26 @@ the last line:
    card and once on the CPU: identical decision logs, streams and
    summary counters; the parked, recomputed and redispatched requests'
    streams equal those of a run with preemption and faults off;
-10. one JSON line of every kernel, then, last, ``{"ok": true, ...}``.
+10. phase 6 on the grid backend: the grid decode kernel launches on every
+    layer of every decode forward, the chunked prefill kernel on every
+    layer of every chunk forward, no other kernel runs, at most one
+    device-to-host transfer per engine step, sync-debug "error" clean;
+11. phase 4's trace on a dense engine over an int8 pool (gather + masked
+    SDPA in plain PyTorch): no kernel launches, every request finishes;
+    its greedy streams against the fused int8 engine's on the same trace:
+    where a stream parts, both engines, fed the context up to that token,
+    must put both streams' tokens within a few bf16 ulps of their best
+    logit;
+12. phase 7 on grid engines and phase 5 on a dense engine over an int8
+    pool, on the card and on the CPU: identical decision logs and streams;
+13. the paper's Fig. 2 through ``kernels.api.decode_attention``: the
+    padded and ragged contiguous decode kernels on the mixed batches
+    200v10000 (batch 512) and 1000v50000 (batch 128, cut from 512 by the
+    card's memory), each held to its plain version, and the padded kernel
+    on a homogeneous batch of the same size and total tokens: the
+    heterogeneity tax and the ragged speedup; then one causal prefill
+    through ``api.prefill_attention`` held to the oracle;
+14. one JSON line of every kernel, then, last, ``{"ok": true, ...}``.
 
 It needs one CUDA card and fails without one; it imports nothing of JAX.
 """
@@ -441,6 +464,204 @@ def phase_flat_kernels(np, torch, F, dk, pk, flush):
     return out
 
 
+def launch_counts(tk, dk, pk):
+    """Every kernel's launch count, by name."""
+    return {"fused": tk.LAUNCHES, "fused_int8": tk.INT8_LAUNCHES,
+            "flat_decode": dk.LAUNCHES, "grid_decode": dk.GRID_LAUNCHES,
+            "chunked_prefill": pk.LAUNCHES,
+            "contiguous_decode_padded": dk.PADDED_LAUNCHES,
+            "contiguous_decode_ragged": dk.RAGGED_LAUNCHES,
+            "contiguous_prefill": pk.CONTIG_LAUNCHES}
+
+
+def zero_counts(tk, dk, pk):
+    tk.LAUNCHES = tk.INT8_LAUNCHES = 0
+    dk.LAUNCHES = dk.GRID_LAUNCHES = 0
+    dk.PADDED_LAUNCHES = dk.RAGGED_LAUNCHES = 0
+    pk.LAUNCHES = pk.CONTIG_LAUNCHES = 0
+
+
+def randn(torch, gen, shape, dtype):
+    """Seeded normal values made on the card (the Fig. 2 caches are tens of
+    GB: numpy would take minutes)."""
+    return torch.randn(shape, generator=gen, device="cuda", dtype=dtype)
+
+
+def contiguous_work(lens, H, Hkv, Dh, out_rows):
+    """(bytes, flops) the contiguous decode needs: the K/V rows below each
+    length (Σ L_b), q and the output once, 4·Dh flops per (query head,
+    visible key)."""
+    keys = sum(lens)
+    nbytes = (keys * Hkv * Dh * 2 * 2 + 2 * out_rows * H * Dh * 2
+              + 4 * len(lens))
+    return nbytes, 4.0 * keys * H * Dh
+
+
+def bound_of(nbytes, flops):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+# the paper's Fig. 2 setups (benchmarks/fig2_heterogeneity.py): batch, short
+# length, long length; half the batch at each. 1000v50000 is cut from the
+# paper's batch 512 to 128: at 512 its K/V would take 105 GB.
+FIG2_SETUPS = (("200v10000", 512, 200, 10000), ("1000v50000", 128, 1000,
+                                                  50000))
+FIG2_HEADS = (24, 8, 128)          # llama3.2-3b, AttnSpec(24, 8, 128)
+FIG2_BLOCK = 512
+# the contiguous prefill's shape: B 2, T 4096, row lengths
+PREFILL_T, PREFILL_LENS = 4096, (4096, 4059)
+
+
+def phase_grid_contiguous_kernels(np, torch, F, dk, pk, flush):
+    """Phase 3, kernels #4-#6 vs their plain versions; times and bounds:
+    the grid decode kernel at #2's rows (also held to #2's output), the
+    contiguous decode kernel in both modes at the 200v10000 setup, the
+    contiguous prefill kernel at B 2, T 4096."""
+    H, Hkv, Dh = FIG2_HEADS
+    G = H // Hkv
+    dev = torch.device("cuda")
+    out = {}
+
+    # ---- #4: grid paged decode, at #2's rows (24, 3300, 650, 770, dead)
+    BS = 16
+    lens = [24, 3300, 650, 770, 0]
+    q4, kp, vp, bt, ctx, seg, tags = mixed_case(
+        np, [("dec", n) for n in lens], 1, H, Hkv, Dh, BS, (2, 3, 10), SEED)
+    ints = [torch.from_numpy(a).to(dev) for a in (bt, np.asarray(lens,
+                                                                 np.int32))]
+    errs = {}
+    for name, dt, tol in (("f32", torch.float32, 1e-4),
+                          ("bf16", torch.bfloat16, 5e-3)):
+        fl = [torch.from_numpy(a).to(dev, dt) for a in (q4[:, 0], kp, vp)]
+        got = dk.paged_decode_attention(*fl, *ints)
+        torch.cuda.synchronize()
+        errs[name] = hold(torch, f"grid decode {name}", got,
+                          dk.paged_decode_attention_plain(*fl, *ints), tol)
+        flat_err = hold(torch, f"grid vs flat decode {name}", got,
+                        dk.paged_decode_attention_flat(*fl, *ints), tol)
+        check(not got[-1].float().abs().max().item(), "dead slot not zero")
+        log(f"phase 3: grid decode vs plain {name}: max_abs_err="
+            f"{errs[name]:.3e}, vs the flat kernel {flat_err:.3e} "
+            f"(tolerance {tol})")
+    kernel_ms = time_ms(torch, lambda: dk.paged_decode_attention(*fl, *ints),
+                        50, flush)
+    plain_ms = time_ms(torch, lambda: dk.paged_decode_attention_plain(
+        *fl, *ints), 10, flush)
+    kg, vg = sdpa_inputs(torch, fl[1:], ints[0], G)
+    S = kg.shape[2]
+    mask = (torch.arange(S, device=dev)[None]
+            < ints[1].clamp(min=1)[:, None])[:, None, None]   # [B,1,1,S]
+    library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        fl[0][:, :, None], kg, vg, attn_mask=mask), 20, flush)
+    bound_ms, by, nb, fo = work_bound(bt, ctx, seg, tags, BS, H, Hkv, Dh,
+                                      len(lens))
+    log(f"phase 3: grid decode bf16 kernel {kernel_ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, library sdpa {library_ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms ({by}: {nb / 1e6:.1f} MB, {fo / 1e9:.2f} GFLOP)")
+    out["grid"] = {"max_abs_err": errs["bf16"], "max_abs_err_f32":
+                   errs["f32"], "ms": kernel_ms, "plain_ms": plain_ms,
+                   "library_ms": library_ms, "bound_ms": bound_ms,
+                   "bound_by": by}
+    del fl, kg, vg
+
+    # ---- #5: contiguous decode, padded and ragged, at 200v10000
+    _, B, short, long_ = FIG2_SETUPS[0]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    for mode in ("padded", "ragged"):
+        out[mode] = {}
+    # f32 on 64 rows of the setup (32 short, 32 long): 5.2 GB of K/V
+    half = min(32, B // 2)
+    sub = [short] * half + [long_] * half
+    q, k, v = (randn(torch, gen, (len(sub), *shape), torch.float32)
+               for shape in ((H, Dh), (long_, Hkv, Dh), (long_, Hkv, Dh)))
+    lengths = torch.tensor(sub, dtype=torch.int32, device=dev)
+    for mode, ragged in (("padded", False), ("ragged", True)):
+        got = dk.decode_attention(q, k, v, lengths, block_s=FIG2_BLOCK,
+                                  ragged=ragged)
+        torch.cuda.synchronize()
+        out[mode]["max_abs_err_f32"] = hold(
+            torch, f"contiguous decode {mode} f32", got,
+            dk.decode_attention_plain(q, k, v, lengths, block_s=FIG2_BLOCK,
+                                      ragged=ragged), 1e-4)
+    del q, k, v
+    torch.cuda.empty_cache()
+    # bf16 at the whole setup: 20.97 GB of K/V
+    lens = [short] * (B // 2) + [long_] * (B // 2)
+    q, k, v = (randn(torch, gen, (B, *shape), torch.bfloat16)
+               for shape in ((H, Dh), (long_, Hkv, Dh), (long_, Hkv, Dh)))
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    nb, fo = contiguous_work(lens, H, Hkv, Dh, B)
+    bound_ms, by = bound_of(nb, fo)
+    # library: one SDPA over the caches as they lie, a bool length mask; the
+    # G query heads of each kv head ride as its query rows (enable_gqa's
+    # function, without expanding K/V threefold past the card's memory)
+    mask = (torch.arange(long_, device=dev)[None]
+            < lengths[:, None])[:, None, None]                # [B,1,1,S]
+    qr = q.reshape(B, Hkv, G, Dh)
+    kt, vt = k.transpose(1, 2), v.transpose(1, 2)             # [B,Hkv,S,Dh]
+    library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        qr, kt, vt, attn_mask=mask), 5, flush)
+    for mode, ragged in (("padded", False), ("ragged", True)):
+        got = dk.decode_attention(q, k, v, lengths, block_s=FIG2_BLOCK,
+                                  ragged=ragged)
+        torch.cuda.synchronize()
+        err = hold(torch, f"contiguous decode {mode} bf16", got,
+                   dk.decode_attention_plain(q, k, v, lengths,
+                                             block_s=FIG2_BLOCK,
+                                             ragged=ragged), 5e-3)
+        kernel_ms = time_ms(torch, lambda: dk.decode_attention(
+            q, k, v, lengths, block_s=FIG2_BLOCK, ragged=ragged), 10, flush)
+        plain_ms = time_ms(torch, lambda: dk.decode_attention_plain(
+            q, k, v, lengths, block_s=FIG2_BLOCK, ragged=ragged), 2, flush)
+        log(f"phase 3: contiguous decode {mode} vs plain: max_abs_err "
+            f"f32 {out[mode]['max_abs_err_f32']:.3e} ({2 * half} rows), bf16 "
+            f"{err:.3e} (tolerances 1e-4, 5e-3); bf16 kernel "
+            f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, library sdpa "
+            f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({by}: "
+            f"{nb / 1e9:.3f} GB, {fo / 1e9:.2f} GFLOP) at B {B}, S {long_}")
+        out[mode].update({"max_abs_err": err, "ms": kernel_ms,
+                          "plain_ms": plain_ms, "library_ms": library_ms,
+                          "bound_ms": bound_ms, "bound_by": by})
+    del q, k, v, kt, vt, qr, mask
+    torch.cuda.empty_cache()
+
+    # ---- #6: contiguous causal prefill at B 2, T 4096
+    T, plens = PREFILL_T, PREFILL_LENS
+    errs = {}
+    for name, dt, tol in (("f32", torch.float32, 1e-4),
+                          ("bf16", torch.bfloat16, 5e-3)):
+        q, k, v = (randn(torch, gen, (2, T, n, Dh), dt) for n in (H, Hkv, Hkv))
+        lengths = torch.tensor(plens, dtype=torch.int32, device=dev)
+        got = pk.prefill_attention(q, k, v, lengths)
+        torch.cuda.synchronize()
+        errs[name] = hold(torch, f"contiguous prefill {name}", got,
+                          pk.prefill_attention_plain(q, k, v, lengths), tol)
+        log(f"phase 3: contiguous prefill vs plain {name}: max_abs_err="
+            f"{errs[name]:.3e} (tolerance {tol})")
+    kernel_ms = time_ms(torch, lambda: pk.prefill_attention(q, k, v, lengths),
+                        10, flush)
+    plain_ms = time_ms(torch, lambda: pk.prefill_attention_plain(
+        q, k, v, lengths), 3, flush)
+    qs, ks, vs = (x.transpose(1, 2) for x in (q, k, v))
+    library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        qs, ks, vs, is_causal=True, enable_gqa=True), 10, flush)
+    pairs = sum(min(t + 1, n) for n in plens for t in range(T))
+    nb = 2 * T * (H + 2 * Hkv + H) * Dh * 2 + 2 * 4
+    bound_ms, by = bound_of(nb, 4.0 * pairs * H * Dh)
+    log(f"phase 3: contiguous prefill bf16 kernel {kernel_ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, library sdpa (is_causal, enable_gqa) "
+        f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({by}: "
+        f"{nb / 1e6:.1f} MB, {4.0 * pairs * H * Dh / 1e9:.2f} GFLOP)")
+    out["prefill"] = {"max_abs_err": errs["bf16"], "max_abs_err_f32":
+                      errs["f32"], "ms": kernel_ms, "plain_ms": plain_ms,
+                      "library_ms": library_ms, "bound_ms": bound_ms,
+                      "bound_by": by}
+    return out
+
+
 # --------------------------------------------------------------------------
 # Phase 4: the full-width engine
 # --------------------------------------------------------------------------
@@ -560,9 +781,153 @@ def phase_engine(np, torch, cfg_mod, model_mod, engine_mod, request_mod, tk):
 
 
 # --------------------------------------------------------------------------
+# Phase 11: the dense backend on int8 pools, against the fused int8 engine
+# --------------------------------------------------------------------------
+MARGIN_ULPS = 8
+
+
+def bf16_ulp(x):
+    """The spacing of bf16 numbers at ``x`` (8 significant bits)."""
+    return 2.0 ** (math.floor(math.log2(abs(x))) - 7) if x else 2.0 ** -133
+
+
+def _last_chunk_logits(np, torch, dataclasses_mod, model, params, engine_mod,
+                       request_mod, backend, tokens):
+    """The first-token logits [V] (f32, on the host) of ``tokens`` as one
+    prompt through a fresh int8 engine on ``backend``: what that engine
+    decides after this context."""
+    seen = []
+
+    def chunk(*a, **k):
+        logits, pool = model.prefill_chunk(*a, **k)
+        seen.append(logits[0])
+        return logits, pool
+
+    def mixed(*a, **k):
+        dec, ck, pool = model.mixed_step(*a, **k)
+        seen.append(ck[0])
+        return dec, ck, pool
+
+    spy = dataclasses_mod.replace(model, prefill_chunk=chunk,
+                                  mixed_step=mixed)
+    eng = engine_mod.Engine(0, spy, params, max_slots=1, max_seq=8192,
+                            attn_backend=backend, kv_dtype="int8",
+                            preemption=False)
+    r = request_mod.ServeRequest(0, np.asarray(tokens, np.int32), 1)
+    eng.submit(r)
+    while not eng.step():
+        check(eng.steps < 200, "margin probe did not finish")
+    eng.shutdown()
+    return seen[-1].float().cpu()
+
+
+def phase_dense_int8_engine(np, torch, cfg_mod, model_mod, engine_mod,
+                            request_mod, tk, dk, pk):
+    """Phase 4's full-width trace on a dense engine over an int8 pool: no
+    attention kernel runs, every request finishes, at most one d2h per
+    step; its greedy streams against the fused int8 engine's on the same
+    trace. Where a stream diverges, each engine is fed the context up to
+    that token and must hold both streams' tokens within ``MARGIN_ULPS``
+    bf16 ulps of its best logit."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(cfg_mod.get_config("llama3.2-3b"),
+                              dtype=torch.bfloat16)
+    model = model_mod.build_model(cfg)
+    params = model.init(SEED, device="cuda")
+    runs = {}
+    for backend in ("dense", "fused"):
+        eng = engine_mod.Engine(0, model, params, max_slots=8, max_seq=8192,
+                                attn_backend=backend, kv_dtype="int8",
+                                preemption=False)
+        rng = np.random.default_rng(SEED)
+        reqs = [request_mod.ServeRequest(
+            i, rng.integers(0, cfg.vocab_size, n).astype(np.int32), m)
+            for i, (n, m) in enumerate(zip(PROMPTS, NEW_TOKENS))]
+        for r in reqs:
+            eng.submit(r)
+        zero_counts(tk, dk, pk)
+        a0 = engine_mod.ATTN_CALLS
+        done, worst = [], 0
+        t0 = time.perf_counter()
+        while len(done) < len(reqs):
+            check(eng.steps < 2000, "engine did not drain")
+            d0 = engine_mod.D2H_CALLS
+            done += eng.step()
+            worst = max(worst, engine_mod.D2H_CALLS - d0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        forwards = engine_mod.ATTN_CALLS - a0
+        launches = launch_counts(tk, dk, pk)
+        check(worst <= 1, f"{backend}: a step made {worst} d2h")
+        for r in reqs:
+            check(len(r.generated) == r.max_new_tokens and not r.rejected,
+                  f"{backend} request {r.req_id}: {len(r.generated)} tokens")
+        if backend == "dense":
+            check(not any(launches.values()),
+                  f"the dense engine launched kernels: {launches}")
+        else:
+            check(launches["fused_int8"] == cfg.num_layers * forwards > 0,
+                  f"int8 launches {launches['fused_int8']} != "
+                  f"{cfg.num_layers} x {forwards}")
+        eng.check_drained()
+        eng.shutdown()
+        ntok = sum(len(r.generated) for r in reqs)
+        runs[backend] = {"streams": [list(r.generated) for r in reqs],
+                         "steps": eng.steps, "wall_s": wall,
+                         "forwards": forwards, "tokens_per_s": ntok / wall,
+                         "launches": launches}
+        log(f"phase 11: {backend} engine on an int8 pool, phase 4's trace: "
+            f"{eng.steps} steps, {forwards} attention-bearing forwards, "
+            f"{wall:.3f} s, {ntok / wall:.1f} tokens/s; launches "
+            f"{json.dumps({k: v for k, v in launches.items() if v})}")
+        del eng
+    dense, fused = runs["dense"]["streams"], runs["fused"]["streams"]
+    same = sum(a == b for a, b in zip(dense, fused))
+    diverged = []
+    for i, (a, b) in enumerate(zip(dense, fused)):
+        if a == b:
+            continue
+        j = next(x for x in range(len(a)) if a[x] != b[x])
+        rng = np.random.default_rng(SEED)
+        prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+                   for n in PROMPTS]
+        ctx = list(prompts[i]) + a[:j]
+        row = {"request": i, "token": j, "dense": a[j], "fused": b[j]}
+        for backend in ("dense", "fused"):
+            lg = _last_chunk_logits(np, torch, dataclasses, model, params,
+                                    engine_mod, request_mod, backend, ctx)
+            top2 = torch.topk(lg, 2).values
+            top = float(top2[0])
+            behind = max(top - float(lg[a[j]]), top - float(lg[b[j]]))
+            tol = MARGIN_ULPS * bf16_ulp(top)
+            # both streams' tokens must be near-ties of this probe's best:
+            # a wrong dense gather or int8 kernel picks tokens far behind
+            check(behind <= tol, f"phase 11: request {i} token {j}: the "
+                  f"{backend} probe puts a stream's token {behind} behind "
+                  f"its best {top} (> {MARGIN_ULPS} bf16 ulps, {tol})")
+            row[f"{backend}_top"] = top
+            row[f"{backend}_top2_gap"] = float(top2[0] - top2[1])
+            row[f"{backend}_gap_between_the_two"] = float(lg[a[j]] - lg[b[j]])
+            row[f"{backend}_behind_best"] = behind
+            row[f"{backend}_tolerance"] = tol
+        diverged.append(row)
+    log(f"phase 11: dense int8 vs fused int8 greedy streams: {same}/"
+        f"{len(dense)} identical" + (
+            "; where they part, each probe has both tokens within "
+            f"{MARGIN_ULPS} bf16 ulps of its best; the margins: "
+            + json.dumps(diverged) if diverged else ""))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"runs": runs, "identical_streams": same, "diverged": diverged}
+
+
+# --------------------------------------------------------------------------
 # Phase 5: the same weights on the card and on the CPU
 # --------------------------------------------------------------------------
-def phase_devices(np, torch, cfg_mod, model_mod, engine_mod, request_mod):
+def phase_devices(np, torch, cfg_mod, model_mod, engine_mod, request_mod,
+                  backend="fused", kv_dtype="bf16", label="phase 5"):
     cfg = dataclasses.replace(cfg_mod.get_config("llama3.2-3b"),
                               num_layers=2, dtype=torch.float32)
     model = model_mod.build_model(cfg)
@@ -571,7 +936,8 @@ def phase_devices(np, torch, cfg_mod, model_mod, engine_mod, request_mod):
     streams = {}
     for name, params in (("cuda", gpu_params), ("cpu", cpu_params)):
         eng = engine_mod.Engine(0, model, params, max_slots=3, max_seq=512,
-                                prefill_token_budget=64, preemption=False)
+                                prefill_token_budget=64, preemption=False,
+                                attn_backend=backend, kv_dtype=kv_dtype)
         check(eng.device.type == name, f"engine on {eng.device}")
         rng = np.random.default_rng(SEED + 1)
         reqs = [request_mod.ServeRequest(
@@ -599,7 +965,8 @@ def phase_devices(np, torch, cfg_mod, model_mod, engine_mod, request_mod):
     check(streams["cuda"] == streams["cpu"],
           f"greedy streams differ: cuda {streams['cuda']} "
           f"cpu {streams['cpu']}")
-    log(f"phase 5: 2-layer full-width f32 llama3.2-3b, cuda == cpu greedy "
+    log(f"{label}: 2-layer full-width f32 llama3.2-3b on {backend} "
+        f"({kv_dtype} pool), cuda == cpu greedy "
         f"streams {streams['cuda']}; warm resubmit of the 130-token prompt "
         f"(128 cached, unaligned tail) gives the cold tokens on both")
 
@@ -628,7 +995,15 @@ def _submit_trace(np, request_mod, srv, trace, vocab, seed):
 
 
 def phase_cluster(np, torch, cfg_mod, model_mod, engine_mod, request_mod,
-                  server_mod, serve_mod, qoe_mod, tk, dk, pk):
+                  server_mod, serve_mod, qoe_mod, tk, dk, pk, backend="flat",
+                  label="phase 6"):
+    """The full-width cluster on the ``flat`` (phase 6) or ``grid``
+    (phase 10) backend: the backend's decode kernel launches on every
+    layer of every decode forward, the chunked prefill kernel on every
+    layer of every chunk forward, and no other kernel runs."""
+    decode_key = {"flat": "flat_decode", "grid": "grid_decode"}[backend]
+    gc.collect()
+    torch.cuda.empty_cache()
     cfg = dataclasses.replace(cfg_mod.get_config("llama3.2-3b"),
                               dtype=torch.bfloat16)
     model = model_mod.build_model(cfg)
@@ -643,10 +1018,11 @@ def phase_cluster(np, torch, cfg_mod, model_mod, engine_mod, request_mod,
                                 preemption=False),
         engine_factory=lambda i: engine_mod.Engine(
             i, model, params, max_slots=8, max_seq=8192, token_budget=32768,
-            attn_backend="flat", preemption=False))
+            attn_backend=backend, preemption=False))
     torch.cuda.synchronize()
     e0 = srv.engines[0]
-    log(f"phase 6: 4 engines, one bf16 llama3.2-3b weight set, pools of "
+    log(f"{label}: {backend} backend, 4 engines, one bf16 llama3.2-3b "
+        f"weight set, pools of "
         f"{e0.num_blocks + 1} blocks x {e0.block_size} tokens each, ready "
         f"in {time.perf_counter() - t0:.1f} s; stage bounds "
         f"{srv.stage_bounds}")
@@ -675,7 +1051,7 @@ def phase_cluster(np, torch, cfg_mod, model_mod, engine_mod, request_mod,
         eng.step = counted
 
     engine_mod.attn_call = attn_call
-    tk.LAUNCHES = dk.LAUNCHES = pk.LAUNCHES = 0
+    zero_counts(tk, dk, pk)
     t_end = {0: 0.0}
     step_ms = []
     t_start = time.perf_counter()
@@ -694,20 +1070,22 @@ def phase_cluster(np, torch, cfg_mod, model_mod, engine_mod, request_mod,
     finally:
         engine_mod.attn_call = real_attn_call
     wall = time.perf_counter() - t_start
-    launches = {"tk": tk.LAUNCHES, "dk": dk.LAUNCHES, "pk": pk.LAUNCHES}
+    launches = launch_counts(tk, dk, pk)
     for eng in srv.engines:
         eng.check_drained(strict=True)
     L = cfg.num_layers
     check(worst["d2h"] <= 1, f"an engine step made {worst['d2h']} d2h")
     check(worst["attn"] <= 2, f"an engine step made {worst['attn']} "
           "attention-bearing forwards")
-    check(launches["dk"] == L * kinds["decode"] > 0,
-          f"flat decode launches {launches['dk']} != {L} x "
+    check(launches[decode_key] == L * kinds["decode"] > 0,
+          f"{backend} decode launches {launches[decode_key]} != {L} x "
           f"{kinds['decode']} decode forwards")
-    check(launches["pk"] == L * kinds["prefill"] > 0,
-          f"chunked prefill launches {launches['pk']} != {L} x "
+    check(launches["chunked_prefill"] == L * kinds["prefill"] > 0,
+          f"chunked prefill launches {launches['chunked_prefill']} != {L} x "
           f"{kinds['prefill']} prefill forwards")
-    check(launches["tk"] == 0, "the flat cluster ran the fused kernel")
+    others = {k: n for k, n in launches.items()
+              if n and k not in (decode_key, "chunked_prefill")}
+    check(not others, f"the {backend} cluster ran other kernels: {others}")
     check(srv.migrations >= 2, f"only {srv.migrations} migrations")
     for r in reqs:
         check(len(r.generated) == r.max_new_tokens and not r.rejected,
@@ -723,23 +1101,23 @@ def phase_cluster(np, torch, cfg_mod, model_mod, engine_mod, request_mod,
            for p in (50, 95, 99)}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     ntok = summ["tokens_out"]
-    log(f"phase 6: {len(reqs)} requests drained in {srv.steps} steps, "
+    log(f"{label}: {len(reqs)} requests drained in {srv.steps} steps, "
         f"{wall:.3f} s; {ntok} tokens, {ntok / wall:.1f} tokens/s; "
         f"{srv.migrations} migrations ({srv.migrated_bytes / 1e6:.1f} MB "
         f"moved); peak memory {peak_gb:.2f} GB; stage bounds "
         f"{srv.stage_bounds}")
-    log("phase 6: migrations by stage pair " + json.dumps(
+    log(f"{label}: migrations by stage pair " + json.dumps(
         {k: v for k, v in summ.items() if k.startswith("migrations_s")}))
-    log("phase 6: steps " + json.dumps(
+    log(f"{label}: steps " + json.dumps(
         {k: summ[k] for k in summ if k.startswith(("ttft_steps_p",
                                                    "e2e_steps_p"))}))
-    log("phase 6: seconds " + json.dumps(pct))
-    log(f"phase 6: server step ms mean {sum(step_ms) / len(step_ms):.2f} "
+    log(f"{label}: seconds " + json.dumps(pct))
+    log(f"{label}: server step ms mean {sum(step_ms) / len(step_ms):.2f} "
         f"min {min(step_ms):.2f} max {max(step_ms):.2f}; forwards: "
         f"{kinds['prefill']} prefill, {kinds['decode']} decode "
-        f"({worst['both']} engine steps made both); launches: flat decode "
-        f"{launches['dk']}, chunked prefill {launches['pk']}, fused "
-        f"{launches['tk']}")
+        f"({worst['both']} engine steps made both); launches: "
+        f"{backend} decode {launches[decode_key]}, chunked prefill "
+        f"{launches['chunked_prefill']}, any other 0")
     summary = {"steps": srv.steps, "wall_s": wall, "tokens": ntok,
                "tokens_per_s": ntok / wall, "step_ms": step_ms,
                "migrations": srv.migrations,
@@ -765,7 +1143,8 @@ DEVICE_TRACE = ((100, 40, 0), (30, 24, 0), (120, 32, 1), (60, 20, 2),
 
 
 def phase_cluster_devices(np, torch, cfg_mod, model_mod, request_mod,
-                          server_mod, serve_mod, qoe_mod):
+                          server_mod, serve_mod, qoe_mod, backend="flat",
+                          label="phase 7"):
     cfg = dataclasses.replace(cfg_mod.get_config("llama3.2-3b"),
                               num_layers=2, dtype=torch.float32)
     model = model_mod.build_model(cfg)
@@ -778,7 +1157,7 @@ def phase_cluster_devices(np, torch, cfg_mod, model_mod, request_mod,
             qoe_mod.QoEModel(np.array(serve_mod.DEFAULT_QOE)),
             server_mod.ServerConfig(seed=SEED, preemption=False),
             max_slots=4, max_seq=512, prefill_token_budget=64,
-            attn_backend="flat")
+            attn_backend=backend)
         check(all(e.device.type == name for e in srv.engines),
               f"engines not on {name}")
         reqs = _submit_trace(np, request_mod, srv, DEVICE_TRACE,
@@ -794,8 +1173,8 @@ def phase_cluster_devices(np, torch, cfg_mod, model_mod, request_mod,
           f"token streams differ: cuda {runs['cuda'][1]} cpu "
           f"{runs['cpu'][1]}")
     check(runs["cuda"][2] > 0, "no migration in the device comparison")
-    log(f"phase 7: 2-layer full-width f32 llama3.2-3b cluster of 2 flat "
-        f"engines, cuda == cpu: {len(runs['cuda'][0])} decisions "
+    log(f"{label}: 2-layer full-width f32 llama3.2-3b cluster of 2 "
+        f"{backend} engines, cuda == cpu: {len(runs['cuda'][0])} decisions "
         f"({runs['cuda'][2]} migrations), identical token streams (first "
         f"tokens {[g[:4] for g in runs['cuda'][1]]})")
 
@@ -1124,6 +1503,89 @@ def phase_chaos_devices(np, torch, cfg, model_mod, engine_mod, request_mod,
         f"undisturbed streams ({others}/{len(reqs)} streams equal in all)")
 
 
+# --------------------------------------------------------------------------
+# Phase 13: the paper's Fig. 2 on the card, through kernels.api
+# --------------------------------------------------------------------------
+def phase_fig2(torch, api, dk, flush):
+    """Padded vs ragged contiguous decode on the paper's mixed-length
+    batches, each mode held to its plain version on the same caches, and
+    the padded kernel on a homogeneous batch of the same size and total
+    tokens (every length the mean, the cache that long): the heterogeneity
+    tax (padded mixed / padded homogeneous) and the ragged speedup
+    (padded / ragged). Then one causal prefill through
+    ``api.prefill_attention`` held to the ``ref`` oracle on its rows below
+    each length."""
+    H, Hkv, Dh = FIG2_HEADS
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 7)
+    out = {}
+
+    def decode(q, k, v, lengths, ragged):
+        return api.decode_attention(q, k, v, lengths, backend="kernel",
+                                    ragged=ragged, block_s=FIG2_BLOCK)
+
+    for name, B, short, long_ in FIG2_SETUPS:
+        lens = [short] * (B // 2) + [long_] * (B // 2)
+        q = randn(torch, gen, (B, H, Dh), torch.bfloat16)
+        k, v = (randn(torch, gen, (B, long_, Hkv, Dh), torch.bfloat16)
+                for _ in range(2))
+        lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        pad, rag = decode(q, k, v, lengths, False), decode(q, k, v, lengths,
+                                                           True)
+        torch.cuda.synchronize()
+        err = {mode: hold(torch, f"fig 2 {name} {mode} bf16", got,
+                          dk.decode_attention_plain(
+                              q, k, v, lengths, block_s=FIG2_BLOCK,
+                              ragged=mode == "ragged"), 5e-3)
+               for mode, got in (("padded", pad), ("ragged", rag))}
+        diff = (pad.float() - rag.float()).abs().max().item()
+        t_pad = time_ms(torch, lambda: decode(q, k, v, lengths, False), 10,
+                        flush)
+        t_rag = time_ms(torch, lambda: decode(q, k, v, lengths, True), 10,
+                        flush)
+        kv_gb = 2 * k.numel() * k.element_size() / 1e9
+        del k, v, pad, rag
+        torch.cuda.empty_cache()
+        mean = sum(lens) // len(lens)
+        k, v = (randn(torch, gen, (B, mean, Hkv, Dh), torch.bfloat16)
+                for _ in range(2))
+        homog = torch.full((B,), mean, dtype=torch.int32, device="cuda")
+        t_hom = time_ms(torch, lambda: decode(q, k, v, homog, False), 10,
+                        flush)
+        del k, v
+        torch.cuda.empty_cache()
+        out[name] = {"batch": B, "lengths": [short, long_], "mean": mean,
+                     "kv_gb": kv_gb, "padded_ms": t_pad, "ragged_ms": t_rag,
+                     "homogeneous_padded_ms": t_hom, "tax": t_pad / t_hom,
+                     "ragged_speedup": t_pad / t_rag,
+                     "padded_vs_plain_max_abs": err["padded"],
+                     "ragged_vs_plain_max_abs": err["ragged"],
+                     "padded_eq_ragged_max_abs": diff}
+        log(f"phase 13: fig 2 {name}, batch {B} ({B // 2} x {short} + "
+            f"{B // 2} x {long_} tokens, K/V {kv_gb:.2f} GB bf16): padded "
+            f"{t_pad:.4f} ms, ragged {t_rag:.4f} ms, homogeneous padded "
+            f"(all {mean}) {t_hom:.4f} ms; tax {t_pad / t_hom:.4f}x, "
+            f"ragged speedup {t_pad / t_rag:.4f}x; vs plain max abs padded "
+            f"{err['padded']:.3e}, ragged {err['ragged']:.3e} (<= 5e-3); "
+            f"padded vs ragged max abs {diff:.3e}")
+    # causal prefill through the api at #6's shape, against the oracle
+    T, plens = PREFILL_T, PREFILL_LENS
+    q, k, v = (randn(torch, gen, (2, T, n, Dh), torch.bfloat16)
+               for n in (H, Hkv, Hkv))
+    lengths = torch.tensor(plens, dtype=torch.int32, device="cuda")
+    got = api.prefill_attention(q, k, v, lengths, backend="kernel")
+    want = api.prefill_attention(q, k, v, lengths, backend="ref")
+    torch.cuda.synchronize()
+    err = max((got[b, :n].float() - want[b, :n].float()).abs().max().item()
+              for b, n in enumerate(plens))
+    check(err <= 5e-3, f"prefill kernel vs the ref oracle: {err}")
+    log(f"phase 13: api.prefill_attention(backend='kernel') at B 2, T {T} "
+        f"vs backend='ref' on the rows below each length: max abs "
+        f"{err:.3e} (<= 5e-3)")
+    out["prefill_vs_ref_max_abs"] = err
+    return out
+
+
 def _leaves(tree):
     for v in tree.values():
         yield from (_leaves(v) if isinstance(v, dict) else (v,))
@@ -1147,7 +1609,7 @@ def main() -> int:
     import torch.nn.functional as F
     from repro_torch import configs as cfg_mod
     from repro_torch.core import qoe as qoe_mod
-    from repro_torch.kernels import build
+    from repro_torch.kernels import api, build
     from repro_torch.kernels import decode_attention as dk
     from repro_torch.kernels import mixed_attention as tk
     from repro_torch.kernels import prefill_attention as pk
@@ -1181,13 +1643,15 @@ def main() -> int:
     kern = phase_kernels(np, torch, F, tk, flush)
     int8 = phase_int8_kernel(np, torch, F, tk, flush)
     flat = phase_flat_kernels(np, torch, F, dk, pk, flush)
-    del flush
+    more = phase_grid_contiguous_kernels(np, torch, F, dk, pk, flush)
 
     # 4. the engine's main path at full width (fused backend)
-    dk.LAUNCHES = pk.LAUNCHES = 0
+    zero_counts(tk, dk, pk)
     eng_summary = phase_engine(np, torch, cfg_mod, model_mod, engine_mod,
                                request_mod, tk)
-    check(dk.LAUNCHES == pk.LAUNCHES == 0, "the fused engine ran flat kernels")
+    others = {k: n for k, n in launch_counts(tk, dk, pk).items()
+              if n and k != "fused"}
+    check(not others, f"the fused engine ran other kernels: {others}")
 
     # 5. cuda vs cpu
     phase_devices(np, torch, cfg_mod, model_mod, engine_mod, request_mod)
@@ -1213,7 +1677,36 @@ def main() -> int:
         llama, num_layers=2, dtype=torch.float32), model_mod, engine_mod,
         request_mod, server_mod, serve_mod, qoe_mod)
 
-    # 10. results
+    # 10. the cluster at full width on the grid backend
+    grid_cluster = phase_cluster(np, torch, cfg_mod, model_mod, engine_mod,
+                                 request_mod, server_mod, serve_mod, qoe_mod,
+                                 tk, dk, pk, backend="grid",
+                                 label="phase 10")
+
+    # 11. the dense backend on int8 pools at full width (no kernel)
+    dense_int8 = phase_dense_int8_engine(np, torch, cfg_mod, model_mod,
+                                         engine_mod, request_mod, tk, dk, pk)
+
+    # 12. grid cluster and dense + int8 engine, 2 layers f32, cuda vs cpu
+    phase_cluster_devices(np, torch, cfg_mod, model_mod, request_mod,
+                          server_mod, serve_mod, qoe_mod, backend="grid",
+                          label="phase 12")
+    phase_devices(np, torch, cfg_mod, model_mod, engine_mod, request_mod,
+                  backend="dense", kv_dtype="int8", label="phase 12")
+
+    # 13. the paper's Fig. 2 through kernels.api (the contiguous kernels'
+    # main path)
+    gc.collect()
+    torch.cuda.empty_cache()
+    zero_counts(tk, dk, pk)
+    fig2 = phase_fig2(torch, api, dk, flush)
+    contiguous = launch_counts(tk, dk, pk)
+    for key in ("contiguous_decode_padded", "contiguous_decode_ragged",
+                "contiguous_prefill"):
+        check(contiguous[key] > 0, f"phase 13 never launched {key}")
+    del flush
+
+    # 14. results
     kernels = [{
         "name": "paged_mixed_attention", "ok": True, "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/mixed_attention.cu",
@@ -1237,14 +1730,29 @@ def main() -> int:
         "plain_ms": int8["plain_ms"], "bound_ms": int8["bound_ms"],
         "bound_by": int8["bound_by"], "library_ms": int8["library_ms"],
     }]
-    for key, name, src, tpu, launches in (
-            ("decode", "paged_decode_attention_flat", "decode_attention.cu",
+    for k, name, src, tpu, launches in (
+            (flat["decode"], "paged_decode_attention_flat",
+             "decode_attention.cu",
              "src/repro/kernels/decode_attention.py:185",
-             cluster["launches"]["dk"]),
-            ("prefill", "paged_prefill_attention", "prefill_attention.cu",
+             cluster["launches"]["flat_decode"]),
+            (flat["prefill"], "paged_prefill_attention",
+             "prefill_attention.cu",
              "src/repro/kernels/prefill_attention.py:255",
-             cluster["launches"]["pk"])):
-        k = flat[key]
+             cluster["launches"]["chunked_prefill"]),
+            (more["grid"], "paged_decode_attention", "decode_attention.cu",
+             "src/repro/kernels/decode_attention.py:242",
+             grid_cluster["launches"]["grid_decode"]),
+            (more["padded"], "decode_attention_padded",
+             "contiguous_decode.cu",
+             "src/repro/kernels/decode_attention.py:291",
+             contiguous["contiguous_decode_padded"]),
+            (more["ragged"], "decode_attention_ragged",
+             "contiguous_decode.cu",
+             "src/repro/kernels/decode_attention.py:291",
+             contiguous["contiguous_decode_ragged"]),
+            (more["prefill"], "prefill_attention", "contiguous_prefill.cu",
+             "src/repro/kernels/prefill_attention.py:125",
+             contiguous["contiguous_prefill"])):
         kernels.append({
             "name": name, "ok": True, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{src}",
@@ -1258,7 +1766,9 @@ def main() -> int:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke_report.json").write_text(json.dumps(
         {"device": smi, "kernels": kernels, "engine": eng_summary,
-         "cluster": cluster, "chaos_cluster": chaos},
+         "cluster": cluster, "chaos_cluster": chaos,
+         "grid_cluster": grid_cluster, "dense_int8": dense_int8,
+         "fig2": fig2},
         indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

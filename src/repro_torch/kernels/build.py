@@ -23,11 +23,13 @@ from typing import Dict, Iterable, Optional
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = {name: CSRC / f"{name}.cu" for name in
-           ("mixed_attention", "decode_attention", "prefill_attention")}
+           ("mixed_attention", "decode_attention", "prefill_attention",
+            "contiguous_decode", "contiguous_prefill")}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_ENTRIES: Dict[str, object] = {}
 
 
 def nvcc_path() -> str:
@@ -98,3 +100,17 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(path))
         _LIBS[name] = lib
     return lib
+
+
+def entry(name: str, symbol: str, pointers: int, ints: int):
+    """The C entry ``symbol`` of kernel library ``name``, typed: ``pointers``
+    pointer arguments, then ``ints`` int arguments, then the stream; it
+    returns a ``cudaError_t`` as an int."""
+    fn = _ENTRIES.get(symbol)
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.argtypes = ([ctypes.c_void_p] * pointers + [ctypes.c_int] * ints
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _ENTRIES[symbol] = fn
+    return fn

@@ -1,5 +1,7 @@
-// Flat-work-list paged decode attention for Hopper (sm_90a).
+// Paged decode attention for Hopper (sm_90a): the flat work-list kernel of
+// the `flat` backend and the (request, kv head) grid kernel of `grid`.
 //
+// ---- flat ----
 // Replaces the TPU kernel repro/kernels/decode_attention.py::
 // paged_decode_attention_flat (body `_flat_paged_kernel`): GQA attention of
 // one query token per request over its cache in the paged pool
@@ -26,6 +28,22 @@
 // decode rows), and short rows do not pay for the longest. A thread owns one
 // query row (two when G > 8), so G = 3 uses 48 of 128 threads for the math
 // while all of them load: tensor cores and wider row tiles are later work.
+//
+// ---- grid ----
+// Replaces the TPU kernel repro/kernels/decode_attention.py::
+// paged_decode_attention (body `_paged_decode_kernel`): the same function on
+// the (B, Hkv, NBT) grid. The TPU runs that grid in order on one core and
+// skips the MXU work of blocks at or past a request's length; here one thread
+// block owns (request, kv head) and walks that request's blocks
+// j < ceil(L_b/BS) in order -- the TPU's accumulation order -- through its
+// block table, so no table entry past ceil(L_b/BS) is ever read (the
+// reference pads tables with block 0, the engine with its garbage block). A
+// length-0 row walks nothing and writes zeros (_flash_finish's l = 0 -> 1).
+// Bound, like flat, by the bytes of K/V read. The reference's point about
+// this grid holds on the card: every request is one program, so a long row
+// sets the kernel's time while the short rows' blocks finish early and leave
+// their SMs idle; the flat kernel's runs (and a split-KV pass, later work)
+// are the answer to that, not this kernel.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libdecode_attention.so decode_attention.cu
@@ -66,8 +84,9 @@ flat_decode_partials(const T* __restrict__ q, const T* __restrict__ k_pool,
     const int k_hi = min((work_blk[w2 - 1] + 1) * BS, len);
     Rows<DH, RPT> st;
     attend<T, DH, RPT>(st, q + (int64_t)b * H * DH, k_pool, v_pool,
-                       block_tables + (int64_t)b * NBT, smem, h, 0, G, k_lo,
-                       k_hi, false, 0, len, H, Hkv, BS, scale);
+                       PagedKeys{block_tables + (int64_t)b * NBT, BS}, smem,
+                       h, 0, G, k_lo, k_hi, k_hi, false, 0, len, H, Hkv,
+                       scale);
 #pragma unroll
     for (int i = 0; i < RPT; ++i) {
       if (i < st.nr) {
@@ -154,6 +173,51 @@ int launch_rows(int G, const void* q, const void* k_pool, const void* v_pool,
                           W, ipr, stream);
 }
 
+// Grid (request, kv head): the (B, Hkv, NBT) TPU grid, its block loop inside.
+template <typename T, int DH, int RPT>
+__global__ void __launch_bounds__(kThreads)
+grid_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
+                   const T* __restrict__ v_pool,
+                   const int* __restrict__ block_tables,
+                   const int* __restrict__ lengths, T* __restrict__ out,
+                   int H, int Hkv, int BS, int NBT, float scale) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int b = blockIdx.x, h = blockIdx.y, G = H / Hkv;
+  const int len = max(lengths[b], 0);
+  Rows<DH, RPT> st;
+  attend<T, DH, RPT>(st, q + (int64_t)b * H * DH, k_pool, v_pool,
+                     PagedKeys{block_tables + (int64_t)b * NBT, BS}, smem, h,
+                     0, G, 0, len, len, false, 0, len, H, Hkv, scale);
+  finish<T, DH, RPT>(st, out + (int64_t)b * H * DH, h, 0, G, H, Hkv);
+}
+
+template <typename T, int DH, int RPT>
+int launch_grid(const void* q, const void* k_pool, const void* v_pool,
+                const void* block_tables, const void* lengths, void* out,
+                int B, int H, int Hkv, int BS, int NBT, cudaStream_t stream) {
+  constexpr int smem = smem_bytes<DH>();
+  static_assert(smem <= 48 * 1024, "tile needs the opt-in smem attribute");
+  grid_decode_kernel<T, DH, RPT><<<dim3(B, Hkv), kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k_pool),
+      static_cast<const T*>(v_pool), static_cast<const int*>(block_tables),
+      static_cast<const int*>(lengths), static_cast<T*>(out), H, Hkv, BS, NBT,
+      1.0f / sqrtf((float)DH));
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int DH>
+int launch_grid_rows(int G, const void* q, const void* k_pool,
+                     const void* v_pool, const void* block_tables,
+                     const void* lengths, void* out, int B, int H, int Hkv,
+                     int BS, int NBT, cudaStream_t stream) {
+  if (G <= kRowGroups)
+    return launch_grid<T, DH, 1>(q, k_pool, v_pool, block_tables, lengths,
+                                 out, B, H, Hkv, BS, NBT, stream);
+  return launch_grid<T, DH, 2>(q, k_pool, v_pool, block_tables, lengths, out,
+                               B, H, Hkv, BS, NBT, stream);
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. part_acc holds W*Hkv*G*Dh floats and
@@ -190,5 +254,34 @@ extern "C" int repro_decode_attention_flat(
                                           lengths, work_req, work_blk,
                                           part_acc, part_ml, out, B, H, Hkv,
                                           BS, NBT, W, ipr, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The grid kernel. dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t
+// (0 = launched).
+extern "C" int repro_paged_decode_attention(
+    const void* q, const void* k_pool, const void* v_pool,
+    const void* block_tables, const void* lengths, void* out, int B, int H,
+    int Hkv, int Dh, int BS, int NBT, int dtype, void* stream) {
+  if (B <= 0) return 0;
+  if (Hkv <= 0 || H % Hkv != 0 || H / Hkv > flash::kTileRows || BS <= 0 ||
+      NBT <= 0 || Hkv > 65535)
+    return (int)cudaErrorInvalidValue;
+  const int G = H / Hkv;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0 && Dh == 128)
+    return launch_grid_rows<float, 128>(G, q, k_pool, v_pool, block_tables,
+                                        lengths, out, B, H, Hkv, BS, NBT, st);
+  if (dtype == 0 && Dh == 64)
+    return launch_grid_rows<float, 64>(G, q, k_pool, v_pool, block_tables,
+                                       lengths, out, B, H, Hkv, BS, NBT, st);
+  if (dtype == 1 && Dh == 128)
+    return launch_grid_rows<__nv_bfloat16, 128>(G, q, k_pool, v_pool,
+                                                block_tables, lengths, out, B,
+                                                H, Hkv, BS, NBT, st);
+  if (dtype == 1 && Dh == 64)
+    return launch_grid_rows<__nv_bfloat16, 64>(G, q, k_pool, v_pool,
+                                               block_tables, lengths, out, B,
+                                               H, Hkv, BS, NBT, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,19 +1,22 @@
-// Online-softmax core shared by the flat paged decode kernel
-// (decode_attention.cu) and the chunked paged prefill kernel
-// (prefill_attention.cu): the counterpart of repro/kernels/ops.py's
-// _flash_init / _flash_block_update / _flash_finish.
+// Online-softmax core shared by the flat and grid paged decode kernels
+// (decode_attention.cu), the chunked paged prefill kernel
+// (prefill_attention.cu) and the contiguous decode and prefill kernels
+// (contiguous_decode.cu, contiguous_prefill.cu): the counterpart of
+// repro/kernels/ops.py's _flash_init / _flash_block_update / _flash_finish.
 //
 // One thread block of kThreads threads walks a contiguous range of one
-// segment's keys for a tile of query rows of one kv head, reading K/V from
-// the paged pool [NB, BS, Hkv, DH] through the segment's block table. Row r
-// of the tile is chunk token r / G and query head h*G + r % G. Each thread
+// sequence's keys for a tile of query rows of one kv head, reading K/V rows
+// [*, Hkv, DH] where a key-addressing functor puts them: a paged pool
+// [NB, BS, Hkv, DH] through the sequence's block table (PagedKeys) or a
+// contiguous cache [B, S, Hkv, DH] (ContigKeys). Row r of the tile is query
+// token r / G and query head h*G + r % G. Each thread
 // owns RPT rows (rg + 8*i) and DH/16 output columns; 16 lanes of a half-warp
 // share a row group. K/V tiles of kKeys keys are staged in shared memory as
 // f32, the next tile's loads are issued into registers before the current
 // tile is computed, and m, l and acc stay in f32 registers. Keys outside the
-// walked range are loaded as zeros and masked, never read from stale pool
-// rows, so padding cannot spread NaN. A row that is not live keeps acc = 0
-// and l = 0 and finishes as 0 (ops.py:86-90).
+// walked range (or at or past `k_load`) are loaded as zeros, never read from
+// stale rows, so padding cannot spread NaN. A row that is not live keeps
+// acc = 0 and l = 0 and finishes as 0 (ops.py:86-90).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -71,6 +74,22 @@ constexpr int smem_bytes() {
   return (kTileRows * DH + kKeys * (DH + 4) + kKeys * DH) * 4;
 }
 
+// Where key idx of the walked sequence lives: its row in [rows, Hkv, DH].
+struct PagedKeys {    // a paged pool [NB, BS, Hkv, DH], through a block table
+  const int* __restrict__ bt;
+  int bs;
+  __device__ __forceinline__ int64_t operator()(int idx) const {
+    return (int64_t)bt[idx / bs] * bs + idx % bs;
+  }
+};
+
+struct ContigKeys {   // a contiguous cache [B, S, Hkv, DH]: base = b * S
+  int64_t base;
+  __device__ __forceinline__ int64_t operator()(int idx) const {
+    return base + idx;
+  }
+};
+
 // Running softmax state of the RPT rows one thread owns.
 template <int DH, int RPT>
 struct Rows {
@@ -79,19 +98,23 @@ struct Rows {
   float m[RPT], l[RPT], acc[RPT][4 * NW];
 };
 
-// Walk keys [k_lo, k_hi) of one segment for rows r0 .. r0 + 8*RPT - 1 of kv
+// Walk keys [k_lo, k_hi) of one sequence for rows r0 .. r0 + 8*RPT - 1 of kv
 // head h, of which the first `tile_live` are live. q_seg points at the
-// segment's [C, H, DH] queries; bt at its block table. Row r keeps keys
-// idx < min(lim, k_hi), lim = causal ? min(total, ctx + r/G + 1) : total.
-// Leaves the unnormalised state in `st`. Safe to call several times in one
-// block (it synchronises before reusing shared memory).
-template <typename T, int DH, int RPT>
+// sequence's [C, H, DH] queries; `keys` addresses its K/V rows, of which
+// keys idx >= k_load read as zeros. Row r keeps keys idx < min(lim, k_hi),
+// lim = causal ? min(total, ctx + r/G + 1) : total. A masked key weighs 0;
+// with kExpMasked it weighs exp(-1e30 - m) instead, as in the TPU kernels'
+// _flash_block_update: the same unless every key so far was masked, where
+// each walked key then weighs 1. Leaves the unnormalised state in `st`. Safe
+// to call several times in one block (it synchronises before reusing shared
+// memory).
+template <typename T, int DH, int RPT, bool kExpMasked = false, typename Keys>
 __device__ __forceinline__ void attend(
     Rows<DH, RPT>& st, const T* __restrict__ q_seg,
     const T* __restrict__ k_pool, const T* __restrict__ v_pool,
-    const int* __restrict__ bt, float* __restrict__ smem, int h, int r0,
-    int tile_live, int k_lo, int k_hi, bool causal, int ctx, int total, int H,
-    int Hkv, int BS, float scale) {
+    const Keys keys, float* __restrict__ smem, int h, int r0, int tile_live,
+    int k_lo, int k_hi, int k_load, bool causal, int ctx, int total, int H,
+    int Hkv, float scale) {
   constexpr int EPV = 16 / sizeof(T);       // elements per 16-byte load
   constexpr int VPR = DH / EPV;             // 16-byte loads per row
   constexpr int KSTR = DH + 4;              // padded K row: no bank conflicts
@@ -145,16 +168,15 @@ __device__ __forceinline__ void attend(
   }
 
   // ---- K/V tiles: registers (prefetch) -> shared memory (f32) ----
+  const int k_end = min(k_hi, k_load);      // keys read from memory
   uint4 kr[NV], vr[NV];
   auto fetch = [&](int j0) {
 #pragma unroll
     for (int n = 0; n < NV; ++n) {
       const int v = tid + n * kThreads, kk = v / VPR, cv = v % VPR;
       const int idx = j0 + kk;
-      if (idx < k_hi) {
-        const int phys = bt[idx / BS];
-        const int64_t off =
-            (((int64_t)phys * BS + idx % BS) * Hkv + h) * DH + cv * EPV;
+      if (idx < k_end) {
+        const int64_t off = (keys(idx) * Hkv + h) * DH + cv * EPV;
         kr[n] = *reinterpret_cast<const uint4*>(k_pool + off);
         vr[n] = *reinterpret_cast<const uint4*>(v_pool + off);
       } else {  // past the walked range: zeros, never garbage
@@ -228,8 +250,9 @@ __device__ __forceinline__ void attend(
         float ps = 0.f;
 #pragma unroll
         for (int u = 0; u < kKeysPerLane; ++u) {
-          const bool keep = j0 + c + kLanes * u < lim[i];
-          sc[i][u] = keep ? expf(sc[i][u] - m_new) : 0.f;
+          const int key = j0 + c + kLanes * u;
+          const bool weigh = kExpMasked ? key < k_hi : key < lim[i];
+          sc[i][u] = weigh ? expf(sc[i][u] - m_new) : 0.f;
           ps += sc[i][u];
         }
 #pragma unroll

@@ -55,9 +55,9 @@ paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
   const int64_t seg = (int64_t)b * C * H * DH;
   Rows<DH, kRowsPerThread> st;
   attend<T, DH, kRowsPerThread>(st, q + seg, k_pool, v_pool,
-                                block_tables + (int64_t)b * NBT, smem, h, r0,
-                                tile_live, 0, nkeys, true, ctx, total, H, Hkv,
-                                BS, scale);
+                                PagedKeys{block_tables + (int64_t)b * NBT, BS},
+                                smem, h, r0, tile_live, 0, nkeys, nkeys, true,
+                                ctx, total, H, Hkv, scale);
   finish<T, DH, kRowsPerThread>(st, out + seg, h, r0, C * G, H, Hkv);
 }
 

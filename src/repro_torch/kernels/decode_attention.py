@@ -1,55 +1,59 @@
-"""Flat-work-list paged decode attention — the ``flat`` backend's decode
-kernel.
+"""Decode attention kernels: the ``flat`` and ``grid`` backends' paged
+decode, and flash-decode over contiguous caches.
 
-Replaces the TPU kernel ``repro/kernels/decode_attention.py::
-paged_decode_attention_flat`` (``_flat_paged_kernel``) with a CUDA kernel
-written for Hopper, ``csrc/decode_attention.cu`` (built and loaded by
-:mod:`repro_torch.kernels.build`). The source's header says how the
-sequential flat work list is recast for parallel thread blocks (runs of
-consecutive items, partial softmax states merged in a second pass), what
-bounds it on the card (the bytes of K/V read) and what the design does
-about that.
+Replaces three TPU kernels of ``repro/kernels/decode_attention.py`` with
+CUDA kernels written for Hopper, built and loaded by
+:mod:`repro_torch.kernels.build`:
 
-:func:`paged_decode_attention_flat` launches the kernel for CUDA tensors —
-or raises; it never falls back — and runs
-:func:`paged_decode_attention_flat_plain`, the plain PyTorch version of
-the same function, only for tensors on the CPU. ``LAUNCHES`` counts
-kernel launches (one per call: both passes).
+* ``paged_decode_attention_flat`` (``_flat_paged_kernel``) →
+  ``csrc/decode_attention.cu``'s flat kernel: the sequential flat work
+  list recast for parallel thread blocks (runs of consecutive items,
+  partial softmax states merged in a second pass).
+* ``paged_decode_attention`` (``_paged_decode_kernel``) → the same
+  source's grid kernel: one thread block per (request, kv head) walking
+  the request's blocks in order.
+* ``decode_attention`` (``_decode_kernel``) → ``csrc/contiguous_decode.cu``,
+  padded or ragged over contiguous ``[B, S, Hkv, Dh]`` caches.
 
-Semantics (those of ``_flat_paged_kernel``): request ``b`` attends its one
-query token, query head ``h`` reading kv head ``h // G``, to keys
-``idx < lengths[b]``. A dead slot (length 0) has no work items; the TPU
-leaves its row unwritten, the port writes zeros.
+Each source's header says what bounds it on the card (the bytes of K/V
+read) and what its design does about that.
+
+Each wrapper launches its kernel for CUDA tensors — or raises; it never
+falls back — and runs its plain PyTorch version (``*_plain``) only for
+tensors on the CPU. Launches are counted per kernel: ``LAUNCHES`` (flat,
+one per call: both passes), ``GRID_LAUNCHES``, ``PADDED_LAUNCHES`` and
+``RAGGED_LAUNCHES``.
+
+Paged semantics (those of ``_flat_paged_kernel`` and
+``_paged_decode_kernel``): request ``b`` attends its one query token,
+query head ``h`` reading kv head ``h // G``, to keys ``idx < lengths[b]``.
+A dead slot (length 0) does no work; the TPU leaves its row unwritten
+(flat) or writes zeros (grid), the port writes zeros for both. Table
+entries past ``ceil(L_b/BS)`` are never read.
 """
 from __future__ import annotations
 
-import ctypes
+import math
 from typing import Optional
 
 import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.mixed_attention import paged_mixed_attention_plain
-from repro_torch.kernels.ops import check_paged_operands, flat_work_list
+from repro_torch.kernels.ops import (NEG_INF, check_paged_operands,
+                                     flat_work_list)
 
-LAUNCHES = 0          # kernel launches by this process (CUDA path only)
+# kernel launches by this process (CUDA path only)
+LAUNCHES = 0          # flat
+GRID_LAUNCHES = 0     # grid
+PADDED_LAUNCHES = 0   # contiguous, ragged=False
+RAGGED_LAUNCHES = 0   # contiguous, ragged=True
 
 # consecutive work items (request, logical block) one thread block walks
 ITEMS_PER_RUN = 8
 _MAX_GROUP = 16       # query heads per kv head the kernel's row tile holds
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_fn = None
-
-
-def _kernel():
-    global _fn
-    if _fn is None:
-        fn = build.load("decode_attention").repro_decode_attention_flat
-        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + [
-            ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+DEFAULT_BLOCK = 512   # contiguous decode's default block_s, as the TPU's
 
 
 def paged_decode_attention_flat(q, k_pool, v_pool, block_tables, lengths,
@@ -108,12 +112,13 @@ def _launch(q, k_pool, v_pool, block_tables, lengths, num_work, work_list):
                           device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = _kernel()(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-                       block_tables.data_ptr(), lengths.data_ptr(),
-                       work_req.data_ptr(), work_blk.data_ptr(),
-                       part_acc.data_ptr(), part_ml.data_ptr(),
-                       out.data_ptr(), B, H, Hkv, Dh, BS, NBT, W,
-                       ITEMS_PER_RUN, _DTYPES[q.dtype], stream)
+        fn = build.entry("decode_attention", "repro_decode_attention_flat",
+                         10, 9)
+        rc = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                block_tables.data_ptr(), lengths.data_ptr(),
+                work_req.data_ptr(), work_blk.data_ptr(), part_acc.data_ptr(),
+                part_ml.data_ptr(), out.data_ptr(), B, H, Hkv, Dh, BS, NBT, W,
+                ITEMS_PER_RUN, _DTYPES[q.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"{name}: launch failed (cudaError {rc})")
     LAUNCHES += 1
@@ -128,3 +133,145 @@ def paged_decode_attention_flat_plain(q, k_pool, v_pool, block_tables,
     return paged_mixed_attention_plain(
         q[:, None], k_pool, v_pool, block_tables, lengths - ones, ones,
         torch.zeros_like(lengths))[:, 0]
+
+
+# --------------------------------------------------------------------------
+# grid: one thread block per (request, kv head)
+# --------------------------------------------------------------------------
+def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths):
+    """Decode GQA attention over a paged KV pool on the (request, kv head)
+    grid — the ``grid`` backend's kernel.
+
+    q            [B, H, Dh]        — one query token per request
+    k/v_pool     [NB, BS, Hkv, Dh] — one layer's block pool
+    block_tables [B, NBT] int32    — entries past ceil(lengths/BS) are
+                                     padding, never read
+    lengths      [B] int32         — valid tokens (pos + 1; 0 = dead slot)
+    returns      [B, H, Dh] in q's dtype; dead slots are zeros
+    """
+    if q.device.type == "cpu":
+        return paged_decode_attention_plain(q, k_pool, v_pool, block_tables,
+                                            lengths)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_decode_attention: no kernel for {q.device}")
+    global GRID_LAUNCHES
+    name = "paged_decode_attention"
+    if q.dim() != 3:
+        raise ValueError(f"{name}: q is [B, H, Dh], got {tuple(q.shape)}")
+    check_paged_operands(name, q, k_pool, v_pool, block_tables, (lengths,),
+                         max_group=_MAX_GROUP)
+    B, H, Dh = q.shape
+    BS, Hkv = k_pool.shape[1], k_pool.shape[2]
+    out = torch.empty_like(q)
+    if B == 0:
+        return out
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        fn = build.entry("decode_attention", "repro_paged_decode_attention",
+                         6, 7)
+        rc = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+                B, H, Hkv, Dh, BS, block_tables.shape[1], _DTYPES[q.dtype],
+                stream)
+    if rc != 0:
+        raise RuntimeError(f"{name}: launch failed (cudaError {rc})")
+    GRID_LAUNCHES += 1
+    return out
+
+
+def paged_decode_attention_plain(q, k_pool, v_pool, block_tables, lengths):
+    """The grid kernel's function in plain PyTorch: the flat kernel's (the
+    two differ only in how the work is laid out)."""
+    return paged_decode_attention_flat_plain(q, k_pool, v_pool, block_tables,
+                                             lengths)
+
+
+# --------------------------------------------------------------------------
+# contiguous caches, padded or ragged
+# --------------------------------------------------------------------------
+def decode_attention(q, k, v, lengths, *, block_s: int = DEFAULT_BLOCK,
+                     ragged: bool = False):
+    """Flash-decode GQA attention over contiguous caches.
+
+    q        [B, H, Dh]      — one query token per request
+    k, v     [B, S, Hkv, Dh] — caches padded to S
+    lengths  [B] int32       — valid keys per request
+    block_s  — keys per block (clamped to S; S is padded with zero rows to
+               whole blocks): the unit of work the modes compute or skip
+    ragged   — False: every block is computed and masked (the padded
+               baseline, cost ∝ B·ceil(S/block_s)); True: blocks that
+               start at or past the length are skipped (∝ Σ ceil(L/block_s))
+    returns  [B, H, Dh] in q's dtype. A length-0 row is zeros when ragged
+    and, as the TPU kernel gives it, the mean of V over the padded rows
+    when not.
+    """
+    if q.device.type == "cpu":
+        return decode_attention_plain(q, k, v, lengths, block_s=block_s,
+                                      ragged=ragged)
+    if q.device.type != "cuda":
+        raise ValueError(f"decode_attention: no kernel for {q.device}")
+    global PADDED_LAUNCHES, RAGGED_LAUNCHES
+    name = "decode_attention"
+    if q.dim() != 3 or k.dim() != 4:
+        raise ValueError(f"{name}: q is [B, H, Dh] and k, v [B, S, Hkv, "
+                         f"Dh], got {tuple(q.shape)}, {tuple(k.shape)}")
+    B, H, Dh = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    if k.shape[0] != B or S < 1 or block_s < 1:
+        raise ValueError(f"{name}: k {tuple(k.shape)} for q "
+                         f"{tuple(q.shape)}, block_s {block_s}")
+    check_paged_operands(name, q, k, v, None, (lengths,),
+                         max_group=_MAX_GROUP)
+    out = torch.empty_like(q)
+    if B == 0:
+        return out
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        fn = build.entry("contiguous_decode",
+                         "repro_contiguous_decode_attention", 5, 8)
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
+                out.data_ptr(), B, S, H, Hkv, Dh, min(block_s, S), int(ragged),
+                _DTYPES[q.dtype], stream)
+    if rc != 0:
+        raise RuntimeError(f"{name}: launch failed (cudaError {rc})")
+    if ragged:
+        RAGGED_LAUNCHES += 1
+    else:
+        PADDED_LAUNCHES += 1
+    return out
+
+
+def decode_attention_plain(q, k, v, lengths, *, block_s: int = DEFAULT_BLOCK,
+                           ragged: bool = False):
+    """The same function in plain PyTorch, the TPU kernel's arithmetic
+    written out in f32: scores over the computed keys (every padded row, or
+    the blocks below each length), those at or past the length at -1e30,
+    each computed key weighted ``exp(s - max)`` — so a row whose every key
+    is masked weighs each computed key 1 — and ``acc / l`` (``l = 0 -> 1``).
+    Rows go in slices of bounded size, so f32 copies of long caches stay a
+    few hundred MB."""
+    B, H, Dh = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    G = H // Hkv
+    bs = min(block_s, S)
+    Sp = -(-S // bs) * bs
+    idx = torch.arange(Sp, device=q.device)
+    lengths = lengths.to(torch.int64).clamp(min=0)
+    out = torch.empty_like(q)
+    step = max(1, (1 << 26) // (S * Hkv * Dh))
+    for b0 in range(0, B, step):
+        sl = slice(b0, b0 + step)
+        qg = q[sl].reshape(-1, Hkv, G, Dh).float()
+        s = torch.einsum("bhgd,bshd->bhgs", qg, k[sl].float()) / math.sqrt(Dh)
+        s = torch.nn.functional.pad(s, (0, Sp - S))     # zero rows: score 0
+        L = lengths[sl][:, None, None, None]
+        s = torch.where(idx < L, s, NEG_INF)
+        walked = (idx < -(-L // bs) * bs) if ragged else torch.ones_like(
+            s, dtype=torch.bool)
+        m = torch.where(walked, s, NEG_INF).amax(-1, keepdim=True)
+        p = torch.where(walked, torch.exp(s - m), 0.0)
+        acc = torch.einsum("bhgs,bshd->bhgd", p[..., :S], v[sl].float())
+        l = p.sum(-1, keepdim=True)
+        out[sl] = (acc / torch.where(l == 0, 1.0, l)).reshape(
+            -1, H, Dh).to(q.dtype)
+    return out

@@ -29,7 +29,6 @@ segment's live rows, all rows of a dead segment) is written as zeros.
 """
 from __future__ import annotations
 
-import ctypes
 import math
 from typing import Optional
 
@@ -43,18 +42,6 @@ INT8_LAUNCHES = 0     # int8-mode launches by this process (CUDA only)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
-_fn = None
-
-
-def _kernel():
-    global _fn
-    if _fn is None:
-        fn = build.load("mixed_attention").repro_mixed_attention
-        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [
-            ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
 
 
 def paged_mixed_attention(q, k_pool, v_pool, block_tables, ctx_lens,
@@ -134,13 +121,14 @@ def _launch(q, k_pool, v_pool, block_tables, ctx_lens, seg_lens, tags,
         return out
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = _kernel()(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-                       k_scale.data_ptr() if scales else None,
-                       v_scale.data_ptr() if scales else None,
-                       block_tables.data_ptr(), ctx_lens.data_ptr(),
-                       seg_lens.data_ptr(), tags.data_ptr(), out.data_ptr(),
-                       B, C, H, Hkv, Dh, BS, block_tables.shape[1],
-                       _DTYPES[q.dtype], stream)
+        fn = build.entry("mixed_attention", "repro_mixed_attention", 10, 8)
+        rc = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                k_scale.data_ptr() if scales else None,
+                v_scale.data_ptr() if scales else None,
+                block_tables.data_ptr(), ctx_lens.data_ptr(),
+                seg_lens.data_ptr(), tags.data_ptr(), out.data_ptr(),
+                B, C, H, Hkv, Dh, BS, block_tables.shape[1],
+                _DTYPES[q.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"paged_mixed_attention: launch failed "
                            f"(cudaError {rc})")

@@ -1,10 +1,12 @@
-"""Shared attention constants and the flat work list, in torch.
+"""Shared attention constants, the flat work list and operand checks, in
+torch: the leaf that the kernel wrappers import.
 
-The port's counterpart of the framework-level parts of
-``repro.kernels.ops``. The online-softmax block core that the Pallas
-kernels share (``_flash_block_update``/``_flash_init``/``_flash_finish``)
-lives inside the CUDA kernels here: ``csrc/mixed_attention.cu`` and, for
-the ``flat`` pair, ``csrc/flash_core.cuh``.
+The port's counterpart of ``repro.kernels.ops``. The online-softmax block
+core that the Pallas kernels share (``_flash_block_update``/
+``_flash_init``/``_flash_finish``) lives inside the CUDA kernels here:
+``csrc/mixed_attention.cu`` and, for the others, ``csrc/flash_core.cuh``.
+The reference's public ``decode_attention``/``prefill_attention`` entry
+points sit above the wrappers, in ``kernels/api.py``.
 """
 from __future__ import annotations
 
@@ -44,11 +46,12 @@ def flat_work_list(lengths: torch.Tensor, nbt: int, block_s: int,
 def check_paged_operands(name: str, q: torch.Tensor, k_pool: torch.Tensor,
                          v_pool: torch.Tensor, block_tables: torch.Tensor,
                          per_row, head_dims=(64, 128), max_group=None):
-    """Raise unless the operands of a paged-attention kernel are what its
-    CUDA build takes: f32/bf16 ``q`` and pools of one dtype, a head dim in
+    """Raise unless the operands of an attention kernel are what its CUDA
+    build takes: f32/bf16 ``q`` and pools of one dtype, a head dim in
     ``head_dims``, ``H % Hkv == 0`` (and ``H // Hkv <= max_group``), int32
     tables ``[B, NBT]`` and int32 per-row lengths ``[B]``, all contiguous
-    on one device."""
+    on one device. A contiguous cache ``[B, S, Hkv, Dh]`` passes as a pool
+    with ``block_tables=None``."""
     B, H, Dh = q.shape[0], q.shape[-2], q.shape[-1]
     Hkv = k_pool.shape[2]
     if q.dtype not in (torch.float32, torch.bfloat16):
@@ -62,10 +65,12 @@ def check_paged_operands(name: str, q: torch.Tensor, k_pool: torch.Tensor,
             or (max_group is not None and H // Hkv > max_group)):
         raise ValueError(f"{name}: q {tuple(q.shape)} vs pools "
                          f"{tuple(k_pool.shape)}/{tuple(v_pool.shape)}")
-    ints = (block_tables, *per_row)
+    ints = tuple(per_row) if block_tables is None else (block_tables,
+                                                         *per_row)
     if any(t.dtype != torch.int32 for t in ints):
         raise TypeError(f"{name}: tables and lengths are int32")
-    if (block_tables.dim() != 2 or block_tables.shape[0] != B
+    if ((block_tables is not None and (block_tables.dim() != 2
+                                       or block_tables.shape[0] != B))
             or any(tuple(t.shape) != (B,) for t in per_row)):
         raise ValueError(f"{name}: tables [B, NBT], lengths [B]")
     tensors = (q, k_pool, v_pool) + ints

@@ -1,50 +1,48 @@
-"""Chunked causal prefill attention over the paged pool — the ``flat``
-backend's prefill kernel.
+"""Prefill attention kernels: chunked causal prefill over the paged pool
+(the ``flat`` and ``grid`` backends' chunk kernel) and causal flash
+prefill over contiguous caches.
 
-Replaces the TPU kernel ``repro/kernels/prefill_attention.py::
-paged_prefill_attention`` (``_paged_prefill_kernel``) with a CUDA kernel
-written for Hopper, ``csrc/prefill_attention.cu`` (built and loaded by
-:mod:`repro_torch.kernels.build`). The source's header says how it is
-recast for parallel thread blocks, what bounds it on the card (the score
-and P·V products of long chunks) and what the design does about that.
+Replaces two TPU kernels of ``repro/kernels/prefill_attention.py`` with
+CUDA kernels written for Hopper, built and loaded by
+:mod:`repro_torch.kernels.build`:
 
-:func:`paged_prefill_attention` launches the kernel for CUDA tensors — or
-raises; it never falls back — and runs
-:func:`paged_prefill_attention_plain`, the plain PyTorch version of the
-same function, only for tensors on the CPU. ``LAUNCHES`` counts kernel
-launches.
+* ``paged_prefill_attention`` (``_paged_prefill_kernel``) →
+  ``csrc/prefill_attention.cu``.
+* ``prefill_attention`` (``_prefill_kernel``) →
+  ``csrc/contiguous_prefill.cu``.
 
-Semantics (those of ``_paged_prefill_kernel``): query row ``i`` of chunk
-``b`` attends keys ``idx < ctx_b + clen_b`` and ``idx <= ctx_b + i``; the
-chunk's own K/V are already in the pool. Rows ``i >= clen_b`` are padding:
-the TPU leaves them garbage, the port writes zeros.
+Each source's header says how it is recast for parallel thread blocks,
+what bounds it on the card (the score and P·V products of long prompts)
+and what the design does about that.
+
+Each wrapper launches its kernel for CUDA tensors — or raises; it never
+falls back — and runs its plain PyTorch version (``*_plain``) only for
+tensors on the CPU. ``LAUNCHES`` counts the paged kernel's launches,
+``CONTIG_LAUNCHES`` the contiguous one's.
+
+Paged semantics (those of ``_paged_prefill_kernel``): query row ``i`` of
+chunk ``b`` attends keys ``idx < ctx_b + clen_b`` and ``idx <= ctx_b + i``;
+the chunk's own K/V are already in the pool. Rows ``i >= clen_b`` are
+padding: the TPU leaves them garbage, the port writes zeros. Contiguous
+semantics (those of ``_prefill_kernel``): key ``s`` is visible to query
+``t`` iff ``s <= t`` and ``s < length``; a row that sees no key is zeros.
 """
 from __future__ import annotations
 
-import ctypes
+import math
 from typing import Optional
 
 import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.mixed_attention import paged_mixed_attention_plain
-from repro_torch.kernels.ops import check_paged_operands
+from repro_torch.kernels.ops import NEG_INF, check_paged_operands
 
-LAUNCHES = 0          # kernel launches by this process (CUDA path only)
+# kernel launches by this process (CUDA path only)
+LAUNCHES = 0          # paged (chunked) prefill
+CONTIG_LAUNCHES = 0   # contiguous prefill
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_fn = None
-
-
-def _kernel():
-    global _fn
-    if _fn is None:
-        fn = build.load("prefill_attention").repro_paged_prefill_attention
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [
-            ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
 
 
 def paged_prefill_attention(q, k_pool, v_pool, block_tables, ctx_lens,
@@ -87,11 +85,12 @@ def _launch(q, k_pool, v_pool, block_tables, ctx_lens, chunk_lens):
         return out
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = _kernel()(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-                       block_tables.data_ptr(), ctx_lens.data_ptr(),
-                       chunk_lens.data_ptr(), out.data_ptr(), B, C, H, Hkv,
-                       Dh, BS, block_tables.shape[1], _DTYPES[q.dtype],
-                       stream)
+        fn = build.entry("prefill_attention",
+                         "repro_paged_prefill_attention", 7, 8)
+        rc = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                block_tables.data_ptr(), ctx_lens.data_ptr(),
+                chunk_lens.data_ptr(), out.data_ptr(), B, C, H, Hkv, Dh, BS,
+                block_tables.shape[1], _DTYPES[q.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"{name}: launch failed (cudaError {rc})")
     LAUNCHES += 1
@@ -105,3 +104,70 @@ def paged_prefill_attention_plain(q, k_pool, v_pool, block_tables, ctx_lens,
     return paged_mixed_attention_plain(q, k_pool, v_pool, block_tables,
                                        ctx_lens, chunk_lens,
                                        torch.ones_like(ctx_lens))
+
+
+# --------------------------------------------------------------------------
+# Contiguous causal prefill
+# --------------------------------------------------------------------------
+def prefill_attention(q, k, v, lengths=None):
+    """Causal GQA flash prefill over contiguous caches.
+
+    q        [B, T, H, Dh]
+    k, v     [B, T, Hkv, Dh]
+    lengths  [B] int32 valid keys per row (clamped to T), or None = T
+    returns  [B, T, H, Dh] in q's dtype: query t over keys s <= t,
+             s < length; a row that sees no key is zeros
+    """
+    if lengths is None:
+        lengths = torch.full((q.shape[0],), q.shape[1], dtype=torch.int32,
+                             device=q.device)
+    if q.device.type == "cpu":
+        return prefill_attention_plain(q, k, v, lengths)
+    if q.device.type != "cuda":
+        raise ValueError(f"prefill_attention: no kernel for {q.device}")
+    global CONTIG_LAUNCHES
+    name = "prefill_attention"
+    if q.dim() != 4 or k.shape[:2] != q.shape[:2]:
+        raise ValueError(f"{name}: q [B, T, H, Dh], k, v [B, T, Hkv, Dh]; "
+                         f"got {tuple(q.shape)}, {tuple(k.shape)}")
+    check_paged_operands(name, q, k, v, None, (lengths,))
+    B, T, H, Dh = q.shape
+    out = torch.empty_like(q)
+    if B == 0 or T == 0:
+        return out
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        fn = build.entry("contiguous_prefill",
+                         "repro_contiguous_prefill_attention", 5, 6)
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
+                out.data_ptr(), B, T, H, k.shape[2], Dh, _DTYPES[q.dtype],
+                stream)
+    if rc != 0:
+        raise RuntimeError(f"{name}: launch failed (cudaError {rc})")
+    CONTIG_LAUNCHES += 1
+    return out
+
+
+def prefill_attention_plain(q, k, v, lengths):
+    """The same function in plain PyTorch, in f32: visible keys weigh
+    ``exp(s - max)``, hidden ones 0, and ``acc / l`` with ``l = 0 -> 1``.
+    One batch row at a time, so the [H, T, T] scores are the largest
+    temporary."""
+    B, T, H, Dh = q.shape
+    Hkv = k.shape[2]
+    G = H // Hkv
+    pos = torch.arange(T, device=q.device)
+    causal = pos[None, :] <= pos[:, None]                      # [t, s]
+    lengths = lengths.to(torch.int64).clamp(0, T)
+    out = torch.empty_like(q)
+    for b in range(B):
+        qg = q[b].reshape(T, Hkv, G, Dh).float()
+        s = torch.einsum("thgd,shd->hgts", qg, k[b].float()) / math.sqrt(Dh)
+        keep = causal & (pos[None, :] < lengths[b])
+        s = torch.where(keep, s, NEG_INF)
+        p = torch.where(keep, torch.exp(s - s.amax(-1, keepdim=True)), 0.0)
+        l = p.sum(-1, keepdim=True)
+        o = torch.einsum("hgts,shd->thgd", p / torch.where(l == 0, 1.0, l),
+                         v[b].float())
+        out[b] = o.reshape(T, H, Dh).to(q.dtype)
+    return out

@@ -79,13 +79,15 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--attn-backend", default=None,
                     choices=list(PAGED_BACKENDS),
                     help="paged attention backend: 'fused' (default) runs "
-                         "one kernel per layer per step; 'flat' runs the "
-                         "chunked prefill kernel, then the flat decode "
-                         "kernel")
+                         "one kernel per layer per step; 'flat' and 'grid' "
+                         "run the chunked prefill kernel, then their decode "
+                         "kernel (flat work list, or one block per request "
+                         "and kv head); 'dense' gathers the pool and runs "
+                         "a masked SDPA in plain PyTorch, no kernel")
     ap.add_argument("--kv-dtype", default="bf16", choices=list(KV_DTYPES),
                     help="paged KV pool: 'bf16' keeps the model's dtype, "
                          "'int8' halves KV bytes (int8 rows with f32 "
-                         "scales; needs the fused backend)")
+                         "scales; needs the fused or dense backend)")
     ap.add_argument("--host-kv-budget", type=int, default=4096,
                     help="host-RAM KV tier capacity in tokens per engine: "
                          "evicted prefix chains demote here instead of "

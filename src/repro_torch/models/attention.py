@@ -1,9 +1,10 @@
 """Paged GQA attention with RoPE — the port's subset of
 ``repro.models.attention``: the decode, chunked-prefill and
-mixed-iteration paths over the global block pool, on the ``flat`` kernel
-pair or the ``fused`` kernel, and the int8 pool (``QuantKVCache``:
-quantize-on-write, scales beside the rows), which only the ``fused``
-kernel reads.
+mixed-iteration paths over the global block pool on the four paged
+backends (``dense`` gather + masked SDPA, the ``grid`` and ``flat`` kernel
+pairs, the ``fused`` kernel), and the int8 pool (``QuantKVCache``:
+quantize-on-write, scales beside the rows), which the ``fused`` kernel and
+the ``dense`` path read.
 
 Shapes follow the JAX package: activations ``x [B, T, D]``, a pool slice
 ``[NB, BS, Hkv, Dh]`` per layer, block tables ``[B, NBT]`` int32. Pool
@@ -14,22 +15,27 @@ it was given, updated.
 from __future__ import annotations
 
 import functools
+import math
 from typing import NamedTuple, Optional
 
 import torch
 
-from repro_torch.kernels.decode_attention import paged_decode_attention_flat
+from repro_torch.kernels.decode_attention import (paged_decode_attention,
+                                                  paged_decode_attention_flat)
 from repro_torch.kernels.mixed_attention import paged_mixed_attention
+from repro_torch.kernels.ops import NEG_INF
 from repro_torch.kernels.prefill_attention import paged_prefill_attention
 from repro_torch.models.common import ModelConfig
 
-# Paged attention backends of the port (the JAX package's "dense" and
-# "grid" wait: on the CPU the plain versions do the dense path's job, and
-# "grid" needs the kernel of its own):
-#   flat  — decode by the flat work-list kernel, prompt chunks by the
-#           chunked prefill kernel: a mixed step makes two calls.
+# Paged attention backends (the JAX package's four):
+#   dense — gather pool[block_tables] + masked SDPA in plain PyTorch: a
+#           [B, NBT·BS, Hkv, Dh] copy per layer per step and no kernel; the
+#           reference's parity baseline, and it reads int8 pools.
+#   grid  — decode by the (request, kv head) grid kernel, prompt chunks by
+#           the chunked prefill kernel: a mixed step makes two calls.
+#   flat  — decode by the flat work-list kernel, chunks as on grid.
 #   fused — one tagged kernel over decode rows and chunks: one call.
-PAGED_BACKENDS = ("flat", "fused")
+PAGED_BACKENDS = ("dense", "grid", "flat", "fused")
 
 
 def resolve_paged_backend(backend: Optional[str] = None) -> str:
@@ -74,6 +80,25 @@ def _project_qkv(p, cfg: ModelConfig, x: torch.Tensor):
     dh = cfg.head_dim
     return (q.reshape(B, T, -1, dh), k.reshape(B, T, -1, dh),
             v.reshape(B, T, -1, dh))
+
+
+# --------------------------------------------------------------------------
+# Core SDPA (GQA, masked): the dense path, plain PyTorch
+# --------------------------------------------------------------------------
+def _gqa_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask):
+    """q [B,Tq,H,Dh]; k,v [B,S,Hkv,Dh]; mask broadcastable to
+    [B, Hkv, G, Tq, S] (5-d; None = attend everything). Scores, softmax and
+    both products in f32; the weights round to V's dtype before P·V, as
+    the reference's ``w.astype(v.dtype)`` does."""
+    B, Tq, H, Dh = q.shape
+    Hkv = k.shape[2]
+    qg = q.reshape(B, Tq, Hkv, H // Hkv, Dh).float()
+    scores = torch.einsum("bthgd,bshd->bhgts", qg, k.float()) / math.sqrt(Dh)
+    if mask is not None:
+        scores = torch.where(mask, scores, NEG_INF)
+    w = torch.softmax(scores, dim=-1).to(v.dtype).float()
+    out = torch.einsum("bhgts,bshd->bthgd", w, v.float())
+    return out.reshape(B, Tq, H, Dh).to(q.dtype)
 
 
 # --------------------------------------------------------------------------
@@ -185,11 +210,11 @@ def dequantize_piece(piece: QuantKVCache, dtype: torch.dtype) -> KVCache:
 
 
 def _check_kv_backend(pool_l, attn_backend: str) -> None:
-    """int8 pools are read by the fused kernel only (the reference also
-    allows its ``dense`` backend, which the port does not have)."""
-    if isinstance(pool_l, QuantKVCache) and attn_backend != "fused":
-        raise ValueError(f"int8 KV pools need the 'fused' backend, got "
-                         f"{attn_backend!r}")
+    """int8 pools are read by the fused kernel and the dense path; the
+    grid and flat kernels take full-width pools only."""
+    if isinstance(pool_l, QuantKVCache) and attn_backend in ("grid", "flat"):
+        raise ValueError(f"int8 KV pools need the 'fused' or 'dense' "
+                         f"backend, got {attn_backend!r}")
 
 
 def paged_gather(pool: torch.Tensor, block_tables: torch.Tensor):
@@ -199,6 +224,43 @@ def paged_gather(pool: torch.Tensor, block_tables: torch.Tensor):
     B, NBT = block_tables.shape
     g = pool[block_tables.long()]
     return g.reshape(B, NBT * pool.shape[1], *pool.shape[2:])
+
+
+def _gather_dequant(pool_l, block_tables: torch.Tensor):
+    """Dense-path gather of a request-contiguous [B, NBT·BS, Hkv, Dh] view,
+    dequantized to f32 when the pool is int8."""
+    k_seq = paged_gather(pool_l.k, block_tables)
+    v_seq = paged_gather(pool_l.v, block_tables)
+    if isinstance(pool_l, QuantKVCache):
+        ks = paged_gather(pool_l.k_scale, block_tables)      # [B, S, Hkv]
+        vs = paged_gather(pool_l.v_scale, block_tables)
+        k_seq = k_seq.float() * ks[..., None]
+        v_seq = v_seq.float() * vs[..., None]
+    return k_seq, v_seq
+
+
+def _dense_attention(q: torch.Tensor, pool_l, block_tables: torch.Tensor,
+                     positions: torch.Tensor) -> torch.Tensor:
+    """The dense backend: q [B, T, H, Dh] at global ``positions`` [B, T]
+    over its request's gathered rows ``kpos <= position``. Returns
+    [B, T, H, Dh]."""
+    k_seq, v_seq = _gather_dequant(pool_l, block_tables)
+    kpos = torch.arange(k_seq.shape[1], device=q.device)[None, None, :]
+    mask = (kpos <= positions[:, :, None])[:, None, None]     # [B,1,1,T,S]
+    return _gqa_sdpa(q, k_seq, v_seq, mask)
+
+
+def _paged_decode(attn_backend: str, q: torch.Tensor, pool_l,
+                  block_tables: torch.Tensor, lengths: torch.Tensor,
+                  num_work=None, work_list=None) -> torch.Tensor:
+    """The decode kernel of the ``grid`` or ``flat`` backend: q [B, H, Dh]
+    over keys ``idx < lengths``. Returns [B, H, Dh]."""
+    if attn_backend == "grid":
+        return paged_decode_attention(q, pool_l.k, pool_l.v, block_tables,
+                                      lengths)
+    return paged_decode_attention_flat(q, pool_l.k, pool_l.v, block_tables,
+                                       lengths, num_work=num_work,
+                                       work_list=work_list)
 
 
 def _table_entry(block_tables: torch.Tensor, pos: torch.Tensor, BS: int):
@@ -212,7 +274,7 @@ def _table_entry(block_tables: torch.Tensor, pos: torch.Tensor, BS: int):
 
 
 # --------------------------------------------------------------------------
-# Decode and the fused mixed iteration
+# Decode, chunked prefill and the mixed iteration
 # --------------------------------------------------------------------------
 def attention_decode_paged(p, cfg: ModelConfig, x: torch.Tensor,
                            pool_l: KVCache, block_tables: torch.Tensor,
@@ -222,10 +284,11 @@ def attention_decode_paged(p, cfg: ModelConfig, x: torch.Tensor,
     """x [B, 1, D]; pool_l one layer's slice; block_tables [B, NBT] int32;
     pos [B] int32 tokens already cached (-1 = dead slot: its write lands
     in the garbage block and its attention length is 0). Writes the new
-    token's K/V, then runs the flat decode kernel (lengths = pos + 1,
-    ``attn_num_work`` work items; ``attn_work_list`` is their flat work
-    list when the caller built it once for all layers) or the fused
-    kernel with all-decode tags (ctx = pos, seg = 1). Returns
+    token's K/V, then attends over keys ``<= pos``: the fused kernel with
+    all-decode tags (ctx = pos, seg = 1), the grid or flat decode kernel
+    (lengths = pos + 1; flat runs ``attn_num_work`` work items, and
+    ``attn_work_list`` is their flat work list when the caller built it
+    once for all layers), or the dense gather + SDPA. Returns
     (out [B, 1, D], pool_l)."""
     assert not cfg.sliding_window, "paged decode is full-attention only"
     B = x.shape[0]
@@ -237,15 +300,17 @@ def attention_decode_paged(p, cfg: ModelConfig, x: torch.Tensor,
     BS = pool_l.k.shape[1]
     blk = _table_entry(block_tables, pos[:, None], BS)[:, 0]
     scatter_pool(pool_l, blk, torch.remainder(pos, BS), k[:, 0], v[:, 0])
-    if attn_backend == "flat":
-        o = paged_decode_attention_flat(
-            q[:, 0].contiguous(), pool_l.k, pool_l.v, block_tables, pos + 1,
-            num_work=attn_num_work, work_list=attn_work_list)
-    else:
+    if attn_backend == "fused":
         o = paged_mixed_attention(
             q.contiguous(), pool_l.k, pool_l.v, block_tables, pos,
             torch.ones_like(pos), torch.zeros_like(pos),
             *_pool_scales(pool_l), num_work=attn_num_work)
+    elif attn_backend == "dense":
+        o = _dense_attention(q, pool_l, block_tables, pos[:, None])
+    else:
+        o = _paged_decode(attn_backend, q[:, 0].contiguous(), pool_l,
+                          block_tables, pos + 1, attn_num_work,
+                          attn_work_list)
     return o.reshape(B, 1, -1) @ p["wo"], pool_l
 
 
@@ -261,9 +326,11 @@ def attention_prefill_chunk_paged(p, cfg: ModelConfig, x: torch.Tensor,
     tail on the garbage block); ctx_len / chunk_len [B] int32. Writes the
     chunk's K/V at positions ``ctx..ctx+C-1`` (RoPE at the true
     positions), then attends each query causally over the written context
-    and its own chunk: the chunked prefill kernel (``flat``) or the fused
-    kernel with all-chunk tags. Returns (out [B, C, D], pool_l); rows past
-    ``chunk_len`` are zeros."""
+    and its own chunk: the chunked prefill kernel (``grid`` and ``flat``),
+    the fused kernel with all-chunk tags, or the dense gather + SDPA.
+    Returns (out [B, C, D], pool_l); rows past ``chunk_len`` are zeros on
+    the kernel backends and unspecified on ``dense`` (the caller reads
+    only real rows)."""
     assert not cfg.sliding_window, "paged prefill is full-attention only"
     B, C, _ = x.shape
     ctx = ctx_len.to(torch.int32)
@@ -279,13 +346,15 @@ def attention_prefill_chunk_paged(p, cfg: ModelConfig, x: torch.Tensor,
     scatter_pool(pool_l, _table_entry(block_tables, positions, BS),
                  torch.remainder(positions, BS), k, v)
     q = q.contiguous()
-    if attn_backend == "flat":
-        o = paged_prefill_attention(q, pool_l.k, pool_l.v, block_tables,
-                                    ctx, clen)
-    else:
+    if attn_backend == "fused":
         o = paged_mixed_attention(q, pool_l.k, pool_l.v, block_tables, ctx,
                                   clen, torch.ones_like(ctx),
                                   *_pool_scales(pool_l))
+    elif attn_backend == "dense":
+        o = _dense_attention(q, pool_l, block_tables, positions)
+    else:
+        o = paged_prefill_attention(q, pool_l.k, pool_l.v, block_tables,
+                                    ctx, clen)
     return o.reshape(B, C, -1) @ p["wo"], pool_l
 
 
@@ -296,10 +365,11 @@ def attention_mixed_paged(p, cfg: ModelConfig, x_dec: torch.Tensor,
                           chunk_len: torch.Tensor, *,
                           attn_backend: str = "fused",
                           attn_num_work: Optional[int] = None):
-    """The attention of a whole mixed iteration: ONE fused launch, or on
-    the ``flat`` backend the flat decode kernel for the decode half and
-    the chunked prefill kernel for the chunks (``attn_num_work`` is then
-    not taken: the decode half runs the worst-case bucket).
+    """The attention of a whole mixed iteration: ONE fused launch; on the
+    ``grid`` and ``flat`` backends that backend's decode kernel for the
+    decode half and the chunked prefill kernel for the chunks
+    (``attn_num_work`` is then not taken: flat's decode half runs the
+    worst-case bucket); on ``dense`` a gather + SDPA for each half.
 
     x_dec [Bd, 1, D] — the decode batch (``pos = -1`` marks dead slots);
     x_ck [Bp, C, D] — prompt chunks (rows past ``chunk_len`` are
@@ -334,9 +404,14 @@ def attention_mixed_paged(p, cfg: ModelConfig, x_dec: torch.Tensor,
     scatter_pool(pool_l, blk_d, torch.remainder(pos, BS), kd[:, 0], vd[:, 0])
     scatter_pool(pool_l, blk_c, torch.remainder(positions, BS), kc, vc)
 
-    if attn_backend == "flat":
-        out_d = paged_decode_attention_flat(
-            qd[:, 0].contiguous(), pool_l.k, pool_l.v, bt_dec, pos + 1)
+    if attn_backend == "dense":
+        out_d = _dense_attention(qd, pool_l, bt_dec, pos[:, None])
+        out_c = _dense_attention(qc, pool_l, bt_ck, positions)
+        return (out_d.reshape(Bd, 1, -1) @ p["wo"],
+                out_c.reshape(Bp, C, -1) @ p["wo"], pool_l)
+    if attn_backend != "fused":
+        out_d = _paged_decode(attn_backend, qd[:, 0].contiguous(), pool_l,
+                              bt_dec, pos + 1)
         out_c = paged_prefill_attention(qc.contiguous(), pool_l.k, pool_l.v,
                                         bt_ck, ctx, clen)
         return (out_d.reshape(Bd, 1, -1) @ p["wo"],

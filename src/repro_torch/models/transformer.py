@@ -84,7 +84,7 @@ def forward_decode_paged(p, cfg: ModelConfig, token: torch.Tensor,
                          pos: torch.Tensor, *, attn_backend: str = "fused",
                          attn_num_work=None):
     """token [B] int; pool leaves [L, NB, BS, Hkv, Dh] (a ``KVCache``, or
-    an int8 ``QuantKVCache`` on the fused backend); block_tables
+    an int8 ``QuantKVCache`` on the fused and dense backends); block_tables
     [B, NBT] int32; pos [B] int32 (-1 = dead slot). Returns
     (logits [B, V], pool) — the pool updated in place. On the ``flat``
     backend the layers share one flat work list."""
@@ -117,7 +117,7 @@ def forward_mixed(p, cfg: ModelConfig, dec_token: torch.Tensor,
     (``dec_token [Bd]``, ``pos [Bd]``, -1 = dead slot) advances one token
     while prompt chunks (``ck_tokens [Bp, C]``, ``ctx_len``/``chunk_len``
     [Bp]) prefill beside it — ONE fused attention launch per layer (two
-    on the ``flat`` backend).
+    on the ``grid`` and ``flat`` backends, none on ``dense``).
     Returns ``(dec_logits [Bd, V], ck_logits [Bp, V], pool)``, ck_logits
     at each chunk's last real position."""
     x_dec = embed_tokens(p, cfg, dec_token[:, None])

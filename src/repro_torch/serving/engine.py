@@ -12,8 +12,9 @@ Every ``step()`` is one **mixed** continuous-batching iteration: up to
 oldest-first, then admitting FCFS) run beside the whole ``max_slots``-wide
 decode batch. On the ``fused`` attention backend that is ONE
 attention-bearing forward (one fused kernel launch per layer); on
-``flat`` it is two: the chunks' forward (the chunked prefill kernel), then
-the decode forward (the flat decode kernel), in which a request whose
+``grid``, ``flat`` and ``dense`` it is two: the chunks' forward (the
+chunked prefill kernel, or dense's gather + SDPA), then the decode forward
+(the grid or flat decode kernel, or dense's), in which a request whose
 last chunk just landed already decodes. Steps without chunks decode
 (``step(burst=n)`` runs up to ``n`` decode iterations before the host
 looks at the tokens). Block tables,
@@ -36,8 +37,8 @@ dequantizes on export and quantizes on import, so bf16 and int8 engines
 interoperate.
 
 ``kv_dtype="int8"`` keeps the pool as int8 rows with f32 scales (about
-half the bytes; fused backend only). ``host_kv_budget`` adds the host-RAM
-tier: reclaimed prefix blocks demote to pinned host memory (an async
+half the bytes; fused and dense backends). ``host_kv_budget`` adds the
+host-RAM tier: reclaimed prefix blocks demote to pinned host memory (an async
 device-side copy issued before the allocation that overwrites them,
 waited for only at the end of the step) and promote back with one upload
 at admission. ``preemption=True`` keeps the waiting queue in SLO order
@@ -101,7 +102,8 @@ def d2h(x: torch.Tensor) -> np.ndarray:
 
 
 # Running count of attention-bearing forwards (each is one kernel launch
-# per layer): a fused mixed step makes exactly ONE, a flat one two.
+# per layer, none on dense): a fused mixed step makes exactly ONE, a grid,
+# flat or dense one two.
 ATTN_CALLS = 0
 
 
@@ -174,16 +176,19 @@ class Engine:
                  slo_time_scale: float = 1.0):
         """The engine runs on the device of ``params["embed"]``; several
         engines may share one ``params`` (each owns only its KV pool).
-        ``attn_backend`` is ``"fused"`` (default) or ``"flat"``;
-        ``kv_dtype`` ``"bf16"`` (the model's dtype) or ``"int8"`` (fused
-        only); ``host_kv_budget`` the host-RAM tier's tokens (0: off);
+        ``attn_backend`` is ``"fused"`` (default), ``"flat"``, ``"grid"``
+        or ``"dense"``; ``kv_dtype`` ``"bf16"`` (the model's dtype) or
+        ``"int8"`` (fused or dense); ``host_kv_budget`` the host-RAM
+        tier's tokens (0: off);
         ``preemption`` SLO preemption (off unless asked, as in the
         reference's direct construction)."""
         if kv_dtype not in KV_DTYPES:
             raise ValueError(f"kv_dtype {kv_dtype!r} not in {KV_DTYPES}")
         self.attn_backend = resolve_paged_backend(attn_backend)
-        if kv_dtype == "int8" and self.attn_backend != "fused":
-            raise ValueError("int8 KV needs the 'fused' attention backend")
+        if kv_dtype == "int8" and self.attn_backend not in ("fused",
+                                                             "dense"):
+            raise ValueError("int8 KV needs the 'fused' or 'dense' "
+                             "attention backend")
         self.id = engine_id
         self.model = model
         self.params = params
@@ -212,7 +217,8 @@ class Engine:
         # pool bytes per block, scales included
         self._bytes_per_block = kv_bytes(self.cache) / (self.num_blocks + 1)
         self.block_tables: List[List[int]] = [[] for _ in range(max_slots)]
-        # fused: chunks and decodes share ONE forward; flat: two forwards
+        # fused: chunks and decodes share ONE forward; grid, flat and
+        # dense: two forwards (chunks, then decodes)
         self.fused_mixed = self.attn_backend == "fused"
         # device mirrors of the decode batch: tables (pow2 width), cache
         # lengths (0 = dead slot) and last tokens
@@ -536,10 +542,10 @@ class Engine:
     # ---- chunked prefill: the mixed iteration's prompt side -----------------
     def _run_chunked_prefill(self) -> Tuple[List[ServeRequest],
                                             List[ServeRequest]]:
-        """The flat path's chunk forward: plan, run every planned chunk in
-        ONE prefill forward, and finish them. Returns (rejected,
-        completed) — completed requests' first tokens stay on the device
-        until the step's single transfer."""
+        """The two-call path's chunk forward (grid, flat, dense): plan,
+        run every planned chunk in ONE prefill forward, and finish them.
+        Returns (rejected, completed) — completed requests' first tokens
+        stay on the device until the step's single transfer."""
         rejected, plan = self._plan_chunks()
         completed: List[ServeRequest] = []
         if plan:
@@ -977,6 +983,9 @@ class Engine:
                     self._dev_set_table(i, table)
             real = sum(blocks_for(int(self.slot_len[i]) + h - 1,
                                   self.block_size) for i, _ in live)
+            # num_work shapes only the work-list kernels (flat, fused)
+            num_work = (_next_pow2(real)
+                        if self.attn_backend in ("flat", "fused") else 0)
             dec_blocks = [blocks_for(int(self.slot_len[i]), self.block_size)
                           for i, _ in live]
             self.last_grid = {
@@ -985,7 +994,7 @@ class Engine:
                 "real_items": sum(dec_blocks),
                 "padded_items": len(live) * max(dec_blocks),
             }
-            toks = torch.stack([attn_call(self._decode, _next_pow2(real))
+            toks = torch.stack([attn_call(self._decode, num_work)
                                 for _ in range(h)])
         # ---- the step's single device->host transfer ----
         pending = list(self._pending_first)

@@ -58,8 +58,9 @@ class ServerConfig:
     balance_every: int = 8
     max_migrations_per_step: int = 3   # §5 concurrency cap
     seed: int = 0
-    attn_backend: Optional[str] = None  # flat | fused | None = fused
-    kv_dtype: str = "bf16"             # bf16 | int8 (int8: fused only)
+    # dense | grid | flat | fused | None = fused
+    attn_backend: Optional[str] = None
+    kv_dtype: str = "bf16"             # bf16 | int8 (int8: fused or dense)
     # SLO-tiered preemptive scheduling; False keeps FCFS queues. With
     # uniform-class traffic and distinct arrival steps the SLO order is
     # FCFS and nothing preempts.

@@ -37,10 +37,12 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
     assert out.returncode == 0, out.stderr
     loaded = set(out.stdout.split())
     assert len(loaded) >= 15                       # every module imported
-    # the modules of the int8, preemption, host tier and fault paths
+    # the modules of the int8, preemption, host tier and fault paths, and
+    # the contiguous kernels' oracles and entry points
     assert {"repro_torch.sched.policy", "repro_torch.sched.slo",
             "repro_torch.control.faults", "repro_torch.serving.block_pool",
-            "repro_torch.sim.metrics"} <= loaded
+            "repro_torch.sim.metrics", "repro_torch.kernels.ref",
+            "repro_torch.kernels.api"} <= loaded
 
 
 @pytest.mark.parametrize("path", _port_files(),
