@@ -23,6 +23,11 @@ the last line:
    output), the contiguous decode kernel padded and ragged at the paper's
    200v10000 setup (batch 512, bf16; f32 on 64 of its rows) and the
    contiguous causal prefill kernel at B 2, T 4096, lengths 4096/4059;
+   for the two kernels redesigned for Hopper, the split-KV grid decode
+   and the tensor-core contiguous prefill, also the achieved rate (TB/s,
+   TFLOP/s) and share of the bound, ptxas's registers and spilled bytes,
+   and the count of tensor-core instructions (HMMA, HGMMA) in the SASS of
+   the bf16 prefill kernel (``cuobjdump -sass``), which must not be 0;
 4. a full-width llama3.2-3b engine (bf16, random seeded weights, fused
    backend, preemption off) serving 8 requests with prompts of 16..5897
    tokens, under CUDA sync-debug "error" mode: every request finishes
@@ -91,6 +96,7 @@ import dataclasses
 import gc
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -503,6 +509,54 @@ def bound_of(nbytes, flops):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+# kernels redesigned for Hopper whose ptxas report phase 3 carries
+REDESIGNED = ("prefill_tc_kernel", "grid_split_kernel")
+
+
+def ptxas_report(text):
+    """{kernel label: {"registers": n, "spill_bytes": stores + loads}} from
+    ``nvcc -Xptxas -v`` output, for the kernels in ``REDESIGNED``; a label
+    is the kernel's name, its element type and its integer template
+    arguments (head dim; rows of the grid kernel's tile)."""
+    out, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(_Z\w+)", line)
+        if m:
+            name = m.group(1)
+            continue
+        base = next((k for k in REDESIGNED if name and k in name), None)
+        if base is None:
+            continue
+        ints = re.findall(r"Li(\d+)E", name)
+        label = (f"{base}<{'bf16' if 'bfloat16' in name else 'f32'}"
+                 f"{''.join(',' + n for n in ints)}>")
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out.setdefault(label, {})["spill_bytes"] = int(m.group(1)) + int(
+                m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out.setdefault(label, {})["registers"] = int(m.group(1))
+    return out
+
+
+def tensor_core_count(build, name, kernel):
+    """Tensor-core instructions (HGMMA, HMMA) in the SASS of the functions
+    of library ``name`` whose name holds ``kernel``, by ``cuobjdump``."""
+    tool = Path(build.nvcc_path()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(build.library_path(name))],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    counts = {"HGMMA": 0, "HMMA": 0}
+    for section in sass.split("Function : ")[1:]:
+        if kernel in section.split("\n", 1)[0]:
+            for op in counts:
+                counts[op] += len(re.findall(rf"\b{op}\.", section))
+    return counts
+
+
 # the paper's Fig. 2 setups (benchmarks/fig2_heterogeneity.py): batch, short
 # length, long length; half the batch at each. 1000v50000 is cut from the
 # paper's batch 512 to 128: at 512 its K/V would take 105 GB.
@@ -557,13 +611,17 @@ def phase_grid_contiguous_kernels(np, torch, F, dk, pk, flush):
         fl[0][:, :, None], kg, vg, attn_mask=mask), 20, flush)
     bound_ms, by, nb, fo = work_bound(bt, ctx, seg, tags, BS, H, Hkv, Dh,
                                       len(lens))
+    S, P = dk.grid_split_plan(Hkv, bt.shape[1], BS, dk._sm_count(dev))
     log(f"phase 3: grid decode bf16 kernel {kernel_ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms, library sdpa {library_ms:.4f} ms, bound "
-        f"{bound_ms:.4f} ms ({by}: {nb / 1e6:.1f} MB, {fo / 1e9:.2f} GFLOP)")
+        f"{bound_ms:.4f} ms ({by}: {nb / 1e6:.1f} MB, {fo / 1e9:.2f} GFLOP); "
+        f"{nb / kernel_ms / 1e9:.3f} TB/s, {bound_ms / kernel_ms:.1%} of "
+        f"the bound; split plan S {S}, P {P}")
     out["grid"] = {"max_abs_err": errs["bf16"], "max_abs_err_f32":
                    errs["f32"], "ms": kernel_ms, "plain_ms": plain_ms,
                    "library_ms": library_ms, "bound_ms": bound_ms,
-                   "bound_by": by}
+                   "bound_by": by, "rate": nb / kernel_ms / 1e9,
+                   "rate_unit": "TB/s"}
     del fl, kg, vg
 
     # ---- #5: contiguous decode, padded and ragged, at 200v10000
@@ -651,14 +709,18 @@ def phase_grid_contiguous_kernels(np, torch, F, dk, pk, flush):
     pairs = sum(min(t + 1, n) for n in plens for t in range(T))
     nb = 2 * T * (H + 2 * Hkv + H) * Dh * 2 + 2 * 4
     bound_ms, by = bound_of(nb, 4.0 * pairs * H * Dh)
+    flops = 4.0 * pairs * H * Dh
     log(f"phase 3: contiguous prefill bf16 kernel {kernel_ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms, library sdpa (is_causal, enable_gqa) "
         f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({by}: "
-        f"{nb / 1e6:.1f} MB, {4.0 * pairs * H * Dh / 1e9:.2f} GFLOP)")
+        f"{nb / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP); "
+        f"{flops / kernel_ms / 1e9:.1f} TFLOP/s, "
+        f"{bound_ms / kernel_ms:.1%} of the bound")
     out["prefill"] = {"max_abs_err": errs["bf16"], "max_abs_err_f32":
                       errs["f32"], "ms": kernel_ms, "plain_ms": plain_ms,
                       "library_ms": library_ms, "bound_ms": bound_ms,
-                      "bound_by": by}
+                      "bound_by": by, "rate": flops / kernel_ms / 1e9,
+                      "rate_unit": "TFLOP/s"}
     return out
 
 
@@ -1636,6 +1698,19 @@ def main() -> int:
             if "registers" in line or "spill" in line or "error" in line:
                 log(f"phase 2: {name}: {line.strip()}")
     log(f"phase 2: built {sorted(logs)} in {time.perf_counter() - t0:.1f} s")
+    ptxas = ptxas_report("\n".join(logs.values()))
+    for label, rep in sorted(ptxas.items()):
+        log(f"phase 3: ptxas {label}: {rep.get('registers')} registers, "
+            f"{rep.get('spill_bytes')} bytes spilled")
+    for k in REDESIGNED:
+        check(any(label.startswith(k) for label in ptxas),
+              f"no ptxas report for {k}")
+    tc_ops = tensor_core_count(build, "contiguous_prefill",
+                               "prefill_tc_kernel")
+    log(f"phase 3: tensor-core instructions in the bf16 contiguous prefill "
+        f"kernels' SASS: {tc_ops}")
+    check(sum(tc_ops.values()) > 0,
+          "the bf16 contiguous prefill kernel has no tensor-core instruction")
 
     # 3. kernels vs their plain versions
     flush = torch.empty(128 * 1024 * 1024, dtype=torch.float32,
@@ -1762,6 +1837,18 @@ def main() -> int:
             "kernel_ms": k["ms"], "plain_ms": k["plain_ms"],
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
             "library_ms": k["library_ms"]})
+    for entry in kernels:
+        entry["bound_share"] = entry["bound_ms"] / entry["ms"]
+    by_name = {entry["name"]: entry for entry in kernels}
+    for name, k, prefix in (("paged_decode_attention", more["grid"],
+                             "grid_split"),
+                            ("prefill_attention", more["prefill"],
+                             "prefill_tc_kernel")):
+        entry = by_name[name]
+        entry["rate"], entry["rate_unit"] = k["rate"], k["rate_unit"]
+        entry["ptxas"] = {label: rep for label, rep in ptxas.items()
+                          if label.startswith(prefix)}
+    by_name["prefill_attention"]["tensor_core_instructions"] = tc_ops
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke_report.json").write_text(json.dumps(

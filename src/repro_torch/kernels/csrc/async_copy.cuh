@@ -1,0 +1,36 @@
+// cp.async helpers shared by the pipelined kernels (contiguous_prefill.cu's
+// tensor-core walk and decode_attention.cu's split grid kernel): 16-byte
+// copies from device memory into shared memory that complete in the
+// background, grouped per thread, with zero fill for rows past a range.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace acp {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared; zeros (and no read of src) when !valid. src
+// must be a valid address all the same.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+
+// Close this thread's copies issued since the last commit into a group.
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Wait until at most N of this thread's groups are still in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+}  // namespace acp

@@ -10,8 +10,9 @@ CUDA kernels written for Hopper, built and loaded by
   list recast for parallel thread blocks (runs of consecutive items,
   partial softmax states merged in a second pass).
 * ``paged_decode_attention`` (``_paged_decode_kernel``) → the same
-  source's grid kernel: one thread block per (request, kv head) walking
-  the request's blocks in order.
+  source's grid kernel: split-KV, each (request, kv head) cut into splits
+  of ``P`` table entries (:func:`grid_split_plan`) walked through a
+  cp.async ring, then merged by the last split to finish.
 * ``decode_attention`` (``_decode_kernel``) → ``csrc/contiguous_decode.cu``,
   padded or ragged over contiguous ``[B, S, Hkv, Dh]`` caches.
 
@@ -51,6 +52,11 @@ RAGGED_LAUNCHES = 0   # contiguous, ragged=True
 
 # consecutive work items (request, logical block) one thread block walks
 ITEMS_PER_RUN = 8
+# grid split plan: blocks one long row alone should give each SM, and the
+# fewest keys a split walks (below that a block's set-up outweighs its tiles)
+SPLIT_BLOCKS_PER_SM = 2
+SPLIT_MIN_KEYS = 64
+MAX_SPLITS = 256      # the merge keeps S x G (m, l) in shared memory
 _MAX_GROUP = 16       # query heads per kv head the kernel's row tile holds
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 DEFAULT_BLOCK = 512   # contiguous decode's default block_s, as the TPU's
@@ -136,11 +142,41 @@ def paged_decode_attention_flat_plain(q, k_pool, v_pool, block_tables,
 
 
 # --------------------------------------------------------------------------
-# grid: one thread block per (request, kv head)
+# grid: split-KV over each request's block table
 # --------------------------------------------------------------------------
+def grid_split_plan(Hkv: int, NBT: int, BS: int, sms: int):
+    """``(S, P)`` of the grid kernel: split ``s`` of every (request, kv
+    head) walks table entries ``[s*P, min((s+1)*P, ceil(L_b/BS)))``.
+
+    Only shapes known on the host enter, never the lengths (they stay on
+    the device): a row as long as the table alone gives ``Hkv * S`` blocks,
+    about ``SPLIT_BLOCKS_PER_SM`` per SM, and a split walks at least
+    ``SPLIT_MIN_KEYS`` keys; ``S <= MAX_SPLITS``. ``S * P >= NBT`` and
+    ``(S - 1) * P < NBT``: the splits cover ``[0, NBT)`` once, none of
+    them empty."""
+    want = max(1, -(-SPLIT_BLOCKS_PER_SM * sms // Hkv))
+    P = max(-(-NBT // min(want, MAX_SPLITS)), -(-SPLIT_MIN_KEYS // BS))
+    return -(-NBT // P), P
+
+
+_SMS = {}              # SM count by device index
+# the grid kernel's arrival counts, one per (request, kv head): zeros made
+# once per (device, stream); the kernel leaves them 0 after each call, and
+# calls on one stream run in order
+_ARRIVALS = {}
+
+
+def _sm_count(device) -> int:
+    idx = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SMS[idx]
+
+
 def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths):
-    """Decode GQA attention over a paged KV pool on the (request, kv head)
-    grid — the ``grid`` backend's kernel.
+    """Decode GQA attention over a paged KV pool on the (request, kv head,
+    split) grid — the ``grid`` backend's kernel.
 
     q            [B, H, Dh]        — one query token per request
     k/v_pool     [NB, BS, Hkv, Dh] — one layer's block pool
@@ -148,6 +184,11 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths):
                                      padding, never read
     lengths      [B] int32         — valid tokens (pos + 1; 0 = dead slot)
     returns      [B, H, Dh] in q's dtype; dead slots are zeros
+
+    One call is one launch (``GRID_LAUNCHES``): every split writes its
+    partial softmax state, and the last split of each (request, kv head)
+    to finish merges them. The partials are scratch of this call; the
+    arrival counts persist per stream and reset themselves.
     """
     if q.device.type == "cpu":
         return paged_decode_attention_plain(q, k_pool, v_pool, block_tables,
@@ -162,17 +203,29 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths):
                          max_group=_MAX_GROUP)
     B, H, Dh = q.shape
     BS, Hkv = k_pool.shape[1], k_pool.shape[2]
+    NBT = block_tables.shape[1]
     out = torch.empty_like(q)
     if B == 0:
         return out
+    S, P = grid_split_plan(Hkv, NBT, BS, _sm_count(q.device))
+    rows = B * Hkv * S * (H // Hkv)
+    part_acc = torch.empty(rows * Dh, dtype=torch.float32, device=q.device)
+    part_ml = torch.empty(rows * 2, dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
+        key = (q.device.index, stream)
+        arrivals = _ARRIVALS.get(key)
+        if arrivals is None or arrivals.numel() < B * Hkv:
+            arrivals = torch.zeros(max(B * Hkv, 256), dtype=torch.int32,
+                                   device=q.device)
+            _ARRIVALS[key] = arrivals
         fn = build.entry("decode_attention", "repro_paged_decode_attention",
-                         6, 7)
+                         9, 9)
         rc = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-                block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-                B, H, Hkv, Dh, BS, block_tables.shape[1], _DTYPES[q.dtype],
-                stream)
+                block_tables.data_ptr(), lengths.data_ptr(),
+                part_acc.data_ptr(), part_ml.data_ptr(), arrivals.data_ptr(),
+                out.data_ptr(), B, H, Hkv, Dh, BS, NBT, S, P,
+                _DTYPES[q.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"{name}: launch failed (cudaError {rc})")
     GRID_LAUNCHES += 1

@@ -252,24 +252,32 @@ def test_cuda_decode_matches_plain(cuda, dtype, tol, ragged):
         assert math.isfinite(out.float().abs().max().item())
 
 
+# (H, Hkv, Dh, T): llama3.2-3b heads and G 4 / Dh 64, then the tensor-core
+# tiles' edges: T around the 64-key tile and the 128-row tile, G 1, 3, 4
+PREFILL_GPU_SHAPES = [(24, 8, 128, 300), (8, 2, 64, 77)] + [
+    (2 * G, 2, Dh, T) for T in (1, 63, 64, 65, 129, 300, 1000)
+    for G in (1, 3, 4) for Dh in (64, 128)]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,tol", [("float32", 1e-4),
                                        ("bfloat16", 5e-3)])
-def test_cuda_prefill_matches_plain(cuda, dtype, tol):
+@pytest.mark.parametrize("H,Hkv,Dh,T", PREFILL_GPU_SHAPES)
+def test_cuda_prefill_matches_plain(cuda, dtype, tol, H, Hkv, Dh, T):
     """The built contiguous prefill kernel == its plain version on the
-    card, rows past the length and a length-0 row included."""
+    card at lengths T, T - 1, 0, 1 and T - 37: rows past the length and a
+    length-0 row (zeros) included."""
     dt = getattr(torch, dtype)
-    for H, Hkv, Dh, T in ((24, 8, 128, 300), (8, 2, 64, 77)):
-        rng = np.random.default_rng(7)
-        q, k, v = (torch.from_numpy(rng.normal(0, 1, (3, T, n, Dh)).astype(
-            np.float32)).to(cuda, dt) for n in (H, Hkv, Hkv))
-        lengths = torch.tensor([T, T - 37, 0], dtype=torch.int32,
-                               device=cuda)
-        launches = pk.CONTIG_LAUNCHES
-        out = pk.prefill_attention(q, k, v, lengths)
-        torch.cuda.synchronize()
-        assert pk.CONTIG_LAUNCHES == launches + 1
-        plain = pk.prefill_attention_plain(q, k, v, lengths)
-        torch.testing.assert_close(out.float(), plain.float(), atol=tol,
-                                   rtol=tol)
-        assert not out[2].float().abs().max().item()
+    rng = np.random.default_rng(7)
+    q, k, v = (torch.from_numpy(rng.normal(0, 1, (5, T, n, Dh)).astype(
+        np.float32)).to(cuda, dt) for n in (H, Hkv, Hkv))
+    lengths = torch.tensor([T, T - 1, 0, 1, max(T - 37, 0)],
+                           dtype=torch.int32, device=cuda)
+    launches = pk.CONTIG_LAUNCHES
+    out = pk.prefill_attention(q, k, v, lengths)
+    torch.cuda.synchronize()
+    assert pk.CONTIG_LAUNCHES == launches + 1
+    plain = pk.prefill_attention_plain(q, k, v, lengths)
+    torch.testing.assert_close(out.float(), plain.float(), atol=tol,
+                               rtol=tol)
+    assert not out[2].float().abs().max().item()

@@ -32,13 +32,15 @@ BS = 16
 LENS = [5, 640, 0, 32, 16, 130, 1]
 
 
-def grid_case(H, Hkv, Dh, lens=LENS, seed=11):
-    """Random pool rows for each live row's blocks; every table padded
-    with block 0, which row 1 owns (live data no padding entry may read)."""
+def grid_case(H, Hkv, Dh, lens=LENS, seed=11, nbt=None):
+    """Random pool rows for each live row's blocks; every table (``nbt``
+    entries, default two past the longest row) padded with block 0, which
+    row 1 owns (live data no padding entry may read)."""
     rng = np.random.default_rng(seed)
     need = [-(-n // BS) for n in lens]
     NB = sum(need) + 1
-    NBT = max(need) + 2
+    NBT = max(need) + 2 if nbt is None else nbt
+    assert NBT >= max(need)
     k_pool = rng.normal(0, 1, (NB, BS, Hkv, Dh)).astype(np.float32)
     v_pool = rng.normal(0, 1, (NB, BS, Hkv, Dh)).astype(np.float32)
     order = iter([0] + list(rng.permutation(np.arange(1, NB))))
@@ -71,6 +73,84 @@ def test_grid_plain_matches_jax_grid_kernel(H, Hkv, Dh, dtype):
     got = got.float().numpy()
     np.testing.assert_allclose(got, np.asarray(want, np.float32),
                                atol=TOL[dtype], rtol=TOL[dtype])
+    assert not got[2].any(), "dead slot row not zero"
+
+
+# --------------------------------------------------------------------------
+# The grid kernel's split plan and its split-then-merge arithmetic
+# --------------------------------------------------------------------------
+@pytest.mark.parametrize("sms", [8, 132, 400])
+@pytest.mark.parametrize("Hkv", [1, 8])
+@pytest.mark.parametrize("NBT", [1, 7, 208, 514, 70000])
+@pytest.mark.parametrize("bs", [1, 16])
+def test_grid_split_plan_covers_the_table_once(sms, Hkv, NBT, bs):
+    """Splits [s*P, (s+1)*P) cover [0, NBT) once, none empty; a row as long
+    as the table gives at most ~2 blocks per SM (Hkv * S), and P is the
+    fewest entries that keep it there unless the minimum split (64 keys)
+    sets P; S stays within the merge pass's MAX_SPLITS."""
+    S, P = dk.grid_split_plan(Hkv, NBT, bs, sms)
+    covered = np.zeros(NBT, np.int64)
+    for s in range(S):
+        lo, hi = s * P, min((s + 1) * P, NBT)
+        assert lo < hi, "empty split"
+        covered[lo:hi] += 1
+    assert (covered == 1).all()
+    assert 1 <= S <= dk.MAX_SPLITS
+    assert P * bs >= dk.SPLIT_MIN_KEYS or P >= NBT
+    want = min(-(-dk.SPLIT_BLOCKS_PER_SM * sms // Hkv), dk.MAX_SPLITS)
+    if P > -(-dk.SPLIT_MIN_KEYS // bs):
+        assert S <= want < -(-NBT // (P - 1))
+
+
+def split_merge_emulation(q, kp, vp, bt, lens, S, P):
+    """The grid kernel's arithmetic in torch: each split's output from the
+    plain version over its table slice, its (m, l) from the scores, then
+    the merge pass's formula over the splits that start below the
+    length."""
+    B, H, Dh = q.shape
+    Hkv = kp.shape[2]
+    G = H // Hkv
+    NBT = bt.shape[1]
+    bt = torch.nn.functional.pad(bt, (0, S * P - NBT))     # block 0 pads
+    ms, ls, accs = [], [], []
+    for s in range(S):
+        bt_s = bt[:, s * P:(s + 1) * P].contiguous()
+        L_s = (lens - s * P * BS).clamp(0, P * BS).to(torch.int32)
+        o_s = dk.paged_decode_attention_plain(q, kp, vp, bt_s, L_s)
+        k_s = kp[bt_s.long()].reshape(B, P * BS, Hkv, Dh)
+        sc = torch.einsum("bhgd,bshd->bhgs", q.reshape(B, Hkv, G, Dh),
+                          k_s) / math.sqrt(Dh)
+        sc = torch.where(torch.arange(P * BS) < L_s[:, None, None, None],
+                         sc, -math.inf)
+        m = sc.amax(-1).reshape(B, H)
+        l = torch.exp(sc - sc.amax(-1, keepdim=True)).sum(-1).reshape(B, H)
+        ms.append(m)
+        ls.append(torch.nan_to_num(l))
+        accs.append(o_s * ls[-1][..., None])
+    live = torch.stack([s * P * BS < lens for s in range(S)])      # [S, B]
+    m = torch.stack(ms)
+    mx = torch.where(live[..., None], m, -math.inf).amax(0)
+    w = torch.where(live[..., None], torch.exp(m - mx), 0.0)       # [S,B,H]
+    l = (w * torch.stack(ls)).sum(0)
+    acc = (w[..., None] * torch.stack(accs)).sum(0)
+    return acc / torch.where(l == 0, 1.0, l)[..., None]
+
+
+@pytest.mark.parametrize("sms", [4, 132])
+@pytest.mark.parametrize("H,Hkv,Dh", [(4, 4, 64), (6, 2, 128)])
+def test_grid_split_then_merge_matches_plain(sms, H, Hkv, Dh):
+    """Split-then-merge as the grid kernel does it (plain version per split,
+    the merge pass's formula) == ``paged_decode_attention_plain`` in f32 at
+    1e-5, with lengths on either side of split edges and a dead slot."""
+    nbt = 30
+    lens, (S, P) = split_edge_case(Hkv, nbt, sms)
+    lens[0] = nbt * BS                      # one row fills the table
+    assert S > 1
+    q, kp, vp, bt, lens = (torch.from_numpy(a) for a in grid_case(
+        H, Hkv, Dh, lens=lens, nbt=nbt))
+    got = split_merge_emulation(q, kp, vp, bt, lens, S, P)
+    want = dk.paged_decode_attention_plain(q, kp, vp, bt, lens)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
     assert not got[2].any(), "dead slot row not zero"
 
 
@@ -438,28 +518,59 @@ def cuda():
     return torch.device("cuda")
 
 
+def split_edge_case(Hkv, nbt, sms, long_row=None):
+    """Lengths on either side of the grid plan's split edges for a table of
+    ``nbt`` entries on ``sms`` SMs (row 2 a dead slot), led by
+    ``long_row`` tokens if given; the plan's ``(S, P)``."""
+    S, P = dk.grid_split_plan(Hkv, nbt, BS, sms)
+    edge = P * BS
+    lens = [edge + 1, edge, 0, edge - 1, 1, min(2 * edge + 1, nbt * BS),
+            min(2 * edge - 1, nbt * BS)]
+    if long_row is not None:          # the dead slot moves to row 3
+        lens = [long_row] + lens
+    return lens, (S, P)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,tol", [("float32", 1e-4),
                                        ("bfloat16", 5e-3)])
-def test_cuda_grid_decode_matches_plain_and_flat(cuda, dtype, tol):
+@pytest.mark.parametrize("case", ["llama", "g10", "split_edges",
+                                  "long_8192", "wide_table"])
+def test_cuda_grid_decode_matches_plain_and_flat(cuda, dtype, tol, case):
     """The built grid kernel == its plain version on the card and agrees
     with the flat kernel on the same rows, at llama3.2-3b heads (G 3,
-    Dh 128) and at G 10 / Dh 64 (two rows a thread); the dead slot's row
-    is zero."""
+    Dh 128) and at G 10 / Dh 64 (two rows a thread); at lengths on either
+    side of the split plan's edges; with one row of 8192 tokens beside
+    short rows and a dead slot; and with a table far wider than the
+    longest row. The dead slot's row is zero; a second call gives the same
+    output (the kernel's arrival counts are left at 0)."""
     dt = getattr(torch, dtype)
-    for H, Hkv, Dh in ((24, 8, 128), (20, 2, 64)):
-        q, kp, vp, bt, lens = grid_case(H, Hkv, Dh)
-        floats = [torch.from_numpy(a).to(cuda, dt) for a in (q, kp, vp)]
-        ints = [torch.from_numpy(a).to(cuda) for a in (bt, lens)]
-        launches = dk.GRID_LAUNCHES
-        out = dk.paged_decode_attention(*floats, *ints)
-        torch.cuda.synchronize()
-        assert dk.GRID_LAUNCHES == launches + 1
-        plain = dk.paged_decode_attention_plain(*floats, *ints)
-        torch.testing.assert_close(out.float(), plain.float(), atol=tol,
-                                   rtol=tol)
-        flat = dk.paged_decode_attention_flat(*floats, *ints)
-        torch.testing.assert_close(out.float(), flat.float(), atol=tol,
-                                   rtol=tol)
-        assert not out[2].float().abs().max().item()
-        assert math.isfinite(out.float().abs().max().item())
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    H, Hkv, Dh = (20, 2, 64) if case == "g10" else (24, 8, 128)
+    nbt, lens = None, LENS
+    if case == "split_edges":
+        nbt = 40
+        lens, _ = split_edge_case(Hkv, nbt, sms)
+    elif case == "long_8192":
+        nbt = 8192 // BS + 2
+        lens, _ = split_edge_case(Hkv, nbt, sms, long_row=8192)
+    elif case == "wide_table":
+        nbt = 600
+    q, kp, vp, bt, lens = grid_case(H, Hkv, Dh, lens=lens, nbt=nbt)
+    dead = list(lens).index(0)
+    floats = [torch.from_numpy(a).to(cuda, dt) for a in (q, kp, vp)]
+    ints = [torch.from_numpy(a).to(cuda) for a in (bt, lens)]
+    launches = dk.GRID_LAUNCHES
+    out = dk.paged_decode_attention(*floats, *ints)
+    torch.cuda.synchronize()
+    assert dk.GRID_LAUNCHES == launches + 1
+    plain = dk.paged_decode_attention_plain(*floats, *ints)
+    torch.testing.assert_close(out.float(), plain.float(), atol=tol,
+                               rtol=tol)
+    flat = dk.paged_decode_attention_flat(*floats, *ints)
+    torch.testing.assert_close(out.float(), flat.float(), atol=tol,
+                               rtol=tol)
+    # the arrival counts reset themselves: a second call merges the same
+    assert torch.equal(dk.paged_decode_attention(*floats, *ints), out)
+    assert not out[dead].float().abs().max().item()
+    assert math.isfinite(out.float().abs().max().item())
