@@ -23,11 +23,17 @@ the last line:
    output), the contiguous decode kernel padded and ragged at the paper's
    200v10000 setup (batch 512, bf16; f32 on 64 of its rows) and the
    contiguous causal prefill kernel at B 2, T 4096, lengths 4096/4059;
-   for the two kernels redesigned for Hopper, the split-KV grid decode
-   and the tensor-core contiguous prefill, also the achieved rate (TB/s,
-   TFLOP/s) and share of the bound, ptxas's registers and spilled bytes,
-   and the count of tensor-core instructions (HMMA, HGMMA) in the SASS of
-   the bf16 prefill kernel (``cuobjdump -sass``), which must not be 0;
+   every time both from CUDA events and as the device time of the call's
+   kernels from ``torch.profiler``, and for #1, #3 and #4 the wrapper's
+   host time per call; the fused kernel also on the grid kernel's rows
+   with C = 1 (a decode step), beside it; for the kernels redesigned for
+   Hopper (the tensor-core fused, chunked paged and contiguous prefill
+   kernels of ``tc_walk.cuh``, the split-KV grid decode of
+   ``split_decode.cuh``), ptxas's registers and spilled bytes per
+   instance (no spill allowed in a tensor-core kernel), and the count of
+   tensor-core instructions (HGMMA, HMMA) in the SASS of each tensor-core
+   kernel (``cuobjdump -sass``), whose HGMMA must not be 0; the achieved
+   rate (TB/s, TFLOP/s) and share of the bound of #4 and #6;
 4. a full-width llama3.2-3b engine (bf16, random seeded weights, fused
    backend, preemption off) serving 8 requests with prompts of 16..5897
    tokens, under CUDA sync-debug "error" mode: every request finishes
@@ -174,11 +180,20 @@ def attention_work(bt, ctx, seg, tags, BS):
     return rows, keys, len(kv_rows)
 
 
-def time_ms(torch, fn, iters, flush):
-    """Mean device time of ``fn`` from CUDA events around each launch, the
-    L2 cache flushed before each one by a 512 MB write, which also keeps
-    the device busy while the host enqueues ``fn``: the host's time to
-    issue a small call stays out of the measurement."""
+class Timed(float):
+    """An event time (ms) that also carries ``device``: the device time
+    of the kernels of one call, from ``torch.profiler``."""
+    device: float
+
+
+def time_ms(torch, fn, iters, flush, device=False):
+    """Mean time of ``fn`` from CUDA events around each launch, the L2
+    cache flushed before each one by a 512 MB write, which also keeps the
+    device busy while the host enqueues ``fn`` (a call whose host work
+    outlasts the flush still shows it). ``device``: also the mean device
+    time of the kernels ``fn`` launches per call, from ``torch.profiler``
+    over another ``iters`` calls (the flush's fill kernel left out), as a
+    :class:`Timed`."""
     for _ in range(3):
         fn()
     starts = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
@@ -189,7 +204,46 @@ def time_ms(torch, fn, iters, flush):
         fn()
         e.record()
     torch.cuda.synchronize()
-    return sum(s.elapsed_time(e) for s, e in zip(starts, ends)) / iters
+    ms = sum(s.elapsed_time(e) for s, e in zip(starts, ends)) / iters
+    if not device:
+        return ms
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for e in prof.key_averages():
+        t = getattr(e, "device_time_total", None)
+        if t is None:
+            t = e.cuda_time_total
+        if t and "fillfunctor" not in e.key.lower():   # the flush
+            total += t
+    out = Timed(ms)
+    out.device = total / iters / 1e3
+    return out
+
+
+def host_us(torch, fn, n=200):
+    """Mean host time of one call of ``fn`` in µs (the wrapper's checks,
+    scratch and launch), ``n`` calls issued back to back with no
+    synchronisation between them."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / n * 1e6
+
+
+def measured(kernel_ms, library_ms):
+    """A kernel row's times: events and device, the kernel's and the
+    library call's."""
+    return {"ms": float(kernel_ms), "device_ms": kernel_ms.device,
+            "library_device_ms": library_ms.device}
 
 
 def phase_kernels(np, torch, F, tk, flush):
@@ -218,7 +272,8 @@ def phase_kernels(np, torch, F, tk, flush):
         res[name] = {"err": err, "inputs": fl}
     fl = res["bf16"]["inputs"]
     kernel_ms = time_ms(torch, lambda: tk.paged_mixed_attention(*fl, *ints),
-                        50, flush)
+                        50, flush, device=True)
+    wrapper_us = host_us(torch, lambda: tk.paged_mixed_attention(*fl, *ints))
     plain_ms = time_ms(torch, lambda: tk.paged_mixed_attention_plain(
         *fl, *ints), 10, flush)
     # library yardstick: one SDPA over pre-gathered padded K/V, bool mask
@@ -233,7 +288,7 @@ def phase_kernels(np, torch, F, tk, flush):
     mask = (torch.arange(S, device=dev)[None, None] < limit[..., None])
     mask = mask[:, None]                                    # [B, 1, C, S]
     library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
-        qs, kg, vg, attn_mask=mask), 20, flush)
+        qs, kg, vg, attn_mask=mask), 20, flush, device=True)
     # least time: each needed byte moved once (live q rows, the K/V rows
     # the totals cover, shared blocks once, the whole output), 4·Dh flops
     # per (query head, visible key)
@@ -244,14 +299,18 @@ def phase_kernels(np, torch, F, tk, flush):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / BF16_FLOPS_PER_S * 1e3
     bound_ms = max(t_bytes, t_ops)
-    log(f"phase 3: bf16 kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"library sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+    log(f"phase 3: fused bf16 wrapper: host {wrapper_us:.1f} us per call")
+    log(f"phase 3: bf16 kernel {kernel_ms:.4f} ms (device "
+        f"{kernel_ms.device:.4f}), plain {plain_ms:.4f} ms, "
+        f"library sdpa {library_ms:.4f} ms (device "
+        f"{library_ms.device:.4f}), bound {bound_ms:.4f} ms "
         f"({'bytes' if t_bytes >= t_ops else 'operations'}: "
         f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
     return {
         "max_abs_err": res["bf16"]["err"], "max_abs_err_f32": res["f32"]["err"],
-        "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
-        "bound_ms": bound_ms,
+        **measured(kernel_ms, library_ms), "host_us": wrapper_us,
+        "plain_ms": plain_ms,
+        "library_ms": library_ms, "bound_ms": bound_ms,
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
     }
 
@@ -324,7 +383,9 @@ def phase_int8_kernel(np, torch, F, tk, flush):
         f"worst live-row cos {worst_cos:.6f} (>= 0.999), max abs "
         f"{worst_abs:.3e} (<= 0.05)")
     kernel_ms = time_ms(torch, lambda: tk.paged_mixed_attention(
-        qd, *pools, *ints, *scales), 50, flush)
+        qd, *pools, *ints, *scales), 50, flush, device=True)
+    wrapper_us = host_us(torch, lambda: tk.paged_mixed_attention(
+        qd, *pools, *ints, *scales))
     plain_ms = time_ms(torch, lambda: tk.paged_mixed_attention_plain(
         qd, *pools, *ints, *scales), 10, flush)
     # library yardstick: one SDPA on K/V dequantized beforehand (bf16)
@@ -338,17 +399,21 @@ def phase_int8_kernel(np, torch, F, tk, flush):
     mask = (torch.arange(S, device=dev)[None, None]
             < limit[..., None])[:, None]
     library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
-        qs, kg, vg, attn_mask=mask), 20, flush)
+        qs, kg, vg, attn_mask=mask), 20, flush, device=True)
     bound_ms, by, nb, fo = work_bound(bt, ctx, seg, tags, BS, H, Hkv, Dh,
                                       len(segs) * C, kv_row_bytes=Dh + 4)
-    log(f"phase 3: int8 mode (bf16 q) kernel {kernel_ms:.4f} ms, plain "
+    log(f"phase 3: fused int8 wrapper: host {wrapper_us:.1f} us per call")
+    log(f"phase 3: int8 mode (bf16 q) kernel {kernel_ms:.4f} ms (device "
+        f"{kernel_ms.device:.4f}), plain "
         f"{plain_ms:.4f} ms, library sdpa on pre-dequantized K/V "
-        f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({by}: "
+        f"{library_ms:.4f} ms (device "
+        f"{library_ms.device:.4f}), bound {bound_ms:.4f} ms ({by}: "
         f"{nb / 1e6:.1f} MB, {fo / 1e9:.2f} GFLOP)")
     return {"max_abs_err": errs["bf16"], "max_abs_err_f32": errs["f32"],
             "cos_vs_bf16": worst_cos, "abs_vs_bf16": worst_abs,
-            "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": bound_ms, "bound_by": by}
+            **measured(kernel_ms, library_ms), "host_us": wrapper_us,
+            "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": by}
 
 
 def hold(torch, name, out, ref, tol):
@@ -400,7 +465,7 @@ def phase_flat_kernels(np, torch, F, dk, pk, flush):
     # hands it to every layer: the kernel is timed as a layer calls it
     work = flat_work_list(ints[1], bt.shape[1], BS, num_work)
     kernel_ms = time_ms(torch, lambda: dk.paged_decode_attention_flat(
-        *fl, *ints, num_work=num_work, work_list=work), 50, flush)
+        *fl, *ints, num_work=num_work, work_list=work), 50, flush, device=True)
     alone_ms = time_ms(torch, lambda: dk.paged_decode_attention_flat(
         *fl, *ints, num_work=num_work), 50, flush)
     plain_ms = time_ms(torch, lambda: dk.paged_decode_attention_flat_plain(
@@ -411,16 +476,19 @@ def phase_flat_kernels(np, torch, F, dk, pk, flush):
             < ints[1].clamp(min=1)[:, None])[:, None, None]   # [B,1,1,S]
     qs = fl[0][:, :, None]                                    # [B,H,1,Dh]
     library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
-        qs, kg, vg, attn_mask=mask), 20, flush)
+        qs, kg, vg, attn_mask=mask), 20, flush, device=True)
     bound_ms, by, nb, fo = work_bound(bt, ctx, seg, tags, BS, H, Hkv, Dh,
                                       len(lens))
-    log(f"phase 3: flat decode bf16 kernel {kernel_ms:.4f} ms ("
+    log(f"phase 3: flat decode bf16 kernel {kernel_ms:.4f} ms (device "
+        f"{kernel_ms.device:.4f}) ("
         f"{alone_ms:.4f} ms building its work list in the call), plain "
-        f"{plain_ms:.4f} ms, library sdpa {library_ms:.4f} ms, bound "
+        f"{plain_ms:.4f} ms, library sdpa {library_ms:.4f} ms (device "
+        f"{library_ms.device:.4f}), bound "
         f"{bound_ms:.4f} ms ({by}: {nb / 1e6:.1f} MB, {fo / 1e9:.2f} GFLOP;"
         f" {num_work} work items, {real} real)")
     out["decode"] = {"max_abs_err": errs["bf16"], "max_abs_err_f32":
-                     errs["f32"], "ms": kernel_ms, "with_work_list_ms":
+                     errs["f32"],
+                     **measured(kernel_ms, library_ms), "with_work_list_ms":
                      alone_ms, "plain_ms": plain_ms,
                      "library_ms": library_ms, "bound_ms": bound_ms,
                      "bound_by": by}
@@ -445,7 +513,9 @@ def phase_flat_kernels(np, torch, F, dk, pk, flush):
         log(f"phase 3: chunked prefill vs plain {name}: max_abs_err="
             f"{errs[name]:.3e} (tolerance {tol})")
     kernel_ms = time_ms(torch, lambda: pk.paged_prefill_attention(
-        *fl, *ints), 50, flush)
+        *fl, *ints), 50, flush, device=True)
+    wrapper_us = host_us(torch, lambda: pk.paged_prefill_attention(
+        *fl, *ints))
     plain_ms = time_ms(torch, lambda: pk.paged_prefill_attention_plain(
         *fl, *ints), 10, flush)
     kg, vg = sdpa_inputs(torch, fl[1:], ints[0], G)
@@ -457,14 +527,19 @@ def phase_flat_kernels(np, torch, F, dk, pk, flush):
             < limit[..., None])[:, None]                      # [B,1,C,S]
     qs = fl[0].transpose(1, 2).contiguous()                   # [B,H,C,Dh]
     library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
-        qs, kg, vg, attn_mask=mask), 20, flush)
+        qs, kg, vg, attn_mask=mask), 20, flush, device=True)
     bound_ms, by, nb, fo = work_bound(bt, ctx, seg, tags, BS, H, Hkv, Dh,
                                       len(segs) * C)
-    log(f"phase 3: chunked prefill bf16 kernel {kernel_ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, library sdpa {library_ms:.4f} ms, bound "
+    log(f"phase 3: chunked prefill wrapper: host {wrapper_us:.1f} us per call")
+    log(f"phase 3: chunked prefill bf16 kernel {kernel_ms:.4f} ms (device "
+        f"{kernel_ms.device:.4f}), plain "
+        f"{plain_ms:.4f} ms, library sdpa {library_ms:.4f} ms (device "
+        f"{library_ms.device:.4f}), bound "
         f"{bound_ms:.4f} ms ({by}: {nb / 1e6:.1f} MB, {fo / 1e9:.2f} GFLOP)")
     out["prefill"] = {"max_abs_err": errs["bf16"], "max_abs_err_f32":
-                      errs["f32"], "ms": kernel_ms, "plain_ms": plain_ms,
+                      errs["f32"],
+                      **measured(kernel_ms, library_ms), "host_us": wrapper_us,
+                      "plain_ms": plain_ms,
                       "library_ms": library_ms, "bound_ms": bound_ms,
                       "bound_by": by}
     return out
@@ -509,15 +584,21 @@ def bound_of(nbytes, flops):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-# kernels redesigned for Hopper whose ptxas report phase 3 carries
-REDESIGNED = ("prefill_tc_kernel", "grid_split_kernel")
+# kernels redesigned for Hopper whose ptxas report phase 3 carries: the
+# tensor-core kernels (fused mixed, chunked paged prefill, contiguous
+# prefill; library, kernel) and the split-KV grid decode
+TENSOR_CORE = (("mixed_attention", "mixed_tc_kernel"),
+               ("prefill_attention", "chunk_tc_kernel"),
+               ("contiguous_prefill", "prefill_tc_kernel"))
+REDESIGNED = tuple(k for _, k in TENSOR_CORE) + ("grid_split_kernel",)
 
 
 def ptxas_report(text):
     """{kernel label: {"registers": n, "spill_bytes": stores + loads}} from
     ``nvcc -Xptxas -v`` output, for the kernels in ``REDESIGNED``; a label
-    is the kernel's name, its element type and its integer template
-    arguments (head dim; rows of the grid kernel's tile)."""
+    is the kernel's name, its element type (the pool's, for the fused
+    kernel) and its integer template arguments (head dim; rows of the
+    split tile)."""
     out, name = {}, None
     for line in text.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties "
@@ -528,9 +609,14 @@ def ptxas_report(text):
         base = next((k for k in REDESIGNED if name and k in name), None)
         if base is None:
             continue
-        ints = re.findall(r"Li(\d+)E", name)
-        label = (f"{base}<{'bf16' if 'bfloat16' in name else 'f32'}"
-                 f"{''.join(',' + n for n in ints)}>")
+        # template arguments: an element type (the pool's where the kernel
+        # has one: int8 "a", f32 "f", bf16), then integers
+        targs = name[name.index(base) + len(base):].split("EEv")[0]
+        ints = re.findall(r"Li(\d+)E", targs + "E")
+        elem = ("int8" if targs.startswith("Ia") else
+                "f32" if targs.startswith("If") else
+                "bf16" if "bfloat16" in name else "f32")
+        label = f"{base}<{elem}{''.join(',' + n for n in ints)}>"
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
         if m:
@@ -568,9 +654,10 @@ FIG2_BLOCK = 512
 PREFILL_T, PREFILL_LENS = 4096, (4096, 4059)
 
 
-def phase_grid_contiguous_kernels(np, torch, F, dk, pk, flush):
+def phase_grid_contiguous_kernels(np, torch, F, tk, dk, pk, flush):
     """Phase 3, kernels #4-#6 vs their plain versions; times and bounds:
-    the grid decode kernel at #2's rows (also held to #2's output), the
+    the grid decode kernel at #2's rows (also held to #2's output, and
+    timed beside the fused kernel on the same rows with C = 1), the
     contiguous decode kernel in both modes at the 200v10000 setup, the
     contiguous prefill kernel at B 2, T 4096."""
     H, Hkv, Dh = FIG2_HEADS
@@ -600,7 +687,9 @@ def phase_grid_contiguous_kernels(np, torch, F, dk, pk, flush):
             f"{errs[name]:.3e}, vs the flat kernel {flat_err:.3e} "
             f"(tolerance {tol})")
     kernel_ms = time_ms(torch, lambda: dk.paged_decode_attention(*fl, *ints),
-                        50, flush)
+                        50, flush, device=True)
+    wrapper_us = host_us(torch, lambda: dk.paged_decode_attention(*fl,
+                                                                  *ints))
     plain_ms = time_ms(torch, lambda: dk.paged_decode_attention_plain(
         *fl, *ints), 10, flush)
     kg, vg = sdpa_inputs(torch, fl[1:], ints[0], G)
@@ -608,21 +697,49 @@ def phase_grid_contiguous_kernels(np, torch, F, dk, pk, flush):
     mask = (torch.arange(S, device=dev)[None]
             < ints[1].clamp(min=1)[:, None])[:, None, None]   # [B,1,1,S]
     library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
-        fl[0][:, :, None], kg, vg, attn_mask=mask), 20, flush)
+        fl[0][:, :, None], kg, vg, attn_mask=mask), 20, flush, device=True)
     bound_ms, by, nb, fo = work_bound(bt, ctx, seg, tags, BS, H, Hkv, Dh,
                                       len(lens))
     S, P = dk.grid_split_plan(Hkv, bt.shape[1], BS, dk._sm_count(dev))
-    log(f"phase 3: grid decode bf16 kernel {kernel_ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, library sdpa {library_ms:.4f} ms, bound "
+    log(f"phase 3: grid decode wrapper: host {wrapper_us:.1f} us per call")
+    log(f"phase 3: grid decode bf16 kernel {kernel_ms:.4f} ms (device "
+        f"{kernel_ms.device:.4f}), plain "
+        f"{plain_ms:.4f} ms, library sdpa {library_ms:.4f} ms (device "
+        f"{library_ms.device:.4f}), bound "
         f"{bound_ms:.4f} ms ({by}: {nb / 1e6:.1f} MB, {fo / 1e9:.2f} GFLOP); "
         f"{nb / kernel_ms / 1e9:.3f} TB/s, {bound_ms / kernel_ms:.1%} of "
         f"the bound; split plan S {S}, P {P}")
     out["grid"] = {"max_abs_err": errs["bf16"], "max_abs_err_f32":
-                   errs["f32"], "ms": kernel_ms, "plain_ms": plain_ms,
+                   errs["f32"],
+                   **measured(kernel_ms, library_ms), "host_us": wrapper_us,
+                   "plain_ms": plain_ms,
                    "library_ms": library_ms, "bound_ms": bound_ms,
                    "bound_by": by, "rate": nb / kernel_ms / 1e9,
                    "rate_unit": "TB/s"}
-    del fl, kg, vg
+    # #1 on the same rows, C = 1 (every decode step of the fused engine),
+    # beside #4: decode segments (ctx = length - 1, seg 1, tag 0)
+    seg_ints = [torch.from_numpy(a).to(dev) for a in (ctx, seg, tags)]
+    q1 = fl[0][:, None].contiguous()                          # [B,1,H,Dh]
+
+    def fused():
+        return tk.paged_mixed_attention(q1, fl[1], fl[2], ints[0],
+                                        *seg_ints)
+    got = fused()
+    torch.cuda.synchronize()
+    fused_err = hold(torch, "fused decode-only bf16", got[:, 0],
+                     dk.paged_decode_attention_plain(*fl, *ints), 5e-3)
+    fused_ms = time_ms(torch, fused, 50, flush, device=True)
+    log(f"phase 3: fused kernel on the same rows (C 1): {fused_ms:.4f} ms "
+        f"(device {fused_ms.device:.4f}), {fused_ms / kernel_ms:.2f}x the "
+        f"grid kernel's events ({fused_ms.device / kernel_ms.device:.2f}x "
+        f"device); max_abs_err vs plain {fused_err:.3e} (tolerance 5e-3)")
+    out["fused_decode_only"] = {"ms": float(fused_ms),
+                                "device_ms": fused_ms.device,
+                                "max_abs_err": fused_err,
+                                "vs_grid": fused_ms / kernel_ms,
+                                "vs_grid_device":
+                                    fused_ms.device / kernel_ms.device}
+    del fl, kg, vg, q1
 
     # ---- #5: contiguous decode, padded and ragged, at 200v10000
     _, B, short, long_ = FIG2_SETUPS[0]
@@ -661,7 +778,7 @@ def phase_grid_contiguous_kernels(np, torch, F, dk, pk, flush):
     qr = q.reshape(B, Hkv, G, Dh)
     kt, vt = k.transpose(1, 2), v.transpose(1, 2)             # [B,Hkv,S,Dh]
     library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
-        qr, kt, vt, attn_mask=mask), 5, flush)
+        qr, kt, vt, attn_mask=mask), 5, flush, device=True)
     for mode, ragged in (("padded", False), ("ragged", True)):
         got = dk.decode_attention(q, k, v, lengths, block_s=FIG2_BLOCK,
                                   ragged=ragged)
@@ -671,16 +788,19 @@ def phase_grid_contiguous_kernels(np, torch, F, dk, pk, flush):
                                              block_s=FIG2_BLOCK,
                                              ragged=ragged), 5e-3)
         kernel_ms = time_ms(torch, lambda: dk.decode_attention(
-            q, k, v, lengths, block_s=FIG2_BLOCK, ragged=ragged), 10, flush)
+            q, k, v, lengths, block_s=FIG2_BLOCK, ragged=ragged), 10, flush,
+            device=True)
         plain_ms = time_ms(torch, lambda: dk.decode_attention_plain(
             q, k, v, lengths, block_s=FIG2_BLOCK, ragged=ragged), 2, flush)
         log(f"phase 3: contiguous decode {mode} vs plain: max_abs_err "
             f"f32 {out[mode]['max_abs_err_f32']:.3e} ({2 * half} rows), bf16 "
             f"{err:.3e} (tolerances 1e-4, 5e-3); bf16 kernel "
             f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, library sdpa "
-            f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({by}: "
+            f"{library_ms:.4f} ms (device "
+        f"{library_ms.device:.4f}), bound {bound_ms:.4f} ms ({by}: "
             f"{nb / 1e9:.3f} GB, {fo / 1e9:.2f} GFLOP) at B {B}, S {long_}")
-        out[mode].update({"max_abs_err": err, "ms": kernel_ms,
+        out[mode].update({"max_abs_err": err,
+                          **measured(kernel_ms, library_ms),
                           "plain_ms": plain_ms, "library_ms": library_ms,
                           "bound_ms": bound_ms, "bound_by": by})
     del q, k, v, kt, vt, qr, mask
@@ -700,24 +820,27 @@ def phase_grid_contiguous_kernels(np, torch, F, dk, pk, flush):
         log(f"phase 3: contiguous prefill vs plain {name}: max_abs_err="
             f"{errs[name]:.3e} (tolerance {tol})")
     kernel_ms = time_ms(torch, lambda: pk.prefill_attention(q, k, v, lengths),
-                        10, flush)
+                        10, flush, device=True)
     plain_ms = time_ms(torch, lambda: pk.prefill_attention_plain(
         q, k, v, lengths), 3, flush)
     qs, ks, vs = (x.transpose(1, 2) for x in (q, k, v))
     library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
-        qs, ks, vs, is_causal=True, enable_gqa=True), 10, flush)
+        qs, ks, vs, is_causal=True, enable_gqa=True), 10, flush, device=True)
     pairs = sum(min(t + 1, n) for n in plens for t in range(T))
     nb = 2 * T * (H + 2 * Hkv + H) * Dh * 2 + 2 * 4
     bound_ms, by = bound_of(nb, 4.0 * pairs * H * Dh)
     flops = 4.0 * pairs * H * Dh
-    log(f"phase 3: contiguous prefill bf16 kernel {kernel_ms:.4f} ms, plain "
+    log(f"phase 3: contiguous prefill bf16 kernel {kernel_ms:.4f} ms (device "
+        f"{kernel_ms.device:.4f}), plain "
         f"{plain_ms:.4f} ms, library sdpa (is_causal, enable_gqa) "
-        f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({by}: "
+        f"{library_ms:.4f} ms (device "
+        f"{library_ms.device:.4f}), bound {bound_ms:.4f} ms ({by}: "
         f"{nb / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP); "
         f"{flops / kernel_ms / 1e9:.1f} TFLOP/s, "
         f"{bound_ms / kernel_ms:.1%} of the bound")
     out["prefill"] = {"max_abs_err": errs["bf16"], "max_abs_err_f32":
-                      errs["f32"], "ms": kernel_ms, "plain_ms": plain_ms,
+                      errs["f32"],
+                      **measured(kernel_ms, library_ms), "plain_ms": plain_ms,
                       "library_ms": library_ms, "bound_ms": bound_ms,
                       "bound_by": by, "rate": flops / kernel_ms / 1e9,
                       "rate_unit": "TFLOP/s"}
@@ -1705,12 +1828,16 @@ def main() -> int:
     for k in REDESIGNED:
         check(any(label.startswith(k) for label in ptxas),
               f"no ptxas report for {k}")
-    tc_ops = tensor_core_count(build, "contiguous_prefill",
-                               "prefill_tc_kernel")
-    log(f"phase 3: tensor-core instructions in the bf16 contiguous prefill "
-        f"kernels' SASS: {tc_ops}")
-    check(sum(tc_ops.values()) > 0,
-          "the bf16 contiguous prefill kernel has no tensor-core instruction")
+    tc_ops = {}
+    for lib, kernel in TENSOR_CORE:
+        tc_ops[kernel] = tensor_core_count(build, lib, kernel)
+        log(f"phase 3: tensor-core instructions in the SASS of {kernel} "
+            f"({lib}): {tc_ops[kernel]}")
+        check(tc_ops[kernel]["HGMMA"] > 0, f"{kernel} has no HGMMA")
+    spilled = {label: rep for label, rep in ptxas.items()
+               if rep.get("spill_bytes") and not label.startswith(
+                   "grid_split_kernel")}
+    check(not spilled, f"tensor-core kernels spill: {spilled}")
 
     # 3. kernels vs their plain versions
     flush = torch.empty(128 * 1024 * 1024, dtype=torch.float32,
@@ -1718,7 +1845,7 @@ def main() -> int:
     kern = phase_kernels(np, torch, F, tk, flush)
     int8 = phase_int8_kernel(np, torch, F, tk, flush)
     flat = phase_flat_kernels(np, torch, F, dk, pk, flush)
-    more = phase_grid_contiguous_kernels(np, torch, F, dk, pk, flush)
+    more = phase_grid_contiguous_kernels(np, torch, F, tk, dk, pk, flush)
 
     # 4. the engine's main path at full width (fused backend)
     zero_counts(tk, dk, pk)
@@ -1837,18 +1964,29 @@ def main() -> int:
             "kernel_ms": k["ms"], "plain_ms": k["plain_ms"],
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
             "library_ms": k["library_ms"]})
-    for entry in kernels:
+    measured_by = [kern, int8, flat["decode"], flat["prefill"], more["grid"],
+                   more["padded"], more["ragged"], more["prefill"]]
+    for entry, k in zip(kernels, measured_by):
         entry["bound_share"] = entry["bound_ms"] / entry["ms"]
+        for key in ("device_ms", "library_device_ms", "host_us"):
+            if key in k:
+                entry[key] = k[key]
     by_name = {entry["name"]: entry for entry in kernels}
-    for name, k, prefix in (("paged_decode_attention", more["grid"],
-                             "grid_split"),
-                            ("prefill_attention", more["prefill"],
-                             "prefill_tc_kernel")):
-        entry = by_name[name]
-        entry["rate"], entry["rate_unit"] = k["rate"], k["rate_unit"]
-        entry["ptxas"] = {label: rep for label, rep in ptxas.items()
-                          if label.startswith(prefix)}
-    by_name["prefill_attention"]["tensor_core_instructions"] = tc_ops
+    for name, k in (("paged_decode_attention", more["grid"]),
+                    ("prefill_attention", more["prefill"])):
+        by_name[name]["rate"] = k["rate"]
+        by_name[name]["rate_unit"] = k["rate_unit"]
+    for name, prefix in (("paged_mixed_attention", "mixed_tc_kernel"),
+                         ("paged_mixed_attention_int8", "mixed_tc_kernel"),
+                         ("paged_prefill_attention", "chunk_tc_kernel"),
+                         ("paged_decode_attention", "grid_split_kernel"),
+                         ("prefill_attention", "prefill_tc_kernel")):
+        by_name[name]["ptxas"] = {label: rep for label, rep in ptxas.items()
+                                  if label.startswith(prefix)}
+        if prefix in tc_ops:
+            by_name[name]["tensor_core_instructions"] = tc_ops[prefix]
+    by_name["paged_mixed_attention"]["decode_only"] = more[
+        "fused_decode_only"]
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke_report.json").write_text(json.dumps(

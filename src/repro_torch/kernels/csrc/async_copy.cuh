@@ -1,5 +1,5 @@
-// cp.async helpers shared by the pipelined kernels (contiguous_prefill.cu's
-// tensor-core walk and decode_attention.cu's split grid kernel): 16-byte
+// cp.async helpers shared by the pipelined kernels (tc_walk.cuh's
+// tensor-core walk and split_decode.cuh's split-KV tile): 16- and 4-byte
 // copies from device memory into shared memory that complete in the
 // background, grouped per thread, with zero fill for rows past a range.
 #pragma once
@@ -20,6 +20,14 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
                    smem_u32(dst)),
                "l"(src), "r"(valid ? 16 : 0));
+}
+
+// 4 bytes global -> shared (through L1); zeros when !valid, as above.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 4 : 0));
 }
 
 // Close this thread's copies issued since the last commit into a group.

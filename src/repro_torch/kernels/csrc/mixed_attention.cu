@@ -8,47 +8,57 @@
 // keys idx < ctx+seg and idx <= ctx + r/G). K/V are read from the paged pool
 // [NB, BS, Hkv, Dh] through each segment's block table.
 //
-// Recast for a machine whose blocks run in parallel. The TPU grid walks a flat
-// (segment, logical block) work list in order and carries (m, l, acc) from one
-// grid step to the next; here one thread block owns (segment, kv head, tile of
-// 16 query rows) and loops over the segment's keys itself, keeping m, l and acc
-// in f32 registers. Query row r of a kv head is (chunk token r/G, head h*G + r%G).
-// Tiles with no live rows (the padding rows of decode segments, dead segments)
-// run no loop and write zeros, so every output element is defined; a row whose
-// l stays 0 finishes as 0 (ops.py:86-90).
-//
 // What bounds it on an H100: decode rows read every K/V byte of their context
 // once and do 4*G*Dh flops per key, far below the card's ~295 flops/byte, so
-// decode is bound by the bytes of K/V read; long prefill chunks are bound by
-// the scores and P*V products. This first version does its arithmetic in f32
-// on the CUDA cores: a KV tile (32 keys) is staged in shared memory as f32 and
-// the next tile's loads are issued into registers before the current tile is
-// computed, so global latency overlaps the math. A tile's rows stop at the
-// tile's largest query position (causal pruning), and rows that are not live
-// skip the score and P*V work. Each block walks its keys serially, so the
-// walk's latency, not the card's throughput, sets the time: small tiles give
-// the card more, shorter walks (a 256-token chunk is 48 tiles per kv head). A
-// thread of a chunk tile owns 2 query rows; a thread of a decode tile owns 1,
-// so a decode row's G heads issue no (predicated-off) work for other rows.
-// Not yet done: tensor cores (wgmma), TMA, and a split-KV pass for long
-// single decode rows, whose one block per (segment, kv head) leaves most SMs
-// idle.
+// decode is bound by the bytes of K/V read and by how many SMs a long row
+// can keep busy; long prefill chunks are bound by the score and P*V
+// products, which must run on the tensor cores.
 //
-// int8 mode (the TPU kernel's quantized=True variant, _flash_block_update
-// with k_scale/v_scale): the pool is int8 with one f32 scale per (block,
-// position, kv head). The kernel loads the int8 bytes from device memory as
-// they are (16 elements per 16-byte load, coalesced like the bf16 loads),
-// loads each key row's scale once per 16-element vector, and dequantizes in
-// registers (int8 -> f32 * scale) when it stages the tile in shared memory,
-// so the rest of the walk is the f32 one above. A decode row, bound by the
-// K/V bytes it reads, reads (Dh + 4) / (2 * Dh) of the bf16 mode's bytes.
-// No dequantized copy of the pool is made.
+// bf16 q (pools bf16, or int8 with scales): ONE launch whose blocks take
+// one of two roles, read from tags[s] on the device. The 1-D grid is
+// (x, kv head, segment), x outermost, x < max(row tiles of C*G / 128,
+// ceil(S / 2)): the host knows B, C, NBT, Hkv and the SM count, never the
+// tags or lengths, so the engine's one device-to-host read per step stays
+// the only one.
+// - Chunk segment (tag 1): block x < row tiles runs tc_walk.cuh's
+//   tensor-core walk on 128 (token, g) rows, heaviest row tile at x = 0
+//   (x outermost, so the long walks start first): TMA from the pool
+//   through the table (bf16 pools; maps encoded once per pool) or int8
+//   rows staged by cp.async and written into the bf16 operand with the
+//   scales kept out of it (int8 pools). Row r sees keys
+//   idx < min(ctx + seg, ctx + r / G + 1); rows past the chunk are zeros.
+// - Decode segment (tag 0): each warpgroup of block x runs split 2x or
+//   2x + 1 of split_decode.cuh's split-KV tile (the grid decode kernel's,
+//   S and P from grid_split_plan's rule), the merge folded into the last
+//   split to arrive behind a self-resetting arrival count per (segment,
+//   kv head). Block x < row tiles first writes zeros to the segment's
+//   padding rows in its row tile (rows G .. C*G - 1, and row 0 too for a
+//   dead segment), so every output element is defined.
+// One blockDim (256) and one dynamic shared-memory size (the larger role's)
+// serve both roles.
+//
+// A second hand-written path, chosen by shape and never because of a
+// failure: the walk below (one block per (segment, kv head, tile of 16
+// query rows), each walking its keys serially in f32 on the CUDA cores)
+// runs f32 q (with f32 or int8 pools), bf16 pools whose block size does
+// not tile 64 keys (BS 6, say: tcw::paged_tma_block), and G > 16, which
+// the split tile's rows do not hold. It stages each 32-key tile in shared
+// memory as f32, issues the next tile's loads into registers before the
+// current tile is computed, stops a tile's rows at its largest query
+// position, and gives a thread of a chunk tile 2 query rows and of a
+// decode tile 1; an int8 tile is dequantized in registers (int8 -> f32 *
+// scale) as it is staged. paged_mixed_attention (mixed_attention.py)
+// passes the split scratch exactly when the tensor-core path takes the
+// call.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libmixed_attention.so mixed_attention.cu
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "split_decode.cuh"
+#include "tc_walk.cuh"
 
 namespace {
 
@@ -437,24 +447,215 @@ int launch_dtype(const void* q, const void* k_pool, const void* v_pool,
   return (int)cudaErrorInvalidValue;
 }
 
+// ---------------------------------------------------- tensor-core path ----
+using bf16 = __nv_bfloat16;
+
+template <typename P, int DH, int NR>
+struct Fused {
+  static constexpr bool kQuant = sizeof(P) == 1;
+  using Split = sdec::Tile<P, DH, NR, kQuant>;
+  // a chunk tile's walk, with a copy of the table's NBT entries
+  static int chunk_bytes(int NBT) {
+    return kQuant ? tcw::int8_smem_bytes<DH>(NBT)
+                  : tcw::tma_smem_bytes<DH>(NBT);
+  }
+  // one warpgroup's split, keys = P*BS; 16-byte aligned
+  static int split_bytes(int keys) { return (Split::bytes(keys) + 15) & ~15; }
+  static int smem(int keys, int NBT) {
+    const int chunk = chunk_bytes(NBT), split = 2 * split_bytes(keys);
+    return chunk > split ? chunk : split;
+  }
+};
+
+// 1-D grid (x, kv head, segment), x outermost; the role comes from tags[s].
+template <typename P, int DH, int NR>
+__global__ void __launch_bounds__(tcw::kThreads, 1)
+mixed_tc_kernel(const bf16* __restrict__ q,
+                const __grid_constant__ CUtensorMap map_k,
+                const __grid_constant__ CUtensorMap map_v,
+                const P* __restrict__ k_pool, const P* __restrict__ v_pool,
+                const float* __restrict__ k_scale,
+                const float* __restrict__ v_scale,
+                const int* __restrict__ block_tables,
+                const int* __restrict__ ctx_lens,
+                const int* __restrict__ seg_lens,
+                const int* __restrict__ tags, float* __restrict__ part_acc,
+                float* __restrict__ part_ml, int* __restrict__ arrivals,
+                bf16* __restrict__ out, int B, int C, int H, int Hkv, int BS,
+                int NBT, int nrt, int S, int PE, int split_bytes,
+                float scale_log2) {
+  using F = Fused<P, DH, NR>;
+  extern __shared__ uint4 smem_raw[];
+  __shared__ int last[tcw::kWarpgroups];
+  char* smem = reinterpret_cast<char*>(smem_raw);
+  const int per_x = Hkv * B;
+  const int x = (int)(blockIdx.x / per_x), rem = (int)(blockIdx.x % per_x);
+  const int h = rem % Hkv, s = rem / Hkv, G = H / Hkv;
+  const int ctx = ctx_lens[s], seg = seg_lens[s], total = ctx + seg;
+  const int64_t off = (int64_t)s * C * H * DH;
+  const int* bt = block_tables + (int64_t)s * NBT;
+  if (tags[s] == 1) {                       // chunk: a tile of 128 rows
+    if (x >= nrt) return;
+    const int r0 = (nrt - 1 - x) * tcw::kM;
+    const int live_rows = total <= 0 ? 0 : max(0, min(seg, C)) * G;
+    const tcw::Rows rw{r0, max(0, min(live_rows - r0, tcw::kM)),
+                       min(C * G - r0, tcw::kM), ctx, total};
+    if constexpr (F::kQuant)
+      tcw::walk_int8<DH>(q + off, out + off, k_pool, v_pool, k_scale,
+                         v_scale, bt, BS, Hkv, rw, h, H, G, scale_log2,
+                         smem);
+    else
+      tcw::walk_tma<DH>(q + off, out + off,
+                        tcw::PagedSrc{&map_k, &map_v, bt, BS, h}, rw, h, H,
+                        G, scale_log2, smem);
+    return;
+  }
+  // decode: row 0's G heads attend keys idx < total; the rest are padding
+  if (x < nrt) {
+    const int r_lo = x * tcw::kM, r_hi = min(C * G, r_lo + tcw::kM);
+    const int first = max(r_lo, total > 0 ? G : 0);
+    for (int i = threadIdx.x; i < (r_hi - first) * (DH / 8);
+         i += tcw::kThreads) {
+      const int r = first + i / (DH / 8), c = i % (DH / 8);
+      *reinterpret_cast<uint4*>(out + off + ((int64_t)(r / G) * H + h * G +
+                                             r % G) * DH + c * 8) =
+          make_uint4(0, 0, 0, 0);
+    }
+  }
+  if (total <= 0) return;
+  const int wg = threadIdx.x >> 7, sp = 2 * x + wg;
+  if (sp >= S) return;
+  sdec::split_tile<bf16, P, DH, NR, F::kQuant>(
+      q + off + (int64_t)h * G * DH, k_pool, v_pool, k_scale, v_scale, bt,
+      total, sp, S, PE, G, Hkv, h, BS, part_acc, part_ml,
+      ((int64_t)s * Hkv + h) * S * G, arrivals + (int64_t)s * Hkv + h,
+      out + off + (int64_t)h * G * DH, scale_log2, smem + wg * split_bytes,
+      &last[wg], threadIdx.x & 127, 1 + wg);
+}
+
+template <typename P, int DH, int NR>
+int launch_tc(const void* q, const void* k_pool, const void* v_pool,
+              const void* k_scale, const void* v_scale,
+              const void* block_tables, const void* ctx_lens,
+              const void* seg_lens, const void* tags, void* part_acc,
+              void* part_ml, void* arrivals, void* out, int B, int C, int H,
+              int Hkv, int BS, int NBT, int NB, int S, int PE,
+              cudaStream_t stream) {
+  using F = Fused<P, DH, NR>;
+  const int split_bytes = F::split_bytes(PE * BS);
+  const int smem = F::smem(PE * BS, NBT);
+  if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
+  CUtensorMap map_k{}, map_v{};
+  if constexpr (!F::kQuant) {
+    int rc = tcw::pool_map(&map_k, k_pool, NB, BS, Hkv, DH);
+    if (rc == 0) rc = tcw::pool_map(&map_v, v_pool, NB, BS, Hkv, DH);
+    if (rc != 0) return rc;
+  }
+  const int G = H / Hkv;
+  const int nrt = (int)(((int64_t)C * G + tcw::kM - 1) / tcw::kM);
+  const int X = nrt > (S + 1) / 2 ? nrt : (S + 1) / 2;
+  const int64_t blocks = (int64_t)X * Hkv * B;
+  if (blocks > INT32_MAX) return (int)cudaErrorInvalidValue;
+  static int smem_set = 0;                  // the attribute, once per size
+  if (smem > smem_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        mixed_tc_kernel<P, DH, NR>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    smem_set = smem;
+  }
+  mixed_tc_kernel<P, DH, NR>
+      <<<(unsigned)blocks, tcw::kThreads, smem, stream>>>(
+          static_cast<const bf16*>(q), map_k, map_v,
+          static_cast<const P*>(k_pool), static_cast<const P*>(v_pool),
+          static_cast<const float*>(k_scale),
+          static_cast<const float*>(v_scale),
+          static_cast<const int*>(block_tables),
+          static_cast<const int*>(ctx_lens),
+          static_cast<const int*>(seg_lens), static_cast<const int*>(tags),
+          static_cast<float*>(part_acc), static_cast<float*>(part_ml),
+          static_cast<int*>(arrivals), static_cast<bf16*>(out), B, C, H, Hkv,
+          BS, NBT, nrt, S, PE, split_bytes,
+          1.4426950408889634f / sqrtf((float)DH));
+  return (int)cudaGetLastError();
+}
+
+template <typename P, int DH>
+int launch_tc_rows(const void* q, const void* k_pool, const void* v_pool,
+                   const void* k_scale, const void* v_scale,
+                   const void* block_tables, const void* ctx_lens,
+                   const void* seg_lens, const void* tags, void* part_acc,
+                   void* part_ml, void* arrivals, void* out, int B, int C,
+                   int H, int Hkv, int BS, int NBT, int NB, int S, int PE,
+                   cudaStream_t st) {
+  const int G = H / Hkv;
+  if (G <= 4)
+    return launch_tc<P, DH, 4>(q, k_pool, v_pool, k_scale, v_scale,
+                               block_tables, ctx_lens, seg_lens, tags,
+                               part_acc, part_ml, arrivals, out, B, C, H, Hkv,
+                               BS, NBT, NB, S, PE, st);
+  if (G <= 8)
+    return launch_tc<P, DH, 8>(q, k_pool, v_pool, k_scale, v_scale,
+                               block_tables, ctx_lens, seg_lens, tags,
+                               part_acc, part_ml, arrivals, out, B, C, H, Hkv,
+                               BS, NBT, NB, S, PE, st);
+  return launch_tc<P, DH, sdec::kMaxG>(q, k_pool, v_pool, k_scale, v_scale,
+                                       block_tables, ctx_lens, seg_lens, tags,
+                                       part_acc, part_ml, arrivals, out, B, C,
+                                       H, Hkv, BS, NBT, NB, S, PE, st);
+}
+
 }  // namespace
 
 // dtype (of q and out): 0 = float32, 1 = bfloat16. k_scale/v_scale null:
 // the pools are q's dtype; given: the pools are int8 and the scales f32
-// [NB, BS, Hkv]. Returns a cudaError_t (0 = launched).
-extern "C" int repro_mixed_attention(const void* q, const void* k_pool,
-                                     const void* v_pool, const void* k_scale,
-                                     const void* v_scale,
-                                     const void* block_tables,
-                                     const void* ctx_lens,
-                                     const void* seg_lens, const void* tags,
-                                     void* out, int B, int C, int H, int Hkv,
-                                     int Dh, int BS, int NBT, int dtype,
-                                     void* stream) {
+// [NB, BS, Hkv]. NB: blocks in the pool. part_acc null: the CUDA-core walk;
+// given: the tensor-core path, with the split plan (S, P) and its scratch:
+// part_acc B*Hkv*S*G*Dh floats, part_ml B*Hkv*S*G*2, arrivals B*Hkv ints,
+// all 0, left all 0 (the caller keeps them for the next call on the same
+// stream). Returns a cudaError_t (0 = launched).
+extern "C" int repro_mixed_attention(
+    const void* q, const void* k_pool, const void* v_pool,
+    const void* k_scale, const void* v_scale, const void* block_tables,
+    const void* ctx_lens, const void* seg_lens, const void* tags, void* out,
+    void* part_acc, void* part_ml, void* arrivals, int B, int C, int H,
+    int Hkv, int Dh, int BS, int NBT, int NB, int S, int P, int dtype,
+    void* stream) {
   if (B <= 0 || C <= 0) return 0;
   if (Hkv <= 0 || H % Hkv != 0 || BS <= 0 || NBT <= 0 || B > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool quant = k_scale != nullptr;
+  if (quant != (v_scale != nullptr)) return (int)cudaErrorInvalidValue;
+  if (part_acc != nullptr) {
+    if (dtype != 1 || H / Hkv > sdec::kMaxG || NB <= 0 ||
+        (!quant && !tcw::paged_tma_block(BS)) || S <= 0 || P <= 0 ||
+        S > sdec::kMaxSplits || (int64_t)S * P < NBT ||
+        (int64_t)S * P * BS > INT32_MAX || part_ml == nullptr ||
+        arrivals == nullptr)
+      return (int)cudaErrorInvalidValue;
+    if (Dh == 128 && !quant)
+      return launch_tc_rows<bf16, 128>(
+          q, k_pool, v_pool, k_scale, v_scale, block_tables, ctx_lens,
+          seg_lens, tags, part_acc, part_ml, arrivals, out, B, C, H, Hkv, BS,
+          NBT, NB, S, P, st);
+    if (Dh == 64 && !quant)
+      return launch_tc_rows<bf16, 64>(
+          q, k_pool, v_pool, k_scale, v_scale, block_tables, ctx_lens,
+          seg_lens, tags, part_acc, part_ml, arrivals, out, B, C, H, Hkv, BS,
+          NBT, NB, S, P, st);
+    if (Dh == 128 && quant)
+      return launch_tc_rows<int8_t, 128>(
+          q, k_pool, v_pool, k_scale, v_scale, block_tables, ctx_lens,
+          seg_lens, tags, part_acc, part_ml, arrivals, out, B, C, H, Hkv, BS,
+          NBT, NB, S, P, st);
+    if (Dh == 64 && quant)
+      return launch_tc_rows<int8_t, 64>(
+          q, k_pool, v_pool, k_scale, v_scale, block_tables, ctx_lens,
+          seg_lens, tags, part_acc, part_ml, arrivals, out, B, C, H, Hkv, BS,
+          NBT, NB, S, P, st);
+    return (int)cudaErrorInvalidValue;
+  }
   if (dtype == 0)
     return launch_dtype<float>(q, k_pool, v_pool, k_scale, v_scale,
                                block_tables, ctx_lens, seg_lens, tags, out, B,

@@ -34,7 +34,9 @@ entries past ``ceil(L_b/BS)`` are never read.
 """
 from __future__ import annotations
 
+import functools
 import math
+from fractions import Fraction
 from typing import Optional
 
 import torch
@@ -144,25 +146,28 @@ def paged_decode_attention_flat_plain(q, k_pool, v_pool, block_tables,
 # --------------------------------------------------------------------------
 # grid: split-KV over each request's block table
 # --------------------------------------------------------------------------
-def grid_split_plan(Hkv: int, NBT: int, BS: int, sms: int):
-    """``(S, P)`` of the grid kernel: split ``s`` of every (request, kv
-    head) walks table entries ``[s*P, min((s+1)*P, ceil(L_b/BS)))``.
+@functools.lru_cache(maxsize=None)
+def grid_split_plan(Hkv: int, NBT: int, BS: int, sms: int,
+                    per_sm=SPLIT_BLOCKS_PER_SM):
+    """``(S, P)`` of the split-KV decode: split ``s`` of every (request,
+    kv head) walks table entries ``[s*P, min((s+1)*P, ceil(L_b/BS)))``.
 
     Only shapes known on the host enter, never the lengths (they stay on
-    the device): a row as long as the table alone gives ``Hkv * S`` blocks,
-    about ``SPLIT_BLOCKS_PER_SM`` per SM, and a split walks at least
+    the device): a row as long as the table alone gives ``Hkv * S``
+    splits, about ``per_sm`` per SM (an int or a ``Fraction``; the grid
+    kernel's ``SPLIT_BLOCKS_PER_SM``, the fused kernel's
+    ``mixed_attention.FUSED_SPLITS_PER_SM``), and a split walks at least
     ``SPLIT_MIN_KEYS`` keys; ``S <= MAX_SPLITS``. ``S * P >= NBT`` and
     ``(S - 1) * P < NBT``: the splits cover ``[0, NBT)`` once, none of
     them empty."""
-    want = max(1, -(-SPLIT_BLOCKS_PER_SM * sms // Hkv))
+    want = max(1, math.ceil(Fraction(per_sm) * sms / Hkv))
     P = max(-(-NBT // min(want, MAX_SPLITS)), -(-SPLIT_MIN_KEYS // BS))
     return -(-NBT // P), P
 
 
 _SMS = {}              # SM count by device index
-# the grid kernel's arrival counts, one per (request, kv head): zeros made
-# once per (device, stream); the kernel leaves them 0 after each call, and
-# calls on one stream run in order
+# the split-KV merge's arrival counts, one per (row, kv head): zeros made
+# once per (device, stream) (arrival_counts)
 _ARRIVALS = {}
 
 
@@ -172,6 +177,19 @@ def _sm_count(device) -> int:
     if idx not in _SMS:
         _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
     return _SMS[idx]
+
+
+def arrival_counts(device, stream: int, n: int) -> torch.Tensor:
+    """At least ``n`` arrival counts of the split-KV merge on ``stream``,
+    all 0. One buffer per (device, stream), shared by the grid kernel and
+    the fused kernel's decode rows: each call leaves its counts at 0, and
+    calls on one stream run in order."""
+    key = (device.index, stream)
+    arrivals = _ARRIVALS.get(key)
+    if arrivals is None or arrivals.numel() < n:
+        arrivals = torch.zeros(max(n, 256), dtype=torch.int32, device=device)
+        _ARRIVALS[key] = arrivals
+    return arrivals
 
 
 def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths):
@@ -213,12 +231,7 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths):
     part_ml = torch.empty(rows * 2, dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        key = (q.device.index, stream)
-        arrivals = _ARRIVALS.get(key)
-        if arrivals is None or arrivals.numel() < B * Hkv:
-            arrivals = torch.zeros(max(B * Hkv, 256), dtype=torch.int32,
-                                   device=q.device)
-            _ARRIVALS[key] = arrivals
+        arrivals = arrival_counts(q.device, stream, B * Hkv)
         fn = build.entry("decode_attention", "repro_paged_decode_attention",
                          9, 9)
         rc = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),

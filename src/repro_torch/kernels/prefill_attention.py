@@ -11,6 +11,11 @@ CUDA kernels written for Hopper, built and loaded by
 * ``prefill_attention`` (``_prefill_kernel``) →
   ``csrc/contiguous_prefill.cu``.
 
+In bf16 both run the tensor-core walk of ``csrc/tc_walk.cuh`` (TMA,
+``wgmma``), fed from the paged pool through the block table or from the
+contiguous caches; f32 (and the paged kernel at block sizes that do not
+tile 64 keys) runs ``csrc/flash_core.cuh``'s CUDA-core walk.
+
 Each source's header says how it is recast for parallel thread blocks,
 what bounds it on the card (the score and P·V products of long prompts)
 and what the design does about that.
@@ -57,8 +62,8 @@ def paged_prefill_attention(q, k_pool, v_pool, block_tables, ctx_lens,
     chunk_lens   [B] int32         — real tokens in the chunk (<= C)
     returns      [B, C, H, Dh] in q's dtype; padding rows are zeros
 
-    ``num_work`` is the TPU kernel's static work bucket; the CUDA grid is
-    (chunk, kv head, row tile) and does not need it.
+    ``num_work`` is the TPU kernel's static work bucket; the CUDA grid
+    (row tile, kv head, chunk) does not need it.
     """
     del num_work
     if q.device.type == "cpu":
@@ -86,11 +91,12 @@ def _launch(q, k_pool, v_pool, block_tables, ctx_lens, chunk_lens):
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         fn = build.entry("prefill_attention",
-                         "repro_paged_prefill_attention", 7, 8)
+                         "repro_paged_prefill_attention", 7, 9)
         rc = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                 block_tables.data_ptr(), ctx_lens.data_ptr(),
                 chunk_lens.data_ptr(), out.data_ptr(), B, C, H, Hkv, Dh, BS,
-                block_tables.shape[1], _DTYPES[q.dtype], stream)
+                block_tables.shape[1], k_pool.shape[0], _DTYPES[q.dtype],
+                stream)
     if rc != 0:
         raise RuntimeError(f"{name}: launch failed (cudaError {rc})")
     LAUNCHES += 1

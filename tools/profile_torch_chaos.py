@@ -62,7 +62,7 @@ def drain(torch, srv, step_ms, stop=None):
 
 def group(name: str) -> str:
     low = name.lower()
-    if "mixed_attention" in low:
+    if "mixed_attention" in low or "mixed_tc_kernel" in low:
         return "int8 attention kernel"
     if "memcpy dtoh" in low:
         return "device-to-host copies (demotes, tokens)"

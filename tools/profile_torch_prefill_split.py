@@ -5,8 +5,8 @@
 
 The bf16 tensor-core walk of ``csrc/contiguous_prefill.cu`` multiplies
 P V twice, once with P rounded to bf16 and once with the remainder
-(``CONTIG_PREFILL_SPLIT_P=1``, the shipped build). This script builds the
-source a second time with ``-DCONTIG_PREFILL_SPLIT_P=0`` (P rounded once,
+(``TC_WALK_SPLIT_P=1``, the shipped build). This script builds the
+source a second time with ``-DTC_WALK_SPLIT_P=0`` (P rounded once,
 one product), runs both builds on the inputs of ``chip_smoke.py`` phase 3
 (B 2, T 4096, llama3.2-3b heads, lengths 4096/4059, bf16, seeded on the
 card), and prints for each: the max abs error against
@@ -32,7 +32,7 @@ def build_variant(build, split: int) -> ctypes.CDLL:
     out = build.BUILD_DIR / "variants" / f"libcontiguous_prefill_split{split}.so"
     out.parent.mkdir(parents=True, exist_ok=True)
     subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS,
-                    f"-DCONTIG_PREFILL_SPLIT_P={split}", "-o", str(out),
+                    f"-DTC_WALK_SPLIT_P={split}", "-o", str(out),
                     str(build.SOURCES["contiguous_prefill"])], check=True)
     fn = ctypes.CDLL(str(out)).repro_contiguous_prefill_attention
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
