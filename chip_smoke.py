@@ -17,19 +17,23 @@ the last line:
    989 TFLOP/s bf16): the fused mixed kernel, its int8 mode (int8 pool,
    f32 scales; also held to the bf16 kernel on the unquantized pool, per
    live row cos >= 0.999 and max abs <= 0.05), the flat decode kernel
-   (rows over 24, 3300, 650 and 770 tokens and a dead slot), the chunked
+   (rows over 24, 3300, 650 and 770 tokens and a dead slot, which is 0;
+   two calls bit-equal; one kernel a call in the profiler), the chunked
    prefill kernel (chunks of 256 at ctx 2800 and 0, one of 100), the grid
    decode kernel at the flat one's rows (also held to the flat kernel's
    output), the contiguous decode kernel padded and ragged at the paper's
-   200v10000 setup (batch 512, bf16; f32 on 64 of its rows) and the
+   200v10000 setup (batch 512, bf16; f32 on 64 of its rows; the padded
+   time no lower than streaming its whole 20.97 GB cache takes), every
+   split-KV arrival count back at 0 afterwards, and the
    contiguous causal prefill kernel at B 2, T 4096, lengths 4096/4059;
    every time both from CUDA events and as the device time of the call's
    kernels from ``torch.profiler``, and for #1, #3 and #4 the wrapper's
    host time per call; the fused kernel also on the grid kernel's rows
    with C = 1 (a decode step), beside it; for the kernels redesigned for
    Hopper (the tensor-core fused, chunked paged and contiguous prefill
-   kernels of ``tc_walk.cuh``, the split-KV grid decode of
-   ``split_decode.cuh``), ptxas's registers and spilled bytes per
+   kernels of ``tc_walk.cuh``, the split-KV grid, flat and contiguous
+   decode kernels of ``split_decode.cuh``), ptxas's registers and spilled
+   bytes per
    instance (no spill allowed in a tensor-core kernel), and the count of
    tensor-core instructions (HGMMA, HMMA) in the SASS of each tensor-core
    kernel (``cuobjdump -sass``), whose HGMMA must not be 0; the achieved
@@ -88,10 +92,11 @@ the last line:
 13. the paper's Fig. 2 through ``kernels.api.decode_attention``: the
     padded and ragged contiguous decode kernels on the mixed batches
     200v10000 (batch 512) and 1000v50000 (batch 128, cut from 512 by the
-    card's memory), each held to its plain version, and the padded kernel
-    on a homogeneous batch of the same size and total tokens: the
-    heterogeneity tax and the ragged speedup; then one causal prefill
-    through ``api.prefill_attention`` held to the oracle;
+    card's memory), each held to its plain version and to each other (bit
+    for bit), and the padded kernel on a homogeneous batch of the same size
+    and total tokens: the heterogeneity tax and the ragged speedup; then
+    one causal prefill through ``api.prefill_attention`` held to the
+    oracle;
 14. one JSON line of every kernel, then, last, ``{"ok": true, ...}``.
 
 It needs one CUDA card and fails without one; it imports nothing of JAX.
@@ -182,8 +187,10 @@ def attention_work(bt, ctx, seg, tags, BS):
 
 class Timed(float):
     """An event time (ms) that also carries ``device``: the device time
-    of the kernels of one call, from ``torch.profiler``."""
+    of the kernels of one call, and ``kernels``: how many kernels one call
+    launched, from ``torch.profiler``."""
     device: float
+    kernels: float
 
 
 def time_ms(torch, fn, iters, flush, device=False):
@@ -213,15 +220,17 @@ def time_ms(torch, fn, iters, flush, device=False):
             flush.zero_()
             fn()
         torch.cuda.synchronize()
-    total = 0.0
+    total = launched = 0.0
     for e in prof.key_averages():
         t = getattr(e, "device_time_total", None)
         if t is None:
             t = e.cuda_time_total
         if t and "fillfunctor" not in e.key.lower():   # the flush
             total += t
+            launched += e.count
     out = Timed(ms)
     out.device = total / iters / 1e3
+    out.kernels = launched / iters
     return out
 
 
@@ -459,8 +468,12 @@ def phase_flat_kernels(np, torch, F, dk, pk, flush):
                           dk.paged_decode_attention_flat_plain(*fl, *ints),
                           tol)
         check(not got[-1].float().abs().max().item(), "dead slot not zero")
+        check(torch.equal(dk.paged_decode_attention_flat(
+            *fl, *ints, num_work=num_work), got),
+            f"flat decode {name}: two calls differ")
         log(f"phase 3: flat decode vs plain {name}: max_abs_err="
-            f"{errs[name]:.3e} (tolerance {tol})")
+            f"{errs[name]:.3e} (tolerance {tol}); dead slot 0, two calls "
+            f"bit-equal")
     # the main path builds the work list once per decode forward and
     # hands it to every layer: the kernel is timed as a layer calls it
     work = flat_work_list(ints[1], bt.shape[1], BS, num_work)
@@ -479,13 +492,15 @@ def phase_flat_kernels(np, torch, F, dk, pk, flush):
         qs, kg, vg, attn_mask=mask), 20, flush, device=True)
     bound_ms, by, nb, fo = work_bound(bt, ctx, seg, tags, BS, H, Hkv, Dh,
                                       len(lens))
+    check(kernel_ms.kernels == 1, f"flat decode launched "
+          f"{kernel_ms.kernels} kernels a call in the profiler, not 1")
     log(f"phase 3: flat decode bf16 kernel {kernel_ms:.4f} ms (device "
-        f"{kernel_ms.device:.4f}) ("
+        f"{kernel_ms.device:.4f}; {kernel_ms.kernels:g} kernel a call) ("
         f"{alone_ms:.4f} ms building its work list in the call), plain "
         f"{plain_ms:.4f} ms, library sdpa {library_ms:.4f} ms (device "
         f"{library_ms.device:.4f}), bound "
         f"{bound_ms:.4f} ms ({by}: {nb / 1e6:.1f} MB, {fo / 1e9:.2f} GFLOP;"
-        f" {num_work} work items, {real} real)")
+        f" {num_work} work items, {real} real, {dk.ITEMS_PER_RUN} a run)")
     out["decode"] = {"max_abs_err": errs["bf16"], "max_abs_err_f32":
                      errs["f32"],
                      **measured(kernel_ms, library_ms), "with_work_list_ms":
@@ -586,11 +601,14 @@ def bound_of(nbytes, flops):
 
 # kernels redesigned for Hopper whose ptxas report phase 3 carries: the
 # tensor-core kernels (fused mixed, chunked paged prefill, contiguous
-# prefill; library, kernel) and the split-KV grid decode
+# prefill; library, kernel) and the split-KV decode kernels (grid, flat,
+# contiguous)
 TENSOR_CORE = (("mixed_attention", "mixed_tc_kernel"),
                ("prefill_attention", "chunk_tc_kernel"),
                ("contiguous_prefill", "prefill_tc_kernel"))
-REDESIGNED = tuple(k for _, k in TENSOR_CORE) + ("grid_split_kernel",)
+SPLIT_KV = ("grid_split_kernel", "flat_split_kernel",
+            "contiguous_split_kernel")
+REDESIGNED = tuple(k for _, k in TENSOR_CORE) + SPLIT_KV
 
 
 def ptxas_report(text):
@@ -770,6 +788,8 @@ def phase_grid_contiguous_kernels(np, torch, F, tk, dk, pk, flush):
     lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
     nb, fo = contiguous_work(lens, H, Hkv, Dh, B)
     bound_ms, by = bound_of(nb, fo)
+    # the padded mode must stream the whole cache: its own floor
+    stream_ms = 2 * k.numel() * k.element_size() / HBM_BYTES_PER_S * 1e3
     # library: one SDPA over the caches as they lie, a bool length mask; the
     # G query heads of each kv head ride as its query rows (enable_gqa's
     # function, without expanding K/V threefold past the card's memory)
@@ -792,19 +812,35 @@ def phase_grid_contiguous_kernels(np, torch, F, tk, dk, pk, flush):
             device=True)
         plain_ms = time_ms(torch, lambda: dk.decode_attention_plain(
             q, k, v, lengths, block_s=FIG2_BLOCK, ragged=ragged), 2, flush)
+        if not ragged:
+            check(min(kernel_ms, kernel_ms.device) >= stream_ms,
+                  f"padded contiguous decode timed at {kernel_ms:.4f} ms "
+                  f"(device {kernel_ms.device:.4f}), below the "
+                  f"{stream_ms:.4f} ms that streaming its whole cache takes:"
+                  f" it skipped blocks")
+            out[mode]["stream_bound_ms"] = stream_ms
         log(f"phase 3: contiguous decode {mode} vs plain: max_abs_err "
             f"f32 {out[mode]['max_abs_err_f32']:.3e} ({2 * half} rows), bf16 "
             f"{err:.3e} (tolerances 1e-4, 5e-3); bf16 kernel "
-            f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, library sdpa "
-            f"{library_ms:.4f} ms (device "
-        f"{library_ms.device:.4f}), bound {bound_ms:.4f} ms ({by}: "
-            f"{nb / 1e9:.3f} GB, {fo / 1e9:.2f} GFLOP) at B {B}, S {long_}")
+            f"{kernel_ms:.4f} ms (device {kernel_ms.device:.4f}; "
+            f"{nb / kernel_ms / 1e9:.3f} TB/s of needed bytes, "
+            f"{2 * k.numel() * k.element_size() / kernel_ms / 1e9:.3f} TB/s "
+            f"of the whole cache), plain {plain_ms:.4f} ms, library sdpa "
+            f"{library_ms:.4f} ms (device {library_ms.device:.4f}), bound "
+            f"{bound_ms:.4f} ms ({by}: {nb / 1e9:.3f} GB, "
+            f"{fo / 1e9:.2f} GFLOP), padded streaming bound {stream_ms:.4f} "
+            f"ms, at B {B}, S {long_}; split plan "
+            f"{dk.contiguous_split_plan(B, long_, Hkv, FIG2_BLOCK, dk._sm_count(dev))}")
         out[mode].update({"max_abs_err": err,
                           **measured(kernel_ms, library_ms),
                           "plain_ms": plain_ms, "library_ms": library_ms,
                           "bound_ms": bound_ms, "bound_by": by})
     del q, k, v, kt, vt, qr, mask
     torch.cuda.empty_cache()
+    stale = {key: int(a.count_nonzero()) for key, a in dk._ARRIVALS.items()
+             if a.count_nonzero()}
+    check(not stale, f"split-KV arrival counts left non-zero: {stale}")
+    log("phase 3: every split-KV arrival count is back at 0")
 
     # ---- #6: contiguous causal prefill at B 2, T 4096
     T, plens = PREFILL_T, PREFILL_LENS
@@ -1724,6 +1760,8 @@ def phase_fig2(torch, api, dk, flush):
                               ragged=mode == "ragged"), 5e-3)
                for mode, got in (("padded", pad), ("ragged", rag))}
         diff = (pad.float() - rag.float()).abs().max().item()
+        check(diff == 0, f"fig 2 {name}: padded and ragged outputs differ "
+              f"by {diff} (the padded mode's extra keys must weigh 0)")
         t_pad = time_ms(torch, lambda: decode(q, k, v, lengths, False), 10,
                         flush)
         t_rag = time_ms(torch, lambda: decode(q, k, v, lengths, True), 10,
@@ -1835,8 +1873,7 @@ def main() -> int:
             f"({lib}): {tc_ops[kernel]}")
         check(tc_ops[kernel]["HGMMA"] > 0, f"{kernel} has no HGMMA")
     spilled = {label: rep for label, rep in ptxas.items()
-               if rep.get("spill_bytes") and not label.startswith(
-                   "grid_split_kernel")}
+               if rep.get("spill_bytes") and not label.startswith(SPLIT_KV)}
     check(not spilled, f"tensor-core kernels spill: {spilled}")
 
     # 3. kernels vs their plain versions
@@ -1968,7 +2005,8 @@ def main() -> int:
                    more["padded"], more["ragged"], more["prefill"]]
     for entry, k in zip(kernels, measured_by):
         entry["bound_share"] = entry["bound_ms"] / entry["ms"]
-        for key in ("device_ms", "library_device_ms", "host_us"):
+        for key in ("device_ms", "library_device_ms", "host_us",
+                    "stream_bound_ms"):
             if key in k:
                 entry[key] = k[key]
     by_name = {entry["name"]: entry for entry in kernels}
@@ -1978,8 +2016,13 @@ def main() -> int:
         by_name[name]["rate_unit"] = k["rate_unit"]
     for name, prefix in (("paged_mixed_attention", "mixed_tc_kernel"),
                          ("paged_mixed_attention_int8", "mixed_tc_kernel"),
+                         ("paged_decode_attention_flat", "flat_split_kernel"),
                          ("paged_prefill_attention", "chunk_tc_kernel"),
                          ("paged_decode_attention", "grid_split_kernel"),
+                         ("decode_attention_padded",
+                          "contiguous_split_kernel"),
+                         ("decode_attention_ragged",
+                          "contiguous_split_kernel"),
                          ("prefill_attention", "prefill_tc_kernel")):
         by_name[name]["ptxas"] = {label: rep for label, rep in ptxas.items()
                                   if label.startswith(prefix)}

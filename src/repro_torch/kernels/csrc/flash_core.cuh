@@ -1,8 +1,9 @@
-// Online-softmax core shared by the flat and grid paged decode kernels
-// (decode_attention.cu), the chunked paged prefill kernel
-// (prefill_attention.cu) and the contiguous decode and prefill kernels
-// (contiguous_decode.cu, contiguous_prefill.cu): the counterpart of
-// repro/kernels/ops.py's _flash_init / _flash_block_update / _flash_finish.
+// Online-softmax core of the f32 CUDA-core walks: the chunked paged prefill
+// kernel (prefill_attention.cu: f32, and bf16 pools whose block size the
+// tensor-core walk does not take) and the contiguous prefill kernel
+// (contiguous_prefill.cu: f32); the counterpart of repro/kernels/ops.py's
+// _flash_init / _flash_block_update / _flash_finish. split_decode.cuh takes
+// its stores.
 //
 // One thread block of kThreads threads walks a contiguous range of one
 // sequence's keys for a tile of query rows of one kv head, reading K/V rows
@@ -102,13 +103,10 @@ struct Rows {
 // head h, of which the first `tile_live` are live. q_seg points at the
 // sequence's [C, H, DH] queries; `keys` addresses its K/V rows, of which
 // keys idx >= k_load read as zeros. Row r keeps keys idx < min(lim, k_hi),
-// lim = causal ? min(total, ctx + r/G + 1) : total. A masked key weighs 0;
-// with kExpMasked it weighs exp(-1e30 - m) instead, as in the TPU kernels'
-// _flash_block_update: the same unless every key so far was masked, where
-// each walked key then weighs 1. Leaves the unnormalised state in `st`. Safe
-// to call several times in one block (it synchronises before reusing shared
-// memory).
-template <typename T, int DH, int RPT, bool kExpMasked = false, typename Keys>
+// lim = causal ? min(total, ctx + r/G + 1) : total; a masked key weighs 0.
+// Leaves the unnormalised state in `st`. Safe to call several times in one
+// block (it synchronises before reusing shared memory).
+template <typename T, int DH, int RPT, typename Keys>
 __device__ __forceinline__ void attend(
     Rows<DH, RPT>& st, const T* __restrict__ q_seg,
     const T* __restrict__ k_pool, const T* __restrict__ v_pool,
@@ -250,9 +248,8 @@ __device__ __forceinline__ void attend(
         float ps = 0.f;
 #pragma unroll
         for (int u = 0; u < kKeysPerLane; ++u) {
-          const int key = j0 + c + kLanes * u;
-          const bool weigh = kExpMasked ? key < k_hi : key < lim[i];
-          sc[i][u] = weigh ? expf(sc[i][u] - m_new) : 0.f;
+          const bool keep = j0 + c + kLanes * u < lim[i];
+          sc[i][u] = keep ? expf(sc[i][u] - m_new) : 0.f;
           ps += sc[i][u];
         }
 #pragma unroll

@@ -7,22 +7,27 @@ CUDA kernels written for Hopper, built and loaded by
 
 * ``paged_decode_attention_flat`` (``_flat_paged_kernel``) →
   ``csrc/decode_attention.cu``'s flat kernel: the sequential flat work
-  list recast for parallel thread blocks (runs of consecutive items,
-  partial softmax states merged in a second pass).
+  list recast for parallel thread blocks (runs of ``ITEMS_PER_RUN``
+  consecutive items, a request's parts merged by the last to finish, one
+  launch).
 * ``paged_decode_attention`` (``_paged_decode_kernel``) → the same
   source's grid kernel: split-KV, each (request, kv head) cut into splits
-  of ``P`` table entries (:func:`grid_split_plan`) walked through a
-  cp.async ring, then merged by the last split to finish.
+  of ``P`` table entries (:func:`grid_split_plan`), then merged by the
+  last split to finish.
 * ``decode_attention`` (``_decode_kernel``) → ``csrc/contiguous_decode.cu``,
-  padded or ragged over contiguous ``[B, S, Hkv, Dh]`` caches.
+  padded or ragged over contiguous ``[B, S, Hkv, Dh]`` caches, split as
+  :func:`contiguous_split_plan` says.
+
+All three walk their keys on ``csrc/split_decode.cuh``'s tile: a cp.async
+ring of 32-key tiles, f32 math on the CUDA cores.
 
 Each source's header says what bounds it on the card (the bytes of K/V
 read) and what its design does about that.
 
 Each wrapper launches its kernel for CUDA tensors — or raises; it never
 falls back — and runs its plain PyTorch version (``*_plain``) only for
-tensors on the CPU. Launches are counted per kernel: ``LAUNCHES`` (flat,
-one per call: both passes), ``GRID_LAUNCHES``, ``PADDED_LAUNCHES`` and
+tensors on the CPU. Launches are counted per kernel, one per call:
+``LAUNCHES`` (flat), ``GRID_LAUNCHES``, ``PADDED_LAUNCHES`` and
 ``RAGGED_LAUNCHES``.
 
 Paged semantics (those of ``_flat_paged_kernel`` and
@@ -54,11 +59,15 @@ RAGGED_LAUNCHES = 0   # contiguous, ragged=True
 
 # consecutive work items (request, logical block) one thread block walks
 ITEMS_PER_RUN = 8
-# grid split plan: blocks one long row alone should give each SM, and the
+# split plans: blocks one long row alone should give each SM, and the
 # fewest keys a split walks (below that a block's set-up outweighs its tiles)
 SPLIT_BLOCKS_PER_SM = 2
 SPLIT_MIN_KEYS = 64
 MAX_SPLITS = 256      # the merge keeps S x G (m, l) in shared memory
+TILE_KEYS = 32        # keys of one tile of the split-KV ring
+# contiguous decode: blocks of its 3-stage tile one SM holds (bf16, Dh 128,
+# G <= 4), the wave its split plan fills
+CONTIG_BLOCKS_PER_SM = 4
 _MAX_GROUP = 16       # query heads per kv head the kernel's row tile holds
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 DEFAULT_BLOCK = 512   # contiguous decode's default block_s, as the TPU's
@@ -113,24 +122,32 @@ def _launch(q, k_pool, v_pool, block_tables, lengths, num_work, work_list):
     if tuple(work_req.shape) != (W,) or tuple(work_blk.shape) != (W,):
         raise ValueError(f"{name}: work list of {tuple(work_req.shape)} "
                          f"items for num_work {W}")
-    G = H // Hkv
-    part_acc = torch.empty(W * Hkv * G * Dh, dtype=torch.float32,
-                           device=q.device)
-    part_ml = torch.empty(W * Hkv * G * 2, dtype=torch.float32,
-                          device=q.device)
+    # partial acc [W * Hkv * G, Dh] then (m, l) [W * Hkv * G, 2], one buffer
+    rows = W * H
+    part = torch.empty(rows * (Dh + 2), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         fn = build.entry("decode_attention", "repro_decode_attention_flat",
-                         10, 9)
+                         11, 9)
         rc = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                 block_tables.data_ptr(), lengths.data_ptr(),
-                work_req.data_ptr(), work_blk.data_ptr(), part_acc.data_ptr(),
-                part_ml.data_ptr(), out.data_ptr(), B, H, Hkv, Dh, BS, NBT, W,
-                ITEMS_PER_RUN, _DTYPES[q.dtype], stream)
+                work_req.data_ptr(), work_blk.data_ptr(), part.data_ptr(),
+                part.data_ptr() + rows * Dh * 4,
+                arrival_counts(q.device, stream, B * Hkv).data_ptr(),
+                out.data_ptr(), B, H, Hkv, Dh, BS, NBT, W,
+                items_per_run(NBT), _DTYPES[q.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"{name}: launch failed (cudaError {rc})")
     LAUNCHES += 1
     return out
+
+
+def items_per_run(nbt: int) -> int:
+    """Work items a block of the flat kernel walks: ``ITEMS_PER_RUN``, or
+    more where a table of ``nbt`` entries would give a request more parts
+    (one per run its items touch, at most ``ceil(nbt / ipr) + 1``) than
+    the merge holds (``MAX_SPLITS``)."""
+    return max(ITEMS_PER_RUN, -(-nbt // (MAX_SPLITS - 1)))
 
 
 def paged_decode_attention_flat_plain(q, k_pool, v_pool, block_tables,
@@ -181,9 +198,9 @@ def _sm_count(device) -> int:
 
 def arrival_counts(device, stream: int, n: int) -> torch.Tensor:
     """At least ``n`` arrival counts of the split-KV merge on ``stream``,
-    all 0. One buffer per (device, stream), shared by the grid kernel and
-    the fused kernel's decode rows: each call leaves its counts at 0, and
-    calls on one stream run in order."""
+    all 0. One buffer per (device, stream), shared by the flat, grid and
+    contiguous decode kernels and the fused kernel's decode rows: each
+    call leaves its counts at 0, and calls on one stream run in order."""
     key = (device.index, stream)
     arrivals = _ARRIVALS.get(key)
     if arrivals is None or arrivals.numel() < n:
@@ -255,6 +272,31 @@ def paged_decode_attention_plain(q, k_pool, v_pool, block_tables, lengths):
 # --------------------------------------------------------------------------
 # contiguous caches, padded or ragged
 # --------------------------------------------------------------------------
+@functools.lru_cache(maxsize=None)
+def contiguous_split_plan(B: int, S: int, Hkv: int, block_s: int,
+                          sms: int):
+    """``(n, keys)`` of the contiguous decode: split ``s`` of every
+    (request, kv head) walks keys ``[s*keys, (s+1)*keys)`` of the
+    ``nj*block_s`` (``nj = ceil(S/block_s)``, ``block_s`` clamped to S)
+    that the padded mode computes; the ragged mode computes those below
+    ``ceil(L_b/block_s)*block_s``, and a split past them does nothing.
+
+    Only shapes enter, never the lengths (they stay on the device).
+    Once ``B * Hkv`` blocks fill the ``CONTIG_BLOCKS_PER_SM * sms`` that
+    the card holds at once, a (request, kv head) is one split and nothing
+    is merged. Fewer rows are cut into as many splits as fit that one
+    wave (rounding up would start a second wave of a few blocks, which on
+    the card costs more than the splits gain), splits of a multiple of
+    ``TILE_KEYS`` keys and at least ``SPLIT_MIN_KEYS``, ``n <=
+    MAX_SPLITS``. ``n * keys >= nj*block_s > (n - 1) * keys``: the splits
+    cover the padded keys once, none of them empty."""
+    total = -(-S // block_s) * block_s
+    want = min(MAX_SPLITS, max(1, CONTIG_BLOCKS_PER_SM * sms // (B * Hkv)))
+    keys = max(-(-total // want), SPLIT_MIN_KEYS)
+    keys = -(-keys // TILE_KEYS) * TILE_KEYS
+    return -(-total // keys), keys
+
+
 def decode_attention(q, k, v, lengths, *, block_s: int = DEFAULT_BLOCK,
                      ragged: bool = False):
     """Flash-decode GQA attention over contiguous caches.
@@ -291,13 +333,24 @@ def decode_attention(q, k, v, lengths, *, block_s: int = DEFAULT_BLOCK,
     out = torch.empty_like(q)
     if B == 0:
         return out
+    bs = min(block_s, S)
+    n, keys = contiguous_split_plan(B, S, Hkv, bs, _sm_count(q.device))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
+        split = (None, None, None)
+        if n > 1:
+            # partial acc [rows, Dh] then (m, l) [rows, 2] in one buffer,
+            # and the stream's arrival counts
+            rows = B * n * H
+            part = torch.empty(rows * (Dh + 2), dtype=torch.float32,
+                               device=q.device)
+            split = (part.data_ptr(), part.data_ptr() + rows * Dh * 4,
+                     arrival_counts(q.device, stream, B * Hkv).data_ptr())
         fn = build.entry("contiguous_decode",
-                         "repro_contiguous_decode_attention", 5, 8)
+                         "repro_contiguous_decode_attention", 8, 10)
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-                out.data_ptr(), B, S, H, Hkv, Dh, min(block_s, S), int(ragged),
-                _DTYPES[q.dtype], stream)
+                *split, out.data_ptr(), B, S, H, Hkv, Dh, bs, int(ragged), n,
+                keys, _DTYPES[q.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"{name}: launch failed (cudaError {rc})")
     if ragged:

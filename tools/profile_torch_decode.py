@@ -2,6 +2,7 @@
 """Where the paged decode kernels' time goes on the card.
 
     python3 tools/profile_torch_decode.py [--iters 20] [--entries 1,7,208]
+        [--items-per-run 4,8,16,32]
 
 Runs the grid decode kernel (splits, merged by the last to finish), the
 flat decode kernel
@@ -14,7 +15,10 @@ device time of each kernel the call launched from ``torch.profiler`` (mean
 per call), so the gap between events and kernels shows. ``--entries``
 then times the grid kernel's C entry at other split sizes (P table
 entries a split, S = ceil(NBT / P)): how its time scales with the tiles
-one block walks. Needs one CUDA card.
+one block walks. ``--items-per-run`` times the flat kernel at each run
+length (``decode_attention.ITEMS_PER_RUN``), in turns forward and back,
+events and device time, beside the grid kernel in the same turn. Needs
+one CUDA card.
 """
 from __future__ import annotations
 
@@ -32,6 +36,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--entries", default="")
+    ap.add_argument("--items-per-run", default="")
     args = ap.parse_args()
     import numpy as np
     import torch
@@ -117,6 +122,23 @@ def main() -> int:
         print(f"grid at P {P} (S {S}): events "
               f"{cs.time_ms(torch, call, args.iters, flush):.4f} ms, "
               f"max abs vs the planned split {err:.3e}")
+    sweep = [int(x) for x in args.items_per_run.split(",") if x]
+    default, base = dk.ITEMS_PER_RUN, calls["flat"]()
+    for turn in (sweep, sweep[::-1]):
+        for ipr in turn:
+            dk.ITEMS_PER_RUN = ipr
+            out = calls["flat"]()
+            torch.cuda.synchronize()
+            err = (out.float() - base.float()).abs().max().item()
+            flat = cs.time_ms(torch, calls["flat"], args.iters, flush,
+                              device=True)
+            grid = cs.time_ms(torch, calls["grid"], args.iters, flush,
+                              device=True)
+            print(f"flat at ITEMS_PER_RUN {ipr} ({-(-W // ipr)} runs): "
+                  f"events {flat:.4f} ms, device {flat.device:.4f}; grid "
+                  f"beside it {grid:.4f} / {grid.device:.4f}; max abs vs "
+                  f"{default} items a run {err:.3e}")
+    dk.ITEMS_PER_RUN = default
     return 0
 
 
