@@ -58,6 +58,7 @@ __global__ void __launch_bounds__(sdec::kThreads)
 contiguous_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v,
                         const int* __restrict__ lengths,
+                        const int* __restrict__ kv_rows,
                         float* __restrict__ part_acc,
                         float* __restrict__ part_ml,
                         int* __restrict__ arrivals,
@@ -85,7 +86,8 @@ contiguous_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         max(0, min(len - k_lo, n))};
   sdec::attend<T, T, DH, NR, false, kStages>(
       q + ((int64_t)b * H + h * G) * DH, k, v, nullptr, nullptr,
-      sdec::ContigKeys{(int64_t)b * S + k_lo}, span, G, Hkv, h, scale_log2,
+      sdec::ContigKeys{(int64_t)(kv_rows ? kv_rows[b] : b) * S + k_lo}, span,
+      G, Hkv, h, scale_log2,
       sdec::SplitSlots{((int64_t)b * Hkv + h) * gridDim.x * G, G}, s,
       1 + (end - 1) / split_keys, part_acc, part_ml,
       arrivals + (int64_t)b * Hkv + h, out_bh,
@@ -94,9 +96,10 @@ contiguous_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int DH, int NR>
 int launch(const void* q, const void* k, const void* v, const void* lengths,
-           void* part_acc, void* part_ml, void* arrivals, void* out, int B,
-           int S, int H, int Hkv, int block_s, int ragged, int splits,
-           int split_keys, cudaStream_t stream) {
+           const void* kv_rows, void* part_acc, void* part_ml,
+           void* arrivals, void* out, int B, int S, int H, int Hkv,
+           int block_s, int ragged, int splits, int split_keys,
+           cudaStream_t stream) {
   constexpr int smem = sdec::Tile<T, DH, NR, false, kStages>::SMEM;
   static_assert(smem <= 227 * 1024, "tile exceeds shared memory");
   static bool smem_set = false;             // the attribute, once
@@ -111,8 +114,9 @@ int launch(const void* q, const void* k, const void* v, const void* lengths,
       <<<dim3(splits, Hkv, B), sdec::kThreads, smem, stream>>>(
           static_cast<const T*>(q), static_cast<const T*>(k),
           static_cast<const T*>(v), static_cast<const int*>(lengths),
-          static_cast<float*>(part_acc), static_cast<float*>(part_ml),
-          static_cast<int*>(arrivals), static_cast<T*>(out), S, H, Hkv,
+          static_cast<const int*>(kv_rows), static_cast<float*>(part_acc),
+          static_cast<float*>(part_ml), static_cast<int*>(arrivals),
+          static_cast<T*>(out), S, H, Hkv,
           block_s, (S + block_s - 1) / block_s, ragged, split_keys,
           1.4426950408889634f / sqrtf((float)DH));
   return (int)cudaGetLastError();
@@ -120,37 +124,42 @@ int launch(const void* q, const void* k, const void* v, const void* lengths,
 
 template <typename T, int DH>
 int launch_rows(const void* q, const void* k, const void* v,
-                const void* lengths, void* part_acc, void* part_ml,
-                void* arrivals, void* out, int B, int S, int H, int Hkv,
-                int block_s, int ragged, int splits, int split_keys,
+                const void* lengths, const void* kv_rows, void* part_acc,
+                void* part_ml, void* arrivals, void* out, int B, int S, int H,
+                int Hkv, int block_s, int ragged, int splits, int split_keys,
                 cudaStream_t stream) {
   const int G = H / Hkv;
   if (G <= 4)
-    return launch<T, DH, 4>(q, k, v, lengths, part_acc, part_ml, arrivals,
-                            out, B, S, H, Hkv, block_s, ragged, splits,
-                            split_keys, stream);
+    return launch<T, DH, 4>(q, k, v, lengths, kv_rows, part_acc, part_ml,
+                            arrivals, out, B, S, H, Hkv, block_s, ragged,
+                            splits, split_keys, stream);
   if (G <= 8)
-    return launch<T, DH, 8>(q, k, v, lengths, part_acc, part_ml, arrivals,
-                            out, B, S, H, Hkv, block_s, ragged, splits,
-                            split_keys, stream);
-  return launch<T, DH, sdec::kMaxG>(q, k, v, lengths, part_acc, part_ml,
-                                    arrivals, out, B, S, H, Hkv, block_s,
-                                    ragged, splits, split_keys, stream);
+    return launch<T, DH, 8>(q, k, v, lengths, kv_rows, part_acc, part_ml,
+                            arrivals, out, B, S, H, Hkv, block_s, ragged,
+                            splits, split_keys, stream);
+  return launch<T, DH, sdec::kMaxG>(q, k, v, lengths, kv_rows, part_acc,
+                                    part_ml, arrivals, out, B, S, H, Hkv,
+                                    block_s, ragged, splits, split_keys,
+                                    stream);
 }
 
 }  // namespace
 
-// block_s: already clamped to S by the caller. splits, split_keys: the split
-// plan (decode_attention.py::contiguous_split_plan), covering the nj*block_s
-// padded keys; with splits > 1, part_acc holds B*Hkv*splits*G*Dh floats,
-// part_ml B*Hkv*splits*G*2 and arrivals B*Hkv ints, all 0, left all 0 (the
-// caller keeps them for the next call on the same stream). dtype: 0 =
-// float32, 1 = bfloat16. Returns a cudaError_t (0 = launched).
+// kv_rows: null, or [B] int32 cache rows, query row b reading the keys of
+// cache row kv_rows[b] (k, v then hold any number of rows of S keys: a
+// serving slab whose live rows decode without a gather); the caller keeps
+// each in range. block_s: already clamped to S by the caller. splits,
+// split_keys: the split plan (decode_attention.py::contiguous_split_plan),
+// covering the nj*block_s padded keys; with splits > 1, part_acc holds
+// B*Hkv*splits*G*Dh floats, part_ml B*Hkv*splits*G*2 and arrivals B*Hkv ints,
+// all 0, left all 0 (the caller keeps them for the next call on the same
+// stream). dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 =
+// launched).
 extern "C" int repro_contiguous_decode_attention(
     const void* q, const void* k, const void* v, const void* lengths,
-    void* part_acc, void* part_ml, void* arrivals, void* out, int B, int S,
-    int H, int Hkv, int Dh, int block_s, int ragged, int splits,
-    int split_keys, int dtype, void* stream) {
+    const void* kv_rows, void* part_acc, void* part_ml, void* arrivals,
+    void* out, int B, int S, int H, int Hkv, int Dh, int block_s, int ragged,
+    int splits, int split_keys, int dtype, void* stream) {
   if (B <= 0) return 0;
   if (S <= 0 || Hkv <= 0 || H % Hkv != 0 || H / Hkv > sdec::kMaxG ||
       block_s <= 0 || block_s > S || Hkv > 65535 || B > 65535 ||
@@ -164,22 +173,22 @@ extern "C" int repro_contiguous_decode_attention(
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && Dh == 128)
-    return launch_rows<float, 128>(q, k, v, lengths, part_acc, part_ml,
-                                   arrivals, out, B, S, H, Hkv, block_s,
-                                   ragged, splits, split_keys, st);
+    return launch_rows<float, 128>(q, k, v, lengths, kv_rows, part_acc,
+                                   part_ml, arrivals, out, B, S, H, Hkv,
+                                   block_s, ragged, splits, split_keys, st);
   if (dtype == 0 && Dh == 64)
-    return launch_rows<float, 64>(q, k, v, lengths, part_acc, part_ml,
-                                  arrivals, out, B, S, H, Hkv, block_s,
-                                  ragged, splits, split_keys, st);
+    return launch_rows<float, 64>(q, k, v, lengths, kv_rows, part_acc,
+                                  part_ml, arrivals, out, B, S, H, Hkv,
+                                  block_s, ragged, splits, split_keys, st);
   if (dtype == 1 && Dh == 128)
-    return launch_rows<__nv_bfloat16, 128>(q, k, v, lengths, part_acc,
-                                           part_ml, arrivals, out, B, S, H,
-                                           Hkv, block_s, ragged, splits,
-                                           split_keys, st);
+    return launch_rows<__nv_bfloat16, 128>(q, k, v, lengths, kv_rows,
+                                           part_acc, part_ml, arrivals, out,
+                                           B, S, H, Hkv, block_s, ragged,
+                                           splits, split_keys, st);
   if (dtype == 1 && Dh == 64)
-    return launch_rows<__nv_bfloat16, 64>(q, k, v, lengths, part_acc,
-                                          part_ml, arrivals, out, B, S, H,
-                                          Hkv, block_s, ragged, splits,
-                                          split_keys, st);
+    return launch_rows<__nv_bfloat16, 64>(q, k, v, lengths, kv_rows,
+                                          part_acc, part_ml, arrivals, out,
+                                          B, S, H, Hkv, block_s, ragged,
+                                          splits, split_keys, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -298,12 +298,16 @@ def contiguous_split_plan(B: int, S: int, Hkv: int, block_s: int,
 
 
 def decode_attention(q, k, v, lengths, *, block_s: int = DEFAULT_BLOCK,
-                     ragged: bool = False):
+                     ragged: bool = False, kv_rows=None):
     """Flash-decode GQA attention over contiguous caches.
 
     q        [B, H, Dh]      — one query token per request
-    k, v     [B, S, Hkv, Dh] — caches padded to S
+    k, v     [B, S, Hkv, Dh] — caches padded to S; with ``kv_rows``, any
+               number of cache rows [R, S, Hkv, Dh]
     lengths  [B] int32       — valid keys per request
+    kv_rows  — None, or [B] int32: query row ``b`` attends cache row
+               ``kv_rows[b]`` (the caller keeps each in ``[0, R)``), so a
+               serving slab's live rows decode in place, without a gather
     block_s  — keys per block (clamped to S; S is padded with zero rows to
                whole blocks): the unit of work the modes compute or skip
     ragged   — False: every block is computed and masked (the padded
@@ -315,7 +319,7 @@ def decode_attention(q, k, v, lengths, *, block_s: int = DEFAULT_BLOCK,
     """
     if q.device.type == "cpu":
         return decode_attention_plain(q, k, v, lengths, block_s=block_s,
-                                      ragged=ragged)
+                                      ragged=ragged, kv_rows=kv_rows)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention: no kernel for {q.device}")
     global PADDED_LAUNCHES, RAGGED_LAUNCHES
@@ -325,11 +329,12 @@ def decode_attention(q, k, v, lengths, *, block_s: int = DEFAULT_BLOCK,
                          f"Dh], got {tuple(q.shape)}, {tuple(k.shape)}")
     B, H, Dh = q.shape
     S, Hkv = k.shape[1], k.shape[2]
-    if k.shape[0] != B or S < 1 or block_s < 1:
+    if ((k.shape[0] != B and kv_rows is None) or k.shape[0] < 1 or S < 1
+            or block_s < 1):
         raise ValueError(f"{name}: k {tuple(k.shape)} for q "
                          f"{tuple(q.shape)}, block_s {block_s}")
-    check_paged_operands(name, q, k, v, None, (lengths,),
-                         max_group=_MAX_GROUP)
+    per_row = (lengths,) if kv_rows is None else (lengths, kv_rows)
+    check_paged_operands(name, q, k, v, None, per_row, max_group=_MAX_GROUP)
     out = torch.empty_like(q)
     if B == 0:
         return out
@@ -347,10 +352,11 @@ def decode_attention(q, k, v, lengths, *, block_s: int = DEFAULT_BLOCK,
             split = (part.data_ptr(), part.data_ptr() + rows * Dh * 4,
                      arrival_counts(q.device, stream, B * Hkv).data_ptr())
         fn = build.entry("contiguous_decode",
-                         "repro_contiguous_decode_attention", 8, 10)
+                         "repro_contiguous_decode_attention", 9, 10)
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-                *split, out.data_ptr(), B, S, H, Hkv, Dh, bs, int(ragged), n,
-                keys, _DTYPES[q.dtype], stream)
+                None if kv_rows is None else kv_rows.data_ptr(), *split,
+                out.data_ptr(), B, S, H, Hkv, Dh, bs, int(ragged), n, keys,
+                _DTYPES[q.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"{name}: launch failed (cudaError {rc})")
     if ragged:
@@ -361,14 +367,16 @@ def decode_attention(q, k, v, lengths, *, block_s: int = DEFAULT_BLOCK,
 
 
 def decode_attention_plain(q, k, v, lengths, *, block_s: int = DEFAULT_BLOCK,
-                           ragged: bool = False):
+                           ragged: bool = False, kv_rows=None):
     """The same function in plain PyTorch, the TPU kernel's arithmetic
     written out in f32: scores over the computed keys (every padded row, or
     the blocks below each length), those at or past the length at -1e30,
     each computed key weighted ``exp(s - max)`` — so a row whose every key
     is masked weighs each computed key 1 — and ``acc / l`` (``l = 0 -> 1``).
     Rows go in slices of bounded size, so f32 copies of long caches stay a
-    few hundred MB."""
+    few hundred MB. ``kv_rows`` gathers the cache rows first."""
+    if kv_rows is not None:
+        k, v = k[kv_rows.long()], v[kv_rows.long()]
     B, H, Dh = q.shape
     S, Hkv = k.shape[1], k.shape[2]
     G = H // Hkv

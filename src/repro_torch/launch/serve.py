@@ -12,11 +12,12 @@ It runs on the card unless ``--device cpu`` is given, on the reduced
 config of ``--arch`` unless ``--full-width`` keeps its published widths
 and depth. The flags are the reference launcher's under its names and
 defaults — int8 KV (``--kv-dtype``), the host KV tier
-(``--host-kv-budget``, on at 4096 tokens), SLO preemption (on), the fault
-model (``--crash``, ``--rejoin``, ``--transfer-loss-p``, ...) — plus
-``--device``, ``--full-width`` and ``--dtype``.
-Tensor parallelism, the host loop and the non-chunked prefill path are
-not ported yet.
+(``--host-kv-budget``, on at 4096 tokens; 0 without the prefix cache),
+SLO preemption (on), the host loop (``--host-loop``), whole-prompt
+prefill (``--no-chunked-prefill``), the prefix cache
+(``--no-prefix-cache``), the fault model (``--crash``, ``--rejoin``,
+``--transfer-loss-p``, ...) — plus ``--device``, ``--full-width`` and
+``--dtype``. Tensor parallelism is not ported.
 """
 from __future__ import annotations
 
@@ -88,6 +89,19 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                     help="paged KV pool: 'bf16' keeps the model's dtype, "
                          "'int8' halves KV bytes (int8 rows with f32 "
                          "scales; needs the fused or dense backend)")
+    ap.add_argument("--host-loop", action="store_true",
+                    help="the host-driven engine step loop (default: the "
+                         "device-resident one)")
+    ap.add_argument("--no-chunked-prefill", action="store_true",
+                    help="whole-prompt prefill at admission (the §2.1 "
+                         "head-of-line baseline)")
+    ap.add_argument("--prefix-cache", dest="prefix_cache",
+                    action="store_true", default=True,
+                    help="refcounted prefix-shared KV pool (the default)")
+    ap.add_argument("--no-prefix-cache", dest="prefix_cache",
+                    action="store_false",
+                    help="disable prefix sharing (and with it the host KV "
+                         "tier)")
     ap.add_argument("--host-kv-budget", type=int, default=4096,
                     help="host-RAM KV tier capacity in tokens per engine: "
                          "evicted prefix chains demote here instead of "
@@ -174,14 +188,20 @@ def build_server(args: argparse.Namespace) -> MILSServer:
                                   preemption=args.preemption,
                                   slo_scale=args.slo_scale,
                                   slo_time_scale=args.slo_time_scale,
-                                  host_kv_budget=args.host_kv_budget,
+                                  host_kv_budget=(args.host_kv_budget
+                                                  if args.prefix_cache
+                                                  else 0),
                                   faults=fault_spec(args),
                                   migration_timeout_steps=(
                                       args.migration_timeout_steps),
                                   dead_after_steps=args.dead_after_steps),
                      max_slots=args.max_slots, max_seq=args.max_seq,
                      attn_backend=args.attn_backend, kv_dtype=args.kv_dtype,
-                     prefill_token_budget=args.prefill_budget)
+                     device_resident=False if args.host_loop else None,
+                     prefill_token_budget=args.prefill_budget,
+                     chunked_prefill=(False if args.no_chunked_prefill
+                                      else None),
+                     prefix_cache=args.prefix_cache)
     spec = WorkloadSpec(rate=args.arrival_rate,
                         duration=args.requests / args.arrival_rate,
                         seed=args.seed)

@@ -1,16 +1,19 @@
-"""Paged GQA attention with RoPE — the port's subset of
-``repro.models.attention``: the decode, chunked-prefill and
+"""GQA attention with RoPE — the port's subset of
+``repro.models.attention``: whole-prompt prefill (the contiguous causal
+prefill kernel), single-token decode against a monolithic KV slab (the
+contiguous decode kernel, padded), and the decode, chunked-prefill and
 mixed-iteration paths over the global block pool on the four paged
 backends (``dense`` gather + masked SDPA, the ``grid`` and ``flat`` kernel
 pairs, the ``fused`` kernel), and the int8 pool (``QuantKVCache``:
 quantize-on-write, scales beside the rows), which the ``fused`` kernel and
 the ``dense`` path read.
 
-Shapes follow the JAX package: activations ``x [B, T, D]``, a pool slice
-``[NB, BS, Hkv, Dh]`` per layer, block tables ``[B, NBT]`` int32. Pool
-writes are IN PLACE (``index_put_``): a functional copy would duplicate
-the multi-GB pool per layer per step, so each function returns the pool
-it was given, updated.
+Shapes follow the JAX package: activations ``x [B, T, D]``, a slab layer
+``[B, S, Hkv, Dh]``, a pool slice ``[NB, BS, Hkv, Dh]`` per layer, block
+tables ``[B, NBT]`` int32. Slab and pool writes are IN PLACE
+(``index_put_``): a functional copy would duplicate the multi-GB cache per
+layer per step, so each function returns the cache it was given, updated.
+Sliding windows and M-RoPE are not ported (``build_model`` refuses them).
 """
 from __future__ import annotations
 
@@ -20,11 +23,13 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from repro_torch.kernels.decode_attention import (paged_decode_attention,
+from repro_torch.kernels.decode_attention import (decode_attention,
+                                                  paged_decode_attention,
                                                   paged_decode_attention_flat)
 from repro_torch.kernels.mixed_attention import paged_mixed_attention
 from repro_torch.kernels.ops import NEG_INF
-from repro_torch.kernels.prefill_attention import paged_prefill_attention
+from repro_torch.kernels.prefill_attention import (paged_prefill_attention,
+                                                   prefill_attention)
 from repro_torch.models.common import ModelConfig
 
 # Paged attention backends (the JAX package's four):
@@ -102,14 +107,81 @@ def _gqa_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask):
 
 
 # --------------------------------------------------------------------------
-# The paged pool
+# Whole-prompt prefill and decode against the monolithic slab
 # --------------------------------------------------------------------------
 KV_DTYPES = ("bf16", "int8")
 
 
 class KVCache(NamedTuple):
-    k: torch.Tensor     # [(L,) NB, BS, Hkv, Dh]
+    k: torch.Tensor     # slab [(L,) B, S, Hkv, Dh] or pool [(L,) NB, BS, ...]
     v: torch.Tensor
+
+
+def attention_prefill(p, cfg: ModelConfig, x: torch.Tensor,
+                      positions: torch.Tensor):
+    """Causal self-attention over a whole prompt: x [B, T, D], positions
+    [B, T]. The contiguous causal prefill kernel attends (its plain
+    version for CPU tensors); the reference's two XLA branches (masked
+    SDPA up to T² = 2048², the flash scan above) compute this one
+    function. Returns (out [B, T, D], (k, v) [B, T, Hkv, Dh] after RoPE)."""
+    assert not cfg.sliding_window, "whole-prompt prefill: full attention"
+    B, T, _ = x.shape
+    q, k, v = _project_qkv(p, cfg, x)
+    if not cfg.learned_pos:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    k, v = k.contiguous(), v.contiguous()
+    out = prefill_attention(q.contiguous(), k, v)
+    return out.reshape(B, T, -1) @ p["wo"], (k, v)
+
+
+def make_cache(cfg: ModelConfig, batch: int, seq: int,
+               dtype: Optional[torch.dtype] = None, device="cuda",
+               layers: Optional[int] = None) -> KVCache:
+    """Zeroed monolithic KV slab: [batch, seq, Hkv, Dh] for ONE layer, or
+    [layers, batch, seq, Hkv, Dh]: one row of ``seq`` keys per batch
+    slot, whatever the slot's request holds."""
+    assert not cfg.sliding_window, "the slab is full-attention only"
+    shape = (batch, seq, cfg.num_kv_heads, cfg.head_dim)
+    if layers is not None:
+        shape = (layers,) + shape
+    dt = dtype or cfg.dtype
+    return KVCache(torch.zeros(shape, dtype=dt, device=device),
+                   torch.zeros(shape, dtype=dt, device=device))
+
+
+def attention_decode(p, cfg: ModelConfig, x: torch.Tensor, cache_l: KVCache,
+                     pos: torch.Tensor, rows: Optional[torch.Tensor] = None):
+    """One token against a slab layer: x [B, 1, D]; pos [B] int32 tokens
+    already cached; cache_l [B, S, Hkv, Dh], or with ``rows`` ([B] int32,
+    the slab row of each x row) a slab of any number of rows. Writes the
+    new token's K/V in place at ``min(pos, S - 1)``, then attends keys
+    ``< min(pos + 1, S)`` through the contiguous decode kernel in its
+    padded mode, which streams all S keys of each row with a mask, as the
+    reference's masked SDPA does (its plain version for CPU tensors).
+    Returns (out [B, 1, D], cache_l)."""
+    assert not cfg.sliding_window, "slab decode: full attention only"
+    B = x.shape[0]
+    q, k, v = _project_qkv(p, cfg, x)
+    if not cfg.learned_pos:
+        q = apply_rope(q, pos[:, None], cfg.rope_theta)
+        k = apply_rope(k, pos[:, None], cfg.rope_theta)
+    S = cache_l.k.shape[1]
+    slab_row = (torch.arange(B, device=pos.device) if rows is None
+                else rows.long())
+    idx = (slab_row, torch.clamp(pos, max=S - 1).long())
+    cache_l.k.index_put_(idx, k[:, 0].to(cache_l.k.dtype))
+    cache_l.v.index_put_(idx, v[:, 0].to(cache_l.v.dtype))
+    lengths = torch.clamp(pos + 1, max=S).to(torch.int32)
+    kv_rows = None if rows is None else rows.to(torch.int32)
+    o = decode_attention(q[:, 0].contiguous(), cache_l.k, cache_l.v, lengths,
+                         ragged=False, kv_rows=kv_rows)
+    return o.reshape(B, 1, -1) @ p["wo"], cache_l
+
+
+# --------------------------------------------------------------------------
+# The paged pool
+# --------------------------------------------------------------------------
 
 
 class QuantKVCache(NamedTuple):

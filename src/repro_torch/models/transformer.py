@@ -1,10 +1,12 @@
-"""Decoder-only transformer stack (dense GQA) on the paged pool — the
-port's subset of ``repro.models.transformer``.
+"""Decoder-only transformer stack (dense GQA) — the port's subset of
+``repro.models.transformer``: the whole-prompt pass, decode against the
+monolithic slab, and the paged pool's decode, chunked-prefill and mixed
+passes.
 
 Per-layer weights are stacked on a leading ``L`` axis as in the JAX
 package; the ``lax.scan`` over layers becomes a Python loop over ``[l]``
-slices (views, no copies). The pool ``[L, NB, BS, Hkv, Dh]`` is updated in
-place, layer by layer.
+slices (views, no copies). The slab ``[L, B, S, Hkv, Dh]`` and the pool
+``[L, NB, BS, Hkv, Dh]`` are updated in place, layer by layer.
 """
 from __future__ import annotations
 
@@ -13,7 +15,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.ops import flat_work_list
 from repro_torch.models import attention as attn
-from repro_torch.models.attention import (KVCache, layer_pool,
+from repro_torch.models.attention import (KVCache, layer_pool, make_cache,
                                          make_paged_pool)
 from repro_torch.models.common import (ModelConfig, dense_init, embed_init,
                                        rms_norm)
@@ -74,6 +76,75 @@ def unembed(p, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 def _mlp_part(pl, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return ffn(pl["ffn"], cfg, rms_norm(x, pl["ln_mlp"], cfg.norm_eps))
+
+
+# --------------------------------------------------------------------------
+# The whole prompt, and decode against the monolithic slab
+# --------------------------------------------------------------------------
+def block_full(pl, cfg: ModelConfig, x: torch.Tensor,
+               positions: torch.Tensor):
+    """One layer over a whole sequence. Returns (x, KVCache(k, v)) with
+    the layer's K/V rows [B, T, Hkv, Dh]."""
+    h = rms_norm(x, pl["ln_attn"], cfg.norm_eps)
+    a, (k, v) = attn.attention_prefill(pl["attn"], cfg, h, positions)
+    x = x + a
+    return x + _mlp_part(pl, cfg, x), KVCache(k, v)
+
+
+def forward_full(p, cfg: ModelConfig, tokens: torch.Tensor, *,
+                 return_cache: bool = False, last_only: bool = False,
+                 last_index=None):
+    """The prefill pass over tokens [B, T]. Returns (logits, cache|None):
+    logits [B, T, V], or [B, 1, V] at position ``last_index`` (an int or a
+    0-d tensor: the bucketed prefill, whose true last token sits before a
+    pow2 padding tail; causality keeps the rows and logits below the true
+    length independent of that tail) or at the last position
+    (``last_only``); cache leaves [L, B, T, Hkv, Dh], written layer by
+    layer into one buffer."""
+    B, T = tokens.shape
+    x = embed_tokens(p, cfg, tokens)
+    positions = torch.arange(T, device=x.device)[None].expand(B, T)
+    cache = (make_cache(cfg, B, T, dtype=x.dtype, device=x.device,
+                        layers=cfg.num_layers) if return_cache else None)
+    for l in range(cfg.num_layers):
+        x, kv = block_full(layer_params(p["layers"], l), cfg, x, positions)
+        if cache is not None:
+            cache.k[l].copy_(kv.k)
+            cache.v[l].copy_(kv.v)
+    if last_index is not None:
+        if isinstance(last_index, torch.Tensor):
+            x = x.index_select(1, last_index.reshape(1).long())
+        else:
+            x = x[:, last_index:last_index + 1]
+    elif last_only:
+        x = x[:, -1:]
+    x = rms_norm(x, p["ln_f"], cfg.norm_eps)
+    return unembed(p, cfg, x), cache
+
+
+def forward_decode(p, cfg: ModelConfig, token: torch.Tensor, cache: KVCache,
+                   pos: torch.Tensor, rows=None):
+    """token [B] int; cache leaves [L, B, S, Hkv, Dh] (with ``rows`` [B]
+    int32, the slab row of each token: a slab of any number of rows, whose
+    live rows decode in place); pos [B] int32 tokens already cached.
+    Returns (logits [B, V], cache) — the slab updated in place."""
+    x = embed_tokens(p, cfg, token[:, None])
+    for l in range(cfg.num_layers):
+        pl = layer_params(p["layers"], l)
+        h = rms_norm(x, pl["ln_attn"], cfg.norm_eps)
+        a, _ = attn.attention_decode(pl["attn"], cfg, h, layer_pool(cache, l),
+                                     pos, rows=rows)
+        x = x + a
+        x = x + _mlp_part(pl, cfg, x)
+    x = rms_norm(x, p["ln_f"], cfg.norm_eps)
+    return unembed(p, cfg, x)[:, 0], cache
+
+
+def init_cache(cfg: ModelConfig, batch: int, seq: int, dtype=None,
+               device="cuda") -> KVCache:
+    """The zeroed monolithic slab, leaves [L, batch, seq, Hkv, Dh]."""
+    return make_cache(cfg, batch, seq, dtype=dtype, device=device,
+                      layers=cfg.num_layers)
 
 
 # --------------------------------------------------------------------------

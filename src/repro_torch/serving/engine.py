@@ -1,7 +1,8 @@
-"""Single-instance inference engine on a paged, device-resident KV pool —
-the port of ``repro.serving.engine``'s default path.
+"""Single-instance inference engine — the port of
+``repro.serving.engine``. Its default path is a paged, device-resident KV
+pool:
 
-One global block pool ``[L, num_blocks + 1, BS, Hkv, Dh]`` (the extra
+one global block pool ``[L, num_blocks + 1, BS, Hkv, Dh]`` (the extra
 block is the *garbage block*: dead batch slots and padded table rows write
 and read there by construction, so the fixed-width batch cannot corrupt
 live blocks), a per-request block table managed by ``BlockAllocator``, and
@@ -45,8 +46,16 @@ at admission. ``preemption=True`` keeps the waiting queue in SLO order
 and lets a blocked higher-class request park a lower-class decode (a
 slot shortage) or drop and recompute its KV (a memory shortage).
 
-Not ported yet: tensor parallelism, the monolithic/host loop and the
-non-chunked prefill path.
+Every engine mode of the reference but tensor parallelism is ported:
+``paged=False`` keeps KV in a monolithic slab ``[L, max_slots, max_seq,
+Hkv, Dh]`` (decoded in place by the contiguous decode kernel, padded),
+``device_resident=False`` runs the host-driven loop (one decode forward
+over the live rows, tables and tokens uploaded from host state),
+``chunked_prefill=False`` prefills whole prompts at admission (the
+contiguous causal prefill kernel; the §2.1 head-of-line baseline, where a
+long prompt stalls every decode for its step) and ``prefix_cache=False``
+turns the prefix index off. Every loop makes one device-to-host transfer
+a step: a first token sampled at admission stays on the device until it.
 """
 from __future__ import annotations
 
@@ -168,20 +177,30 @@ class Engine:
     def __init__(self, engine_id: int, model: Model, params, *,
                  max_slots: int = 8, max_seq: int = 512,
                  token_budget: Optional[int] = None,
+                 paged: Optional[bool] = None,
                  block_size: int = DEFAULT_BLOCK_SIZE,
+                 device_resident: Optional[bool] = None,
                  prefill_token_budget: Optional[int] = None,
+                 chunked_prefill: Optional[bool] = None,
+                 prefix_cache: Optional[bool] = None,
                  attn_backend: Optional[str] = None,
                  kv_dtype: str = "bf16", host_kv_budget: int = 0,
                  preemption: Optional[bool] = None,
                  slo_time_scale: float = 1.0):
         """The engine runs on the device of ``params["embed"]``; several
-        engines may share one ``params`` (each owns only its KV pool).
-        ``attn_backend`` is ``"fused"`` (default), ``"flat"``, ``"grid"``
-        or ``"dense"``; ``kv_dtype`` ``"bf16"`` (the model's dtype) or
-        ``"int8"`` (fused or dense); ``host_kv_budget`` the host-RAM
-        tier's tokens (0: off);
-        ``preemption`` SLO preemption (off unless asked, as in the
-        reference's direct construction)."""
+        engines may share one ``params`` (each owns only its KV cache).
+        ``paged`` (default on) keeps KV in the block pool, off in the
+        monolithic slab ``[L, max_slots, max_seq, Hkv, Dh]``;
+        ``device_resident`` (default on; paged only) runs the
+        device-resident step, off the host loop; ``chunked_prefill``
+        (default on; paged only) packs prompt chunks into mixed steps, off
+        prefills whole prompts at admission; ``prefix_cache`` (default:
+        as ``chunked_prefill``, which it needs) shares cached prompt
+        blocks. ``attn_backend`` is ``"fused"`` (default), ``"flat"``,
+        ``"grid"`` or ``"dense"``; ``kv_dtype`` ``"bf16"`` (the model's
+        dtype) or ``"int8"`` (paged, fused or dense); ``host_kv_budget``
+        the host-RAM tier's tokens (0: off); ``preemption`` SLO preemption
+        (off unless asked, as in the reference's direct construction)."""
         if kv_dtype not in KV_DTYPES:
             raise ValueError(f"kv_dtype {kv_dtype!r} not in {KV_DTYPES}")
         self.attn_backend = resolve_paged_backend(attn_backend)
@@ -195,48 +214,82 @@ class Engine:
         self.device = params["embed"].device
         self.max_slots = max_slots
         self.max_seq = max_seq
-        self.block_size = block_size
-        self.num_blocks = (token_budget or max_slots * max_seq) // block_size
-        assert self.num_blocks > 0, "token_budget < one block"
-        # capacity is block-granular
-        self.token_budget = self.num_blocks * block_size
-        # host-RAM KV tier: reclaimed cached chains demote to a
-        # capacity-bounded host store instead of dying (0 = off)
-        self.host_kv_budget = int(host_kv_budget or 0)
-        self.allocator = BlockAllocator(
-            self.num_blocks, block_size,
-            host_blocks=self.host_kv_budget // block_size)
-        if self.allocator.host_tier_enabled:
-            self.allocator.set_demote_fetch(self._demote_snapshot)
-        # +1 garbage block (id num_blocks, never allocated)
-        self.garbage_block = self.num_blocks
+        self.token_budget = token_budget or max_slots * max_seq
+        self.paged = model.supports_paged if paged is None else bool(paged)
         self.kv_dtype = kv_dtype
-        self.cache = model.init_paged_cache(self.num_blocks + 1, block_size,
-                                            device=self.device,
-                                            kv_dtype=kv_dtype)
-        # pool bytes per block, scales included
-        self._bytes_per_block = kv_bytes(self.cache) / (self.num_blocks + 1)
-        self.block_tables: List[List[int]] = [[] for _ in range(max_slots)]
-        # fused: chunks and decodes share ONE forward; grid, flat and
-        # dense: two forwards (chunks, then decodes)
-        self.fused_mixed = self.attn_backend == "fused"
-        # device mirrors of the decode batch: tables (pow2 width), cache
-        # lengths (0 = dead slot) and last tokens
-        self._nbt_cap = 1
-        self._dev_bt = torch.full((max_slots, 1), self.garbage_block,
-                                  dtype=torch.int32, device=self.device)
-        self._dev_len = torch.zeros(max_slots, dtype=torch.int32,
-                                    device=self.device)
-        self._dev_tok = torch.zeros(max_slots, dtype=torch.int32,
-                                    device=self.device)
+        if self.paged:
+            if not model.supports_paged:
+                raise ValueError(f"{model.cfg.name} has no paged path")
+            self.block_size = block_size
+            self.num_blocks = self.token_budget // block_size
+            assert self.num_blocks > 0, "token_budget < one block"
+            # capacity is block-granular
+            self.token_budget = self.num_blocks * block_size
+            # host-RAM KV tier: reclaimed cached chains demote to a
+            # capacity-bounded host store instead of dying (0 = off)
+            self.host_kv_budget = int(host_kv_budget or 0)
+            self.allocator = BlockAllocator(
+                self.num_blocks, block_size,
+                host_blocks=self.host_kv_budget // block_size)
+            if self.allocator.host_tier_enabled:
+                self.allocator.set_demote_fetch(self._demote_snapshot)
+            # +1 garbage block (id num_blocks, never allocated)
+            self.garbage_block = self.num_blocks
+            self.cache = model.init_paged_cache(
+                self.num_blocks + 1, block_size, device=self.device,
+                kv_dtype=kv_dtype)
+            # pool bytes per block, scales included
+            self._bytes_per_block = kv_bytes(self.cache) / (self.num_blocks
+                                                             + 1)
+            self.block_tables: List[List[int]] = [[] for _ in
+                                                  range(max_slots)]
+            self._slot_rblocks = [0] * max_slots   # reserved blocks per slot
+            self._slot_shared = [0] * max_slots    # shared table-head blocks
+            self.device_resident = (True if device_resident is None
+                                    else bool(device_resident))
+        else:
+            if kv_dtype != "bf16":
+                raise ValueError("quantized KV needs the paged block pool")
+            # one max_seq row per slot; the host loop drives it
+            self.block_size = 0
+            self.device_resident = False
+            self.cache = model.init_cache(max_slots, max_seq,
+                                          device=self.device)
+            self._bytes_per_slot = kv_bytes(self.cache) / max_slots
+        if self.device_resident:
+            # device mirrors of the decode batch: tables (pow2 width),
+            # cache lengths (0 = dead slot) and last tokens
+            self._nbt_cap = 1
+            self._dev_bt = torch.full((max_slots, 1), self.garbage_block,
+                                      dtype=torch.int32, device=self.device)
+            self._dev_len = torch.zeros(max_slots, dtype=torch.int32,
+                                        device=self.device)
+            self._dev_tok = torch.zeros(max_slots, dtype=torch.int32,
+                                        device=self.device)
+        # first tokens sampled this step, on the device until its transfer
         self._pending_first: List[Tuple[ServeRequest, torch.Tensor]] = []
+        # chunked prefill: prompts advance by chunks beside the decode
+        # batch; off, admission prefills each whole prompt (the §2.1
+        # head-of-line baseline)
+        chunk_ok = self.paged
+        self.chunked_prefill = (chunk_ok if chunked_prefill is None
+                                else bool(chunked_prefill))
+        if self.chunked_prefill and not chunk_ok:
+            raise ValueError("chunked prefill needs the paged block pool")
+        # fused: chunks and decodes share ONE forward; grid, flat and
+        # dense (and the host loop): two forwards (chunks, then decodes)
+        self.fused_mixed = (self.chunked_prefill and self.device_resident
+                            and self.attn_backend == "fused")
+        # the prefix cache starts warm requests mid-prompt, so it needs
+        # chunked prefill
+        self.prefix_cache = (self.chunked_prefill if prefix_cache is None
+                             else bool(prefix_cache and self.chunked_prefill))
         self.prefill_token_budget = (prefill_token_budget
                                      or DEFAULT_PREFILL_BUDGET)
         self._prefill_order: List[int] = []   # slots mid-prefill, oldest 1st
-        self._slot_rblocks = [0] * max_slots   # reserved blocks per slot
-        self._slot_shared = [0] * max_slots    # shared table-head blocks
         self.slot_len = np.zeros(max_slots, np.int32)       # tokens in cache
         self.slots: List[Optional[ServeRequest]] = [None] * max_slots
+        self.slot_reserved = np.zeros(max_slots, np.int64)  # worst-case tokens
         self.waiting: Deque[ServeRequest] = deque()
         # SLO-tiered preemptive scheduling: the waiting queue sorted by
         # sched.slo.queue_key; a blocked higher-class request may park
@@ -255,11 +308,14 @@ class Engine:
         self._tpot_hopeless_ids: set = set()
         self.steps = 0
         self.tokens_out = 0
+        self.peak_kv_bytes = 0.0     # most KV bytes pinned after a step
         # host-tier blocks promoted back onto the device at admission
         self.promoted_blocks_total = 0
         # prefill cost counters: block-work run by prefill (Σ per chunk
-        # ceil((ctx+clen)/BS)) vs prompt tokens served by the prefix index
+        # ceil((ctx+clen)/BS), or the prompt's blocks), prompt tokens
+        # prefilled, and prompt tokens served by the prefix index
         self.prefill_work_blocks = 0
+        self.prefill_tokens_done = 0
         self.cached_prompt_tokens_total = 0
         # last step's grid accounting: flat_items = the TPU work bucket,
         # real_items = Σ ceil(total/BS), padded_items = B·max ceil(total/BS)
@@ -280,23 +336,40 @@ class Engine:
             assert not self.parked, f"engine {self.id}: undrained parked"
             assert not self._prefill_order, \
                 f"engine {self.id}: dangling prefill order"
-        self.allocator.check_invariants()
-        if strict:
-            self.allocator.check_drained()
+        if self.paged:
+            self.allocator.check_invariants()
+            if strict:
+                self.allocator.check_drained()
+        elif strict:
+            assert int(self.slot_reserved.sum()) == 0, \
+                f"engine {self.id}: leaked slot reservations"
+            assert int(self.slot_len.sum()) == 0, \
+                f"engine {self.id}: leaked slot lengths"
 
     def shutdown(self) -> None:
-        """Asserts the engine drained clean, then drops its device pool."""
+        """Asserts the engine drained clean, then drops its KV cache."""
         self.check_drained()
         self.cache = None
-        self.block_tables = [[] for _ in self.block_tables]
+        if self.paged:
+            self.block_tables = [[] for _ in self.block_tables]
 
     # ---- load views (what the control plane reads) ---------------------------
     def active(self) -> List[ServeRequest]:
         return [r for r in self.slots if r is not None]
 
     def used_tokens(self) -> int:
-        """Tokens of cache memory pinned by running requests."""
-        return self.allocator.allocated_tokens()
+        """Tokens of cache memory pinned by running requests (paged:
+        allocated blocks x block size; slab: live cache rows)."""
+        if self.paged:
+            return self.allocator.allocated_tokens()
+        return int(self.slot_len.sum())
+
+    def reserved_tokens(self) -> int:
+        """Worst-case committed footprint of every admitted request: what
+        admission gates on."""
+        if self.paged:
+            return self.allocator.reserved_blocks * self.block_size
+        return int(self.slot_reserved.sum())
 
     def queued_tokens(self) -> int:
         """Un-prefilled, uncached prompt tokens: whole waiting prompts
@@ -316,6 +389,13 @@ class Engine:
         """Scheduling pressure: pinned cache + queued prompt tokens."""
         return float(self.used_tokens() + self.queued_tokens())
 
+    def kv_bytes_pinned(self) -> float:
+        """Cache bytes pinned right now (paged: allocated blocks; slab:
+        the max_seq rows of occupied slots)."""
+        if self.paged:
+            return self.allocator.allocated_blocks * self._bytes_per_block
+        return sum(r is not None for r in self.slots) * self._bytes_per_slot
+
     def request_view(self) -> List[Tuple[float, float]]:
         """(input_len, current_len) of every slotted request."""
         return [(float(len(r.prompt)), float(r.length)) for r in self.active()]
@@ -334,13 +414,18 @@ class Engine:
         return cache[1]
 
     def _cached_chain(self, req: ServeRequest) -> List[int]:
-        """Longest device-resident block chain for this prompt."""
+        """Longest device-resident block chain for this prompt ([] with
+        the prefix cache off)."""
+        if not self.prefix_cache:
+            return []
         return self.allocator.lookup(self._req_digests(req))
 
     def _tiered_chain(self, req: ServeRequest):
         """(device block ids, host digest continuation): the two-tier chain
         hit admission consumes — device blocks are shared for free, host
         digests promote at a copy cost."""
+        if not self.prefix_cache:
+            return [], []
         return self.allocator.lookup_tiered(self._req_digests(req))
 
     def prefix_hint(self, req: ServeRequest):
@@ -350,7 +435,7 @@ class Engine:
         of those blocks are host-resident (routing prices their promote
         copy). The digest is content-derived, so it is the same on every
         engine."""
-        if len(req.prompt) <= self.block_size:
+        if not self.prefix_cache or len(req.prompt) <= self.block_size:
             return None, 0, 0
         digests = self._req_digests(req)
         dev, host = self.allocator.lookup_tiered(digests)
@@ -359,6 +444,8 @@ class Engine:
     def prefix_digests(self) -> frozenset:
         """Head digests of every cached chain (either tier) — the compact
         advertisement within-stage dispatch tie-breaks on."""
+        if not self.prefix_cache:
+            return frozenset()
         return (self.allocator.head_digests()
                 | self.allocator.host_head_digests())
 
@@ -366,6 +453,8 @@ class Engine:
         """Head digest -> tier tag ('device' | 'host'): the control plane's
         warm filter prefers device-warm instances (a host hit pays the
         promote copy)."""
+        if not self.prefix_cache:
+            return {}
         out = {h: "device" for h in self.allocator.head_digests()}
         for h in self.allocator.host_head_digests():
             out.setdefault(h, "host")
@@ -401,7 +490,7 @@ class Engine:
         Not routed through :func:`d2h`: the one-d2h contract is about the
         step's tokens; these copies were issued earlier and overlapped
         the iteration that evicted them."""
-        if self.allocator.host_tier_enabled:
+        if self.paged and self.allocator.host_tier_enabled:
             self.allocator.host_materialize(_materialize)
 
     def _promote_blocks(self, req: ServeRequest, shared: List[int],
@@ -437,15 +526,15 @@ class Engine:
 
     @property
     def cache_demotions(self) -> int:
-        return self.allocator.cache_demotions
+        return self.allocator.cache_demotions if self.paged else 0
 
     @property
     def cache_drops(self) -> int:
-        return self.allocator.cache_drops
+        return self.allocator.cache_drops if self.paged else 0
 
     @property
     def cache_promotions(self) -> int:
-        return self.allocator.cache_promotions
+        return self.allocator.cache_promotions if self.paged else 0
 
     def _publish_prompt(self, req: ServeRequest, slot: int) -> None:
         """Prefill finished: publish the prompt's FULL blocks into the
@@ -491,30 +580,71 @@ class Engine:
         return min(len(req.prompt) + req.max_new_tokens, self.max_seq)
 
     def can_accept(self, req: ServeRequest) -> bool:
-        """Slot + worst-case block budget check, for admission AND inbound
-        migration. Admission reserves only the uncached tail, but sharing
-        a reclaimable (refcount-0) chain revives it, so the gate charges
-        that revival too. A migrated-in (RUNNING) request re-imports as
-        private, reserves its true length, and its remaining generation
-        must fit ``max_seq``."""
+        """Slot + worst-case budget check, for admission AND inbound
+        migration. Paged admission reserves only the uncached tail, but
+        sharing a reclaimable (refcount-0) chain revives it, so the gate
+        charges that revival too. A migrated-in (RUNNING) request
+        re-imports as private, reserves its true length, and its remaining
+        generation must fit ``max_seq``."""
         if self._free_slot() is None or len(req.prompt) + 1 > self.max_seq:
             return False
-        need = blocks_for(self._worst_tokens(req), self.block_size)
         if req.state is State.RUNNING:
             remaining = max(req.max_new_tokens - len(req.generated), 0)
             if req.length + remaining > self.max_seq:
                 return False
-        else:
+        if not self.paged:
+            return self.reserved_tokens() + self._worst_tokens(req) \
+                <= self.token_budget
+        need = blocks_for(self._worst_tokens(req), self.block_size)
+        if req.state is not State.RUNNING:
             chain = self._cached_chain(req)
             need += self.allocator.revival_cost(chain) - len(chain)
         return self.allocator.can_reserve(need)
 
+    def _reject_head(self) -> ServeRequest:
+        """Fail the waiting queue's head, whose prompt can never fit this
+        engine, instead of letting it wedge the queue."""
+        req = self.waiting.popleft()
+        req.rejected = True
+        req.state = State.FINISHED
+        req.first_token_step = req.finish_step = self.steps
+        return req
+
+    def _admit(self) -> Tuple[List[ServeRequest], List[ServeRequest]]:
+        """Whole-prompt admission: admit FCFS (SLO order with preemption)
+        while capacity lasts, prefilling each prompt at once. Under SLO
+        scheduling the waiting queue ages first and parked requests resume
+        around the admissions. Returns (rejected, admitted)."""
+        rejected: List[ServeRequest] = []
+        admitted: List[ServeRequest] = []
+        if self.slo_sched:
+            self._age_waiting()
+            self._resume_ready()
+        while self.waiting:
+            req = self.waiting[0]
+            if len(req.prompt) + 1 > self.max_seq:
+                rejected.append(self._reject_head())
+                continue
+            if not self.can_accept(req):
+                if self.slo_sched and self._preempt_for(req):
+                    continue
+                break
+            slot = self._free_slot()
+            self.waiting.popleft()
+            self._prefill_into_slot(req, slot)
+            admitted.append(req)
+        if self.slo_sched:
+            self._resume_ready()
+        return rejected, admitted
+
     def _reserve(self, req: ServeRequest, slot: int,
                  cached_blocks: int = 0) -> None:
-        rb = blocks_for(self._worst_tokens(req), self.block_size) \
-            - cached_blocks
-        self.allocator.reserve(rb)
-        self._slot_rblocks[slot] = rb
+        worst = self._worst_tokens(req)
+        if self.paged:
+            rb = blocks_for(worst, self.block_size) - cached_blocks
+            self.allocator.reserve(rb)
+            self._slot_rblocks[slot] = rb
+        self.slot_reserved[slot] = worst
 
     # ---- device mirrors -------------------------------------------------------
     def _ensure_nbt_cap(self, need: int) -> None:
@@ -538,6 +668,82 @@ class Engine:
         # a Python number would upload it with a blocking copy
         self._dev_bt[slot].fill_(self.garbage_block)
         self._dev_len[slot].fill_(0)
+
+    # ---- whole-prompt prefill ------------------------------------------------
+    def _prefill_into_slot(self, req: ServeRequest, slot: int) -> None:
+        """Prefill a whole prompt into ``slot``: the host loop's and the
+        slab's path (the device loop pads to a pow2 bucket instead). The
+        prompt-length piece lands in fresh blocks (paged) or in the slot's
+        slab row, zero past the prompt. The first token stays on the
+        device until the step's single transfer."""
+        if self.paged and self.device_resident:
+            self._prefill_into_slot_device(req, slot)
+            return
+        self._reserve(req, slot)
+        T = len(req.prompt)
+        tokens = h2d(np.asarray(req.prompt, np.int32)[None], self.device)
+        logits, piece = attn_call(self.model.prefill, self.params, tokens)
+        if self.paged:
+            ids = self.allocator.allocate(blocks_for(T, self.block_size))
+            self.block_tables[slot] = ids
+            self._write_prompt_blocks(piece, ids)
+            self.prefill_work_blocks += len(ids)
+            self.prefill_tokens_done += T
+        else:
+            self._write_slot(piece, slot)
+        self._seat_prefilled(req, slot, T,
+                             torch.argmax(logits[0]).to(torch.int32))
+
+    def _prefill_into_slot_device(self, req: ServeRequest,
+                                  slot: int) -> None:
+        """The device loop's whole-prompt prefill: the prompt padded to a
+        pow2 bucket (the padding tail is computed; causality keeps the
+        first T rows exact), its T rows written into fresh blocks
+        (quantized on write for an int8 pool), the device mirrors armed
+        and the first token deferred to the step's single transfer."""
+        self._reserve(req, slot)
+        T = len(req.prompt)
+        P = min(_next_pow2(T), _next_pow2(self.max_seq))
+        toks = np.zeros((1, P), np.int32)
+        toks[0, :T] = req.prompt
+        logits, piece = attn_call(self.model.prefill_bucketed, self.params,
+                                  h2d(toks, self.device), T)
+        ids = self.allocator.allocate(blocks_for(T, self.block_size))
+        self.block_tables[slot] = ids
+        self._write_prompt_blocks(type(piece)(*(a[:, :, :T] for a in piece)),
+                                  ids)
+        self.prefill_work_blocks += len(ids)
+        self.prefill_tokens_done += T
+        tok_dev = torch.argmax(logits[0]).to(torch.int32)
+        self._ensure_nbt_cap(len(ids))
+        self._dev_set_table(slot, ids)
+        self._dev_len[slot].fill_(T + 1)
+        self._dev_tok[slot] = tok_dev
+        self._seat_prefilled(req, slot, T, tok_dev)
+
+    def _seat_prefilled(self, req: ServeRequest, slot: int, T: int,
+                        tok_dev: torch.Tensor) -> None:
+        """A whole prompt of T tokens is in ``slot``: seat the request,
+        its first token (``tok_dev``, on the device) pending."""
+        self._pending_first.append((req, tok_dev))
+        req.ctx_done = T
+        req.first_token_step = self.steps
+        req.state = State.RUNNING
+        req.engine_id = self.id
+        req.slot = slot
+        req.tokens_by_engine[self.id] = req.tokens_by_engine.get(self.id, 0) + 1
+        self.slots[slot] = req
+        self.slot_len[slot] = T + 1
+        self.tokens_out += 1
+
+    def _write_slot(self, piece: KVCache, slot: int) -> None:
+        """Write a ``[L, 1, n, Hkv, Dh]`` piece into slab row ``slot`` and
+        zero the row past it (prompt-length prefill pieces, trimmed
+        migration pieces)."""
+        for a, p in zip(self.cache, piece):
+            n = p.shape[2]
+            a[:, slot, :n].copy_(p[:, 0])
+            a[:, slot, n:].zero_()
 
     # ---- chunked prefill: the mixed iteration's prompt side -----------------
     def _run_chunked_prefill(self) -> Tuple[List[ServeRequest],
@@ -577,12 +783,7 @@ class Engine:
         while self.waiting and budget > 0:
             req = self.waiting[0]
             if len(req.prompt) + 1 > self.max_seq:  # can NEVER fit: fail
-                self.waiting.popleft()
-                req.rejected = True
-                req.state = State.FINISHED
-                req.first_token_step = self.steps
-                req.finish_step = self.steps
-                rejected.append(req)
+                rejected.append(self._reject_head())
                 continue
             if not self.can_accept(req):
                 if self.slo_sched and self._preempt_for(req):
@@ -637,6 +838,7 @@ class Engine:
                 table.extend(self.allocator.allocate(need - len(table)))
             nbt = max(nbt, blocks_for(req.ctx_done + C, self.block_size))
             self.prefill_work_blocks += need
+            self.prefill_tokens_done += clen
         nbt = _next_pow2(nbt)
         toks = np.zeros((B, C), np.int32)
         bt = np.full((B, nbt), self.garbage_block, np.int32)
@@ -660,11 +862,11 @@ class Engine:
                        first_toks: torch.Tensor,
                        completed: List[ServeRequest]) -> None:
         """Advance ``ctx_done``; for requests whose LAST chunk just landed,
-        publish the prompt and keep the first token (``first_toks[j]``) on
-        the device until the step's single d2h. On the fused path the
-        completing slot was dead during this step's forward, so it first
-        decodes next step; on the flat path the decode forward that
-        follows already includes it."""
+        publish the prompt (with the prefix cache on) and keep the first
+        token (``first_toks[j]``) on the device until the step's single
+        d2h. On the fused path the completing slot was dead during this
+        step's forward, so it first decodes next step; on the two-call
+        paths the decode forward that follows already includes it."""
         for j, (slot, clen) in enumerate(plan):
             req = self.slots[slot]
             T = req.prefill_target_len
@@ -678,7 +880,8 @@ class Engine:
                 # reproduce that token and are discarded
                 self._finish_resume(req, slot, T)
                 continue
-            self._publish_prompt(req, slot)
+            if self.prefix_cache:
+                self._publish_prompt(req, slot)
             self._prefill_order.remove(slot)
             tok_dev = first_toks[j]
             req.first_token_step = self.steps
@@ -686,11 +889,12 @@ class Engine:
                 req.tokens_by_engine.get(self.id, 0) + 1
             self.tokens_out += 1
             self.slot_len[slot] = T + 1
-            table = self.block_tables[slot]
-            self._ensure_nbt_cap(len(table))
-            self._dev_set_table(slot, table)
-            self._dev_len[slot].fill_(T + 1)
-            self._dev_tok[slot] = tok_dev
+            if self.device_resident:
+                table = self.block_tables[slot]
+                self._ensure_nbt_cap(len(table))
+                self._dev_set_table(slot, table)
+                self._dev_len[slot].fill_(T + 1)
+                self._dev_tok[slot] = tok_dev
             self._pending_first.append((req, tok_dev))
             completed.append(req)
 
@@ -698,7 +902,8 @@ class Engine:
     def _victim_slots(self, pr: int) -> List[int]:
         """Preemptable slots for a priority-``pr`` preemptor: strictly
         lower class (uniform-class traffic never preempts), fully
-        prefilled, with >= 1 synced generated token."""
+        prefilled, with >= 1 synced generated token (a first token still
+        on the device gives no continuation point yet)."""
         return [i for i, r in enumerate(self.slots)
                 if r is not None and not r.prefilling and r.generated
                 and priority_of(r.slo_class) > pr]
@@ -706,6 +911,8 @@ class Engine:
     def _mem_shortfall(self, req: ServeRequest) -> int:
         """Blocks the allocator is short of admitting ``req`` (<= 0: the
         blocker is a slot, not memory)."""
+        if not self.paged:
+            return 0
         need = blocks_for(self._worst_tokens(req), self.block_size)
         if req.state is not State.RUNNING:
             chain = self._cached_chain(req)
@@ -716,7 +923,11 @@ class Engine:
         """Make room for a blocked higher-class request by preempting the
         lowest-class, largest resident victim: park it (slot shortage) or
         drop and recompute its KV (memory shortage). Returns True if a
-        victim was preempted; the caller re-checks admission."""
+        victim was preempted; the caller re-checks admission. A slab
+        slot IS its memory (nothing to park), and without chunked prefill
+        a recomputed victim has no path to rebuild its KV: both refuse."""
+        if not self.paged:
+            return False
         if (req.generated and req.first_token_step is not None
                 and tpot_hopeless(req.slo_class, req.first_token_step,
                                   self.steps, req.max_new_tokens,
@@ -738,6 +949,8 @@ class Engine:
         mode = park_or_recompute(must_free_blocks=max(short, 0),
                                  kv_tokens=int(self.slot_len[slot]) - 1)
         if mode == "recompute":
+            if not self.chunked_prefill:
+                return False
             self._preempt_recompute(slot)
         else:
             self._preempt_park(slot)
@@ -760,9 +973,11 @@ class Engine:
         self._slot_shared[slot] = 0
         self._slot_rblocks[slot] = 0
         self.block_tables[slot] = []
-        self._dev_clear_slot(slot)
+        if self.device_resident:
+            self._dev_clear_slot(slot)
         self.slots[slot] = None
         self.slot_len[slot] = 0
+        self.slot_reserved[slot] = 0
         req.slot = None
         req.state = State.PREEMPTED
         req.preemptions += 1
@@ -779,6 +994,8 @@ class Engine:
     def _preempt_parked(self, pr: int) -> bool:
         """Recompute-preempt the largest parked request of a class below
         ``pr``: the only way to free memory held by parked victims."""
+        if not self.chunked_prefill:
+            return False
         cands = [p for p in self.parked if priority_of(p.req.slo_class) > pr]
         if not cands:
             return False
@@ -822,10 +1039,9 @@ class Engine:
         """Starvation guard: a recompute-preempted request still waiting
         climbs one priority class per TTFT budget elapsed since its
         preemption (``sched.slo.aging_promotion``); its key keeps its
-        deadline, size and sequence components. The reference runs it
-        only on its whole-prompt admission path, which the port does not
-        have; its chunked path — the one both serve — does not age, and
-        the port keeps that so the two make the same decisions."""
+        deadline, size and sequence components. It runs where the
+        reference runs it: on whole-prompt admission (:meth:`_admit`); the
+        chunked path does not age, in the reference or here."""
         changed = False
         for req in self.waiting:
             if req.preempted_step is None:
@@ -867,13 +1083,15 @@ class Engine:
         self._slot_rblocks[slot] = rec.rblocks
         self.slots[slot] = req
         self.slot_len[slot] = rec.slot_len
+        self.slot_reserved[slot] = self._worst_tokens(req)
         req.slot = slot
         req.state = State.RUNNING
         self.resumes += 1
-        self._ensure_nbt_cap(len(rec.table))
-        self._dev_set_table(slot, rec.table)
-        self._dev_len[slot].fill_(rec.slot_len)
-        self._dev_tok[slot].fill_(int(req.generated[-1]))
+        if self.device_resident:
+            self._ensure_nbt_cap(len(rec.table))
+            self._dev_set_table(slot, rec.table)
+            self._dev_len[slot].fill_(rec.slot_len)
+            self._dev_tok[slot].fill_(int(req.generated[-1]))
 
     def _finish_resume(self, req: ServeRequest, slot: int, T: int) -> None:
         """A recompute resume's last chunk landed: rows 0..T-1 are back;
@@ -885,21 +1103,44 @@ class Engine:
         req.ctx_done = len(req.prompt)
         self.slot_len[slot] = T + 1
         self.resumes += 1
-        table = self.block_tables[slot]
-        self._ensure_nbt_cap(len(table))
-        self._dev_set_table(slot, table)
-        self._dev_len[slot].fill_(T + 1)
-        self._dev_tok[slot].fill_(int(req.generated[-1]))
+        if self.device_resident:
+            table = self.block_tables[slot]
+            self._ensure_nbt_cap(len(table))
+            self._dev_set_table(slot, table)
+            self._dev_len[slot].fill_(T + 1)
+            self._dev_tok[slot].fill_(int(req.generated[-1]))
 
     # ---- one continuous-batching iteration ----------------------------------
     @torch.no_grad()
     def step(self, burst: int = 1) -> List[ServeRequest]:
         """Advance the engine and return the requests that finished.
 
-        ``burst > 1`` runs up to that many decode iterations before the
-        step's single transfer, clamped so no request can reach its
-        token-count or max_seq finish before the last one; a step with
+        Paged engines run the device-resident step unless built with
+        ``device_resident=False``; the host loop (and the slab, which has
+        only it) decodes the live rows from host state. ``burst > 1``
+        (device-resident only) runs up to that many decode iterations
+        before the step's single transfer, clamped so no request can reach
+        its token-count or max_seq finish before the last one; a step with
         waiting or mid-prefill requests never bursts."""
+        if self.paged and self.device_resident:
+            return self._step_device(burst)
+        return self._step_host()
+
+    def _prompt_side(self, finished: List[ServeRequest],
+                     prefill_done: List[ServeRequest]) -> None:
+        """The step's prompt work on every path but the fused one: the
+        chunk forward, or whole-prompt admission. Rejected requests join
+        ``finished``; a request whose one token is its first finishes at
+        prefill (into ``prefill_done``; its token lands after the sync)."""
+        rejected, prefilled = (self._run_chunked_prefill()
+                               if self.chunked_prefill else self._admit())
+        finished.extend(rejected)
+        for r in prefilled:
+            if r.max_new_tokens <= 1:
+                prefill_done.append(r)
+                self._release(r.slot)
+
+    def _step_device(self, burst: int) -> List[ServeRequest]:
         self.steps += 1
         base = self.steps
         finished: List[ServeRequest] = []
@@ -909,13 +1150,9 @@ class Engine:
         if self.fused_mixed:
             # plan + admit only: the chunks run INSIDE the fused forward
             rejected, chunk_plan = self._plan_chunks()
+            finished.extend(rejected)
         else:
-            rejected, prefilled = self._run_chunked_prefill()
-            for r in prefilled:
-                if r.max_new_tokens <= 1:       # finishes at prefill; its
-                    prefill_done.append(r)      # token lands after the sync
-                    self._release(r.slot)
-        finished.extend(rejected)
+            self._prompt_side(finished, prefill_done)
         # requests still mid-prefill hold their slot but do NOT decode:
         # their device row is all-garbage and their length 0
         live = [(i, r) for i, r in enumerate(self.slots)
@@ -996,22 +1233,64 @@ class Engine:
             }
             toks = torch.stack([attn_call(self._decode, num_work)
                                 for _ in range(h)])
-        # ---- the step's single device->host transfer ----
+        self._land_tokens(base, h, toks, live, [i for i, _ in live],
+                          prefill_done, finished)
+        return finished
+
+    def _step_host(self) -> List[ServeRequest]:
+        """The host-driven loop (the slab's, and paged engines' with
+        ``device_resident=False``): the prompt side, then one decode
+        forward over the live rows only, its tokens and positions
+        uploaded from host state (a first token still on the device feeds
+        its row directly), and one transfer."""
+        self.steps += 1
+        finished: List[ServeRequest] = []
+        self._pending_first = []
+        prefill_done: List[ServeRequest] = []
+        self._prompt_side(finished, prefill_done)
+        live = [(i, r) for i, r in enumerate(self.slots)
+                if r is not None and not r.prefilling]
+        toks = None
+        if live:
+            pend = {id(r): t for r, t in self._pending_first}
+            last_tok = h2d(np.asarray(
+                [r.generated[-1] if r.generated else 0 for _, r in live],
+                np.int32), self.device)
+            for j, (_, r) in enumerate(live):
+                if id(r) in pend:
+                    last_tok[j] = pend[id(r)]
+            pos = h2d(np.asarray([self.slot_len[i] - 1 for i, _ in live],
+                                 np.int32), self.device)
+            decode = (self._decode_paged_live if self.paged
+                      else self._decode_mono_live)
+            logits = decode(live, last_tok, pos)
+            toks = torch.argmax(logits, dim=-1).to(torch.int32)[None]
+        self._land_tokens(self.steps, 1 if live else 0, toks, live,
+                          range(len(live)), prefill_done, finished)
+        return finished
+
+    def _land_tokens(self, base: int, h: int, toks, live, cols,
+                     prefill_done: List[ServeRequest],
+                     finished: List[ServeRequest]) -> None:
+        """The step's single device-to-host transfer, then its
+        bookkeeping: pending first tokens append, requests done at prefill
+        finish, and each of the ``h`` decode rows of ``toks`` (live
+        request ``k`` in column ``cols[k]``) advances its request — an
+        admitted request whose FIRST token was eos is done before them
+        (its decodes wrote only its own rows)."""
         pending = list(self._pending_first)
         parts = [torch.stack([t for _, t in pending])] if pending else []
         if toks is not None:
             parts.append(toks.reshape(-1))
         host = d2h(torch.cat(parts)) if parts else np.zeros(0, np.int32)
         first = host[:len(pending)]
-        rest = host[len(pending):].reshape(h, self.max_slots) if h else None
+        rest = host[len(pending):].reshape(h, -1) if h else None
         for (r, _), tok in zip(pending, first):
             r.generated.append(int(tok))
         for r in prefill_done:
             r.state = State.FINISHED
             r.finish_step = base
             finished.append(r)
-        # an admitted request whose FIRST token was eos is done before the
-        # burst tokens; its decodes wrote only its own pre-grown blocks
         for i, r in live:
             if r.state is State.RUNNING and r.done:
                 r.state = State.FINISHED
@@ -1019,10 +1298,10 @@ class Engine:
                 finished.append(r)
                 self._release(i)
         for s in range(h):
-            for i, r in live:
+            for (i, r), c in zip(live, cols):
                 if r.state is State.FINISHED:
                     continue
-                r.generated.append(int(rest[s, i]))
+                r.generated.append(int(rest[s, c]))
                 r.tokens_by_engine[self.id] = \
                     r.tokens_by_engine.get(self.id, 0) + 1
                 self.tokens_out += 1
@@ -1034,8 +1313,8 @@ class Engine:
                     self._release(i)
         self.steps = base + max(h - 1, 0)
         self._flush_demotes()
+        self.peak_kv_bytes = max(self.peak_kv_bytes, self.kv_bytes_pinned())
         assert self.free_tokens() >= 0, "admission let the budget go negative"
-        return finished
 
     def _mixed(self, num_work: int, ck_tokens, bt_ck, ctx, clen):
         """The fused forward of a mixed iteration; advances the device
@@ -1063,24 +1342,59 @@ class Engine:
         self._dev_len = torch.where(live, self._dev_len + 1, self._dev_len)
         return new_tok
 
+    def _decode_paged_live(self, live, last_tok: torch.Tensor,
+                           pos: torch.Tensor) -> torch.Tensor:
+        """The host loop's paged decode of the live rows on the engine's
+        backend: tables grown to back each write (covered by the
+        reservations) and padded with the garbage block to a pow2 width
+        (capped at the max_seq block count). Returns logits [B, V]."""
+        for i, _ in live:
+            need = blocks_for(int(self.slot_len[i]), self.block_size)
+            table = self.block_tables[i]
+            if need > len(table):
+                table.extend(self.allocator.allocate(need - len(table)))
+        nbt = max(len(self.block_tables[i]) for i, _ in live)
+        nbt = min(_next_pow2(nbt), blocks_for(self.max_seq, self.block_size))
+        bt = np.full((len(live), nbt), self.garbage_block, np.int32)
+        for j, (i, _) in enumerate(live):
+            bt[j, :len(self.block_tables[i])] = self.block_tables[i]
+        logits, self.cache = attn_call(
+            self.model.decode_step_paged, self.params, self.cache, last_tok,
+            h2d(bt, self.device), pos, attn_backend=self.attn_backend)
+        return logits
+
+    def _decode_mono_live(self, live, last_tok: torch.Tensor,
+                          pos: torch.Tensor) -> torch.Tensor:
+        """The slab's decode of the live rows in place: projections and
+        MLP on the live rows only, each K/V write and attention on its
+        own slab row (no gather, no scatter back). Returns logits
+        [B, V]."""
+        rows = h2d(np.asarray([i for i, _ in live], np.int32), self.device)
+        logits, self.cache = attn_call(self.model.decode_step, self.params,
+                                       self.cache, last_tok, pos, rows=rows)
+        return logits
+
     def _release(self, slot: int) -> None:
         if slot in self._prefill_order:     # evicted mid-prefill
             self._prefill_order.remove(slot)
-        # shared prefix blocks drop a borrowed reference; the private
-        # remainder releases as owner (published blocks at refcount 0
-        # stay cached, warm for the next identical prefix)
-        s = self._slot_shared[slot]
-        self._slot_shared[slot] = 0
-        table = self.block_tables[slot]
-        if s:
-            self.allocator.release(table[:s], owned=False)
-            self.allocator.release(table[s:], owned=True)
-        else:
-            self.allocator.release(table, owned=True)
-        self.block_tables[slot] = []
-        self.allocator.unreserve(self._slot_rblocks[slot])
-        self._slot_rblocks[slot] = 0
-        self._dev_clear_slot(slot)
+        if self.paged:
+            # shared prefix blocks drop a borrowed reference; the private
+            # remainder releases as owner (published blocks at refcount 0
+            # stay cached, warm for the next identical prefix)
+            s = self._slot_shared[slot]
+            self._slot_shared[slot] = 0
+            table = self.block_tables[slot]
+            if s:
+                self.allocator.release(table[:s], owned=False)
+                self.allocator.release(table[s:], owned=True)
+            else:
+                self.allocator.release(table, owned=True)
+            self.block_tables[slot] = []
+            self.allocator.unreserve(self._slot_rblocks[slot])
+            self._slot_rblocks[slot] = 0
+            if self.device_resident:
+                self._dev_clear_slot(slot)
+        self.slot_reserved[slot] = 0
         self.slots[slot] = None
         self.slot_len[slot] = 0
 
@@ -1088,14 +1402,20 @@ class Engine:
     def export_slot(self, slot: int):
         """(request, KV piece, piece bytes) for live migration. The piece
         is the wire format: contiguous ``[L, 1, written, Hkv, Dh]`` leaves
-        gathered from the request's blocks. ``written = slot_len - 1``
-        for a decoding request (its newest sampled token's KV is written
-        by the next decode, on whichever engine runs it); a request still
-        mid-prefill ships its ``ctx_done`` rows and the receiver resumes
-        chunking."""
+        gathered from the request's blocks, or copied from its slab row
+        (trimmed to ``written``), so paged and slab engines interoperate.
+        ``written = slot_len - 1`` for a decoding request (its newest
+        sampled token's KV is written by the next decode, on whichever
+        engine runs it); a request still mid-prefill ships its
+        ``ctx_done`` rows and the receiver resumes chunking."""
         req = self.slots[slot]
         assert req is not None
         length = int(self.slot_len[slot]) - (0 if req.prefilling else 1)
+        if not self.paged:
+            # a copy: the slab row is rewritten in place once it is reused
+            piece = KVCache(*(a[:, slot:slot + 1, :length].clone()
+                              for a in self.cache))
+            return req, piece, kv_bytes(piece)
         ids = h2d(np.asarray(self.block_tables[slot], np.int64), self.device)
         gathered = gather_kv_blocks(self.cache, ids)
         piece = type(gathered)(*(
@@ -1114,9 +1434,12 @@ class Engine:
         still mid-prefill (the piece then holds its ``ctx_done`` rows and
         this engine resumes chunking). Refuses (``can_accept``) when no
         slot is free, the remaining generation cannot fit ``max_seq`` or
-        the worst-case footprint exceeds the free budget. A migrated
-        shared prefix re-imports as private: the receiver allocates fresh
-        blocks and reserves the true length."""
+        the worst-case footprint exceeds the free budget, and a partial
+        prompt when this engine cannot chunk. A migrated shared prefix
+        re-imports as private: the receiver allocates fresh blocks and
+        reserves the true length."""
+        if req.prefilling and not self.chunked_prefill:
+            return False        # nowhere to resume the prompt from
         if not self.can_accept(req):
             return False
         slot = self._free_slot()
@@ -1125,15 +1448,20 @@ class Engine:
         # cache length: the written rows (mid-prefill), or the rows plus
         # the newest token, whose KV the next decode writes
         length = req.ctx_done if req.prefilling else req.length
-        ids = self.allocator.allocate(blocks_for(length, self.block_size))
-        self.block_tables[slot] = ids
-        if ids:
-            self._write_prompt_blocks(piece, ids)
+        if not self.paged:
+            self._write_slot(type(piece)(*(p.to(self.device)
+                                           for p in piece)), slot)
+        else:
+            ids = self.allocator.allocate(blocks_for(length,
+                                                     self.block_size))
+            self.block_tables[slot] = ids
+            if ids:
+                self._write_prompt_blocks(piece, ids)
         if req.prefilling:
             # device mirrors stay cleared (all-garbage table, length 0):
             # the decode batch treats a mid-prefill slot as dead
             self._prefill_order.append(slot)
-        else:
+        elif self.device_resident:
             # an adopted decode carries >= 1 generated token: the mirrors
             # seed from host values (fill_, no blocking upload)
             self._ensure_nbt_cap(len(ids))

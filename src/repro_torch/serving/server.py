@@ -192,7 +192,8 @@ class _ServerOps:
         process, so replay prompt + generated-so-far through chunked
         prefill on ``instance_id`` — the recompute-resume path
         (``Engine._finish_resume``), so the continuation is the one a
-        never-crashed run decodes."""
+        never-crashed run decodes. A mid-decode resume needs a chunking
+        engine: a whole-prompt one refuses it."""
         dst = self.server.engines[instance_id]
         req.redispatches += 1
         req.slot = None
@@ -200,6 +201,8 @@ class _ServerOps:
         req.ctx_done = 0
         req.cached_tokens = 0
         if req.generated:
+            if not dst.chunked_prefill:
+                return False       # a mid-decode resume needs chunking
             req.prefill_target = len(req.prompt) + len(req.generated) - 1
             req.resume_tokens = np.concatenate(
                 [np.asarray(req.prompt, np.int32),
@@ -227,9 +230,13 @@ class _ServerOps:
 class MILSServer:
     def __init__(self, model, params, plan: PipelinePlan,
                  qoe: Optional[QoEModel], cfg: ServerConfig, *,
-                 max_slots: int = 4, max_seq: int = 256, block_size: int = 16,
+                 max_slots: int = 4, max_seq: int = 256,
+                 paged: Optional[bool] = None, block_size: int = 16,
+                 device_resident: Optional[bool] = None,
                  attn_backend: Optional[str] = None,
                  prefill_token_budget: Optional[int] = None,
+                 chunked_prefill: Optional[bool] = None,
+                 prefix_cache: Optional[bool] = None,
                  kv_dtype: Optional[str] = None,
                  host_kv_budget: Optional[int] = None,
                  engine_factory: Optional[Callable[[int], Any]] = None,
@@ -247,8 +254,12 @@ class MILSServer:
         if engine_factory is None:
             def engine_factory(i):
                 return Engine(i, model, params, max_slots=max_slots,
-                              max_seq=max_seq, block_size=block_size,
+                              max_seq=max_seq, paged=paged,
+                              block_size=block_size,
+                              device_resident=device_resident,
                               prefill_token_budget=prefill_token_budget,
+                              chunked_prefill=chunked_prefill,
+                              prefix_cache=prefix_cache,
                               attn_backend=attn_backend, kv_dtype=kv_dtype,
                               host_kv_budget=host_kv_budget,
                               preemption=cfg.preemption,

@@ -199,6 +199,24 @@ def test_ops_entry_points_match_jax(jx, backend, jbackend):
         api.prefill_attention(*ts, backend="pallas")
 
 
+def test_decode_kv_rows_reads_the_mapped_cache_rows():
+    """``kv_rows`` maps each query row to a row of a larger cache (a
+    serving slab): the result is the one over the gathered rows, padded
+    and ragged, and the cache is not written."""
+    arrays = _decode_inputs(7, 96, 8, 2, 64, [0, 96, 50, 3, 1, 64, 10],
+                            seed=9)
+    q, k, v, lengths = (torch.from_numpy(a) for a in arrays)
+    rows = torch.tensor([6, 0, 3], dtype=torch.int32)
+    before = k.clone()
+    for ragged in (False, True):
+        got = dk.decode_attention(q[:3], k, v, lengths[:3], block_s=32,
+                                  ragged=ragged, kv_rows=rows)
+        want = dk.decode_attention(q[:3], k[rows.long()], v[rows.long()],
+                                   lengths[:3], block_s=32, ragged=ragged)
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    torch.testing.assert_close(k, before, rtol=0, atol=0)
+
+
 def test_wrappers_launch_or_raise_off_the_cpu():
     """A tensor on neither the CPU nor a CUDA card gets no kernel and no
     plain version: the wrapper raises."""
@@ -281,3 +299,47 @@ def test_cuda_prefill_matches_plain(cuda, dtype, tol, H, Hkv, Dh, T):
     torch.testing.assert_close(out.float(), plain.float(), atol=tol,
                                rtol=tol)
     assert not out[2].float().abs().max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4),
+                                       ("bfloat16", 5e-3)])
+def test_cuda_decode_kv_rows_matches_plain(cuda, dtype, tol):
+    """The slab engine's call: query rows over rows 6, 0 and 3 of a
+    7-row cache (llama3.2-3b heads, S 1000, padded; few rows, so the split
+    plan cuts each into several splits): the kernel == its plain version,
+    which gathers the rows first."""
+    dt = getattr(torch, dtype)
+    arrays = _decode_inputs(7, 1000, 24, 8, 128,
+                            [5, 1000, 0, 37, 512, 1, 999], seed=11)
+    q, k, v = (torch.from_numpy(a).to(cuda, dt) for a in arrays[:3])
+    rows = torch.tensor([6, 0, 3], dtype=torch.int32, device=cuda)
+    lengths = torch.tensor([999, 5, 37], dtype=torch.int32, device=cuda)
+    launches = dk.PADDED_LAUNCHES
+    out = dk.decode_attention(q[:3], k, v, lengths, kv_rows=rows)
+    torch.cuda.synchronize()
+    assert dk.PADDED_LAUNCHES == launches + 1
+    plain = dk.decode_attention_plain(q[:3], k, v, lengths, kv_rows=rows)
+    torch.testing.assert_close(out.float(), plain.float(), atol=tol,
+                               rtol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4),
+                                       ("bfloat16", 5e-3)])
+def test_cuda_prefill_whole_prompt_bucket(cuda, dtype, tol):
+    """The contiguous prefill kernel as an 8192-token engine's
+    whole-prompt prefill calls it at its largest pow2 bucket: B 1,
+    T 8192, llama3.2-3b heads, no lengths."""
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(8)
+    q, k, v = (torch.from_numpy(rng.normal(0, 1, (1, 8192, n, 128)).astype(
+        np.float32)).to(cuda, dt) for n in (24, 8, 8))
+    launches = pk.CONTIG_LAUNCHES
+    out = pk.prefill_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert pk.CONTIG_LAUNCHES == launches + 1
+    plain = pk.prefill_attention_plain(
+        q, k, v, torch.full((1,), 8192, dtype=torch.int32, device=cuda))
+    torch.testing.assert_close(out.float(), plain.float(), atol=tol,
+                               rtol=tol)
