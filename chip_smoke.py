@@ -112,7 +112,16 @@ the last line:
     by CUDA events beside SDPA and their bounds (#5 no faster than
     streaming its rows); then the four modes at 2 layers f32 on the card
     and the CPU: equal streams and counters;
-15. one JSON line of every kernel, then, last, ``{"ok": true, ...}``.
+15. the H100 cost model against the card, in a process of its own
+    (``tools/calibrate_h100.py``): the constants of ``kernels.cost.H100``
+    measured (host staging of KV blocks, #1's launch and padding
+    overheads, ``t_fixed``), and the model's predicted step times beside
+    the full-width engine's device busy time and host wall on decode-only,
+    mixed and whole-prompt prefill steps (#1 and #6, every launch
+    recorded by the profiler); Fig. 2's tax on the H100 model beside
+    phase 13's; the QoE fit on the H100 profile and Fig. 13's error
+    against the static baseline;
+16. one JSON line of every kernel, then, last, ``{"ok": true, ...}``.
 
 It needs one CUDA card and fails without one; it imports nothing of JAX.
 """
@@ -2162,6 +2171,49 @@ def phase_engine_modes_devices(np, torch, cfg_mod, model_mod, engine_mod,
             f"{runs['cuda'][1]}")
 
 
+# --------------------------------------------------------------------------
+# Phase 15: the H100 cost model against the card
+# --------------------------------------------------------------------------
+COST_MODEL_POINTS = 12     # 6 + 1 decode-only, 2 mixed, 3 prefill steps
+
+
+def phase_cost_model(torch, fig2_tax):
+    """``tools/calibrate_h100.py`` in a fresh process (its profiler must
+    record every kernel of the steps it times; late in this process
+    records went missing), its lines printed as they come; fails unless
+    it exits 0 with every point present and every number finite."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out = ROOT / "chiprun_out" / "phase15_cost_model.json"
+    out.unlink(missing_ok=True)
+    rc = subprocess.run(
+        [sys.executable, str(ROOT / "tools" / "calibrate_h100.py"),
+         "--json", str(out), "--fig2-tax", repr(float(fig2_tax))],
+        timeout=600).returncode
+    check(rc == 0 and out.is_file(), f"phase 15 failed (exit {rc})")
+    res = json.loads(out.read_text())
+    check(len(res["points"]) == COST_MODEL_POINTS,
+          f"phase 15: {len(res['points'])} of {COST_MODEL_POINTS} points")
+    nums = [res["t_fixed_s"], res["host_gap_s"], res["fig2_tax_model"],
+            res["launch_skip"]["launch_overhead_s"],
+            res["launch_skip"]["skip_overhead_s"],
+            res["staging"]["fit"]["both"]["bw"],
+            res["staging"]["fit"]["both"]["overhead_s"],
+            res["qoe"]["model_mean_err"], res["qoe"]["static_mean_err"]]
+    nums += res["qoe"]["D"]
+    for p in res["points"]:
+        nums += [p["pred_s"], p["busy_s"], p["wall_s"], p["err_vs_busy"],
+                 p["err_vs_wall"]]
+    check(all(math.isfinite(x) for x in nums),
+          "phase 15: a number is not finite")
+    check(all(n > 0 for n in res["launches"].values()),
+          f"phase 15: launches {res['launches']}")
+    res["phase_s"] = time.perf_counter() - t0
+    log(f"phase 15: took {res['phase_s']:.1f} s")
+    return res
+
+
 def _leaves(tree):
     for v in tree.values():
         yield from (_leaves(v) if isinstance(v, dict) else (v,))
@@ -2310,7 +2362,10 @@ def main() -> int:
     modes["phase_s"] = time.perf_counter() - t14
     log(f"phase 14: took {modes['phase_s']:.1f} s")
 
-    # 15. results
+    # 15. the H100 cost model against the card
+    cost_model = phase_cost_model(torch, fig2["200v10000"]["tax"])
+
+    # 16. results
     kernels = [{
         "name": "paged_mixed_attention", "ok": True, "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/mixed_attention.cu",
@@ -2412,9 +2467,9 @@ def main() -> int:
         {"device": smi, "kernels": kernels, "engine": eng_summary,
          "cluster": cluster, "chaos_cluster": chaos,
          "grid_cluster": grid_cluster, "dense_int8": dense_int8,
-         "fig2": fig2, "engine_modes": modes},
-        indent=1))
-    log(f"chip_smoke: phases 1-14 took {time.perf_counter() - t_main:.1f} s")
+         "fig2": fig2, "engine_modes": modes, "cost_model": cost_model},
+        indent=1, default=str))
+    log(f"chip_smoke: phases 1-15 took {time.perf_counter() - t_main:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

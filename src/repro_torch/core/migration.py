@@ -1,6 +1,13 @@
-"""Live KV movement between engines — the port of the KV ops of
-``repro.core.migration`` (the multi-round timing model belongs to the
-simulator and is not ported yet).
+"""Live KV migration between instances — the port's copy of
+``repro.core.migration``: the multi-round timing model the simulator
+prices migrations with, and the KV ops the engines move pieces with.
+
+Multi-round live migration (paper §5 / Llumnix-style): round k copies the
+KV written since round k−1 started; rounds shrink geometrically until the
+residual is below ``stop_threshold`` tokens, then a brief stop-and-copy
+finishes the hand-off. A per-instance concurrency cap (3 transfers) and
+skip-if-no-idle-slot flow control are enforced by the
+:class:`MigrationManager`.
 
 The wire format is the reference's: a contiguous ``[L, 1, length, Hkv,
 Dh]`` piece per pool leaf, whatever the engines' block layouts, so a
@@ -11,7 +18,70 @@ Hkv]``); the engines keep the migration wire itself full-width.
 """
 from __future__ import annotations
 
+import dataclasses
+from typing import Dict
+
 import torch
+
+MAX_CONCURRENT = 3            # §5: strict concurrency limit
+STOP_THRESHOLD = 256          # tokens left -> stop-and-copy
+MAX_ROUNDS = 8
+
+
+@dataclasses.dataclass(frozen=True)
+class MigrationTiming:
+    total_s: float            # wall time from start to ownership flip
+    stall_s: float            # source decode stall (final round only)
+    rounds: int
+    bytes_moved: float
+
+
+def plan_live_migration(tokens: float, decode_tok_per_s: float,
+                        bytes_per_token: float, bandwidth: float,
+                        stop_threshold: int = STOP_THRESHOLD) -> MigrationTiming:
+    """Timing of a multi-round live migration of ``tokens`` KV tokens."""
+    bw_tok = bandwidth / max(bytes_per_token, 1e-9)    # tokens/s on the wire
+    remaining = float(tokens)
+    total = 0.0
+    moved = 0.0
+    rounds = 0
+    while remaining > stop_threshold and rounds < MAX_ROUNDS:
+        t = remaining / bw_tok
+        total += t
+        moved += remaining
+        # decode continued during the round: new residual to copy
+        remaining = decode_tok_per_s * t
+        rounds += 1
+    stall = remaining / bw_tok                         # stop-and-copy
+    total += stall
+    moved += remaining
+    return MigrationTiming(total_s=total, stall_s=stall, rounds=rounds + 1,
+                           bytes_moved=moved * bytes_per_token)
+
+
+class MigrationManager:
+    """Concurrency + flow control for one instance's outbound transfers."""
+
+    def __init__(self, max_concurrent: int = MAX_CONCURRENT):
+        self.max_concurrent = max_concurrent
+        self.active: Dict[int, float] = {}     # req_id -> finish time (sim)
+
+    def can_start(self, target_has_idle_slot: bool) -> bool:
+        # §5: skip migration entirely if the target has no idle cache slot;
+        # requests above the concurrency cap stay on the source.
+        return target_has_idle_slot and len(self.active) < self.max_concurrent
+
+    def start(self, req_id: int, finish_time: float) -> None:
+        assert len(self.active) < self.max_concurrent
+        self.active[req_id] = finish_time
+
+    def finish(self, req_id: int) -> None:
+        self.active.pop(req_id, None)
+
+
+# --------------------------------------------------------------------------
+# Real KV movement between engines
+# --------------------------------------------------------------------------
 
 
 def gather_kv_blocks(pool, block_ids: torch.Tensor):

@@ -1,6 +1,7 @@
 """The port stands alone: importing every module of ``repro_torch`` loads
-neither ``jax`` nor the JAX package, and no module of the port (nor
-``chip_smoke.py`` or the port's tools) names either in an import."""
+neither ``jax`` nor the JAX package, no module of the port (nor
+``chip_smoke.py`` or the port's tools) names either in an import, and
+none carries the reference's TPU v5e cost constants."""
 import ast
 import os
 import subprocess
@@ -43,6 +44,11 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
             "repro_torch.control.faults", "repro_torch.serving.block_pool",
             "repro_torch.sim.metrics", "repro_torch.kernels.ref",
             "repro_torch.kernels.api"} <= loaded
+    # the simulator, its cost model and the experiment driver
+    assert {"repro_torch.sim." + m for m in (
+        "events", "costmodel", "instance", "cluster", "profiler",
+        "experiment", "workload")} <= loaded
+    assert "repro_torch.kernels.cost" in loaded
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -59,3 +65,20 @@ def test_no_module_imports_jax_or_repro(path):
         for n in names:
             assert n.split(".")[0] not in FORBIDDEN, \
                 f"{path.name}:{node.lineno} imports {n}"
+
+
+# the reference's TPU v5e constants (repro.kernels.cost: PEAK_FLOPS,
+# HBM_BW, ICI_BW, HOST_STAGING_BW): the port prices on its own chip
+TPU_CONSTANTS = (197e12, 819e9, 50e9, 16e9)
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_module_carries_the_tpu_constants(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Constant)
+                and isinstance(node.value, (int, float))
+                and not isinstance(node.value, bool)):
+            assert node.value not in TPU_CONSTANTS, \
+                f"{path.name}:{node.lineno} holds {node.value!r}"

@@ -27,7 +27,8 @@ from repro_torch.models.common import rms_norm  # noqa: E402
 from repro_torch.models.mlp import ffn  # noqa: E402
 from repro_torch.models.transformer import layer_params  # noqa: E402
 
-NAMES = ["smollm-360m", "llama3.2-3b"]
+NAMES = ["smollm-360m", "llama3.2-3b", "qwen2.5-14b", "minitron-8b",
+         "starcoder2-3b"]
 BS, NB = 16, 24            # block NB - 1 is the garbage block
 GARBAGE = NB - 1
 LOGIT_TOL, POOL_TOL = 1e-4, 1e-5
@@ -100,7 +101,11 @@ def test_config_copies_match_reference():
                 if f.name != "dtype":
                     assert getattr(tc, f.name) == getattr(jc, f.name), f.name
     with pytest.raises(KeyError):
-        get_config("qwen2.5-14b")
+        get_config("gpt-2")
+    for name in ("qwen3-moe-30b-a3b", "qwen2-vl-7b", "rwkv6-7b",
+                 "whisper-large-v3", "zamba2-2.7b", "arctic-480b"):
+        with pytest.raises(NotImplementedError):
+            build_model(get_config(name).reduced())
 
 
 def test_bridge_round_trip(pair):

@@ -90,17 +90,30 @@ def test_slo_copy_gives_reference_outputs():
 
 def test_policy_copy_as_the_engine_calls_it():
     """park_or_recompute without a cost spec (how both engines call it):
-    the reference's choice on every input; a spec needs the port's card
-    cost model, which does not exist yet, so it raises instead of pricing
-    with the reference's TPU numbers."""
+    the reference's choice on every input; with a spec, the port prices
+    the recompute on the spec's chip and holds it to one launch of that
+    chip, which on a chip of the reference's constants is the
+    reference's choice; the module's restore price is the H100's launch
+    overhead, not the reference's."""
+    from repro_torch.kernels import cost
+    import repro.kernels.cost as jcost
+    tpu = dataclasses.replace(cost.H100,
+                              peak_flops=jcost.PEAK_FLOPS,
+                              hbm_bw=jcost.HBM_BW,
+                              launch_overhead_s=jcost.LAUNCH_OVERHEAD_S,
+                              attn_block=jcost.AttnSpec(1, 1, 1).block_s)
+    spec = cost.AttnSpec(24, 8, 128, chip=tpu)
+    jspec = jcost.AttnSpec(24, 8, 128)
     for must, kv in itertools.product((-3, 0, 1, 7), (0, 1, 2048)):
         assert policy.park_or_recompute(must_free_blocks=must,
                                         kv_tokens=kv) == \
             jpolicy.park_or_recompute(must_free_blocks=must, kv_tokens=kv)
-    assert policy.PARK_RESTORE_COST_S is None
-    with pytest.raises(NotImplementedError):
-        policy.park_or_recompute(must_free_blocks=0, kv_tokens=8,
-                                 spec=object())
+        assert policy.park_or_recompute(must_free_blocks=must, kv_tokens=kv,
+                                        spec=spec) == \
+            jpolicy.park_or_recompute(must_free_blocks=must, kv_tokens=kv,
+                                      spec=jspec)
+    assert policy.PARK_RESTORE_COST_S == cost.H100.launch_overhead_s
+    assert policy.PARK_RESTORE_COST_S != jpolicy.PARK_RESTORE_COST_S
 
 
 # --------------------------------------------------------------------------
