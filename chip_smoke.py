@@ -37,7 +37,13 @@ the last line:
    instance (no spill allowed in a tensor-core kernel), and the count of
    tensor-core instructions (HGMMA, HMMA) in the SASS of each tensor-core
    kernel (``cuobjdump -sass``), whose HGMMA must not be 0; the achieved
-   rate (TB/s, TFLOP/s) and share of the bound of #4 and #6;
+   rate (TB/s, TFLOP/s) and share of the bound of #4 and #6; then the
+   kernels of phases 16-17 at their configs' head groupings, held and
+   timed the same way: the fused kernel on the same segments at
+   qwen3-moe-30b-a3b's heads (32 / 4, Dh 64, G 8), the flat pair on the
+   same rows at qwen2-vl-7b's (28 / 4, Dh 128, G 7), and #6 (B 2, T 1024)
+   and #5 (2 rows over a 1025-row slab through ``kv_rows``) at phase 17
+   (c)'s shapes;
 4. a full-width llama3.2-3b engine (bf16, random seeded weights, fused
    backend, preemption off) serving 8 requests with prompts of 16..5897
    tokens, under CUDA sync-debug "error" mode: every request finishes
@@ -121,7 +127,35 @@ the last line:
     recorded by the profiler); Fig. 2's tax on the H100 model beside
     phase 13's; the QoE fit on the H100 profile and Fig. 13's error
     against the static baseline;
-16. one JSON line of every kernel, then, last, ``{"ok": true, ...}``.
+16. the MoE family at full width: with under 1 GB left allocated,
+    qwen3-moe-30b-a3b's 30.1 B bf16 weights drawn on the card: (a) one
+    fused engine (8 slots, max_seq 8192, 32768-token pool,
+    preemption off) serving phase 4's requests arriving one a step, under
+    sync-debug "error", one d2h a step that brings tokens, one forward a
+    step, #1 launches == 48 x forwards and nothing else, TTFT/TPOT; then,
+    in a fresh process (``tools/profile_torch_engine.py --arch``), the
+    trace served again and three mixed steps (from the longest prompt's
+    ctx 2560) and three decode-only steps profiled one at a time: device
+    busy split into the MoE layer (beside its bound), the attention kernel
+    and the rest; (b) a 2-engine ``MILSServer`` (16384-token pools,
+    stages [0, 2048) and [2048, inf)) on phase 6's 16 requests: drained,
+    at least one migration, at most one d2h and one forward an engine
+    step, #1 launches == 48 x forwards; (c) 2 layers f32 on the card and
+    the CPU: equal greedy streams, ``moe_dense`` within 1e-4; (d) arctic-
+    480b reduced (its dense residual FFN) the same way;
+17. the VLM family at full width: qwen2-vl-7b's 7.6 B bf16 weights alone
+    on the card: (a) a flat
+    engine serving phase 4's requests (the checks of (a) above, #2 and #3
+    launches == 28 x their forwards); (b) a fused engine refusing the
+    config (M-RoPE is RoPE-only on the mixed step); (c) ``Model.prefill``
+    of 2 x 1024 tokens with ``synthetic_batch``'s vision embeddings and
+    M-RoPE ids into a slab and ``decode_step`` of token 1024 (#6, #5
+    through ``kv_rows``) against ``forward_full`` at 1025: the argmax
+    equal wherever the margin exceeds 8 bf16 ulps, within 1e-4 at 2
+    layers f32; (d) 2 layers f32 on the card and the CPU: the flat
+    engine's greedy streams equal, the model-level call within 1e-4;
+18. one JSON line of every kernel (the rows of phases 16-17's shapes
+    added), then, last, ``{"ok": true, ...}``.
 
 It needs one CUDA card and fails without one; it imports nothing of JAX.
 """
@@ -279,9 +313,11 @@ def measured(kernel_ms, library_ms):
             "library_device_ms": library_ms.device}
 
 
-def phase_kernels(np, torch, F, tk, flush):
-    """Kernel vs plain on the card at llama3.2-3b head shapes."""
-    H, Hkv, Dh, BS, C = 24, 8, 128, 16, 256
+def phase_kernels(np, torch, F, tk, flush, H=24, Hkv=8, Dh=128,
+                  label="phase 3"):
+    """Kernel vs plain on the card at llama3.2-3b head shapes (or another
+    config's ``H``/``Hkv``/``Dh``)."""
+    BS, C = 16, 256
     segs = [("dec", 24), ("ck", 2800, 256), ("dec", 3300), ("dec", 0),
             ("ck", 0, 256), ("dec", 650), ("dec", 770)]
     alias = (5, 6, 10)                 # a shared 160-token prefix
@@ -300,7 +336,7 @@ def phase_kernels(np, torch, F, tk, flush):
         check(math.isfinite(err), f"{name}: non-finite kernel output")
         torch.testing.assert_close(out.float(), ref.float(), atol=tol,
                                    rtol=tol)
-        log(f"phase 3: kernel vs plain {name}: max_abs_err={err:.3e} "
+        log(f"{label}: kernel vs plain {name}: max_abs_err={err:.3e} "
             f"(tolerance {tol})")
         res[name] = {"err": err, "inputs": fl}
     fl = res["bf16"]["inputs"]
@@ -332,8 +368,8 @@ def phase_kernels(np, torch, F, tk, flush):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / BF16_FLOPS_PER_S * 1e3
     bound_ms = max(t_bytes, t_ops)
-    log(f"phase 3: fused bf16 wrapper: host {wrapper_us:.1f} us per call")
-    log(f"phase 3: bf16 kernel {kernel_ms:.4f} ms (device "
+    log(f"{label}: fused bf16 wrapper: host {wrapper_us:.1f} us per call")
+    log(f"{label}: bf16 kernel {kernel_ms:.4f} ms (device "
         f"{kernel_ms.device:.4f}), plain {plain_ms:.4f} ms, "
         f"library sdpa {library_ms:.4f} ms (device "
         f"{library_ms.device:.4f}), bound {bound_ms:.4f} ms "
@@ -465,10 +501,12 @@ def sdpa_inputs(torch, pools, bt, G):
             .contiguous() for p in pools]
 
 
-def phase_flat_kernels(np, torch, F, dk, pk, flush):
-    """The flat pair vs plain at llama3.2-3b heads; times and bounds."""
+def phase_flat_kernels(np, torch, F, dk, pk, flush, H=24, Hkv=8, Dh=128,
+                       label="phase 3"):
+    """The flat pair vs plain at llama3.2-3b heads (or another config's
+    ``H``/``Hkv``/``Dh``); times and bounds."""
     from repro_torch.kernels.ops import flat_work_list
-    H, Hkv, Dh, BS = 24, 8, 128, 16
+    BS = 16
     G = H // Hkv
     dev = torch.device("cuda")
     out = {}
@@ -495,7 +533,7 @@ def phase_flat_kernels(np, torch, F, dk, pk, flush):
         check(torch.equal(dk.paged_decode_attention_flat(
             *fl, *ints, num_work=num_work), got),
             f"flat decode {name}: two calls differ")
-        log(f"phase 3: flat decode vs plain {name}: max_abs_err="
+        log(f"{label}: flat decode vs plain {name}: max_abs_err="
             f"{errs[name]:.3e} (tolerance {tol}); dead slot 0, two calls "
             f"bit-equal")
     # the main path builds the work list once per decode forward and
@@ -510,7 +548,7 @@ def phase_flat_kernels(np, torch, F, dk, pk, flush):
             device=True)
         if kernel_ms.kernels >= 1:
             break
-        log(f"phase 3: the profiler recorded {kernel_ms.kernels:g} flat "
+        log(f"{label}: the profiler recorded {kernel_ms.kernels:g} flat "
             f"decode kernels a call (records lost): measured again")
     alone_ms = time_ms(torch, lambda: dk.paged_decode_attention_flat(
         *fl, *ints, num_work=num_work), 50, flush)
@@ -527,7 +565,7 @@ def phase_flat_kernels(np, torch, F, dk, pk, flush):
                                       len(lens))
     check(kernel_ms.kernels == 1, f"flat decode launched "
           f"{kernel_ms.kernels} kernels a call in the profiler, not 1")
-    log(f"phase 3: flat decode bf16 kernel {kernel_ms:.4f} ms (device "
+    log(f"{label}: flat decode bf16 kernel {kernel_ms:.4f} ms (device "
         f"{kernel_ms.device:.4f}; {kernel_ms.kernels:g} kernel a call) ("
         f"{alone_ms:.4f} ms building its work list in the call), plain "
         f"{plain_ms:.4f} ms, library sdpa {library_ms:.4f} ms (device "
@@ -558,7 +596,7 @@ def phase_flat_kernels(np, torch, F, dk, pk, flush):
                           pk.paged_prefill_attention_plain(*fl, *ints), tol)
         check(not got[2, 100:].float().abs().max().item(),
               "padding rows not zero")
-        log(f"phase 3: chunked prefill vs plain {name}: max_abs_err="
+        log(f"{label}: chunked prefill vs plain {name}: max_abs_err="
             f"{errs[name]:.3e} (tolerance {tol})")
     kernel_ms = time_ms(torch, lambda: pk.paged_prefill_attention(
         *fl, *ints), 50, flush, device=True)
@@ -578,8 +616,8 @@ def phase_flat_kernels(np, torch, F, dk, pk, flush):
         qs, kg, vg, attn_mask=mask), 20, flush, device=True)
     bound_ms, by, nb, fo = work_bound(bt, ctx, seg, tags, BS, H, Hkv, Dh,
                                       len(segs) * C)
-    log(f"phase 3: chunked prefill wrapper: host {wrapper_us:.1f} us per call")
-    log(f"phase 3: chunked prefill bf16 kernel {kernel_ms:.4f} ms (device "
+    log(f"{label}: chunked prefill wrapper: host {wrapper_us:.1f} us per call")
+    log(f"{label}: chunked prefill bf16 kernel {kernel_ms:.4f} ms (device "
         f"{kernel_ms.device:.4f}), plain "
         f"{plain_ms:.4f} ms, library sdpa {library_ms:.4f} ms (device "
         f"{library_ms.device:.4f}), bound "
@@ -1994,8 +2032,16 @@ def phase_engine_modes(np, torch, cfg_mod, model_mod, engine_mod,
         del eng
         torch.cuda.empty_cache()
         out[name] = res
-    out["kernels"] = _engine_shape_kernels(torch, cfg, dk, pk, prompts,
-                                           NEW_TOKENS)
+    # #6 at the long prompt's bucket (B 1, T 8192); #5 on the slab's step
+    # with all 8 rows live, query row b reading slab row 7 - b, each at its
+    # prompt + half its new tokens
+    flush = torch.empty(128 * 1024 * 1024, dtype=torch.float32,
+                        device="cuda")
+    out["kernels"] = contiguous_kernels_at(
+        torch, cfg, dk, pk, flush, 1, MODES_MAX_SEQ,
+        [len(p) + m // 2 for p, m in zip(prompts, NEW_TOKENS)],
+        list(range(len(prompts) - 1, -1, -1)), MODES_MAX_SEQ, "phase 14")
+    del flush
     paged_peak = out["whole-prompt"]["peak_kv_bytes"]
     slab_peak = out["slab"]["peak_kv_bytes"]
     log(f"phase 14: peak_kv_bytes paged (whole-prompt) {paged_peak:.0f} vs "
@@ -2041,96 +2087,107 @@ def phase_engine_modes(np, torch, cfg_mod, model_mod, engine_mod,
     return out
 
 
-def _engine_shape_kernels(torch, cfg, dk, pk, prompts, new_tokens):
-    """#6 and #5 (padded) at the shapes phase 14's engines give them, bf16,
-    L2 flushed: #6 on the 5897-token prompt's bucket (B 1, T 8192); #5 on
-    the slab's step with all 8 rows live (query row b reading slab row
-    7 - b through ``kv_rows``, each at its prompt + half its new tokens).
-    Each held to its plain version (5e-3) and timed beside it, one SDPA
-    call (causal with ``enable_gqa``; a bool length mask on the slab's
-    rows) and its bound, by CUDA events only: this late in the process
-    the profiler was seen to lose kernel records (#5 then read below the
-    time streaming its rows takes)."""
+def contiguous_kernels_at(torch, cfg, dk, pk, flush, B, T, lens, rows, S,
+                          label, device=False):
+    """#6 and #5 (padded) at the shapes an engine or a model-level call
+    gives them, bf16, ``cfg``'s heads, L2 flushed: #6 on [B, T, H, Dh]
+    (every row T long); #5 on ``len(lens)`` query rows over a slab of as
+    many rows of ``S`` keys, query row b reading slab row
+    ``rows[b]`` through ``kv_rows`` at ``lens[b]`` keys. Each held to its
+    plain version (5e-3) and timed beside it, one SDPA call (causal with
+    ``enable_gqa``; a bool length mask on the slab's rows, in slab order)
+    and its bound, by CUDA events, and with ``device`` also by the
+    profiler's device time (phase 14 times by events only: this late in
+    the process the profiler was seen to lose kernel records, and #5 then
+    read below the time streaming its rows takes). #5 may not be timed
+    below streaming its whole slab."""
     import torch.nn.functional as F
-    H, Hkv, Dh, G = (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
-                     cfg.num_heads // cfg.num_kv_heads)
+    H, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    G = H // Hkv
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED + 14)
-    flush = torch.empty(128 * 1024 * 1024, dtype=torch.float32,
-                        device="cuda")
+
+    def timed(fn, iters):
+        t = time_ms(torch, fn, iters, flush, device=device)
+        return ({"ms": float(t), "device_ms": t.device} if device
+                else {"ms": t})
+
+    def times(kernel, plain, library, iters):
+        row = timed(kernel, iters)
+        lib = timed(library, iters)
+        row.update(plain_ms=time_ms(torch, plain, 2, flush),
+                   library_ms=lib["ms"])
+        if device:
+            row["library_device_ms"] = lib["device_ms"]
+        return row
+
+    def dev(row, key="device_ms"):
+        return f" (device {row[key]:.4f})" if device else ""
     out = {}
-    T = S = MODES_MAX_SEQ
-    q, k, v = (randn(torch, gen, (1, T, n, Dh), torch.bfloat16)
+    q, k, v = (randn(torch, gen, (B, T, n, Dh), torch.bfloat16)
                for n in (H, Hkv, Hkv))
-    err = hold(torch, "phase 14 #6 at T 8192", pk.prefill_attention(q, k, v),
-               pk.prefill_attention_plain(
-                   q, k, v, torch.full((1,), T, dtype=torch.int32,
-                                       device="cuda")), 5e-3)
-    kernel_ms = time_ms(torch, lambda: pk.prefill_attention(q, k, v), 10,
-                        flush)
-    plain_ms = time_ms(torch, lambda: pk.prefill_attention_plain(
-        q, k, v, torch.full((1,), T, dtype=torch.int32, device="cuda")), 2,
-        flush)
+    full = torch.full((B,), T, dtype=torch.int32, device="cuda")
+    err = hold(torch, f"{label} #6", pk.prefill_attention(q, k, v),
+               pk.prefill_attention_plain(q, k, v, full), 5e-3)
     qs, ks, vs = (x.transpose(1, 2) for x in (q, k, v))
-    library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
-        qs, ks, vs, is_causal=True, enable_gqa=True), 10, flush)
-    flops = 4.0 * (T * (T + 1) // 2) * H * Dh
-    bound_ms, by = bound_of(T * (H + 2 * Hkv + H) * Dh * 2, flops)
-    out["prefill"] = {"T": T, "max_abs_err": err, "ms": kernel_ms,
-                      "plain_ms": plain_ms, "library_ms": library_ms,
+    row = times(lambda: pk.prefill_attention(q, k, v),
+                lambda: pk.prefill_attention_plain(q, k, v, full),
+                lambda: F.scaled_dot_product_attention(
+                    qs, ks, vs, is_causal=True, enable_gqa=True), 10)
+    flops = 4.0 * B * (T * (T + 1) // 2) * H * Dh
+    bound_ms, by = bound_of(B * T * (H + 2 * Hkv + H) * Dh * 2, flops)
+    out["prefill"] = {"B": B, "T": T, "max_abs_err": err, **row,
                       "bound_ms": bound_ms, "bound_by": by,
-                      "tflops": flops / kernel_ms / 1e9}
-    log(f"phase 14: #6 at the whole-prompt bucket (B 1, T {T}, bf16): "
-        f"{kernel_ms:.4f} ms ({flops / kernel_ms / 1e9:.1f} TFLOP/s), "
-        f"plain {plain_ms:.4f} ms, library sdpa {library_ms:.4f} ms, bound "
-        f"{bound_ms:.4f} ms ({by}); vs plain max abs {err:.3e}")
+                      "tflops": flops / row["ms"] / 1e9}
+    log(f"{label}: #6 at B {B}, T {T}, H {H} / Hkv {Hkv} (G {G}), bf16: "
+        f"{row['ms']:.4f} ms{dev(row)} "
+        f"({flops / row['ms'] / 1e9:.1f} TFLOP/s), plain "
+        f"{row['plain_ms']:.4f} ms, library sdpa {row['library_ms']:.4f} "
+        f"ms{dev(row, 'library_device_ms')}, bound {bound_ms:.4f} ms ({by});"
+        f" vs plain max abs {err:.3e}")
     del q, k, v, qs, ks, vs
     torch.cuda.empty_cache()
-    B = len(prompts)
-    lens = [len(p) + m // 2 for p, m in zip(prompts, new_tokens)]
-    q = randn(torch, gen, (B, H, Dh), torch.bfloat16)
-    k, v = (randn(torch, gen, (B, S, Hkv, Dh), torch.bfloat16)
+    R = len(lens)
+    q = randn(torch, gen, (R, H, Dh), torch.bfloat16)
+    k, v = (randn(torch, gen, (R, S, Hkv, Dh), torch.bfloat16)
             for _ in range(2))
-    rows = torch.arange(B - 1, -1, -1, dtype=torch.int32, device="cuda")
+    rows_t = torch.tensor(rows, dtype=torch.int32, device="cuda")
     lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
-
-    def run():
-        return dk.decode_attention(q, k, v, lengths, kv_rows=rows)
-    err = hold(torch, "phase 14 #5 on the slab", run(),
-               dk.decode_attention_plain(q, k, v, lengths, kv_rows=rows),
-               5e-3)
-    kernel_ms = time_ms(torch, run, 10, flush)
-    plain_ms = time_ms(torch, lambda: dk.decode_attention_plain(
-        q, k, v, lengths, kv_rows=rows), 2, flush)
-    # library: one SDPA on the slab's rows as they lie, the query rows put
-    # in slab order, a bool length mask; G query heads per kv head as rows
-    order = rows.long().argsort()
+    err = hold(torch, f"{label} #5", dk.decode_attention(
+        q, k, v, lengths, kv_rows=rows_t), dk.decode_attention_plain(
+        q, k, v, lengths, kv_rows=rows_t), 5e-3)
+    # library: the query rows put in slab order, G query heads per kv head
+    # as rows
+    order = rows_t.long().argsort()
     mask = (torch.arange(S, device="cuda")[None]
             < lengths[order][:, None])[:, None, None]
-    qr = q[order].reshape(B, Hkv, G, Dh)
+    qr = q[order].reshape(R, Hkv, G, Dh)
     kt, vt = k.transpose(1, 2), v.transpose(1, 2)
-    library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
-        qr, kt, vt, attn_mask=mask), 10, flush)
-    nb, fo = contiguous_work(lens, H, Hkv, Dh, B)
+    row = times(lambda: dk.decode_attention(q, k, v, lengths,
+                                            kv_rows=rows_t),
+                lambda: dk.decode_attention_plain(q, k, v, lengths,
+                                                  kv_rows=rows_t),
+                lambda: F.scaled_dot_product_attention(
+                    qr, kt, vt, attn_mask=mask), 10)
+    nb, fo = contiguous_work(lens, H, Hkv, Dh, R)
     bound_ms, by = bound_of(nb, fo)
     stream_ms = 2 * k.numel() * k.element_size() / HBM_BYTES_PER_S * 1e3
-    check(kernel_ms >= stream_ms, f"phase 14: padded decode on the slab "
-          f"timed at {kernel_ms:.4f} ms, below the {stream_ms:.4f} ms that "
+    check(row["ms"] >= stream_ms, f"{label}: padded decode on the slab "
+          f"timed at {row['ms']:.4f} ms, below the {stream_ms:.4f} ms that "
           f"streaming its rows takes: it skipped blocks")
-    out["decode_padded"] = {"rows": B, "S": S, "lengths": lens,
-                            "max_abs_err": err, "ms": kernel_ms,
-                            "plain_ms": plain_ms, "library_ms": library_ms,
-                            "bound_ms": bound_ms, "bound_by": by,
-                            "stream_bound_ms": stream_ms}
-    log(f"phase 14: #5 padded on the slab ({B} rows via kv_rows, S {S}, "
-        f"lengths {lens}, bf16): {kernel_ms:.4f} ms ("
-        f"{2 * k.numel() * k.element_size() / kernel_ms / 1e9:.3f} TB/s of "
-        f"the rows it streams), plain {plain_ms:.4f} ms, library sdpa "
-        f"{library_ms:.4f} ms, bound "
-        f"{bound_ms:.4f} ms ({by}), streaming bound {stream_ms:.4f} ms; vs "
-        f"plain max abs {err:.3e}; x {cfg.num_layers} layers = "
-        f"{cfg.num_layers * kernel_ms:.3f} ms a decode step")
-    del q, k, v, kt, vt, qr, mask, flush
+    out["decode_padded"] = {"rows": R, "S": S, "lengths": list(lens),
+                            "max_abs_err": err, **row, "bound_ms": bound_ms,
+                            "bound_by": by, "stream_bound_ms": stream_ms}
+    log(f"{label}: #5 padded on the slab ({R} rows via kv_rows, S {S}, "
+        f"lengths {list(lens)}, H {H} / Hkv {Hkv} (G {G}), bf16): "
+        f"{row['ms']:.4f} ms{dev(row)} ("
+        f"{2 * k.numel() * k.element_size() / row['ms'] / 1e9:.3f} TB/s of "
+        f"the rows it streams), plain {row['plain_ms']:.4f} ms, library "
+        f"sdpa {row['library_ms']:.4f} ms{dev(row, 'library_device_ms')}, "
+        f"bound {bound_ms:.4f} ms ({by}), streaming bound {stream_ms:.4f} "
+        f"ms; vs plain max abs {err:.3e}; x {cfg.num_layers} layers = "
+        f"{cfg.num_layers * row['ms']:.3f} ms a decode step")
+    del q, k, v, kt, vt, qr, mask
     torch.cuda.empty_cache()
     return out
 
@@ -2214,6 +2271,624 @@ def phase_cost_model(torch, fig2_tax):
     return res
 
 
+# --------------------------------------------------------------------------
+# Phases 16 and 17: the MoE and VLM decoder families at full width
+# --------------------------------------------------------------------------
+MOE_ARCH, VLM_ARCH = "qwen3-moe-30b-a3b", "qwen2-vl-7b"
+VLM_SLAB = (2, 1024)        # phase 17 (c): B prompts of T tokens
+# phase 17 (c)'s bound on the relative L2 gap between the bf16 slab
+# decode's logits and the whole forward's at full depth: on the H100 the
+# sound rows read 0.0216 / 0.0225, the decode at the text M-RoPE ids
+# 0.953 / 0.968 and the swapped rows 1.418 / 1.441 (PERF.md §6)
+VLM_SLAB_GAP = 0.15
+SMALL_REQS = (40, 130, 17)  # phase 5's prompts (6 new tokens each)
+
+
+def decoder_params(cfg):
+    """Parameters of a decoder config: embeddings (and an untied
+    unembedding), then per layer attention (with QKV biases), two norms
+    and the FFN, or the f32 router, E experts and arctic's dense residual
+    FFN and its norm."""
+    D, H, Hkv, Dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, \
+        cfg.head_dim
+    attn = D * (H + 2 * Hkv) * Dh + H * Dh * D
+    attn += (H + 2 * Hkv) * Dh if cfg.qkv_bias else 0
+    ffn = 3 * D * cfg.d_ff
+    if cfg.num_experts:
+        mlp = D * cfg.num_experts + cfg.num_experts * ffn
+        mlp += ffn + D if cfg.dense_residual else 0
+    else:
+        mlp = ffn
+    embed = cfg.vocab_size * D * (1 if cfg.tie_embeddings else 2)
+    return embed + D + cfg.num_layers * (attn + 2 * D + mlp)
+
+
+def _fresh_card(torch, label):
+    """Free what earlier phases left and check that under 1 GB is still
+    allocated, so a full-width weight set starts alone on the card."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    check(held < 1e9, f"{label}: {held / 1e9:.2f} GB still allocated "
+          "before the weights are drawn")
+    log(f"{label}: {held / 1e9:.3f} GB allocated before the weights")
+    torch.cuda.reset_peak_memory_stats()
+    return held
+
+
+def _draw_weights(torch, model, label):
+    t0 = time.perf_counter()
+    params = model.init(SEED, device="cuda")
+    torch.cuda.synchronize()
+    nbytes = sum(v.numel() * v.element_size() for v in _leaves(params))
+    log(f"{label}: {model.cfg.name} weights drawn on the card in "
+        f"{time.perf_counter() - t0:.1f} s: {nbytes / 1e9:.2f} GB "
+        f"({sum(v.numel() for v in _leaves(params)) / 1e9:.3f} B "
+        f"parameters), peak memory while drawing "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    return params, nbytes
+
+
+def _forward_kinds(engine_mod, model):
+    """Count the engine's attention-bearing forwards by kind (the chunk
+    forward, anything else) while installed; returns (kinds, restore)."""
+    kinds = {"prefill": 0, "decode": 0}
+    real = engine_mod.attn_call
+
+    def attn_call(fn, *a, **k):
+        kinds["prefill" if fn is model.prefill_chunk else "decode"] += 1
+        return real(fn, *a, **k)
+    engine_mod.attn_call = attn_call
+
+    def restore():
+        engine_mod.attn_call = real
+    return kinds, restore
+
+
+def _serve_trace(np, torch, engine_mod, request_mod, tk, dk, pk, eng, model,
+                 prompts, label):
+    """Phase 4's requests (``prompts`` with ``NEW_TOKENS``), arriving one
+    a step, on ``eng`` under sync-debug "error" (``_drive_modes_trace``'s
+    checks: one d2h a step that brings tokens, the backend's forwards a
+    step); every request finishes with its count. Returns the summary
+    (TTFT/TPOT in steps and s, step ms, tokens/s, peak memory, forwards
+    by kind, launches)."""
+    reqs = [request_mod.ServeRequest(i, p.copy(), m)
+            for i, (p, m) in enumerate(zip(prompts, NEW_TOKENS))]
+    zero_counts(tk, dk, pk)
+    kinds, restore = _forward_kinds(engine_mod, model)
+    try:
+        step_ms, seen, sub, forwards = _drive_modes_trace(
+            np, torch, engine_mod, eng, reqs)
+    finally:
+        restore()
+    launches = {k: v for k, v in launch_counts(tk, dk, pk).items() if v}
+    for r in reqs:
+        check(len(r.generated) == r.max_new_tokens and not r.rejected,
+              f"{label}: request {r.req_id}: {len(r.generated)} tokens")
+        check(all(0 <= t < model.cfg.vocab_size for t in r.generated),
+              f"{label}: request {r.req_id}: token out of range")
+    eng.check_drained()
+    ttft_steps = [seen[r.req_id][0][0] - sub[r.req_id][0] for r in reqs]
+    ttft_s = [seen[r.req_id][0][1] - sub[r.req_id][1] for r in reqs]
+    tpot_s = [(seen[r.req_id][-1][1] - seen[r.req_id][0][1])
+              / (len(r.generated) - 1) for r in reqs]
+    tpot_steps = [(r.finish_step - r.first_token_step)
+                  / (len(r.generated) - 1) for r in reqs]
+    wall = sum(step_ms) / 1e3
+    ntok = sum(len(r.generated) for r in reqs)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"{label}: {len(reqs)} requests drained in {eng.steps} steps, "
+        f"{wall:.3f} s of steps; {ntok} tokens, {ntok / wall:.1f} tokens/s; "
+        f"{forwards} forwards" + ("" if eng.fused_mixed else
+                                  f" {json.dumps(kinds)}") +
+        f"; launches {json.dumps(launches)}; peak memory {peak_gb:.2f} GB")
+    log(f"{label}: step ms mean {sum(step_ms) / len(step_ms):.2f} min "
+        f"{min(step_ms):.2f} max {max(step_ms):.2f}; TTFT steps "
+        f"{ttft_steps}; TTFT s {[round(x, 4) for x in ttft_s]}; TPOT steps "
+        f"{[round(x, 3) for x in tpot_steps]}; TPOT s "
+        f"{[round(x, 5) for x in tpot_s]}")
+    return {"steps": eng.steps, "wall_s": wall, "tokens": ntok,
+            "tokens_per_s": ntok / wall, "step_ms": step_ms,
+            "ttft_steps": ttft_steps, "ttft_s": ttft_s,
+            "tpot_steps": tpot_steps, "tpot_s": tpot_s,
+            "forwards": dict(kinds), "forwards_total": forwards,
+            "launches": launches, "peak_memory_gb": peak_gb,
+            "streams": [list(r.generated) for r in reqs]}
+
+
+def phase_moe_profile(torch):
+    """``tools/profile_torch_engine.py --arch qwen3-moe-30b-a3b`` in a
+    fresh process (its profiler must record every kernel of the steps it
+    profiles; late in this process records went missing), with nothing of
+    this process's left on the card: mixed and decode-only engine steps,
+    each step's device busy split into the MoE layer (beside its bound),
+    the attention kernel and the rest. Fails unless it exits 0 with both
+    windows profiled and every number finite."""
+    _fresh_card(torch, "phase 16 (a) profile")
+    out = ROOT / "chiprun_out" / "phase16_moe_profile.json"
+    out.unlink(missing_ok=True)
+    rc = subprocess.run(
+        [sys.executable, str(ROOT / "tools" / "profile_torch_engine.py"),
+         "--arch", MOE_ARCH, "--json", str(out)], timeout=900).returncode
+    check(rc == 0 and out.is_file(), f"phase 16 (a) profile failed "
+          f"(exit {rc})")
+    res = json.loads(out.read_text())
+    check(len(res["windows"]) == 2, "phase 16 (a): a window not profiled")
+    for w in res["windows"]:
+        check(all(s["moe_calls"] for s in w["samples"]),
+              f"phase 16 (a): {w['label']}: a step ran no MoE layer")
+        check(all(math.isfinite(v) for s in w["samples"]
+                  for v in s.values() if isinstance(v, float)),
+              f"phase 16 (a): {w['label']}: a number is not finite")
+    return res
+
+
+def _small_requests(np, request_mod, vocab):
+    rng = np.random.default_rng(SEED + 1)
+    return [request_mod.ServeRequest(
+        i, rng.integers(0, vocab, n).astype(np.int32), 6)
+        for i, n in enumerate(SMALL_REQS)]
+
+
+def _engine_devices(np, torch, model, gpu_params, cpu_params, engine_mod,
+                    request_mod, label, **engine_kw):
+    """Phase 5's requests on an engine on the card and on one on the CPU
+    (``engine_kw``: the backend), same weights: equal greedy streams."""
+    streams = {}
+    for dev, params in (("cuda", gpu_params), ("cpu", cpu_params)):
+        eng = engine_mod.Engine(0, model, params, max_slots=3, max_seq=512,
+                                prefill_token_budget=64, preemption=False,
+                                **engine_kw)
+        check(eng.device.type == dev, f"{label}: engine on {eng.device}")
+        reqs = _small_requests(np, request_mod, model.cfg.vocab_size)
+        t0 = time.perf_counter()
+        for r in reqs:
+            eng.submit(r)
+        while not all(r.state.name == "FINISHED" for r in reqs):
+            check(eng.steps < 200, f"{label}: engine did not drain")
+            eng.step()
+        eng.check_drained()
+        streams[dev] = [list(r.generated) for r in reqs]
+        log(f"{label}: {dev} engine ({engine_kw}) drained in {eng.steps} "
+            f"steps, {time.perf_counter() - t0:.1f} s")
+    check(streams["cuda"] == streams["cpu"],
+          f"{label}: greedy streams differ: cuda {streams['cuda']} "
+          f"cpu {streams['cpu']}")
+    return streams["cuda"]
+
+
+def _moe_cluster(np, torch, model, params, engine_mod, request_mod,
+                 server_mod, serve_mod, qoe_mod, tk, dk, pk, label):
+    """A 2-engine ``MILSServer`` (stages [0, 2048) and [2048, inf)), fused
+    engines of ``max_slots 8, max_seq 8192, token_budget 16384``,
+    preemption off, phase 6's 16 requests, under sync-debug "error":
+    every request drains, at least one migration, each engine step makes
+    at most one d2h and one forward, #1 launches == layers x forwards and
+    no other kernel runs."""
+    cfg = model.cfg
+    srv = server_mod.MILSServer(
+        model, params, serve_mod.default_plan(2, 8192),
+        qoe_mod.QoEModel(np.array(serve_mod.DEFAULT_QOE)),
+        server_mod.ServerConfig(policy="cascade", refinement="adaptive",
+                                balancing="full", seed=SEED,
+                                preemption=False),
+        engine_factory=lambda i: engine_mod.Engine(
+            i, model, params, max_slots=8, max_seq=8192, token_budget=16384,
+            preemption=False))
+    reqs = _submit_trace(np, request_mod, srv, CLUSTER_TRACE,
+                         cfg.vocab_size, SEED + 2)
+    worst = {"d2h": 0, "attn": 0}
+    for eng in srv.engines:
+        def counted(burst=1, _step=eng.step):
+            d0, a0 = engine_mod.D2H_CALLS, engine_mod.ATTN_CALLS
+            out = _step(burst)
+            worst["d2h"] = max(worst["d2h"], engine_mod.D2H_CALLS - d0)
+            worst["attn"] = max(worst["attn"], engine_mod.ATTN_CALLS - a0)
+            return out
+        eng.step = counted
+    zero_counts(tk, dk, pk)
+    a0 = engine_mod.ATTN_CALLS
+    t_end = {0: 0.0}
+    step_ms = []
+    t_start = time.perf_counter()
+    while len(srv.finished) < srv.submitted:
+        check(srv.steps < 1000, f"{label}: cluster did not drain")
+        t = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            srv.step()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        t_end[srv.steps] = time.perf_counter() - t_start
+    wall = time.perf_counter() - t_start
+    forwards = engine_mod.ATTN_CALLS - a0
+    launches = {k: v for k, v in launch_counts(tk, dk, pk).items() if v}
+    for eng in srv.engines:
+        eng.check_drained(strict=True)
+    check(worst["d2h"] <= 1, f"{label}: an engine step made "
+          f"{worst['d2h']} d2h")
+    check(worst["attn"] <= 1, f"{label}: an engine step made "
+          f"{worst['attn']} forwards")
+    check(launches == {"fused": cfg.num_layers * forwards} and forwards,
+          f"{label}: launches {launches} != {cfg.num_layers} x {forwards} "
+          "fused forwards")
+    check(srv.migrations >= 1, f"{label}: no migration")
+    for r in reqs:
+        check(len(r.generated) == r.max_new_tokens and not r.rejected,
+              f"{label}: request {r.req_id}: {len(r.generated)} tokens")
+    summ = srv.summary()
+    ttft_s = [t_end[r.first_token_step] - t_end[r.arrival_step]
+              for r in reqs]
+    e2e_s = [t_end[r.finish_step] - t_end[r.arrival_step] for r in reqs]
+    pct = {f"{name}_p{p}": float(np.percentile(v, p))
+           for name, v in (("ttft_s", ttft_s), ("e2e_s", e2e_s))
+           for p in (50, 95, 99)}
+    ntok = summ["tokens_out"]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"{label}: 2 fused engines, {len(reqs)} requests drained in "
+        f"{srv.steps} steps, {wall:.3f} s; {ntok} tokens, "
+        f"{ntok / wall:.1f} tokens/s; {srv.migrations} migrations "
+        f"({srv.migrated_bytes / 1e6:.1f} MB moved); launches "
+        f"{json.dumps(launches)} = {cfg.num_layers} x {forwards} forwards; "
+        f"peak memory {peak_gb:.2f} GB; stage bounds {srv.stage_bounds}")
+    log(f"{label}: server step ms mean {sum(step_ms) / len(step_ms):.2f} "
+        f"max {max(step_ms):.2f}; seconds " + json.dumps(pct))
+    out = {"steps": srv.steps, "wall_s": wall, "tokens": ntok,
+           "tokens_per_s": ntok / wall, "step_ms": step_ms,
+           "migrations": srv.migrations,
+           "migrated_bytes": srv.migrated_bytes, "forwards": forwards,
+           "launches": launches, "peak_memory_gb": peak_gb, **pct,
+           "ttft_s": ttft_s, "e2e_s": e2e_s}
+    for eng in srv.engines:
+        eng.shutdown()
+    del srv
+    gc.collect()        # the counting wrappers hold their engines
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_moe(np, torch, cfg_mod, model_mod, engine_mod, request_mod,
+              server_mod, serve_mod, qoe_mod, tk, dk, pk):
+    """Phase 16: qwen3-moe-30b-a3b at full width, bf16, alone on the card:
+    (a) one fused engine serving phase 4's requests, then profiled steps
+    split into the MoE layer, the attention kernel and the rest (in a
+    fresh process); (b) a 2-engine cluster; (c) 2 layers f32 on the card
+    and the CPU (engine streams, ``moe_dense``); (d) arctic-480b reduced,
+    the same."""
+    from repro_torch.models import mlp as mlp_mod
+    base = cfg_mod.get_config(MOE_ARCH)
+    held = _fresh_card(torch, "phase 16")
+    cfg = dataclasses.replace(base, dtype=torch.bfloat16)
+    model = model_mod.build_model(cfg)
+    params, nbytes = _draw_weights(torch, model, "phase 16")
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in PROMPTS]
+
+    # (a) one engine, then a profiled pass on a fresh one
+    eng = engine_mod.Engine(0, model, params, max_slots=8, max_seq=8192,
+                            token_budget=32768, preemption=False)
+    check(eng.fused_mixed, "phase 16: the engine is not on fused")
+    engine = _serve_trace(np, torch, engine_mod, request_mod, tk, dk, pk,
+                          eng, model, prompts, "phase 16 (a)")
+    check(engine["launches"] == {"fused": cfg.num_layers
+                                 * engine["forwards_total"]},
+          f"phase 16 (a): launches {engine['launches']} != "
+          f"{cfg.num_layers} x {engine['forwards_total']} fused forwards")
+    eng.shutdown()
+    del eng, params
+    engine["profile"] = phase_moe_profile(torch)
+
+    # (b) the 2-engine cluster, on the weights drawn again
+    params, _ = _draw_weights(torch, model, "phase 16 (b)")
+    cluster = _moe_cluster(np, torch, model, params, engine_mod,
+                           request_mod, server_mod, serve_mod, qoe_mod, tk,
+                           dk, pk, "phase 16 (b)")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) 2 layers, full width, f32: the card against the CPU
+    t0 = time.perf_counter()
+    cfg2 = dataclasses.replace(base, num_layers=2, dtype=torch.float32)
+    model2 = model_mod.build_model(cfg2)
+    gpu2 = model2.init(SEED, device="cuda")
+    cpu2 = _tree_to(gpu2, torch.device("cpu"))
+    streams = _engine_devices(np, torch, model2, gpu2, cpu2, engine_mod,
+                              request_mod, "phase 16 (c)")
+    x = torch.from_numpy(np.random.default_rng(SEED + 16).normal(
+        0, 1, (2, 7, cfg2.d_model)).astype(np.float32))
+    layer = {k: v[0] for k, v in cpu2["layers"]["moe"].items()}
+    y_cpu, aux_cpu = mlp_mod.moe_dense(layer, cfg2, x)
+    y_gpu, aux_gpu = mlp_mod.moe_dense(
+        _tree_to(layer, torch.device("cuda")), cfg2, x.cuda())
+    torch.testing.assert_close(y_gpu.cpu(), y_cpu, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(aux_gpu.cpu(), aux_cpu, atol=1e-4, rtol=1e-4)
+    moe_err = (y_gpu.cpu() - y_cpu).abs().max().item()
+    log(f"phase 16 (c): 2-layer full-width f32 {MOE_ARCH}, cuda == cpu "
+        f"greedy streams {streams}; moe_dense cuda vs cpu max abs "
+        f"{moe_err:.3e} (1e-4) on |y| <= {y_cpu.abs().max().item():.2f}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    del gpu2, cpu2, layer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) arctic-480b reduced (its dense residual), the card against the CPU
+    acfg = cfg_mod.get_config("arctic-480b").reduced()
+    amodel = model_mod.build_model(acfg)
+    acpu = amodel.init(SEED, device="cpu")
+    arctic = _engine_devices(np, torch, amodel,
+                             _tree_to(acpu, torch.device("cuda")), acpu,
+                             engine_mod, request_mod, "phase 16 (d)")
+    full = decoder_params(cfg_mod.get_config("arctic-480b"))
+    log(f"phase 16 (d): arctic-480b reduced (dense residual), cuda == cpu "
+        f"greedy streams {arctic}; at full width it holds {full / 1e9:.1f} B "
+        f"parameters, {full * 2 / 1e12:.3f} TB in bf16: no single card "
+        "holds it")
+    return {"held_before_gb": held / 1e9,
+            "weights_gb": nbytes / 1e9, "peak_memory_gb": peak_gb,
+            "engine": engine, "cluster": cluster,
+            "cuda_cpu_streams": streams, "moe_dense_err": moe_err,
+            "arctic_streams": arctic}
+
+
+def family_kernels(np, torch, F, cfg_mod, tk, dk, pk, flush):
+    """Phase 3 at the head groupings of phases 16 and 17 (early in the
+    process, where the profiler keeps every record): #1 at qwen3-moe-30b-
+    a3b's heads (32 / 4 / 64, G 8) on phase 3's segments; #2 and #3 at
+    qwen2-vl-7b's (28 / 4 / 128, G 7) on phase 3's rows; #6 and #5 at the
+    shapes of phase 17 (c)'s model-level call (B 2 prompts of T 1024; 2
+    rows of a 1025-row slab through the identity row map). #1 is also
+    held at Dh 128, the published Qwen3-30B-A3B's head width (the repo's
+    config leaves head_dim unset, so the engine runs Dh 64)."""
+    moe = cfg_mod.get_config(MOE_ARCH)
+    vlm = cfg_mod.get_config(VLM_ARCH)
+    out = {"moe": phase_kernels(np, torch, F, tk, flush, H=moe.num_heads,
+                                Hkv=moe.num_kv_heads, Dh=moe.head_dim,
+                                label=f"phase 3 ({MOE_ARCH}, G 8)")}
+    out["moe_dh128"] = phase_kernels(
+        np, torch, F, tk, flush, H=moe.num_heads, Hkv=moe.num_kv_heads,
+        Dh=128, label=f"phase 3 ({MOE_ARCH}, G 8, published Dh 128)")
+    out["flat"] = phase_flat_kernels(np, torch, F, dk, pk, flush,
+                                     H=vlm.num_heads, Hkv=vlm.num_kv_heads,
+                                     Dh=vlm.head_dim,
+                                     label=f"phase 3 ({VLM_ARCH}, G 7)")
+    B, T = VLM_SLAB
+    out["slab"] = contiguous_kernels_at(
+        torch, vlm, dk, pk, flush, B, T, [T + 1] * B, list(range(B)), T + 1,
+        f"phase 3 ({VLM_ARCH}, G 7)", device=True)
+    return out
+
+
+def _vlm_slab_call(torch, model_mod, model, params, B, T, device):
+    """``Model.prefill`` of T tokens of ``synthetic_batch(cfg, B, T + 1)``
+    (a quarter of them patches: vision embeddings, M-RoPE grid ids) into a
+    slab of T + 1 rows, then ``decode_step`` of token T at its M-RoPE ids
+    through the identity row map; and ``forward_full`` of all T + 1
+    tokens. Returns (decode logits, whole-forward last logits, controls),
+    f32; ``controls()`` decodes token T again with one fault each and
+    returns their logits: "text_ids" at the default text M-RoPE ids
+    (position T on all three streams, not the grid's), "swapped_rows"
+    through the reversed row map (each row attends the other prompt)."""
+    from repro_torch.models import transformer as transformer_mod
+    cfg = model.cfg
+    batch = model_mod.synthetic_batch(cfg, B, T + 1, np_seed=SEED,
+                                      device=device)
+    tokens = batch.pop("tokens")
+    pre = {k: (v[:, :T] if k in ("vision_mask", "mrope_positions") else v)
+           for k, v in batch.items()}
+    _, slab = model.prefill(params, tokens[:, :T], T + 1, **pre)
+    pos = torch.full((B,), T, dtype=torch.int32, device=device)
+    rows = torch.arange(B, dtype=torch.int32, device=device)
+    mrope = batch["mrope_positions"][:, T:T + 1]
+
+    def decode(row_map, **kw):
+        # each call writes only position T of its rows, then reads it
+        out, _ = model.decode_step(params, slab, tokens[:, T], pos,
+                                   rows=row_map, **kw)
+        return out.float()
+    dec = decode(rows, mrope_positions=mrope)
+    ref, _ = transformer_mod.forward_full(params, cfg, tokens,
+                                          last_only=True, **batch)
+
+    def controls():
+        return {"text_ids": decode(rows),
+                "swapped_rows": decode(rows.flip(0), mrope_positions=mrope)}
+    return dec, ref[:, -1].float(), controls
+
+
+def logit_gap(dec, ref):
+    """Per row, the relative L2 distance ``|dec - ref| / |ref|`` of two
+    logit rows (a near-tie at the top does not move it)."""
+    return ((dec - ref).norm(dim=-1) / ref.norm(dim=-1)).tolist()
+
+
+def phase_vlm(np, torch, cfg_mod, model_mod, engine_mod, request_mod,
+              tk, dk, pk):
+    """Phase 17: qwen2-vl-7b at full width, bf16, alone on the card: (a)
+    one flat engine serving phase 4's requests; (b) a fused engine
+    refusing the config; (c) ``prefill`` and ``decode_step`` on the slab
+    with vision extras (B 2, T 1024) against the whole forward at full
+    depth bf16 and at 2 layers f32; (d) 2 layers f32 on the card and the
+    CPU (the flat engine's streams, the model-level call's logits)."""
+    base = cfg_mod.get_config(VLM_ARCH)
+    B, T = VLM_SLAB
+    held = _fresh_card(torch, "phase 17")
+    cfg = dataclasses.replace(base, dtype=torch.bfloat16)
+    model = model_mod.build_model(cfg)
+    params, nbytes = _draw_weights(torch, model, "phase 17")
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in PROMPTS]
+    L = cfg.num_layers
+
+    # (a) the flat engine
+    eng = engine_mod.Engine(0, model, params, max_slots=8, max_seq=8192,
+                            attn_backend="flat", preemption=False)
+    engine = _serve_trace(np, torch, engine_mod, request_mod, tk, dk, pk,
+                          eng, model, prompts, "phase 17 (a)")
+    fw = engine["forwards"]
+    check(engine["launches"] == {"flat_decode": L * fw["decode"],
+                                 "chunked_prefill": L * fw["prefill"]}
+          and fw["decode"] and fw["prefill"],
+          f"phase 17 (a): launches {engine['launches']} != {L} x forwards "
+          f"{fw}")
+    eng.shutdown()
+    del eng
+    torch.cuda.empty_cache()
+
+    # (b) fused refuses the config, as the reference's engine does
+    try:
+        engine_mod.Engine(0, model, params, max_slots=8, max_seq=8192,
+                          attn_backend="fused", preemption=False)
+    except ValueError as e:
+        check("RoPE / learned-pos only" in str(e),
+              f"phase 17 (b): refused for another reason: {e}")
+        refusal = str(e)
+    else:
+        raise AssertionError("phase 17 (b): a fused engine took the VLM")
+    torch.cuda.empty_cache()
+    log(f"phase 17 (b): a fused engine refuses {VLM_ARCH} as expected: "
+        f"{refusal!r}")
+
+    # (c) the slab with vision extras, full depth bf16: each row's logits
+    # within VLM_SLAB_GAP of the whole forward's (relative L2), and each
+    # control (the decode row at the text ids, the rows swapped) beyond it
+    zero_counts(tk, dk, pk)
+    dec, ref, controls = _vlm_slab_call(torch, model_mod, model, params, B,
+                                        T, "cuda")
+    launches = {k: v for k, v in launch_counts(tk, dk, pk).items() if v}
+    check(launches == {"contiguous_prefill": 2 * L,
+                       "contiguous_decode_padded": L},
+          f"phase 17 (c): launches {launches}")
+    check(torch.isfinite(dec).all() and torch.isfinite(ref).all(),
+          "phase 17 (c): non-finite logits")
+    gap = logit_gap(dec, ref)
+    gaps = {name: logit_gap(c, ref)
+            for name, c in controls().items()}
+    log(f"phase 17 (c): relative L2 gap to the whole forward per row "
+        f"{gap} (bound {VLM_SLAB_GAP}); controls {json.dumps(gaps)}")
+    check(max(gap) <= VLM_SLAB_GAP, f"phase 17 (c): decode logits {gap} "
+          f"from the whole forward's (> {VLM_SLAB_GAP})")
+    for name, g in gaps.items():
+        check(min(g) > VLM_SLAB_GAP, f"phase 17 (c): the {name} control "
+              f"passed the bound: {g} (<= {VLM_SLAB_GAP})")
+    margins = []
+    for b in range(B):
+        top2 = ref[b].topk(2).values
+        gap = float(top2[0] - top2[1])
+        tol = MARGIN_ULPS * bf16_ulp(float(top2[0]))
+        same = int(dec[b].argmax()) == int(ref[b].argmax())
+        check(same or gap <= tol, f"phase 17 (c): row {b}: decode argmax "
+              f"{int(dec[b].argmax())} != whole forward's "
+              f"{int(ref[b].argmax())} at a margin of {gap} (> {tol})")
+        margins.append({"row": b, "same_argmax": same, "margin": gap,
+                        "tolerance": tol})
+    diff = (dec - ref).abs().max().item()
+    log(f"phase 17 (c): {VLM_ARCH} bf16, B {B}, T {T} ({T // 4} patches): "
+        f"prefill + slab decode vs the whole forward at T + 1: argmax "
+        f"{json.dumps(margins)}; max abs logit diff {diff:.4f}; launches "
+        f"{json.dumps(launches)}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) at 2 layers f32, and (d) the card against the CPU
+    t0 = time.perf_counter()
+    cfg2 = dataclasses.replace(base, num_layers=2, dtype=torch.float32)
+    model2 = model_mod.build_model(cfg2)
+    gpu2 = model2.init(SEED, device="cuda")
+    cpu2 = _tree_to(gpu2, torch.device("cpu"))
+    dec2, ref2, _ = _vlm_slab_call(torch, model_mod, model2, gpu2, B, T,
+                                   "cuda")
+    torch.testing.assert_close(dec2, ref2, atol=1e-4, rtol=1e-4)
+    err2 = (dec2 - ref2).abs().max().item()
+    dec_c, ref_c, _ = _vlm_slab_call(torch, model_mod, model2, cpu2, B, T,
+                                     "cpu")
+    torch.testing.assert_close(dec2.cpu(), dec_c, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(ref2.cpu(), ref_c, atol=1e-4, rtol=1e-4)
+    dev_err = (dec2.cpu() - dec_c).abs().max().item()
+    log(f"phase 17 (c): 2-layer full-width f32: slab decode vs the whole "
+        f"forward max abs {err2:.3e} (1e-4); (d) cuda vs cpu model-level "
+        f"call max abs {dev_err:.3e} (1e-4)")
+    streams = _engine_devices(np, torch, model2, gpu2, cpu2, engine_mod,
+                              request_mod, "phase 17 (d)",
+                              attn_backend="flat")
+    log(f"phase 17 (d): 2-layer full-width f32 {VLM_ARCH} on flat, cuda == "
+        f"cpu greedy streams {streams}; {time.perf_counter() - t0:.1f} s")
+    del gpu2, cpu2
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"held_before_gb": held / 1e9, "weights_gb": nbytes / 1e9,
+            "peak_memory_gb": peak_gb,
+            "engine": engine, "refusal": refusal,
+            "slab": {"launches": launches, "margins": margins,
+                     "max_abs_logit_diff": diff, "relative_l2_gap": gap,
+                     "controls": gaps, "bound": VLM_SLAB_GAP,
+                     "f32_err": err2,
+                     "cuda_cpu_err": dev_err},
+            "cuda_cpu_streams": streams}
+
+
+def family_rows(fam, moe, vlm):
+    """The kernels JSON rows of the families' shapes (#1 at G 8; #2, #3,
+    #5, #6 at G 7; measured by ``family_kernels``), with their launches
+    on phases 16 and 17's paths."""
+    moe_launches = (moe["engine"]["launches"].get("fused", 0)
+                    + moe["cluster"]["launches"].get("fused", 0))
+    vl = vlm["engine"]["launches"]
+    slab = vlm["slab"]["launches"]
+    rows = []
+    for k, name, src, tpu, launches, shape in (
+            (fam["moe"], "paged_mixed_attention_g8", "mixed_attention.cu",
+             "src/repro/kernels/mixed_attention.py:187", moe_launches,
+             f"{MOE_ARCH}: H 32 / Hkv 4 / Dh 64, phase 3's segments"),
+            (fam["flat"]["decode"], "paged_decode_attention_flat_g7",
+             "decode_attention.cu",
+             "src/repro/kernels/decode_attention.py:185",
+             vl.get("flat_decode", 0),
+             f"{VLM_ARCH}: H 28 / Hkv 4 / Dh 128, phase 3's decode rows"),
+            (fam["flat"]["prefill"], "paged_prefill_attention_g7",
+             "prefill_attention.cu",
+             "src/repro/kernels/prefill_attention.py:255",
+             vl.get("chunked_prefill", 0),
+             f"{VLM_ARCH}: H 28 / Hkv 4 / Dh 128, phase 3's chunks"),
+            (fam["slab"]["decode_padded"],
+             "decode_attention_padded_g7", "contiguous_decode.cu",
+             "src/repro/kernels/decode_attention.py:291",
+             slab.get("contiguous_decode_padded", 0),
+             f"{VLM_ARCH}: 2 rows over a 1025-row slab via kv_rows"),
+            (fam["slab"]["prefill"], "prefill_attention_g7",
+             "contiguous_prefill.cu",
+             "src/repro/kernels/prefill_attention.py:125",
+             slab.get("contiguous_prefill", 0),
+             f"{VLM_ARCH}: B 2, T 1024")):
+        row = {"name": name, "ok": True, "route": "cuda",
+               "source": f"src/repro_torch/kernels/csrc/{src}",
+               "replaces": tpu, "launches": launches, "shape": shape,
+               "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+               "kernel_ms": k["ms"], "plain_ms": k["plain_ms"],
+               "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+               "library_ms": k["library_ms"],
+               "bound_share": k["bound_ms"] / k["ms"]}
+        for key in ("max_abs_err_f32", "device_ms", "library_device_ms",
+                    "host_us"):
+            if key in k:
+                row[key] = k[key]
+        rows.append(row)
+    d128 = fam["moe_dh128"]       # #1 at the published head width
+    rows[0]["dh128"] = {key: d128[key] for key in (
+        "max_abs_err", "max_abs_err_f32", "ms", "device_ms", "plain_ms",
+        "bound_ms", "bound_by", "library_ms", "library_device_ms")
+        if key in d128}
+    return rows
+
+
 def _leaves(tree):
     for v in tree.values():
         yield from (_leaves(v) if isinstance(v, dict) else (v,))
@@ -2289,6 +2964,8 @@ def main() -> int:
     int8 = phase_int8_kernel(np, torch, F, tk, flush)
     flat = phase_flat_kernels(np, torch, F, dk, pk, flush)
     more = phase_grid_contiguous_kernels(np, torch, F, tk, dk, pk, flush)
+    # the same kernels at the MoE and VLM configs' heads (phases 16-17)
+    fam = family_kernels(np, torch, F, cfg_mod, tk, dk, pk, flush)
 
     # 4. the engine's main path at full width (fused backend)
     zero_counts(tk, dk, pk)
@@ -2364,6 +3041,24 @@ def main() -> int:
 
     # 15. the H100 cost model against the card
     cost_model = phase_cost_model(torch, fig2["200v10000"]["tax"])
+
+    # 16. the MoE family: qwen3-moe-30b-a3b at full width, alone on the
+    # card (engine, 2-engine cluster), 2 layers f32 and arctic reduced on
+    # the card and the CPU
+    t16 = time.perf_counter()
+    moe = phase_moe(np, torch, cfg_mod, model_mod, engine_mod,
+                    request_mod, server_mod, serve_mod, qoe_mod, tk, dk, pk)
+    moe["phase_s"] = time.perf_counter() - t16
+    log(f"phase 16: took {moe['phase_s']:.1f} s")
+
+    # 17. the VLM family: qwen2-vl-7b at full width (flat engine, fused
+    # refusing it, the slab with vision extras), 2 layers f32 on the card
+    # and the CPU
+    t17 = time.perf_counter()
+    vlm = phase_vlm(np, torch, cfg_mod, model_mod, engine_mod,
+                    request_mod, tk, dk, pk)
+    vlm["phase_s"] = time.perf_counter() - t17
+    log(f"phase 17: took {vlm['phase_s']:.1f} s")
 
     # 16. results
     kernels = [{
@@ -2461,15 +3156,18 @@ def main() -> int:
         "prefill"]
     by_name["decode_attention_padded"]["engine_shape"] = modes["kernels"][
         "decode_padded"]
+    # the same kernels at the MoE and VLM configs' head groupings
+    kernels += family_rows(fam, moe, vlm)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke_report.json").write_text(json.dumps(
         {"device": smi, "kernels": kernels, "engine": eng_summary,
          "cluster": cluster, "chaos_cluster": chaos,
          "grid_cluster": grid_cluster, "dense_int8": dense_int8,
-         "fig2": fig2, "engine_modes": modes, "cost_model": cost_model},
-        indent=1, default=str))
-    log(f"chip_smoke: phases 1-15 took {time.perf_counter() - t_main:.1f} s")
+         "fig2": fig2, "engine_modes": modes, "cost_model": cost_model,
+         "family_kernels": fam, "moe": moe, "vlm": vlm}, indent=1,
+        default=str))
+    log(f"chip_smoke: phases 1-17 took {time.perf_counter() - t_main:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

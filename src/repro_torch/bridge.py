@@ -31,20 +31,40 @@ def _to_tensor(a: np.ndarray, dtype, device) -> torch.Tensor:
     return t.to(device)
 
 
-def _tree_to_torch(tree: Any, dtype, device):
+# leaves the reference keeps in f32 whatever the model dtype
+F32_LEAVES = ("router",)
+
+
+def _tree_to_torch(tree: Any, dtype, device, key=None):
     if isinstance(tree, Mapping):
-        return {k: _tree_to_torch(v, dtype, device) for k, v in tree.items()}
-    return _to_tensor(tree, dtype, device)
+        return {k: _tree_to_torch(v, dtype, device, k)
+                for k, v in tree.items()}
+    return _to_tensor(tree, torch.float32 if key in F32_LEAVES else dtype,
+                      device)
+
+
+def _layer_keys(cfg: ModelConfig) -> set:
+    """The keys of a decoder layer: attention and its norms, then the FFN,
+    or the MoE (with arctic's dense residual FFN and its norm)."""
+    keys = {"ln_attn", "ln_mlp", "attn"}
+    if not cfg.num_experts:
+        return keys | {"ffn"}
+    return keys | {"moe"} | ({"ffn", "ln_res"} if cfg.dense_residual
+                             else set())
 
 
 def params_from_numpy(tree: Mapping, cfg: ModelConfig, device="cuda"):
     """JAX decoder params (nested dicts of numpy arrays) -> the port's
-    params on ``device`` in ``cfg.dtype``. Checks the top-level layout and
-    that every layer leaf is stacked on ``cfg.num_layers``."""
+    params on ``device`` in ``cfg.dtype`` (an MoE router stays f32, as the
+    reference keeps it). Checks the top-level and layer layouts and that
+    every layer leaf is stacked on ``cfg.num_layers``."""
     want = {"embed", "layers", "ln_f"} | (
         set() if cfg.tie_embeddings else {"unembed"})
     if set(tree) != want:
         raise KeyError(f"params keys {sorted(tree)} != {sorted(want)}")
+    if set(tree["layers"]) != _layer_keys(cfg):
+        raise KeyError(f"layer keys {sorted(tree['layers'])} != "
+                       f"{sorted(_layer_keys(cfg))}")
     out = _tree_to_torch(tree, cfg.dtype, device)
     if tuple(out["embed"].shape) != (cfg.vocab_size, cfg.d_model):
         raise ValueError(f"embed {tuple(out['embed'].shape)} does not match "

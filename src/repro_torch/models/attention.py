@@ -6,14 +6,16 @@ mixed-iteration paths over the global block pool on the four paged
 backends (``dense`` gather + masked SDPA, the ``grid`` and ``flat`` kernel
 pairs, the ``fused`` kernel), and the int8 pool (``QuantKVCache``:
 quantize-on-write, scales beside the rows), which the ``fused`` kernel and
-the ``dense`` path read.
+the ``dense`` path read. RoPE, or Qwen2-VL's three-stream M-RoPE where the
+config asks for it, rotates q and k on every path but the mixed step,
+which refuses M-RoPE as the reference's does.
 
 Shapes follow the JAX package: activations ``x [B, T, D]``, a slab layer
 ``[B, S, Hkv, Dh]``, a pool slice ``[NB, BS, Hkv, Dh]`` per layer, block
 tables ``[B, NBT]`` int32. Slab and pool writes are IN PLACE
 (``index_put_``): a functional copy would duplicate the multi-GB cache per
 layer per step, so each function returns the cache it was given, updated.
-Sliding windows and M-RoPE are not ported (``build_model`` refuses them).
+Sliding windows are not ported (``build_model`` refuses them).
 """
 from __future__ import annotations
 
@@ -75,6 +77,49 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
+                sections=(2, 3, 3)) -> torch.Tensor:
+    """Qwen2-VL M-RoPE: the Dh/2 frequency slots split into (t, h, w)
+    sections, each rotated by its own position stream; the last section
+    absorbs the rounding. x [B, T, H, Dh]; positions3 [B, T, 3] (temporal,
+    height, width ids; identical streams for pure text)."""
+    dh = x.shape[-1]
+    half = dh // 2
+    freqs = rope_freqs(dh, theta, x.device)                      # [half]
+    total = sum(sections)
+    bounds = []
+    start = 0
+    for s in sections:
+        n = (half * s) // total
+        bounds.append((start, start + n))
+        start += n
+    bounds[-1] = (bounds[-1][0], half)
+    pos = positions3.float()                                     # [B, T, 3]
+    angles = torch.cat([pos[..., i:i + 1] * freqs[lo:hi]
+                        for i, (lo, hi) in enumerate(bounds)], dim=-1)
+    cos, sin = torch.cos(angles)[:, :, None], torch.sin(angles)[:, :, None]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def _rotate(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
+            positions: torch.Tensor, mrope_positions=None):
+    """q, k rotated at ``positions`` [B, T]: M-RoPE where the config uses
+    it (``mrope_positions`` [B, T, 3], by default the text positions on
+    all three streams, as the reference defaults them), RoPE otherwise,
+    nothing with learned positions."""
+    if cfg.use_mrope:
+        mp = (mrope_positions if mrope_positions is not None
+              else positions[..., None].expand(*positions.shape, 3))
+        return (apply_mrope(q, mp, cfg.rope_theta),
+                apply_mrope(k, mp, cfg.rope_theta))
+    if cfg.learned_pos:
+        return q, k
+    return (apply_rope(q, positions, cfg.rope_theta),
+            apply_rope(k, positions, cfg.rope_theta))
+
+
 def _project_qkv(p, cfg: ModelConfig, x: torch.Tensor):
     B, T, _ = x.shape
     q = x @ p["wq"]
@@ -118,18 +163,17 @@ class KVCache(NamedTuple):
 
 
 def attention_prefill(p, cfg: ModelConfig, x: torch.Tensor,
-                      positions: torch.Tensor):
+                      positions: torch.Tensor, *, mrope_positions=None):
     """Causal self-attention over a whole prompt: x [B, T, D], positions
-    [B, T]. The contiguous causal prefill kernel attends (its plain
-    version for CPU tensors); the reference's two XLA branches (masked
-    SDPA up to T² = 2048², the flash scan above) compute this one
-    function. Returns (out [B, T, D], (k, v) [B, T, Hkv, Dh] after RoPE)."""
+    [B, T] (``mrope_positions`` [B, T, 3] under M-RoPE). The contiguous
+    causal prefill kernel attends (its plain version for CPU tensors); the
+    reference's two XLA branches (masked SDPA up to T² = 2048², the flash
+    scan above) compute this one function. Returns (out [B, T, D], (k, v)
+    [B, T, Hkv, Dh] after RoPE)."""
     assert not cfg.sliding_window, "whole-prompt prefill: full attention"
     B, T, _ = x.shape
     q, k, v = _project_qkv(p, cfg, x)
-    if not cfg.learned_pos:
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
+    q, k = _rotate(cfg, q, k, positions, mrope_positions)
     k, v = k.contiguous(), v.contiguous()
     out = prefill_attention(q.contiguous(), k, v)
     return out.reshape(B, T, -1) @ p["wo"], (k, v)
@@ -151,7 +195,8 @@ def make_cache(cfg: ModelConfig, batch: int, seq: int,
 
 
 def attention_decode(p, cfg: ModelConfig, x: torch.Tensor, cache_l: KVCache,
-                     pos: torch.Tensor, rows: Optional[torch.Tensor] = None):
+                     pos: torch.Tensor, rows: Optional[torch.Tensor] = None,
+                     *, mrope_positions=None):
     """One token against a slab layer: x [B, 1, D]; pos [B] int32 tokens
     already cached; cache_l [B, S, Hkv, Dh], or with ``rows`` ([B] int32,
     the slab row of each x row) a slab of any number of rows. Writes the
@@ -163,9 +208,7 @@ def attention_decode(p, cfg: ModelConfig, x: torch.Tensor, cache_l: KVCache,
     assert not cfg.sliding_window, "slab decode: full attention only"
     B = x.shape[0]
     q, k, v = _project_qkv(p, cfg, x)
-    if not cfg.learned_pos:
-        q = apply_rope(q, pos[:, None], cfg.rope_theta)
-        k = apply_rope(k, pos[:, None], cfg.rope_theta)
+    q, k = _rotate(cfg, q, k, pos[:, None], mrope_positions)
     S = cache_l.k.shape[1]
     slab_row = (torch.arange(B, device=pos.device) if rows is None
                 else rows.long())
@@ -352,7 +395,7 @@ def attention_decode_paged(p, cfg: ModelConfig, x: torch.Tensor,
                            pool_l: KVCache, block_tables: torch.Tensor,
                            pos: torch.Tensor, *, attn_backend: str = "fused",
                            attn_num_work: Optional[int] = None,
-                           attn_work_list=None):
+                           attn_work_list=None, mrope_positions=None):
     """x [B, 1, D]; pool_l one layer's slice; block_tables [B, NBT] int32;
     pos [B] int32 tokens already cached (-1 = dead slot: its write lands
     in the garbage block and its attention length is 0). Writes the new
@@ -365,9 +408,7 @@ def attention_decode_paged(p, cfg: ModelConfig, x: torch.Tensor,
     assert not cfg.sliding_window, "paged decode is full-attention only"
     B = x.shape[0]
     q, k, v = _project_qkv(p, cfg, x)
-    if not cfg.learned_pos:
-        q = apply_rope(q, pos[:, None], cfg.rope_theta)
-        k = apply_rope(k, pos[:, None], cfg.rope_theta)
+    q, k = _rotate(cfg, q, k, pos[:, None], mrope_positions)
     _check_kv_backend(pool_l, attn_backend)
     BS = pool_l.k.shape[1]
     blk = _table_entry(block_tables, pos[:, None], BS)[:, 0]
@@ -391,7 +432,8 @@ def attention_prefill_chunk_paged(p, cfg: ModelConfig, x: torch.Tensor,
                                   block_tables: torch.Tensor,
                                   ctx_len: torch.Tensor,
                                   chunk_len: torch.Tensor, *,
-                                  attn_backend: str = "fused"):
+                                  attn_backend: str = "fused",
+                                  mrope_positions=None):
     """Chunked prefill against the paged pool: x [B, C, D] — B prompt
     chunks of C tokens (rows past ``chunk_len`` are padding);
     block_tables [B, NBT] covering ``ceil((ctx_len + C)/BS)`` rows (the
@@ -410,9 +452,7 @@ def attention_prefill_chunk_paged(p, cfg: ModelConfig, x: torch.Tensor,
     positions = ctx[:, None] + torch.arange(C, dtype=torch.int32,
                                             device=ctx.device)[None]
     q, k, v = _project_qkv(p, cfg, x)
-    if not cfg.learned_pos:
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
+    q, k = _rotate(cfg, q, k, positions, mrope_positions)
     _check_kv_backend(pool_l, attn_backend)
     BS = pool_l.k.shape[1]
     scatter_pool(pool_l, _table_entry(block_tables, positions, BS),
@@ -464,11 +504,8 @@ def attention_mixed_paged(p, cfg: ModelConfig, x_dec: torch.Tensor,
 
     qd, kd, vd = _project_qkv(p, cfg, x_dec)
     qc, kc, vc = _project_qkv(p, cfg, x_ck)
-    if not cfg.learned_pos:
-        qd = apply_rope(qd, pos[:, None], cfg.rope_theta)
-        kd = apply_rope(kd, pos[:, None], cfg.rope_theta)
-        qc = apply_rope(qc, positions, cfg.rope_theta)
-        kc = apply_rope(kc, positions, cfg.rope_theta)
+    qd, kd = _rotate(cfg, qd, kd, pos[:, None])
+    qc, kc = _rotate(cfg, qc, kc, positions)
 
     BS = pool_l.k.shape[1]
     blk_d = _table_entry(bt_dec, pos[:, None], BS)[:, 0]

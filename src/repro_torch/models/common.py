@@ -101,24 +101,49 @@ class ModelConfig:
 # Initializers: normal draws from an explicit torch.Generator, made in f32
 # on the generator's device and cast (the JAX package's scheme; the draws
 # themselves differ from jax.random, so cross-framework tests bridge the
-# JAX weights instead).
+# JAX weights instead). A large leaf is drawn slice by slice along its
+# leading axes into a buffer of its own dtype, so no f32 copy of the whole
+# leaf exists at once (qwen3-moe's expert leaf [48, 128, 2048, 768] would
+# need 38.7 GB of f32 beside its 19.3 GB of bf16).
 # --------------------------------------------------------------------------
+DRAW_ELEMS = 1 << 28       # f32 draws of at most 1 GiB at a time
+
+
+def _fill_normal(out: torch.Tensor, gen: torch.Generator,
+                 std: float) -> torch.Tensor:
+    """``out`` <- ``normal * std`` drawn in f32 from ``gen``, in slices of
+    at most ``DRAW_ELEMS`` elements along the leading axes. The slicing
+    depends on the shape only, so a seed gives the same weights on every
+    call; a leaf of at most ``DRAW_ELEMS`` is one draw."""
+    if out.numel() > DRAW_ELEMS and out.dim() >= 2:
+        row = out[0].numel()
+        if row > DRAW_ELEMS:
+            for r in out:
+                _fill_normal(r, gen, std)
+        else:
+            step = DRAW_ELEMS // row
+            for s in range(0, out.shape[0], step):
+                _fill_normal(out[s:s + step], gen, std)
+        return out
+    x = torch.randn(tuple(out.shape), generator=gen, device=gen.device,
+                    dtype=torch.float32)
+    return out.copy_(x.mul_(std))
+
+
 def dense_init(gen: torch.Generator, shape: Sequence[int], dtype: torch.dtype,
                scale: float = 1.0, fan_in: int | None = None) -> torch.Tensor:
     """``normal * scale / sqrt(fan_in)``; ``fan_in`` defaults to
     ``shape[0]`` (pass it explicitly for layer-stacked ``[L, in, out]``)."""
     if fan_in is None:
         fan_in = shape[0] if len(shape) >= 2 else max(shape[-1], 1)
-    x = torch.randn(tuple(shape), generator=gen, device=gen.device,
-                    dtype=torch.float32)
-    return x.mul_(scale / math.sqrt(fan_in)).to(dtype)
+    out = torch.empty(tuple(shape), dtype=dtype, device=gen.device)
+    return _fill_normal(out, gen, scale / math.sqrt(fan_in))
 
 
 def embed_init(gen: torch.Generator, shape: Sequence[int],
                dtype: torch.dtype) -> torch.Tensor:
-    x = torch.randn(tuple(shape), generator=gen, device=gen.device,
-                    dtype=torch.float32)
-    return x.mul_(0.02).to(dtype)
+    out = torch.empty(tuple(shape), dtype=dtype, device=gen.device)
+    return _fill_normal(out, gen, 0.02)
 
 
 # --------------------------------------------------------------------------

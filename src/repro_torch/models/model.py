@@ -5,6 +5,9 @@ paths (tokens are int tensors, not the reference's batch dicts):
     model = build_model(cfg)
     params = model.init(seed, device="cuda")
     logits, cache = model.prefill(params, tokens, cache_len)   # [B, V]
+    extras = synthetic_batch(cfg, B, T, device="cuda")  # a VLM's extras
+    logits, cache = model.prefill(params, extras.pop("tokens"), cache_len,
+                                  **extras)
     slab = model.init_cache(batch, seq, device="cuda")
     logits, slab = model.decode_step(params, slab, token, pos)
     logits, piece = model.prefill_bucketed(params, tokens, true_len)
@@ -15,14 +18,21 @@ paths (tokens are int tensors, not the reference's batch dicts):
     dec_logits, ck_logits, pool = model.mixed_step(
         params, pool, dec_token, ck_tokens, bt_dec, bt_ck, pos, ctx, clen)
 
-Only the dense full-attention decoder is ported so far; ``build_model``
-raises for every other family.
+The decoder families are ported: dense, MoE (``mlp.moe``, arctic's dense
+residual) and the VLM backbone (vision merge, M-RoPE). A VLM's extras are
+keyword arguments: ``vision_embeds`` / ``vision_mask`` /
+``mrope_positions`` on the whole-prompt entry points, ``mrope_positions``
+on the decode and chunk ones (text positions on all three streams by
+default); ``mixed_step`` refuses M-RoPE, as the reference's does.
+``build_model`` raises for the recurrent, hybrid and encoder-decoder
+families and for sliding windows.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Optional, Union
+from typing import Any, Callable, Dict, Optional, Union
 
+import numpy as np
 import torch
 
 from repro_torch.models import transformer
@@ -49,15 +59,17 @@ class Model:
     #            ctx_len, chunk_len, *, attn_backend, attn_num_work)
     #     -> (dec_logits [Bd, V], ck_logits [Bp, V], pool)
     mixed_step: Callable[..., Any]
-    # prefill(params, tokens [B, T], cache_len=None)
+    # prefill(params, tokens [B, T], cache_len=None, **vlm_extras)
     #     -> (last-token logits [B, V], slab [L, B, cache_len or T, ...])
     prefill: Callable[..., Any]
-    # decode_step(params, slab, token, pos, rows=None) -> (logits, slab)
+    # decode_step(params, slab, token, pos, rows=None,
+    #             mrope_positions=None) -> (logits, slab)
     decode_step: Callable[..., Any]
     # init_cache(batch, seq, device="cuda", dtype=None) -> zeroed slab
     init_cache: Callable[..., Any]
-    # prefill_bucketed(params, tokens [B, P], true_len) -> (logits [B, V]
-    #     at position true_len - 1, prompt piece [L, B, P, Hkv, Dh])
+    # prefill_bucketed(params, tokens [B, P], true_len, **vlm_extras)
+    #     -> (logits [B, V] at position true_len - 1,
+    #         prompt piece [L, B, P, Hkv, Dh])
     prefill_bucketed: Callable[..., Any]
 
     @property
@@ -101,16 +113,18 @@ def _decoder_model(cfg: ModelConfig) -> Model:
                                             kv_dtype=kv_dtype)
 
     def decode_step_paged(params, pool, token, block_tables, pos, *,
-                          attn_backend="fused", attn_num_work=None):
+                          attn_backend="fused", attn_num_work=None,
+                          mrope_positions=None):
         return transformer.forward_decode_paged(
             params, cfg, token, pool, block_tables, pos,
-            attn_backend=attn_backend, attn_num_work=attn_num_work)
+            attn_backend=attn_backend, attn_num_work=attn_num_work,
+            mrope_positions=mrope_positions)
 
     def prefill_chunk(params, pool, tokens, block_tables, ctx_len, chunk_len,
-                      *, attn_backend="fused"):
+                      *, attn_backend="fused", mrope_positions=None):
         return transformer.forward_prefill_chunk(
             params, cfg, tokens, pool, block_tables, ctx_len, chunk_len,
-            attn_backend=attn_backend)
+            attn_backend=attn_backend, mrope_positions=mrope_positions)
 
     def mixed_step(params, pool, dec_token, ck_tokens, bt_dec, bt_ck, pos,
                    ctx_len, chunk_len, *, attn_backend="fused",
@@ -120,23 +134,27 @@ def _decoder_model(cfg: ModelConfig) -> Model:
             ctx_len, chunk_len, attn_backend=attn_backend,
             attn_num_work=attn_num_work)
 
-    def prefill(params, tokens, cache_len: Optional[int] = None):
+    def prefill(params, tokens, cache_len: Optional[int] = None,
+                **extras):
         logits, cache = transformer.forward_full(params, cfg, tokens,
                                                  return_cache=True,
-                                                 last_only=True)
+                                                 last_only=True, **extras)
         return logits[:, -1], _relay_kv(cache, cache_len or tokens.shape[1])
 
-    def decode_step(params, cache, token, pos, rows=None):
+    def decode_step(params, cache, token, pos, rows=None,
+                    mrope_positions=None):
         return transformer.forward_decode(params, cfg, token, cache, pos,
-                                          rows=rows)
+                                          rows=rows,
+                                          mrope_positions=mrope_positions)
 
     def init_cache(batch: int, seq: int, device="cuda", dtype=None):
         return transformer.init_cache(cfg, batch, seq, dtype=dtype,
                                       device=device)
 
-    def prefill_bucketed(params, tokens, true_len):
+    def prefill_bucketed(params, tokens, true_len, **extras):
         logits, cache = transformer.forward_full(
-            params, cfg, tokens, return_cache=True, last_index=true_len - 1)
+            params, cfg, tokens, return_cache=True, last_index=true_len - 1,
+            **extras)
         return logits[:, 0], cache
 
     return Model(cfg, init, init_paged_cache, decode_step_paged,
@@ -145,9 +163,48 @@ def _decoder_model(cfg: ModelConfig) -> Model:
 
 
 def build_model(cfg: ModelConfig) -> Model:
-    if cfg.family == "dense" and not cfg.sliding_window \
-            and not cfg.use_mrope:
+    if cfg.family in ("dense", "moe", "vlm") and not cfg.sliding_window:
         return _decoder_model(cfg)
     raise NotImplementedError(
         f"{cfg.name}: family {cfg.family!r} (sliding_window="
         f"{cfg.sliding_window}) is not ported to repro_torch yet")
+
+
+def mrope_grid_positions(batch: int, seq: int, n_patch: int) -> np.ndarray:
+    """M-RoPE ids [batch, seq, 3] of a prompt that opens with ``n_patch``
+    image patches: the patches share t = 0 on a (h, w) grid of
+    ``int(sqrt(n_patch))`` columns; the text after them runs t = h = w =
+    1, 2, ... (the reference's ``synthetic_batch`` layout)."""
+    tpos = np.zeros((batch, seq, 3), np.int32)
+    side = max(1, int(np.sqrt(n_patch)))
+    for i in range(n_patch):
+        tpos[:, i] = (0, i // side, i % side)
+    for i in range(n_patch, seq):
+        t = i - n_patch + 1
+        tpos[:, i] = (t, t, t)
+    return tpos
+
+
+def synthetic_batch(cfg: ModelConfig, batch: int, seq: int,
+                    np_seed: int = 0, device="cuda") -> Dict[str, Any]:
+    """A runnable batch with the family's extras, drawn from
+    ``np.random.default_rng(np_seed)`` in the reference's order (the same
+    numbers): ``tokens`` [batch, seq] int32; a VLM adds ``vision_embeds``
+    [batch, seq // 4, D] in ``cfg.dtype``, ``vision_mask`` (the first
+    seq // 4 positions) and ``mrope_positions``: with ``tokens`` popped,
+    the keyword arguments of ``Model.prefill``."""
+    r = np.random.default_rng(np_seed)
+    out: Dict[str, Any] = {"tokens": torch.from_numpy(
+        r.integers(0, cfg.vocab_size, (batch, seq), dtype=np.int32)
+    ).to(device)}
+    if cfg.family == "vlm":
+        n_patch = max(1, seq // 4)
+        vm = np.zeros((batch, seq), bool)
+        vm[:, :n_patch] = True
+        out["vision_embeds"] = torch.from_numpy(
+            r.normal(0, 1, (batch, n_patch, cfg.d_model))).to(
+                device=device, dtype=cfg.dtype)
+        out["vision_mask"] = torch.from_numpy(vm).to(device)
+        out["mrope_positions"] = torch.from_numpy(
+            mrope_grid_positions(batch, seq, n_patch)).to(device)
+    return out

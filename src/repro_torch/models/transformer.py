@@ -1,7 +1,9 @@
-"""Decoder-only transformer stack (dense GQA) — the port's subset of
-``repro.models.transformer``: the whole-prompt pass, decode against the
-monolithic slab, and the paged pool's decode, chunked-prefill and mixed
-passes.
+"""Decoder-only transformer stack (dense GQA, MoE and the VLM backbone) —
+the port's subset of ``repro.models.transformer``: the whole-prompt pass,
+decode against the monolithic slab, and the paged pool's decode,
+chunked-prefill and mixed passes. An MoE block runs ``mlp.moe`` (plus
+arctic's dense residual FFN); a VLM places precomputed patch embeddings at
+its vision positions and rotates by M-RoPE's three position streams.
 
 Per-layer weights are stacked on a leading ``L`` axis as in the JAX
 package; the ``lax.scan`` over layers becomes a Python loop over ``[l]``
@@ -19,7 +21,7 @@ from repro_torch.models.attention import (KVCache, layer_pool, make_cache,
                                          make_paged_pool)
 from repro_torch.models.common import (ModelConfig, dense_init, embed_init,
                                        rms_norm)
-from repro_torch.models.mlp import ffn, init_ffn
+from repro_torch.models.mlp import ffn, init_ffn, init_moe, moe
 
 
 # --------------------------------------------------------------------------
@@ -41,14 +43,21 @@ def init_decoder(gen: torch.Generator, cfg: ModelConfig):
         att["bq"] = torch.zeros((L, h * dh), dtype=dt, device=dev)
         att["bk"] = torch.zeros((L, hk * dh), dtype=dt, device=dev)
         att["bv"] = torch.zeros((L, hk * dh), dtype=dt, device=dev)
+    layers = {
+        "ln_attn": torch.ones((L, d), dtype=dt, device=dev),
+        "ln_mlp": torch.ones((L, d), dtype=dt, device=dev),
+        "attn": att,
+    }
+    if cfg.num_experts:
+        layers["moe"] = init_moe(gen, cfg, L)
+        if cfg.dense_residual:       # arctic: a dense FFN beside the MoE
+            layers["ffn"] = init_ffn(gen, cfg, L)
+            layers["ln_res"] = torch.ones((L, d), dtype=dt, device=dev)
+    else:
+        layers["ffn"] = init_ffn(gen, cfg, L)
     p = {
         "embed": embed_init(gen, (cfg.vocab_size, d), dt),
-        "layers": {
-            "ln_attn": torch.ones((L, d), dtype=dt, device=dev),
-            "ln_mlp": torch.ones((L, d), dtype=dt, device=dev),
-            "attn": att,
-            "ffn": init_ffn(gen, cfg, L),
-        },
+        "layers": layers,
         "ln_f": torch.ones((d,), dtype=dt, device=dev),
     }
     if not cfg.tie_embeddings:
@@ -65,8 +74,19 @@ def layer_params(layers, l: int):
 # --------------------------------------------------------------------------
 # Embedding in/out, MLP half of a block
 # --------------------------------------------------------------------------
-def embed_tokens(p, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
-    return F.embedding(tokens.long(), p["embed"])
+def embed_tokens(p, cfg: ModelConfig, tokens: torch.Tensor,
+                 vision_embeds=None, vision_mask=None) -> torch.Tensor:
+    """Token embeddings [B, T, D]; with ``vision_embeds`` [B, P, D] and
+    ``vision_mask`` [B, T] bool, the patch embeddings (the VLM's stubbed
+    frontend) replace the masked positions, in order."""
+    x = F.embedding(tokens.long(), p["embed"])
+    if vision_embeds is not None and vision_mask is not None:
+        idx = torch.cumsum(vision_mask.to(torch.int32), dim=1) - 1
+        idx = torch.clamp(idx, 0, vision_embeds.shape[1] - 1).long()
+        gathered = torch.gather(
+            vision_embeds, 1, idx[..., None].expand(-1, -1, x.shape[-1]))
+        x = torch.where(vision_mask[..., None], gathered.to(x.dtype), x)
+    return x
 
 
 def unembed(p, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
@@ -75,26 +95,42 @@ def unembed(p, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 
 def _mlp_part(pl, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    return ffn(pl["ffn"], cfg, rms_norm(x, pl["ln_mlp"], cfg.norm_eps))
+    """The block's MLP half: the FFN, or the MoE (``cfg.moe_impl``) plus,
+    with ``dense_residual``, a dense FFN on ``rms_norm(x, ln_res)``. The
+    MoE's aux loss is dropped: the serving passes ignore it, as the
+    reference's do."""
+    h = rms_norm(x, pl["ln_mlp"], cfg.norm_eps)
+    if not cfg.num_experts:
+        return ffn(pl["ffn"], cfg, h)
+    out, _ = moe(pl["moe"], cfg, h, cfg.moe_impl)
+    if cfg.dense_residual:
+        out = out + ffn(pl["ffn"], cfg,
+                        rms_norm(x, pl["ln_res"], cfg.norm_eps))
+    return out
 
 
 # --------------------------------------------------------------------------
 # The whole prompt, and decode against the monolithic slab
 # --------------------------------------------------------------------------
 def block_full(pl, cfg: ModelConfig, x: torch.Tensor,
-               positions: torch.Tensor):
+               positions: torch.Tensor, mrope_positions=None):
     """One layer over a whole sequence. Returns (x, KVCache(k, v)) with
     the layer's K/V rows [B, T, Hkv, Dh]."""
     h = rms_norm(x, pl["ln_attn"], cfg.norm_eps)
-    a, (k, v) = attn.attention_prefill(pl["attn"], cfg, h, positions)
+    a, (k, v) = attn.attention_prefill(pl["attn"], cfg, h, positions,
+                                       mrope_positions=mrope_positions)
     x = x + a
     return x + _mlp_part(pl, cfg, x), KVCache(k, v)
 
 
 def forward_full(p, cfg: ModelConfig, tokens: torch.Tensor, *,
+                 vision_embeds=None, vision_mask=None, mrope_positions=None,
                  return_cache: bool = False, last_only: bool = False,
                  last_index=None):
-    """The prefill pass over tokens [B, T]. Returns (logits, cache|None):
+    """The prefill pass over tokens [B, T] (a VLM's extras: patch
+    embeddings placed at ``vision_mask``, M-RoPE ids ``mrope_positions``
+    [B, T, 3], by default the text positions on all three streams).
+    Returns (logits, cache|None):
     logits [B, T, V], or [B, 1, V] at position ``last_index`` (an int or a
     0-d tensor: the bucketed prefill, whose true last token sits before a
     pow2 padding tail; causality keeps the rows and logits below the true
@@ -102,12 +138,13 @@ def forward_full(p, cfg: ModelConfig, tokens: torch.Tensor, *,
     (``last_only``); cache leaves [L, B, T, Hkv, Dh], written layer by
     layer into one buffer."""
     B, T = tokens.shape
-    x = embed_tokens(p, cfg, tokens)
+    x = embed_tokens(p, cfg, tokens, vision_embeds, vision_mask)
     positions = torch.arange(T, device=x.device)[None].expand(B, T)
     cache = (make_cache(cfg, B, T, dtype=x.dtype, device=x.device,
                         layers=cfg.num_layers) if return_cache else None)
     for l in range(cfg.num_layers):
-        x, kv = block_full(layer_params(p["layers"], l), cfg, x, positions)
+        x, kv = block_full(layer_params(p["layers"], l), cfg, x, positions,
+                           mrope_positions)
         if cache is not None:
             cache.k[l].copy_(kv.k)
             cache.v[l].copy_(kv.v)
@@ -123,17 +160,19 @@ def forward_full(p, cfg: ModelConfig, tokens: torch.Tensor, *,
 
 
 def forward_decode(p, cfg: ModelConfig, token: torch.Tensor, cache: KVCache,
-                   pos: torch.Tensor, rows=None):
+                   pos: torch.Tensor, rows=None, *, mrope_positions=None):
     """token [B] int; cache leaves [L, B, S, Hkv, Dh] (with ``rows`` [B]
     int32, the slab row of each token: a slab of any number of rows, whose
-    live rows decode in place); pos [B] int32 tokens already cached.
+    live rows decode in place); pos [B] int32 tokens already cached;
+    ``mrope_positions`` [B, 1, 3] (default ``pos`` on all three streams).
     Returns (logits [B, V], cache) — the slab updated in place."""
     x = embed_tokens(p, cfg, token[:, None])
     for l in range(cfg.num_layers):
         pl = layer_params(p["layers"], l)
         h = rms_norm(x, pl["ln_attn"], cfg.norm_eps)
         a, _ = attn.attention_decode(pl["attn"], cfg, h, layer_pool(cache, l),
-                                     pos, rows=rows)
+                                     pos, rows=rows,
+                                     mrope_positions=mrope_positions)
         x = x + a
         x = x + _mlp_part(pl, cfg, x)
     x = rms_norm(x, p["ln_f"], cfg.norm_eps)
@@ -153,10 +192,11 @@ def init_cache(cfg: ModelConfig, batch: int, seq: int, dtype=None,
 def forward_decode_paged(p, cfg: ModelConfig, token: torch.Tensor,
                          pool: KVCache, block_tables: torch.Tensor,
                          pos: torch.Tensor, *, attn_backend: str = "fused",
-                         attn_num_work=None):
+                         attn_num_work=None, mrope_positions=None):
     """token [B] int; pool leaves [L, NB, BS, Hkv, Dh] (a ``KVCache``, or
     an int8 ``QuantKVCache`` on the fused and dense backends); block_tables
-    [B, NBT] int32; pos [B] int32 (-1 = dead slot). Returns
+    [B, NBT] int32; pos [B] int32 (-1 = dead slot); ``mrope_positions``
+    [B, 1, 3] (default ``pos`` on all three streams). Returns
     (logits [B, V], pool) — the pool updated in place. On the ``flat``
     backend the layers share one flat work list."""
     work_list = None
@@ -171,7 +211,7 @@ def forward_decode_paged(p, cfg: ModelConfig, token: torch.Tensor,
         a, _ = attn.attention_decode_paged(
             pl["attn"], cfg, h, layer_pool(pool, l), block_tables,
             pos, attn_backend=attn_backend, attn_num_work=attn_num_work,
-            attn_work_list=work_list)
+            attn_work_list=work_list, mrope_positions=mrope_positions)
         x = x + a
         x = x + _mlp_part(pl, cfg, x)
     x = rms_norm(x, p["ln_f"], cfg.norm_eps)
@@ -219,21 +259,24 @@ def _last_real(x: torch.Tensor, chunk_len: torch.Tensor) -> torch.Tensor:
 def forward_prefill_chunk(p, cfg: ModelConfig, tokens: torch.Tensor,
                           pool: KVCache, block_tables: torch.Tensor,
                           ctx_len: torch.Tensor, chunk_len: torch.Tensor, *,
-                          attn_backend: str = "fused"):
+                          attn_backend: str = "fused", mrope_positions=None):
     """Prompt chunks through the stack against the paged pool: tokens
     [B, C] int (rows past ``chunk_len`` are padding), block_tables
     [B, NBT], ctx_len / chunk_len [B] int32. Every layer writes the
     chunk's K/V into its pool slice and attends over the written context
     plus the chunk, so chunk-by-chunk calls reproduce the whole prompt's
-    cache rows. Returns (logits [B, V] at each chunk's last real token,
-    pool) — on a prompt's final chunk, its first-token distribution."""
+    cache rows; ``mrope_positions`` [B, C, 3] (default: each token's
+    position on all three streams). Returns (logits [B, V] at each
+    chunk's last real token, pool) — on a prompt's final chunk, its
+    first-token distribution."""
     x = embed_tokens(p, cfg, tokens)
     for l in range(cfg.num_layers):
         pl = layer_params(p["layers"], l)
         h = rms_norm(x, pl["ln_attn"], cfg.norm_eps)
         a, _ = attn.attention_prefill_chunk_paged(
             pl["attn"], cfg, h, layer_pool(pool, l), block_tables,
-            ctx_len, chunk_len, attn_backend=attn_backend)
+            ctx_len, chunk_len, attn_backend=attn_backend,
+            mrope_positions=mrope_positions)
         x = x + a
         x = x + _mlp_part(pl, cfg, x)
     x = rms_norm(_last_real(x, chunk_len), p["ln_f"], cfg.norm_eps)

@@ -200,7 +200,12 @@ class Engine:
         ``"grid"`` or ``"dense"``; ``kv_dtype`` ``"bf16"`` (the model's
         dtype) or ``"int8"`` (paged, fused or dense); ``host_kv_budget``
         the host-RAM tier's tokens (0: off); ``preemption`` SLO preemption
-        (off unless asked, as in the reference's direct construction)."""
+        (off unless asked, as in the reference's direct construction).
+        The decoder families (dense, MoE, VLM) are served; a VLM's fused
+        mixed step is refused here, where the reference fails at its first
+        step (M-RoPE is RoPE-only on that path)."""
+        if model.cfg.family not in ("dense", "moe", "vlm"):
+            raise ValueError("engine supports decoder-only families")
         if kv_dtype not in KV_DTYPES:
             raise ValueError(f"kv_dtype {kv_dtype!r} not in {KV_DTYPES}")
         self.attn_backend = resolve_paged_backend(attn_backend)
@@ -280,6 +285,8 @@ class Engine:
         # dense (and the host loop): two forwards (chunks, then decodes)
         self.fused_mixed = (self.chunked_prefill and self.device_resident
                             and self.attn_backend == "fused")
+        if self.fused_mixed and model.cfg.use_mrope:
+            raise ValueError("paged mixed step: RoPE / learned-pos only")
         # the prefix cache starts warm requests mid-prompt, so it needs
         # chunked prefill
         self.prefix_cache = (self.chunked_prefill if prefix_cache is None

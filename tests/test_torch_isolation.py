@@ -49,6 +49,9 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
         "events", "costmodel", "instance", "cluster", "profiler",
         "experiment", "workload")} <= loaded
     assert "repro_torch.kernels.cost" in loaded
+    # the MoE and VLM decoder families' modules
+    assert {"repro_torch.models." + m for m in (
+        "mlp", "attention", "transformer", "model")} <= loaded
 
 
 @pytest.mark.parametrize("path", _port_files(),

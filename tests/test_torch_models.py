@@ -29,6 +29,8 @@ from repro_torch.models.transformer import layer_params  # noqa: E402
 
 NAMES = ["smollm-360m", "llama3.2-3b", "qwen2.5-14b", "minitron-8b",
          "starcoder2-3b"]
+# the MoE and VLM decoders (tests/test_torch_moe.py, test_torch_vlm.py)
+FAMILY_NAMES = ["qwen3-moe-30b-a3b", "arctic-480b", "qwen2-vl-7b"]
 BS, NB = 16, 24            # block NB - 1 is the garbage block
 GARBAGE = NB - 1
 LOGIT_TOL, POOL_TOL = 1e-4, 1e-5
@@ -102,10 +104,13 @@ def test_config_copies_match_reference():
                     assert getattr(tc, f.name) == getattr(jc, f.name), f.name
     with pytest.raises(KeyError):
         get_config("gpt-2")
-    for name in ("qwen3-moe-30b-a3b", "qwen2-vl-7b", "rwkv6-7b",
-                 "whisper-large-v3", "zamba2-2.7b", "arctic-480b"):
+    for name in ("rwkv6-7b", "whisper-large-v3", "zamba2-2.7b"):
         with pytest.raises(NotImplementedError):
             build_model(get_config(name).reduced())
+    for name in FAMILY_NAMES:           # the MoE and VLM decoders build
+        build_model(get_config(name).reduced())
+        with pytest.raises(NotImplementedError):
+            build_model(get_config(name, sliding_window=64).reduced())
 
 
 def test_bridge_round_trip(pair):
@@ -123,6 +128,38 @@ def test_bridge_round_trip(pair):
     np.testing.assert_array_equal(back.v, v)
     with pytest.raises(KeyError):
         bridge.params_from_numpy({"embed": np.zeros(1)}, cfg, device="cpu")
+
+
+@pytest.mark.parametrize("name", FAMILY_NAMES)
+def test_bridge_round_trip_moe_and_vlm(name):
+    """The MoE (router, experts; arctic's ffn and ln_res) and VLM (QKV
+    bias) parameter trees cross the bridge leaf for leaf; the f32 router
+    stays f32 under a bf16 config; a tree missing a layer key is
+    refused."""
+    jcfg = jax_get_config(name).reduced()
+    tree = jax.tree.map(np.asarray, jax_build_model(jcfg).init(
+        jax.random.PRNGKey(0)))
+    for dtype in (torch.float32, torch.bfloat16):
+        cfg = dataclasses.replace(get_config(name).reduced(), dtype=dtype)
+        params = bridge.params_from_numpy(tree, cfg, device="cpu")
+        for path, leaf in jax.tree_util.tree_leaves_with_path(tree):
+            node = params
+            for key in path:
+                node = node[key.key]
+            want = leaf if dtype == torch.float32 or path[-1].key == \
+                "router" else np.asarray(torch.from_numpy(np.array(leaf))
+                                         .to(dtype).float())
+            np.testing.assert_array_equal(node.float().numpy(), want)
+            assert node.dtype == (torch.float32 if path[-1].key == "router"
+                                  else dtype)
+    layers = set(tree["layers"])
+    assert ("moe" in layers) == bool(cfg.num_experts)
+    assert ("ln_res" in layers) == cfg.dense_residual
+    assert "bq" in tree["layers"]["attn"] or not cfg.qkv_bias
+    with pytest.raises(KeyError):
+        bridge.params_from_numpy(
+            dict(tree, layers={k: v for k, v in tree["layers"].items()
+                               if k != "ln_mlp"}), cfg, device="cpu")
 
 
 def test_rms_norm_rope_ffn(pair):

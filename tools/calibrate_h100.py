@@ -397,7 +397,9 @@ def engine_points(torch, np, cfg, model, params, engine_mod, request_mod,
     n7, short, long_ = MIXED_BATCH
     batches.append((f"decode {n7} x {short} + 1 x {long_}",
                     [short] * n7 + [long_]))
-    steps_needed = WARM + WALL_REPS + BUSY_REPS
+    # the admission step also decodes its rows (two tokens), and every
+    # profiled sample taken again costs one more decode step
+    steps_needed = WARM + WALL_REPS + BUSY_REPS + RETRIES
     for label, lens in batches:
         rs = reqs(lens, steps_needed + 3)
         for r in rs:
