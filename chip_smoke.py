@@ -154,7 +154,28 @@ the last line:
     equal wherever the margin exceeds 8 bf16 ulps, within 1e-4 at 2
     layers f32; (d) 2 layers f32 on the card and the CPU: the flat
     engine's greedy streams equal, the model-level call within 1e-4;
-18. one JSON line of every kernel (the rows of phases 16-17's shapes
+18. starcoder2-3b with the window of 4096 its published config sets
+    (the repo's config leaves it unset), bf16, 6.36 GB of weights alone
+    on the card: (a) a slab engine (8 slots of a 4096-slot ring, max_seq
+    8192) serving prompts of 16..5897 tokens arriving one a step (the two
+    beyond the window take the banded plain path, 4080 + 32 wraps its
+    ring), under sync-debug "error": every count, one d2h a step that
+    brings tokens, #6 == 30 x the prompts within the window, #5 == 30 x
+    the decode forwards and nothing else, ``peak_kv_bytes`` the 8 rings
+    (1.007 GB); (b) the trace at a window of 8192 and with none: bit-equal
+    streams; (c) 2 layers f32 at W 64 on the card and the CPU: equal
+    streams; (d) #5 on the ring's rows and #6 at G 12 (measured with
+    phase 3's family rows) and the ptxas report of #5's 16-row tile;
+19. rwkv6-7b, bf16, 15 GB of weights drawn slice by slice: (a) a slab
+    engine (8 rows of recurrent state) on phase 18's arrivals, under
+    sync-debug "error" (every count, one d2h a step, no kernel of the
+    port: its recurrence is plain PyTorch), then the 5897-token prompt's
+    prefill alone (the chunked WKV); (b) one full-width f32 layer at T
+    1024: the chunked WKV within 1e-5 of the sequential one (in f32 and
+    in f64); (c) 2 slab engines in one ``MILSServer`` on phase 6's first
+    8 requests: at least one migration, each piece 34,078,720 B; (d) 2
+    layers f32 on the card and the CPU: equal streams;
+20. one JSON line of every kernel (the rows of phases 16-18's shapes
     added), then, last, ``{"ok": true, ...}``.
 
 It needs one CUDA card and fails without one; it imports nothing of JAX.
@@ -2275,6 +2296,18 @@ def phase_cost_model(torch, fig2_tax):
 # Phases 16 and 17: the MoE and VLM decoder families at full width
 # --------------------------------------------------------------------------
 MOE_ARCH, VLM_ARCH = "qwen3-moe-30b-a3b", "qwen2-vl-7b"
+# phases 18-19: starcoder2-3b at the window its published config sets (the
+# repo's config leaves it unset), and rwkv6-7b, on phase 4's arrivals
+WINDOW_ARCH, RWKV_ARCH = "starcoder2-3b", "rwkv6-7b"
+WINDOW = 4096
+# 4100 and 5897 exceed the window (the banded path), the rest run #6;
+# 4080 + 32 new tokens wraps the ring while decoding
+WINDOW_PROMPTS = (16, 300, 1000, 2048, 3000, 4080, 4100, 5897)
+WINDOW_NEW = (32, 16, 24, 32, 16, 32, 24, 16)
+# (c): 2 layers f32 at W 64: 130 runs the banded path, 60 + 8 wraps
+WINDOW_SMALL, WINDOW_SMALL_W = (40, 130, 17, 60), 64
+# a request's rwkv6-7b state: S [32, 64, 64, 64] f32 + two [32, 4096] bf16
+RWKV_PIECE_BYTES = 32 * (64 * 64 * 64 * 4 + 2 * 4096 * 2)
 VLM_SLAB = (2, 1024)        # phase 17 (c): B prompts of T tokens
 # phase 17 (c)'s bound on the relative L2 gap between the bf16 slab
 # decode's logits and the whole forward's at full depth: on the H100 the
@@ -2331,12 +2364,14 @@ def _draw_weights(torch, model, label):
 
 def _forward_kinds(engine_mod, model):
     """Count the engine's attention-bearing forwards by kind (the chunk
-    forward, anything else) while installed; returns (kinds, restore)."""
+    forward or a whole prompt's, anything else) while installed; returns
+    (kinds, restore)."""
     kinds = {"prefill": 0, "decode": 0}
     real = engine_mod.attn_call
 
     def attn_call(fn, *a, **k):
-        kinds["prefill" if fn is model.prefill_chunk else "decode"] += 1
+        prompt = fn is model.prefill_chunk or fn is model.prefill
+        kinds["prefill" if prompt else "decode"] += 1
         return real(fn, *a, **k)
     engine_mod.attn_call = attn_call
 
@@ -2346,15 +2381,15 @@ def _forward_kinds(engine_mod, model):
 
 
 def _serve_trace(np, torch, engine_mod, request_mod, tk, dk, pk, eng, model,
-                 prompts, label):
-    """Phase 4's requests (``prompts`` with ``NEW_TOKENS``), arriving one
+                 prompts, label, new_tokens=NEW_TOKENS):
+    """Phase 4's requests (``prompts`` with ``new_tokens``), arriving one
     a step, on ``eng`` under sync-debug "error" (``_drive_modes_trace``'s
     checks: one d2h a step that brings tokens, the backend's forwards a
     step); every request finishes with its count. Returns the summary
     (TTFT/TPOT in steps and s, step ms, tokens/s, peak memory, forwards
     by kind, launches)."""
     reqs = [request_mod.ServeRequest(i, p.copy(), m)
-            for i, (p, m) in enumerate(zip(prompts, NEW_TOKENS))]
+            for i, (p, m) in enumerate(zip(prompts, new_tokens))]
     zero_counts(tk, dk, pk)
     kinds, restore = _forward_kinds(engine_mod, model)
     try:
@@ -2424,24 +2459,26 @@ def phase_moe_profile(torch):
     return res
 
 
-def _small_requests(np, request_mod, vocab):
+def _small_requests(np, request_mod, vocab, lens=SMALL_REQS, new=6):
     rng = np.random.default_rng(SEED + 1)
     return [request_mod.ServeRequest(
-        i, rng.integers(0, vocab, n).astype(np.int32), 6)
-        for i, n in enumerate(SMALL_REQS)]
+        i, rng.integers(0, vocab, n).astype(np.int32), new)
+        for i, n in enumerate(lens)]
 
 
 def _engine_devices(np, torch, model, gpu_params, cpu_params, engine_mod,
-                    request_mod, label, **engine_kw):
-    """Phase 5's requests on an engine on the card and on one on the CPU
-    (``engine_kw``: the backend), same weights: equal greedy streams."""
+                    request_mod, label, lens=SMALL_REQS, new=6, **engine_kw):
+    """Phase 5's requests (or ``lens`` prompts of ``new`` tokens) on an
+    engine on the card and on one on the CPU (``engine_kw``: the backend),
+    same weights: equal greedy streams."""
     streams = {}
     for dev, params in (("cuda", gpu_params), ("cpu", cpu_params)):
         eng = engine_mod.Engine(0, model, params, max_slots=3, max_seq=512,
                                 prefill_token_budget=64, preemption=False,
                                 **engine_kw)
         check(eng.device.type == dev, f"{label}: engine on {eng.device}")
-        reqs = _small_requests(np, request_mod, model.cfg.vocab_size)
+        reqs = _small_requests(np, request_mod, model.cfg.vocab_size, lens,
+                               new)
         t0 = time.perf_counter()
         for r in reqs:
             eng.submit(r)
@@ -2458,35 +2495,50 @@ def _engine_devices(np, torch, model, gpu_params, cpu_params, engine_mod,
     return streams["cuda"]
 
 
-def _moe_cluster(np, torch, model, params, engine_mod, request_mod,
-                 server_mod, serve_mod, qoe_mod, tk, dk, pk, label):
-    """A 2-engine ``MILSServer`` (stages [0, 2048) and [2048, inf)), fused
-    engines of ``max_slots 8, max_seq 8192, token_budget 16384``,
-    preemption off, phase 6's 16 requests, under sync-debug "error":
-    every request drains, at least one migration, each engine step makes
-    at most one d2h and one forward, #1 launches == layers x forwards and
-    no other kernel runs."""
+def _two_engine_cluster(np, torch, model, params, engine_mod, request_mod,
+                        server_mod, serve_mod, qoe_mod, tk, dk, pk, label,
+                        trace=CLUSTER_TRACE, slab=False):
+    """A 2-engine ``MILSServer`` (stages [0, 2048) and [2048, inf)),
+    engines of ``max_slots 8, max_seq 8192``, preemption off, phase 6's
+    requests (``trace``), under sync-debug "error": every request drains,
+    at least one migration, each engine step makes at most one d2h. Fused
+    engines (``token_budget 16384``): at most one forward a step, #1
+    launches == layers x forwards and no other kernel runs. ``slab``
+    engines (the host loop; a step prefills each prompt it admits, then
+    decodes): no kernel of the port runs, and each migration's piece
+    bytes are recorded (``piece_bytes``)."""
     cfg = model.cfg
+    engine_kw = dict(max_slots=8, max_seq=8192, preemption=False)
+    if not slab:
+        engine_kw["token_budget"] = 16384
     srv = server_mod.MILSServer(
         model, params, serve_mod.default_plan(2, 8192),
         qoe_mod.QoEModel(np.array(serve_mod.DEFAULT_QOE)),
         server_mod.ServerConfig(policy="cascade", refinement="adaptive",
                                 balancing="full", seed=SEED,
                                 preemption=False),
-        engine_factory=lambda i: engine_mod.Engine(
-            i, model, params, max_slots=8, max_seq=8192, token_budget=16384,
-            preemption=False))
-    reqs = _submit_trace(np, request_mod, srv, CLUSTER_TRACE,
-                         cfg.vocab_size, SEED + 2)
+        engine_factory=lambda i: engine_mod.Engine(i, model, params,
+                                                   **engine_kw))
+    reqs = _submit_trace(np, request_mod, srv, trace, cfg.vocab_size,
+                         SEED + 2)
     worst = {"d2h": 0, "attn": 0}
+    piece_bytes = []
     for eng in srv.engines:
+        check(eng.paged != slab, f"{label}: engine paged={eng.paged}")
+
         def counted(burst=1, _step=eng.step):
             d0, a0 = engine_mod.D2H_CALLS, engine_mod.ATTN_CALLS
             out = _step(burst)
             worst["d2h"] = max(worst["d2h"], engine_mod.D2H_CALLS - d0)
             worst["attn"] = max(worst["attn"], engine_mod.ATTN_CALLS - a0)
             return out
+
+        def exported(slot, _export=eng.export_slot):
+            out = _export(slot)
+            piece_bytes.append(out[2])
+            return out
         eng.step = counted
+        eng.export_slot = exported
     zero_counts(tk, dk, pk)
     a0 = engine_mod.ATTN_CALLS
     t_end = {0: 0.0}
@@ -2510,11 +2562,14 @@ def _moe_cluster(np, torch, model, params, engine_mod, request_mod,
         eng.check_drained(strict=True)
     check(worst["d2h"] <= 1, f"{label}: an engine step made "
           f"{worst['d2h']} d2h")
-    check(worst["attn"] <= 1, f"{label}: an engine step made "
-          f"{worst['attn']} forwards")
-    check(launches == {"fused": cfg.num_layers * forwards} and forwards,
-          f"{label}: launches {launches} != {cfg.num_layers} x {forwards} "
-          "fused forwards")
+    if slab:
+        check(not launches, f"{label}: slab engines launched {launches}")
+    else:
+        check(worst["attn"] <= 1, f"{label}: an engine step made "
+              f"{worst['attn']} forwards")
+        check(launches == {"fused": cfg.num_layers * forwards} and forwards,
+              f"{label}: launches {launches} != {cfg.num_layers} x "
+              f"{forwards} fused forwards")
     check(srv.migrations >= 1, f"{label}: no migration")
     for r in reqs:
         check(len(r.generated) == r.max_new_tokens and not r.rejected,
@@ -2528,11 +2583,13 @@ def _moe_cluster(np, torch, model, params, engine_mod, request_mod,
            for p in (50, 95, 99)}
     ntok = summ["tokens_out"]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    log(f"{label}: 2 fused engines, {len(reqs)} requests drained in "
+    log(f"{label}: 2 {'slab' if slab else 'fused'} engines, {len(reqs)} "
+        f"requests drained in "
         f"{srv.steps} steps, {wall:.3f} s; {ntok} tokens, "
         f"{ntok / wall:.1f} tokens/s; {srv.migrations} migrations "
         f"({srv.migrated_bytes / 1e6:.1f} MB moved); launches "
-        f"{json.dumps(launches)} = {cfg.num_layers} x {forwards} forwards; "
+        f"{json.dumps(launches)}, {forwards} forwards of {cfg.num_layers} "
+        f"layers; "
         f"peak memory {peak_gb:.2f} GB; stage bounds {srv.stage_bounds}")
     log(f"{label}: server step ms mean {sum(step_ms) / len(step_ms):.2f} "
         f"max {max(step_ms):.2f}; seconds " + json.dumps(pct))
@@ -2540,6 +2597,8 @@ def _moe_cluster(np, torch, model, params, engine_mod, request_mod,
            "tokens_per_s": ntok / wall, "step_ms": step_ms,
            "migrations": srv.migrations,
            "migrated_bytes": srv.migrated_bytes, "forwards": forwards,
+           "most_forwards_an_engine_step": worst["attn"],
+           "piece_bytes": piece_bytes,
            "launches": launches, "peak_memory_gb": peak_gb, **pct,
            "ttft_s": ttft_s, "e2e_s": e2e_s}
     for eng in srv.engines:
@@ -2584,9 +2643,9 @@ def phase_moe(np, torch, cfg_mod, model_mod, engine_mod, request_mod,
 
     # (b) the 2-engine cluster, on the weights drawn again
     params, _ = _draw_weights(torch, model, "phase 16 (b)")
-    cluster = _moe_cluster(np, torch, model, params, engine_mod,
-                           request_mod, server_mod, serve_mod, qoe_mod, tk,
-                           dk, pk, "phase 16 (b)")
+    cluster = _two_engine_cluster(np, torch, model, params, engine_mod,
+                                  request_mod, server_mod, serve_mod,
+                                  qoe_mod, tk, dk, pk, "phase 16 (b)")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     del params
     gc.collect()
@@ -2642,9 +2701,12 @@ def family_kernels(np, torch, F, cfg_mod, tk, dk, pk, flush):
     a3b's heads (32 / 4 / 64, G 8) on phase 3's segments; #2 and #3 at
     qwen2-vl-7b's (28 / 4 / 128, G 7) on phase 3's rows; #6 and #5 at the
     shapes of phase 17 (c)'s model-level call (B 2 prompts of T 1024; 2
-    rows of a 1025-row slab through the identity row map). #1 is also
-    held at Dh 128, the published Qwen3-30B-A3B's head width (the repo's
-    config leaves head_dim unset, so the engine runs Dh 64)."""
+    rows of a 1025-row slab through the identity row map); and, for phase
+    18 (d), #6 and #5 at starcoder2-3b's heads (24 / 2 / 128, G 12, the
+    largest grouping of any config; #5's 16-row tile instance) on phase
+    18 (a)'s shapes. #1 is also held at Dh 128, the published
+    Qwen3-30B-A3B's head width (the repo's config leaves head_dim unset,
+    so the engine runs Dh 64)."""
     moe = cfg_mod.get_config(MOE_ARCH)
     vlm = cfg_mod.get_config(VLM_ARCH)
     out = {"moe": phase_kernels(np, torch, F, tk, flush, H=moe.num_heads,
@@ -2661,6 +2723,17 @@ def family_kernels(np, torch, F, cfg_mod, tk, dk, pk, flush):
     out["slab"] = contiguous_kernels_at(
         torch, vlm, dk, pk, flush, B, T, [T + 1] * B, list(range(B)), T + 1,
         f"phase 3 ({VLM_ARCH}, G 7)", device=True)
+    # phase 18 (d): #6 on the longest prompt within the window, #5 on the
+    # 8 rows of the 4096-slot ring at (a)'s mid-decode lengths (query row
+    # b reading ring row 7 - b)
+    win = cfg_mod.get_config(WINDOW_ARCH)
+    lens = [min(n + m // 2, WINDOW)
+            for n, m in zip(WINDOW_PROMPTS, WINDOW_NEW)]
+    out["window"] = contiguous_kernels_at(
+        torch, win, dk, pk, flush, 1,
+        max(n for n in WINDOW_PROMPTS if n <= WINDOW), lens,
+        list(range(len(lens) - 1, -1, -1)), WINDOW,
+        f"phase 18 (d) ({WINDOW_ARCH}, G 12)", device=True)
     return out
 
 
@@ -2835,14 +2908,251 @@ def phase_vlm(np, torch, cfg_mod, model_mod, engine_mod, request_mod,
             "cuda_cpu_streams": streams}
 
 
-def family_rows(fam, moe, vlm):
+def phase_window(np, torch, cfg_mod, model_mod, engine_mod, request_mod,
+                 tk, dk, pk, ptxas):
+    """Phase 18: starcoder2-3b with its published window of 4096, bf16,
+    alone on the card: (a) a slab engine (8 slots of a 4096-slot ring,
+    max_seq 8192) serving ``WINDOW_PROMPTS`` arriving one a step, under
+    sync-debug "error": every request finishes with its count, one d2h a
+    step that brings tokens, #6 == layers x the prompts within the window
+    (the two longer ones take the banded plain path), #5 == layers x the
+    decode forwards, nothing else launched, ``peak_kv_bytes`` the 8 rings;
+    (b) the same trace at a window of 8192 (wider than every sequence)
+    and with no window: bit-equal streams; (c) 2 layers f32 at W 64 on
+    the card and the CPU: equal greedy streams. (d), #5 and #6 at G 12,
+    was measured with phase 3 (``family_kernels``); here the ptxas report
+    of #5's instance that G 12 runs."""
+    base = cfg_mod.get_config(WINDOW_ARCH)
+    held = _fresh_card(torch, "phase 18")
+    cfg = dataclasses.replace(base, sliding_window=WINDOW,
+                              dtype=torch.bfloat16)
+    model = model_mod.build_model(cfg)
+    check(not model.supports_paged, "phase 18: a windowed model has a "
+          "paged path")
+    params, nbytes = _draw_weights(torch, model, "phase 18")
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in WINDOW_PROMPTS]
+    L, Hkv, Dh = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
+    runs = {}
+    for name, w in (("window 4096", WINDOW), ("window 8192", 8192),
+                    ("no window", 0)):
+        m = model_mod.build_model(dataclasses.replace(cfg, sliding_window=w))
+        eng = engine_mod.Engine(0, m, params, max_slots=8, max_seq=8192,
+                                paged=False, preemption=False)
+        check(not (eng.paged or eng.chunked_prefill or eng.device_resident),
+              f"phase 18 {name}: not a slab engine")
+        rows = eng.cache.k.shape[2]
+        res = _serve_trace(np, torch, engine_mod, request_mod, tk, dk, pk,
+                           eng, m, prompts, f"phase 18 ({name})",
+                           new_tokens=WINDOW_NEW)
+        fw = res["forwards"]
+        within = sum(n <= (w or 8192) for n in WINDOW_PROMPTS)
+        want = {"contiguous_prefill": L * within,
+                "contiguous_decode_padded": L * fw["decode"]}
+        check(res["launches"] == want and fw["prefill"] == len(prompts),
+              f"phase 18 ({name}): launches {res['launches']} != {want} "
+              f"(forwards {fw})")
+        ring = 8 * L * 2 * rows * Hkv * Dh * 2
+        check(eng.peak_kv_bytes == ring, f"phase 18 ({name}): peak_kv_bytes "
+              f"{eng.peak_kv_bytes} != 8 slots of {rows} rows ({ring})")
+        res.update(rows=rows, peak_kv_bytes=eng.peak_kv_bytes)
+        log(f"phase 18 ({name}): {rows}-row slots, peak_kv_bytes "
+            f"{eng.peak_kv_bytes / 1e9:.4f} GB")
+        eng.shutdown()
+        del eng
+        torch.cuda.empty_cache()
+        runs[name] = res
+    check(runs["window 8192"]["streams"] == runs["no window"]["streams"],
+          "phase 18 (b): a window of 8192 parts from no window")
+    same = sum(a == b for a, b in zip(runs["window 4096"]["streams"],
+                                      runs["no window"]["streams"]))
+    log(f"phase 18 (b): window 8192 == no window, bit for bit, on all "
+        f"{len(prompts)} streams; window 4096 equals no window on {same}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) 2 layers, full width, f32, W 64: the card against the CPU
+    t0 = time.perf_counter()
+    cfg2 = dataclasses.replace(base, num_layers=2, dtype=torch.float32,
+                               sliding_window=WINDOW_SMALL_W)
+    model2 = model_mod.build_model(cfg2)
+    gpu2 = model2.init(SEED, device="cuda")
+    cpu2 = _tree_to(gpu2, torch.device("cpu"))
+    streams = _engine_devices(np, torch, model2, gpu2, cpu2, engine_mod,
+                              request_mod, "phase 18 (c)", lens=WINDOW_SMALL,
+                              new=8)
+    log(f"phase 18 (c): 2-layer full-width f32 {WINDOW_ARCH} at W "
+        f"{WINDOW_SMALL_W}, prompts {WINDOW_SMALL}: cuda == cpu greedy "
+        f"streams {streams}; {time.perf_counter() - t0:.1f} s")
+    del gpu2, cpu2
+    gc.collect()
+    torch.cuda.empty_cache()
+    tile = {label: rep for label, rep in ptxas.items()
+            if label.startswith("contiguous_split_kernel<bf16,128,16>")}
+    log(f"phase 18 (d): #5's instance at G 12 (the 16-row tile): {tile}")
+    return {"held_before_gb": held / 1e9, "weights_gb": nbytes / 1e9,
+            "peak_memory_gb": peak_gb, "runs": runs,
+            "window_equals_none": same, "cuda_cpu_streams": streams,
+            "ptxas_g12": tile}
+
+
+def phase_rwkv(np, torch, cfg_mod, model_mod, engine_mod, request_mod,
+               server_mod, serve_mod, qoe_mod, tk, dk, pk):
+    """Phase 19: rwkv6-7b, bf16, alone on the card: (a) a slab engine (8
+    rows of state, max_seq 8192) on phase 18's arrivals, under sync-debug
+    "error" (every count, one d2h a step, no kernel of the port), then the
+    5897-token prompt's prefill alone; (b) one full-width layer in f32 at
+    T 1024: the chunked WKV against the sequential one, and against the
+    sequential one run in f64 (1e-5 of the largest magnitude, on y and
+    the final S), with the init's decays
+    (``decay_w0`` -6) and with ``decay_w0`` spread over [-8, -1], a
+    random bonus ``u`` in both; (c) a 2-engine
+    cluster on phase 6's first 8 requests: at least one migration, each
+    piece the whole state; (d) 2 layers f32 on the card and the CPU."""
+    from repro_torch.models import rwkv6
+    base = cfg_mod.get_config(RWKV_ARCH)
+    held = _fresh_card(torch, "phase 19")
+    cfg = dataclasses.replace(base, dtype=torch.bfloat16)
+    model = model_mod.build_model(cfg)
+    params, nbytes = _draw_weights(torch, model, "phase 19")
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in WINDOW_PROMPTS]
+
+    # (a) the slab engine
+    eng = engine_mod.Engine(0, model, params, max_slots=8, max_seq=8192,
+                            preemption=False)
+    check(not (eng.paged or eng.chunked_prefill or eng.device_resident),
+          "phase 19: not a slab engine")
+    engine = _serve_trace(np, torch, engine_mod, request_mod, tk, dk, pk,
+                          eng, model, prompts, "phase 19 (a)",
+                          new_tokens=WINDOW_NEW)
+    check(not engine["launches"] and engine["forwards"]["prefill"]
+          == len(prompts), f"phase 19 (a): launches {engine['launches']}, "
+          f"forwards {engine['forwards']}")
+    engine["peak_kv_bytes"] = eng.peak_kv_bytes
+    check(eng.peak_kv_bytes == 8 * RWKV_PIECE_BYTES,
+          f"phase 19 (a): peak_kv_bytes {eng.peak_kv_bytes}")
+    eng.shutdown()
+    del eng
+    torch.cuda.empty_cache()
+    long = torch.from_numpy(prompts[-1][None]).cuda()
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.prefill(params, long)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    engine["prefill_5897_ms"] = walls
+    log(f"phase 19 (a): prefill of the {long.shape[1]}-token prompt alone "
+        f"(chunked WKV, C {rwkv6.WKV_CHUNK}): {[round(x, 2) for x in walls]}"
+        f" ms (host clock around a synchronised call; the first warm)")
+    del long
+
+    # (c) the cluster, on the same weights
+    cluster = _two_engine_cluster(np, torch, model, params, engine_mod,
+                                  request_mod, server_mod, serve_mod,
+                                  qoe_mod, tk, dk, pk, "phase 19 (c)",
+                                  trace=CLUSTER_TRACE[:8], slab=True)
+    check(cluster["piece_bytes"] and all(
+        b == RWKV_PIECE_BYTES for b in cluster["piece_bytes"]),
+        f"phase 19 (c): piece bytes {cluster['piece_bytes']} != "
+        f"{RWKV_PIECE_BYTES}")
+    log(f"phase 19 (c): every migration moved one whole state of "
+        f"{RWKV_PIECE_BYTES} B: {cluster['piece_bytes']}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) one full-width layer, f32, T 1024: chunked against sequential
+    cfg1 = dataclasses.replace(base, num_layers=1, dtype=torch.float32)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 19)
+    pl = rwkv6.init_layer(gen, cfg1)
+    x = torch.randn((1, 1024, cfg1.d_model), generator=gen, device="cuda")
+    u = torch.randn(tuple(pl["bonus_u"].shape), generator=gen,
+                    device="cuda")
+    S0 = torch.zeros((1,) + tuple(u.shape) + (u.shape[-1],), device="cuda")
+    flush = torch.empty(128 * 1024 * 1024, dtype=torch.float32,
+                        device="cuda")
+    wkv = {"T": 1024, "chunk": rwkv6.WKV_CHUNK}
+    for name, w0 in (("init decays", None),
+                     ("spread decays", torch.linspace(
+                         -8.0, -1.0, cfg1.d_model, device="cuda"))):
+        if w0 is not None:
+            pl["decay_w0"].copy_(w0)
+        r, k, v, lw, _ = rwkv6.wkv_inputs(pl, cfg1, x)
+        y_seq, S_seq = rwkv6.wkv_sequential(r, k, v, torch.exp(lw), u, S0)
+        y_ch, S_ch = rwkv6.wkv_chunked(r, k, v, lw, u, S0)
+        # the sequential form in f64 on the same inputs: how far each f32
+        # form lies from the recurrence itself
+        y64, S64 = rwkv6.wkv_sequential(*(a.double() for a in (
+            r, k, v, torch.exp(lw.double()), u, S0)))
+
+        def rel(a, b):
+            return float((a.double() - b.double()).abs().max()
+                         / b.double().abs().max())
+        errs = {"y": rel(y_ch, y_seq), "S": rel(S_ch, S_seq),
+                "y_chunked_vs_f64": rel(y_ch, y64),
+                "S_chunked_vs_f64": rel(S_ch, S64),
+                "y_sequential_vs_f64": rel(y_seq, y64),
+                "S_sequential_vs_f64": rel(S_seq, S64)}
+        check(all(e <= 1e-5 for n, e in errs.items()
+                  if "sequential_vs" not in n),
+              f"phase 19 (b) {name}: chunked WKV off the sequential one: "
+              f"{errs}")
+        seq_ms = time_ms(torch, lambda: rwkv6.wkv_sequential(
+            r, k, v, torch.exp(lw), u, S0), 2, flush)
+        ch_ms = time_ms(torch, lambda: rwkv6.wkv_chunked(
+            r, k, v, lw, u, S0), 5, flush)
+        log(f"phase 19 (b) {name}: one full-width layer f32, T 1024, "
+            f"log w in [{lw.min().item():.3g}, {lw.max().item():.3g}]: "
+            f"chunked WKV (C {rwkv6.WKV_CHUNK}) vs sequential: max |diff|"
+            f" / max |ref| y {errs['y']:.3e}, S {errs['S']:.3e} (1e-5); "
+            f"vs the sequential form in f64: chunked y "
+            f"{errs['y_chunked_vs_f64']:.3e} S "
+            f"{errs['S_chunked_vs_f64']:.3e} (1e-5), sequential f32 y "
+            f"{errs['y_sequential_vs_f64']:.3e} S "
+            f"{errs['S_sequential_vs_f64']:.3e}; "
+            f"{ch_ms:.3f} ms vs {seq_ms:.3f} ms (events)")
+        wkv[name] = {"rel_err": errs, "chunked_ms": ch_ms,
+                     "sequential_ms": seq_ms}
+    del pl, x, r, k, v, lw, y_seq, y_ch, y64, S64, flush
+    torch.cuda.empty_cache()
+
+    # (d) 2 layers, full width, f32: the card against the CPU
+    t0 = time.perf_counter()
+    cfg2 = dataclasses.replace(base, num_layers=2, dtype=torch.float32)
+    model2 = model_mod.build_model(cfg2)
+    gpu2 = model2.init(SEED, device="cuda")
+    cpu2 = _tree_to(gpu2, torch.device("cpu"))
+    streams = _engine_devices(np, torch, model2, gpu2, cpu2, engine_mod,
+                              request_mod, "phase 19 (d)")
+    log(f"phase 19 (d): 2-layer full-width f32 {RWKV_ARCH}, cuda (chunked "
+        f"WKV) == cpu (sequential) greedy streams {streams}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    del gpu2, cpu2
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"held_before_gb": held / 1e9, "weights_gb": nbytes / 1e9,
+            "peak_memory_gb": peak_gb, "engine": engine,
+            "cluster": cluster, "wkv": wkv, "cuda_cpu_streams": streams}
+
+
+def family_rows(fam, moe, vlm, win):
     """The kernels JSON rows of the families' shapes (#1 at G 8; #2, #3,
-    #5, #6 at G 7; measured by ``family_kernels``), with their launches
-    on phases 16 and 17's paths."""
+    #5, #6 at G 7; #5 and #6 at G 12; measured by ``family_kernels``),
+    with their launches on phases 16, 17 and 18 (a)'s paths."""
     moe_launches = (moe["engine"]["launches"].get("fused", 0)
                     + moe["cluster"]["launches"].get("fused", 0))
     vl = vlm["engine"]["launches"]
     slab = vlm["slab"]["launches"]
+    ring = win["runs"]["window 4096"]["launches"]
     rows = []
     for k, name, src, tpu, launches, shape in (
             (fam["moe"], "paged_mixed_attention_g8", "mixed_attention.cu",
@@ -2867,7 +3177,19 @@ def family_rows(fam, moe, vlm):
              "contiguous_prefill.cu",
              "src/repro/kernels/prefill_attention.py:125",
              slab.get("contiguous_prefill", 0),
-             f"{VLM_ARCH}: B 2, T 1024")):
+             f"{VLM_ARCH}: B 2, T 1024"),
+            (fam["window"]["decode_padded"],
+             "decode_attention_padded_g12", "contiguous_decode.cu",
+             "src/repro/kernels/decode_attention.py:291",
+             ring.get("contiguous_decode_padded", 0),
+             f"{WINDOW_ARCH} (window {WINDOW}): H 24 / Hkv 2 / Dh 128, "
+             f"8 rows over the {WINDOW}-slot ring via kv_rows"),
+            (fam["window"]["prefill"], "prefill_attention_g12",
+             "contiguous_prefill.cu",
+             "src/repro/kernels/prefill_attention.py:125",
+             ring.get("contiguous_prefill", 0),
+             f"{WINDOW_ARCH}: H 24 / Hkv 2 / Dh 128, B 1, T "
+             f"{fam['window']['prefill']['T']}")):
         row = {"name": name, "ok": True, "route": "cuda",
                "source": f"src/repro_torch/kernels/csrc/{src}",
                "replaces": tpu, "launches": launches, "shape": shape,
@@ -2881,6 +3203,8 @@ def family_rows(fam, moe, vlm):
             if key in k:
                 row[key] = k[key]
         rows.append(row)
+    by_name = {row["name"]: row for row in rows}
+    by_name["decode_attention_padded_g12"]["ptxas"] = win["ptxas_g12"]
     d128 = fam["moe_dh128"]       # #1 at the published head width
     rows[0]["dh128"] = {key: d128[key] for key in (
         "max_abs_err", "max_abs_err_f32", "ms", "device_ms", "plain_ms",
@@ -3060,7 +3384,27 @@ def main() -> int:
     vlm["phase_s"] = time.perf_counter() - t17
     log(f"phase 17: took {vlm['phase_s']:.1f} s")
 
-    # 16. results
+    # 18. starcoder2-3b with its 4096-token window: the slab's rings (#6
+    # within the window, the banded path beyond it, #5 on the ring), the
+    # window wider than every sequence == no window, 2 layers f32 on the
+    # card and the CPU
+    t18 = time.perf_counter()
+    window = phase_window(np, torch, cfg_mod, model_mod, engine_mod,
+                          request_mod, tk, dk, pk, ptxas)
+    window["phase_s"] = time.perf_counter() - t18
+    log(f"phase 18: took {window['phase_s']:.1f} s")
+
+    # 19. rwkv6-7b: the slab's recurrent state, the chunked WKV, a
+    # 2-engine cluster migrating whole states, 2 layers f32 on the card
+    # and the CPU
+    t19 = time.perf_counter()
+    rwkv = phase_rwkv(np, torch, cfg_mod, model_mod, engine_mod,
+                      request_mod, server_mod, serve_mod, qoe_mod, tk, dk,
+                      pk)
+    rwkv["phase_s"] = time.perf_counter() - t19
+    log(f"phase 19: took {rwkv['phase_s']:.1f} s")
+
+    # 20. results
     kernels = [{
         "name": "paged_mixed_attention", "ok": True, "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/mixed_attention.cu",
@@ -3157,7 +3501,7 @@ def main() -> int:
     by_name["decode_attention_padded"]["engine_shape"] = modes["kernels"][
         "decode_padded"]
     # the same kernels at the MoE and VLM configs' head groupings
-    kernels += family_rows(fam, moe, vlm)
+    kernels += family_rows(fam, moe, vlm, window)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke_report.json").write_text(json.dumps(
@@ -3165,9 +3509,13 @@ def main() -> int:
          "cluster": cluster, "chaos_cluster": chaos,
          "grid_cluster": grid_cluster, "dense_int8": dense_int8,
          "fig2": fig2, "engine_modes": modes, "cost_model": cost_model,
-         "family_kernels": fam, "moe": moe, "vlm": vlm}, indent=1,
+         "family_kernels": fam, "moe": moe, "vlm": vlm, "window": window,
+         "rwkv": rwkv}, indent=1,
         default=str))
-    log(f"chip_smoke: phases 1-17 took {time.perf_counter() - t_main:.1f} s")
+    log(f"chip_smoke: phases 1-19 took {time.perf_counter() - t_main:.1f} s")
+    # the card again, so that the end of the output names it beside the
+    # numbers
+    log(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

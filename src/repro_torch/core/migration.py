@@ -14,12 +14,14 @@ Dh]`` piece per pool leaf, whatever the engines' block layouts, so a
 piece exported from one engine (or, through numpy, from the JAX package)
 imports into any other. The helpers run over every leaf of a pool, so an
 int8 pool's gathers and scatters carry its scale leaves (``[L, NB, BS,
-Hkv]``); the engines keep the migration wire itself full-width.
+Hkv]``); the engines keep the migration wire itself full-width. The slab's
+other layouts ship whole: a sliding window's ring ``[L, 1, W, Hkv, Dh]``
+and rwkv6's recurrent state ``{"S", "att_prev", "ffn_prev"}``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Any, Callable, Dict, List, Mapping
 
 import torch
 
@@ -102,7 +104,29 @@ def scatter_kv_blocks(pool, piece, block_ids: torch.Tensor):
     return pool
 
 
+def tree_leaves(tree) -> List[torch.Tensor]:
+    """The tensors of a cache pytree in ``jax.tree.leaves`` order: a
+    tensor is its own leaf, a dict's values go by sorted key, a tuple's
+    (``KVCache``, ``QuantKVCache``) and a list's in order."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, Mapping):
+        return [a for k in sorted(tree) for a in tree_leaves(tree[k])]
+    return [a for t in tree for a in tree_leaves(t)]
+
+
+def tree_map(fn: Callable[[torch.Tensor], Any], tree):
+    """``fn`` over every tensor of a cache pytree, the structure kept."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if isinstance(tree, Mapping):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    out = [tree_map(fn, t) for t in tree]
+    return type(tree)(*out) if hasattr(tree, "_fields") else type(tree)(out)
+
+
 def kv_bytes(cache) -> float:
-    """Bytes held by the leaves of a pool or a piece (int8 pools: their
-    scales count)."""
-    return float(sum(a.numel() * a.element_size() for a in cache))
+    """Bytes held by the leaves of a pool, a slab or a piece, whatever
+    its pytree (int8 pools: their scales count; rwkv6: the state)."""
+    return float(sum(a.numel() * a.element_size()
+                     for a in tree_leaves(cache)))

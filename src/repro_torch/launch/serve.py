@@ -16,8 +16,11 @@ defaults — int8 KV (``--kv-dtype``), the host KV tier
 SLO preemption (on), the host loop (``--host-loop``), whole-prompt
 prefill (``--no-chunked-prefill``), the prefix cache
 (``--no-prefix-cache``), the fault model (``--crash``, ``--rejoin``,
-``--transfer-loss-p``, ...) — plus ``--device``, ``--full-width`` and
-``--dtype``. Tensor parallelism is not ported.
+``--transfer-loss-p``, ...) — plus ``--device``, ``--full-width``,
+``--dtype`` and ``--sliding-window``. An arch without a paged path (rwkv6,
+or any decoder given a window) serves from slab engines: the host loop
+and whole-prompt prefill, the host tier off. Tensor parallelism is not
+ported.
 """
 from __future__ import annotations
 
@@ -64,6 +67,11 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--full-width", action="store_true",
                     help="serve the arch at its published widths and depth "
                          "(default: its reduced smoke config)")
+    ap.add_argument("--sliding-window", type=int, default=None,
+                    help="attention window of a decoder (default: the "
+                         "config's; starcoder2's published config sets "
+                         "4096): its KV then lives in a ring on slab "
+                         "engines")
     ap.add_argument("--dtype", default="float32",
                     choices=["float32", "bfloat16"],
                     help="weights and activations (and bf16 KV pools)")
@@ -178,8 +186,13 @@ def build_server(args: argparse.Namespace) -> MILSServer:
     if not args.full_width:
         cfg = cfg.reduced()
     cfg = dataclasses.replace(cfg, dtype=getattr(torch, args.dtype))
+    if args.sliding_window is not None:
+        cfg = dataclasses.replace(cfg, sliding_window=args.sliding_window)
     model = build_model(cfg)
     params = model.init(0, device=args.device)
+    # the host tier keeps evicted pool blocks: a slab engine has none
+    host_kv = (args.host_kv_budget if args.prefix_cache
+               and model.supports_paged else 0)
     srv = MILSServer(model, params, default_plan(args.engines, args.max_seq),
                      QoEModel(np.array(DEFAULT_QOE)),
                      ServerConfig(policy=args.policy,
@@ -188,9 +201,7 @@ def build_server(args: argparse.Namespace) -> MILSServer:
                                   preemption=args.preemption,
                                   slo_scale=args.slo_scale,
                                   slo_time_scale=args.slo_time_scale,
-                                  host_kv_budget=(args.host_kv_budget
-                                                  if args.prefix_cache
-                                                  else 0),
+                                  host_kv_budget=host_kv,
                                   faults=fault_spec(args),
                                   migration_timeout_steps=(
                                       args.migration_timeout_steps),

@@ -1,7 +1,10 @@
 """GQA attention with RoPE — the port's subset of
 ``repro.models.attention``: whole-prompt prefill (the contiguous causal
-prefill kernel), single-token decode against a monolithic KV slab (the
-contiguous decode kernel, padded), and the decode, chunked-prefill and
+prefill kernel; a sliding window longer than the prompt masks nothing,
+a prompt longer than the window runs the banded plain path,
+:func:`window_attention`), single-token decode against a monolithic KV
+slab or a window's ring (the contiguous decode kernel, padded), and the
+decode, chunked-prefill and
 mixed-iteration paths over the global block pool on the four paged
 backends (``dense`` gather + masked SDPA, the ``grid`` and ``flat`` kernel
 pairs, the ``fused`` kernel), and the int8 pool (``QuantKVCache``:
@@ -15,7 +18,8 @@ Shapes follow the JAX package: activations ``x [B, T, D]``, a slab layer
 tables ``[B, NBT]`` int32. Slab and pool writes are IN PLACE
 (``index_put_``): a functional copy would duplicate the multi-GB cache per
 layer per step, so each function returns the cache it was given, updated.
-Sliding windows are not ported (``build_model`` refuses them).
+The paged paths are full-attention only, as in the reference: a window's
+ring has no block-table layout.
 """
 from __future__ import annotations
 
@@ -162,31 +166,70 @@ class KVCache(NamedTuple):
     v: torch.Tensor
 
 
+# query rows per tile of the banded window path: its f32 scores hold
+# tile x (window + tile) keys per head
+WINDOW_TILE = 512
+
+
+def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     window: int, tile: Optional[int] = None
+                     ) -> torch.Tensor:
+    """Banded causal attention over a whole prompt: q [B, T, H, Dh] at
+    positions 0..T-1 sees keys ``q - window < k <= q`` of k, v
+    [B, T, Hkv, Dh]. Plain PyTorch (``_gqa_sdpa``), ``tile`` query rows at
+    a time over the keys their band covers, so the scores stay
+    O(tile x (window + tile)) at any T. This is the counterpart of the
+    reference's XLA math for a prompt longer than its window (its masked
+    SDPA and flash scan with ``window=``): no Hopper kernel takes a lower
+    key bound yet, and the contiguous prefill kernel would attend the
+    whole causal prefix. ``tile`` defaults to ``WINDOW_TILE``. Returns
+    [B, T, H, Dh]."""
+    B, T = q.shape[:2]
+    tile = tile or WINDOW_TILE
+    out = torch.empty_like(q)
+    for q0 in range(0, T, tile):
+        q1 = min(q0 + tile, T)
+        k0 = max(0, q0 - window + 1)
+        qpos = torch.arange(q0, q1, device=q.device)[:, None]
+        kpos = torch.arange(k0, q1, device=q.device)[None]
+        mask = (kpos <= qpos) & (kpos > qpos - window)
+        out[:, q0:q1] = _gqa_sdpa(q[:, q0:q1], k[:, k0:q1], v[:, k0:q1],
+                                  mask[None, None, None])
+    return out
+
+
 def attention_prefill(p, cfg: ModelConfig, x: torch.Tensor,
                       positions: torch.Tensor, *, mrope_positions=None):
     """Causal self-attention over a whole prompt: x [B, T, D], positions
-    [B, T] (``mrope_positions`` [B, T, 3] under M-RoPE). The contiguous
-    causal prefill kernel attends (its plain version for CPU tensors); the
-    reference's two XLA branches (masked SDPA up to T² = 2048², the flash
-    scan above) compute this one function. Returns (out [B, T, D], (k, v)
-    [B, T, Hkv, Dh] after RoPE)."""
-    assert not cfg.sliding_window, "whole-prompt prefill: full attention"
+    [B, T] = 0..T-1 (``mrope_positions`` [B, T, 3] under M-RoPE). The
+    contiguous causal prefill kernel attends (its plain version for CPU
+    tensors); the reference's two XLA branches (masked SDPA up to T² =
+    2048², the flash scan above) compute this one function. With a
+    sliding window W, a prompt of T <= W runs the same kernel (the window
+    masks nothing) and a longer one :func:`window_attention`. Returns
+    (out [B, T, D], (k, v) [B, T, Hkv, Dh] after RoPE)."""
     B, T, _ = x.shape
     q, k, v = _project_qkv(p, cfg, x)
     q, k = _rotate(cfg, q, k, positions, mrope_positions)
-    k, v = k.contiguous(), v.contiguous()
-    out = prefill_attention(q.contiguous(), k, v)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    W = cfg.sliding_window
+    if W and T > W:
+        out = window_attention(q, k, v, W)
+    else:
+        out = prefill_attention(q, k, v)
     return out.reshape(B, T, -1) @ p["wo"], (k, v)
 
 
 def make_cache(cfg: ModelConfig, batch: int, seq: int,
                dtype: Optional[torch.dtype] = None, device="cuda",
                layers: Optional[int] = None) -> KVCache:
-    """Zeroed monolithic KV slab: [batch, seq, Hkv, Dh] for ONE layer, or
-    [layers, batch, seq, Hkv, Dh]: one row of ``seq`` keys per batch
-    slot, whatever the slot's request holds."""
-    assert not cfg.sliding_window, "the slab is full-attention only"
-    shape = (batch, seq, cfg.num_kv_heads, cfg.head_dim)
+    """Zeroed monolithic KV slab: [batch, S, Hkv, Dh] for ONE layer, or
+    [layers, batch, S, Hkv, Dh]: one row of ``S`` keys per batch slot,
+    whatever the slot's request holds. ``S = seq``, or with a sliding
+    window the ring ``min(seq, window)``."""
+    W = cfg.sliding_window
+    S = min(seq, W) if W else seq
+    shape = (batch, S, cfg.num_kv_heads, cfg.head_dim)
     if layers is not None:
         shape = (layers,) + shape
     dt = dtype or cfg.dtype
@@ -200,19 +243,25 @@ def attention_decode(p, cfg: ModelConfig, x: torch.Tensor, cache_l: KVCache,
     """One token against a slab layer: x [B, 1, D]; pos [B] int32 tokens
     already cached; cache_l [B, S, Hkv, Dh], or with ``rows`` ([B] int32,
     the slab row of each x row) a slab of any number of rows. Writes the
-    new token's K/V in place at ``min(pos, S - 1)``, then attends keys
-    ``< min(pos + 1, S)`` through the contiguous decode kernel in its
-    padded mode, which streams all S keys of each row with a mask, as the
-    reference's masked SDPA does (its plain version for CPU tensors).
-    Returns (out [B, 1, D], cache_l)."""
-    assert not cfg.sliding_window, "slab decode: full attention only"
+    new token's K/V in place at ``pos`` (``pos % W`` in a window's ring),
+    clamped to ``S - 1`` as the reference's ``dynamic_update_slice``
+    clamps it, then attends keys ``< min(pos + 1, S)`` through the
+    contiguous decode kernel in its padded mode, which streams all S keys
+    of each row with a mask, as the reference's masked SDPA does (its
+    plain version for CPU tensors). In a ring the valid slots are always
+    that prefix: slots 0..pos before it wraps, all W of the last W
+    positions after, and attention does not depend on the keys' order
+    (RoPE rotated K before it was cached). Returns (out [B, 1, D],
+    cache_l)."""
     B = x.shape[0]
     q, k, v = _project_qkv(p, cfg, x)
     q, k = _rotate(cfg, q, k, pos[:, None], mrope_positions)
     S = cache_l.k.shape[1]
     slab_row = (torch.arange(B, device=pos.device) if rows is None
                 else rows.long())
-    idx = (slab_row, torch.clamp(pos, max=S - 1).long())
+    W = cfg.sliding_window
+    write = torch.remainder(pos, W) if W else pos
+    idx = (slab_row, torch.clamp(write, max=S - 1).long())
     cache_l.k.index_put_(idx, k[:, 0].to(cache_l.k.dtype))
     cache_l.v.index_put_(idx, v[:, 0].to(cache_l.v.dtype))
     lengths = torch.clamp(pos + 1, max=S).to(torch.int32)

@@ -24,8 +24,13 @@ keyword arguments: ``vision_embeds`` / ``vision_mask`` /
 ``mrope_positions`` on the whole-prompt entry points, ``mrope_positions``
 on the decode and chunk ones (text positions on all three streams by
 default); ``mixed_step`` refuses M-RoPE, as the reference's does.
-``build_model`` raises for the recurrent, hybrid and encoder-decoder
-families and for sliding windows.
+A sliding-window decoder keeps its K/V in a ring of ``min(seq, window)``
+rows (position p at row ``p % W``) and has the whole-prompt entry points
+only: ``prefill``, ``decode_step`` and ``init_cache``, as in the
+reference. So has rwkv6 (``family="ssm"``), whose cache is its recurrent
+state ``{"S", "att_prev", "ffn_prev"}``; its ``prefill`` ignores
+``cache_len``. The paged entry points are ``None`` for both, and
+``build_model`` raises for the hybrid and encoder-decoder families.
 """
 from __future__ import annotations
 
@@ -35,7 +40,7 @@ from typing import Any, Callable, Dict, Optional, Union
 import numpy as np
 import torch
 
-from repro_torch.models import transformer
+from repro_torch.models import rwkv6, transformer
 from repro_torch.models.attention import KVCache
 from repro_torch.models.common import ModelConfig
 
@@ -45,52 +50,65 @@ class Model:
     cfg: ModelConfig
     # init(rng, device="cuda") -> params; rng is a seed or a torch.Generator
     init: Callable[..., Any]
-    # init_paged_cache(num_blocks, block_size, device="cuda", dtype=None,
-    #                  kv_dtype="bf16") -> pool [L, NB, BS, Hkv, Dh]
-    #     (kv_dtype "int8": a QuantKVCache with scales [L, NB, BS, Hkv])
-    init_paged_cache: Callable[..., Any]
-    # decode_step_paged(params, pool, token, block_tables, pos, *,
-    #                   attn_backend, attn_num_work) -> (logits [B, V], pool)
-    decode_step_paged: Callable[..., Any]
-    # prefill_chunk(params, pool, tokens, block_tables, ctx_len, chunk_len,
-    #               *, attn_backend) -> (last-real-token logits [B, V], pool)
-    prefill_chunk: Callable[..., Any]
-    # mixed_step(params, pool, dec_token, ck_tokens, bt_dec, bt_ck, pos,
-    #            ctx_len, chunk_len, *, attn_backend, attn_num_work)
-    #     -> (dec_logits [Bd, V], ck_logits [Bp, V], pool)
-    mixed_step: Callable[..., Any]
     # prefill(params, tokens [B, T], cache_len=None, **vlm_extras)
-    #     -> (last-token logits [B, V], slab [L, B, cache_len or T, ...])
+    #     -> (last-token logits [B, V], slab [L, B, cache_len or T, ...];
+    #         a window's ring of min(cache_len or T, W) rows; rwkv6's state)
     prefill: Callable[..., Any]
     # decode_step(params, slab, token, pos, rows=None,
     #             mrope_positions=None) -> (logits, slab)
     decode_step: Callable[..., Any]
     # init_cache(batch, seq, device="cuda", dtype=None) -> zeroed slab
     init_cache: Callable[..., Any]
+    # The paged serving path: full-attention decoders only; None for a
+    # sliding window's ring and rwkv6's state, which keep the slab.
+    # init_paged_cache(num_blocks, block_size, device="cuda", dtype=None,
+    #                  kv_dtype="bf16") -> pool [L, NB, BS, Hkv, Dh]
+    #     (kv_dtype "int8": a QuantKVCache with scales [L, NB, BS, Hkv])
+    init_paged_cache: Optional[Callable[..., Any]] = None
+    # decode_step_paged(params, pool, token, block_tables, pos, *,
+    #                   attn_backend, attn_num_work) -> (logits [B, V], pool)
+    decode_step_paged: Optional[Callable[..., Any]] = None
+    # prefill_chunk(params, pool, tokens, block_tables, ctx_len, chunk_len,
+    #               *, attn_backend) -> (last-real-token logits [B, V], pool)
+    prefill_chunk: Optional[Callable[..., Any]] = None
+    # mixed_step(params, pool, dec_token, ck_tokens, bt_dec, bt_ck, pos,
+    #            ctx_len, chunk_len, *, attn_backend, attn_num_work)
+    #     -> (dec_logits [Bd, V], ck_logits [Bp, V], pool)
+    mixed_step: Optional[Callable[..., Any]] = None
     # prefill_bucketed(params, tokens [B, P], true_len, **vlm_extras)
     #     -> (logits [B, V] at position true_len - 1,
     #         prompt piece [L, B, P, Hkv, Dh])
-    prefill_bucketed: Callable[..., Any]
+    prefill_bucketed: Optional[Callable[..., Any]] = None
 
     @property
     def supports_paged(self) -> bool:
         return self.decode_step_paged is not None
 
 
-def _relay_kv(piece: KVCache, cache_len: int) -> KVCache:
+def _seeded(rng: Union[int, torch.Generator], device) -> torch.Generator:
+    if isinstance(rng, torch.Generator):
+        return rng
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(rng))
+    return gen
+
+
+def _relay_kv(piece: KVCache, cfg: ModelConfig, cache_len: int) -> KVCache:
     """Prompt-length per-layer KV [L, B, T, Hkv, Dh] -> a zeroed decode
-    slab [L, B, cache_len, Hkv, Dh] holding it: positions ``T - take ..
-    T - 1`` (``take = min(T, cache_len)``) at row ``position %
-    cache_len``. The reference's ring layout for sliding windows is not
-    ported."""
+    slab [L, B, W, Hkv, Dh] in the reference's ring layout: ``W =
+    min(cache_len, sliding_window)`` with a window, else ``cache_len``;
+    positions ``T - take .. T - 1`` (``take = min(T, W)``) at row
+    ``position % W``."""
     L, B, T = piece.k.shape[:3]
-    if cache_len == T:
+    W = (min(cache_len, cfg.sliding_window) if cfg.sliding_window
+         else cache_len)
+    if W == T:
         return piece
-    take = min(T, cache_len)
-    idx = torch.arange(T - take, T, device=piece.k.device) % cache_len
+    take = min(T, W)
+    idx = torch.arange(T - take, T, device=piece.k.device) % W
 
     def relay(a):
-        buf = a.new_zeros((L, B, cache_len) + a.shape[3:])
+        buf = a.new_zeros((L, B, W) + a.shape[3:])
         buf[:, :, idx] = a[:, :, T - take:]
         return buf
 
@@ -99,12 +117,7 @@ def _relay_kv(piece: KVCache, cache_len: int) -> KVCache:
 
 def _decoder_model(cfg: ModelConfig) -> Model:
     def init(rng: Union[int, torch.Generator] = 0, device="cuda"):
-        if isinstance(rng, torch.Generator):
-            gen = rng
-        else:
-            gen = torch.Generator(device=device)
-            gen.manual_seed(int(rng))
-        return transformer.init_decoder(gen, cfg)
+        return transformer.init_decoder(_seeded(rng, device), cfg)
 
     def init_paged_cache(num_blocks: int, block_size: int, device="cuda",
                          dtype=None, kv_dtype: str = "bf16"):
@@ -139,7 +152,8 @@ def _decoder_model(cfg: ModelConfig) -> Model:
         logits, cache = transformer.forward_full(params, cfg, tokens,
                                                  return_cache=True,
                                                  last_only=True, **extras)
-        return logits[:, -1], _relay_kv(cache, cache_len or tokens.shape[1])
+        return logits[:, -1], _relay_kv(cache, cfg,
+                                        cache_len or tokens.shape[1])
 
     def decode_step(params, cache, token, pos, rows=None,
                     mrope_positions=None):
@@ -157,17 +171,41 @@ def _decoder_model(cfg: ModelConfig) -> Model:
             **extras)
         return logits[:, 0], cache
 
-    return Model(cfg, init, init_paged_cache, decode_step_paged,
-                 prefill_chunk, mixed_step, prefill, decode_step, init_cache,
-                 prefill_bucketed)
+    if cfg.sliding_window:
+        # a ring has no block-table layout: the slab serves it
+        return Model(cfg, init, prefill, decode_step, init_cache)
+    return Model(cfg, init, prefill, decode_step, init_cache,
+                 init_paged_cache=init_paged_cache,
+                 decode_step_paged=decode_step_paged,
+                 prefill_chunk=prefill_chunk, mixed_step=mixed_step,
+                 prefill_bucketed=prefill_bucketed)
+
+
+def _rwkv_model(cfg: ModelConfig) -> Model:
+    def init(rng: Union[int, torch.Generator] = 0, device="cuda"):
+        return rwkv6.init_model(_seeded(rng, device), cfg)
+
+    def prefill(params, tokens, cache_len: Optional[int] = None):
+        return rwkv6.prefill(params, cfg, tokens, cache_len)
+
+    def decode_step(params, cache, token, pos, rows=None):
+        return rwkv6.forward_decode(params, cfg, token, cache, pos,
+                                    rows=rows)
+
+    def init_cache(batch: int, seq: int, device="cuda", dtype=None):
+        return rwkv6.init_state(cfg, batch, device=device, dtype=dtype)
+
+    return Model(cfg, init, prefill, decode_step, init_cache)
 
 
 def build_model(cfg: ModelConfig) -> Model:
-    if cfg.family in ("dense", "moe", "vlm") and not cfg.sliding_window:
+    if cfg.family in ("dense", "moe", "vlm"):
         return _decoder_model(cfg)
+    if cfg.family == "ssm":
+        return _rwkv_model(cfg)
     raise NotImplementedError(
-        f"{cfg.name}: family {cfg.family!r} (sliding_window="
-        f"{cfg.sliding_window}) is not ported to repro_torch yet")
+        f"{cfg.name}: family {cfg.family!r} is not ported to repro_torch "
+        "yet")
 
 
 def mrope_grid_positions(batch: int, seq: int, n_patch: int) -> np.ndarray:

@@ -8,7 +8,9 @@ its vision positions and rotates by M-RoPE's three position streams.
 Per-layer weights are stacked on a leading ``L`` axis as in the JAX
 package; the ``lax.scan`` over layers becomes a Python loop over ``[l]``
 slices (views, no copies). The slab ``[L, B, S, Hkv, Dh]`` and the pool
-``[L, NB, BS, Hkv, Dh]`` are updated in place, layer by layer.
+``[L, NB, BS, Hkv, Dh]`` are updated in place, layer by layer. A sliding
+window runs the whole-prompt pass and the slab decode (its ring); the
+paged passes are full-attention only, as in the reference.
 """
 from __future__ import annotations
 
@@ -140,8 +142,11 @@ def forward_full(p, cfg: ModelConfig, tokens: torch.Tensor, *,
     B, T = tokens.shape
     x = embed_tokens(p, cfg, tokens, vision_embeds, vision_mask)
     positions = torch.arange(T, device=x.device)[None].expand(B, T)
-    cache = (make_cache(cfg, B, T, dtype=x.dtype, device=x.device,
-                        layers=cfg.num_layers) if return_cache else None)
+    # the prompt's T rows, every one written below (under a window too:
+    # the caller relays them into its ring)
+    shape = (cfg.num_layers, B, T, cfg.num_kv_heads, cfg.head_dim)
+    cache = (KVCache(x.new_empty(shape), x.new_empty(shape))
+             if return_cache else None)
     for l in range(cfg.num_layers):
         x, kv = block_full(layer_params(p["layers"], l), cfg, x, positions,
                            mrope_positions)
@@ -163,7 +168,8 @@ def forward_decode(p, cfg: ModelConfig, token: torch.Tensor, cache: KVCache,
                    pos: torch.Tensor, rows=None, *, mrope_positions=None):
     """token [B] int; cache leaves [L, B, S, Hkv, Dh] (with ``rows`` [B]
     int32, the slab row of each token: a slab of any number of rows, whose
-    live rows decode in place); pos [B] int32 tokens already cached;
+    live rows decode in place; a sliding window's ring of S = min(seq, W)
+    rows takes position p at row p % W); pos [B] int32 tokens already cached;
     ``mrope_positions`` [B, 1, 3] (default ``pos`` on all three streams).
     Returns (logits [B, V], cache) — the slab updated in place."""
     x = embed_tokens(p, cfg, token[:, None])
@@ -181,7 +187,8 @@ def forward_decode(p, cfg: ModelConfig, token: torch.Tensor, cache: KVCache,
 
 def init_cache(cfg: ModelConfig, batch: int, seq: int, dtype=None,
                device="cuda") -> KVCache:
-    """The zeroed monolithic slab, leaves [L, batch, seq, Hkv, Dh]."""
+    """The zeroed monolithic slab, leaves [L, batch, seq, Hkv, Dh] (a
+    sliding window's ring: ``min(seq, window)`` rows)."""
     return make_cache(cfg, batch, seq, dtype=dtype, device=device,
                       layers=cfg.num_layers)
 

@@ -49,6 +49,10 @@ slot shortage) or drop and recompute its KV (a memory shortage).
 Every engine mode of the reference but tensor parallelism is ported:
 ``paged=False`` keeps KV in a monolithic slab ``[L, max_slots, max_seq,
 Hkv, Dh]`` (decoded in place by the contiguous decode kernel, padded),
+the only layout of a sliding-window decoder (a ring of ``min(max_seq,
+W)`` rows a slot) and of rwkv6 (its recurrent state, a slot a row; these
+models have no paged path, so the slab, the host loop and whole-prompt
+prefill are their defaults),
 ``device_resident=False`` runs the host-driven loop (one decode forward
 over the live rows, tables and tokens uploaded from host state),
 ``chunked_prefill=False`` prefills whole prompts at admission (the
@@ -69,9 +73,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.migration import (gather_kv_blocks, kv_bytes,
-                                        scatter_kv_blocks)
+                                        scatter_kv_blocks, tree_leaves,
+                                        tree_map)
 from repro_torch.kernels.cost import pow2_bucket
-from repro_torch.models.attention import (KV_DTYPES, KVCache, QuantKVCache,
+from repro_torch.models.attention import (KV_DTYPES, QuantKVCache,
                                           dequantize_piece, quantize_piece,
                                           resolve_paged_backend)
 from repro_torch.models.model import Model
@@ -201,10 +206,11 @@ class Engine:
         dtype) or ``"int8"`` (paged, fused or dense); ``host_kv_budget``
         the host-RAM tier's tokens (0: off); ``preemption`` SLO preemption
         (off unless asked, as in the reference's direct construction).
-        The decoder families (dense, MoE, VLM) are served; a VLM's fused
+        The decoder families (dense, MoE, VLM) and rwkv6 (``ssm``) are
+        served; a sliding window or rwkv6 has the slab only. A VLM's fused
         mixed step is refused here, where the reference fails at its first
         step (M-RoPE is RoPE-only on that path)."""
-        if model.cfg.family not in ("dense", "moe", "vlm"):
+        if model.cfg.family not in ("dense", "moe", "vlm", "ssm"):
             raise ValueError("engine supports decoder-only families")
         if kv_dtype not in KV_DTYPES:
             raise ValueError(f"kv_dtype {kv_dtype!r} not in {KV_DTYPES}")
@@ -689,7 +695,11 @@ class Engine:
         self._reserve(req, slot)
         T = len(req.prompt)
         tokens = h2d(np.asarray(req.prompt, np.int32)[None], self.device)
-        logits, piece = attn_call(self.model.prefill, self.params, tokens)
+        # the slab's piece arrives laid out as its row (a window's ring);
+        # the pool takes the prompt-length piece
+        logits, piece = attn_call(self.model.prefill, self.params, tokens,
+                                  cache_len=None if self.paged
+                                  else self.max_seq)
         if self.paged:
             ids = self.allocator.allocate(blocks_for(T, self.block_size))
             self.block_tables[slot] = ids
@@ -743,11 +753,16 @@ class Engine:
         self.slot_len[slot] = T + 1
         self.tokens_out += 1
 
-    def _write_slot(self, piece: KVCache, slot: int) -> None:
-        """Write a ``[L, 1, n, Hkv, Dh]`` piece into slab row ``slot`` and
-        zero the row past it (prompt-length prefill pieces, trimmed
-        migration pieces)."""
-        for a, p in zip(self.cache, piece):
+    def _write_slot(self, piece, slot: int) -> None:
+        """Write a ``[L, 1, ...]`` piece into slab row ``slot``, leaf by
+        leaf of its pytree: a leaf whose axis 2 is shorter than the slab's
+        (a trimmed migration piece) fills the row's head and zeroes the
+        rest; any other (a prefill piece laid out as the row, a window's
+        ring, rwkv6's state) is copied whole."""
+        for a, p in zip(tree_leaves(self.cache), tree_leaves(piece)):
+            if p.shape[2:] == a.shape[2:]:
+                a[:, slot].copy_(p[:, 0])
+                continue
             n = p.shape[2]
             a[:, slot, :n].copy_(p[:, 0])
             a[:, slot, n:].zero_()
@@ -1410,7 +1425,9 @@ class Engine:
         """(request, KV piece, piece bytes) for live migration. The piece
         is the wire format: contiguous ``[L, 1, written, Hkv, Dh]`` leaves
         gathered from the request's blocks, or copied from its slab row
-        (trimmed to ``written``), so paged and slab engines interoperate.
+        (trimmed to ``written``), so paged and slab engines interoperate;
+        a window's ring and rwkv6's state ship whole, untrimmed (the
+        reference's rule).
         ``written = slot_len - 1`` for a decoding request (its newest
         sampled token's KV is written by the next decode, on whichever
         engine runs it); a request still mid-prefill ships its
@@ -1420,8 +1437,11 @@ class Engine:
         length = int(self.slot_len[slot]) - (0 if req.prefilling else 1)
         if not self.paged:
             # a copy: the slab row is rewritten in place once it is reused
-            piece = KVCache(*(a[:, slot:slot + 1, :length].clone()
-                              for a in self.cache))
+            cfg = self.model.cfg
+            trim = cfg.family != "ssm" and not cfg.sliding_window
+            piece = tree_map(
+                lambda a: (a[:, slot:slot + 1, :length] if trim
+                           else a[:, slot:slot + 1]).clone(), self.cache)
             return req, piece, kv_bytes(piece)
         ids = h2d(np.asarray(self.block_tables[slot], np.int64), self.device)
         gathered = gather_kv_blocks(self.cache, ids)
@@ -1436,7 +1456,7 @@ class Engine:
     def evict_slot(self, slot: int) -> None:
         self._release(slot)
 
-    def import_request(self, req: ServeRequest, piece: KVCache) -> bool:
+    def import_request(self, req: ServeRequest, piece) -> bool:
         """Adopt a migrated request and its KV piece — still decoding, or
         still mid-prefill (the piece then holds its ``ctx_done`` rows and
         this engine resumes chunking). Refuses (``can_accept``) when no
@@ -1456,8 +1476,8 @@ class Engine:
         # the newest token, whose KV the next decode writes
         length = req.ctx_done if req.prefilling else req.length
         if not self.paged:
-            self._write_slot(type(piece)(*(p.to(self.device)
-                                           for p in piece)), slot)
+            self._write_slot(tree_map(lambda p: p.to(self.device), piece),
+                             slot)
         else:
             ids = self.allocator.allocate(blocks_for(length,
                                                      self.block_size))

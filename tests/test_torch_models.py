@@ -104,13 +104,19 @@ def test_config_copies_match_reference():
                     assert getattr(tc, f.name) == getattr(jc, f.name), f.name
     with pytest.raises(KeyError):
         get_config("gpt-2")
-    for name in ("rwkv6-7b", "whisper-large-v3", "zamba2-2.7b"):
+    for name in ("whisper-large-v3", "zamba2-2.7b"):
         with pytest.raises(NotImplementedError):
             build_model(get_config(name).reduced())
+    # rwkv6 builds, on the slab only (its cache is a recurrent state)
+    rwkv = build_model(get_config("rwkv6-7b").reduced())
+    assert not rwkv.supports_paged and rwkv.prefill_bucketed is None
     for name in FAMILY_NAMES:           # the MoE and VLM decoders build
-        build_model(get_config(name).reduced())
-        with pytest.raises(NotImplementedError):
-            build_model(get_config(name, sliding_window=64).reduced())
+        assert build_model(get_config(name).reduced()).supports_paged
+        # ... and with a window, on the slab only (a ring, no block table)
+        win = build_model(get_config(name, sliding_window=64).reduced())
+        assert not win.supports_paged
+        assert (win.init_paged_cache, win.prefill_chunk, win.mixed_step,
+                win.prefill_bucketed) == (None,) * 4
 
 
 def test_bridge_round_trip(pair):
@@ -268,8 +274,9 @@ def test_init_is_seeded_and_stacked():
     assert torch.equal(a["embed"], b["embed"])
     assert torch.equal(a["layers"]["ffn"]["w_down"],
                        b["layers"]["ffn"]["w_down"])
-    with pytest.raises(NotImplementedError):
-        build_model(dataclasses.replace(cfg, sliding_window=64))
+    win = build_model(dataclasses.replace(cfg, sliding_window=64))
+    assert not win.supports_paged
+    assert win.init_cache(2, 100, device="cpu").k.shape[2] == 64
     jcfg = jax_get_config("llama3.2-3b").reduced()
     pool = tattn.make_paged_pool(cfg, 5, BS, device="cpu")
     jpool = jattn.make_paged_pool(jcfg, 5, BS)

@@ -325,9 +325,12 @@ def test_fused_engine_refuses_the_vlm_in_both_packages(pair):
 
 
 def test_engine_refuses_other_families(pair):
+    """The hybrid and encoder-decoder families, which the reference's
+    engine refuses too (rwkv6's ``ssm`` is served: tests/test_torch_rwkv.py)."""
     *_, model, params = pair
     import dataclasses
-    ssm = dataclasses.replace(model, cfg=dataclasses.replace(
-        model.cfg, family="ssm"))
-    with pytest.raises(ValueError, match="decoder-only families"):
-        Engine(0, ssm, params, max_slots=2, max_seq=64)
+    for family in ("hybrid", "encdec"):
+        other = dataclasses.replace(model, cfg=dataclasses.replace(
+            model.cfg, family=family))
+        with pytest.raises(ValueError, match="decoder-only families"):
+            Engine(0, other, params, max_slots=2, max_seq=64)
