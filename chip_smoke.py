@@ -175,8 +175,33 @@ the last line:
     in f64); (c) 2 slab engines in one ``MILSServer`` on phase 6's first
     8 requests: at least one migration, each piece 34,078,720 B; (d) 2
     layers f32 on the card and the CPU: equal streams;
-20. one JSON line of every kernel (the rows of phases 16-18's shapes
-    added), then, last, ``{"ok": true, ...}``.
+20. zamba2-2.7b, bf16, 4.85 GB of weights alone on the card: (a)
+    ``Model.prefill`` of B 2 prompts of 1024 and of 4096 tokens (the
+    chunked SSD, C 128) and 32 greedy decode steps each: walls, the
+    state's bytes a request (SSM 70,778,880 B, conv 1,700,352 B, KV
+    92,160 B a cached token), peak memory, and no attention kernel (the
+    shared block's Dh 80 takes the plain paths by route); (b) one
+    full-width block's SSD in f32 at T 1024: chunked within 1e-5 of
+    sequential (also against the sequential form in f64), both timed;
+    (c) 6 layers f32 on the card and the CPU: prefill logits (1e-4) and
+    8 greedy tokens;
+21. whisper-large-v3, bf16, 3.08 GB of weights: (a) the encoder over B 2
+    x 1500 stub frames, a 4-token prompt's prefill (#6 == 32 launches)
+    and 64 greedy decode steps (#5 == 64 a step, 32 on the self-KV and 32
+    on the cross-KV, nothing else): walls, the cross-KV's 245,760,000 B
+    a request; #6 (B 2, T 448) and #5 on the self- and cross-KV at G 1
+    are measured early, in phase 3's ``family_kernels``; (b) 2 + 2 layers
+    f32 on the card and the CPU: streams and logits;
+22. training: (a) llama3.2-3b at full width, bf16 params, f32 moments, B 2
+    x T 1024 from ``TokenStream``, remat, 8 AdamW steps at lr 3e-4: the
+    loss, gradient norm, lr, wall, tokens/s and peak memory a step;
+    losses finite and falling; #6 == 8 x 28 x 2 launches (remat runs each
+    layer's forward twice; backward differentiates #6's plain version),
+    nothing else; (b) 2 layers f32 on the card and the CPU (loss, grads,
+    params after a step), the wrapped #6's grads against plain autograd,
+    a checkpoint round trip on the card;
+23. one JSON line of every kernel (the rows of phases 16-18's and 21's
+    shapes added), then, last, ``{"ok": true, ...}``.
 
 It needs one CUDA card and fails without one; it imports nothing of JAX.
 """
@@ -2108,8 +2133,39 @@ def phase_engine_modes(np, torch, cfg_mod, model_mod, engine_mod,
     return out
 
 
+def _prefill_at(torch, pk, gen, B, T, H, Hkv, Dh, G, label, timed, times,
+                dev):
+    """#6 of ``contiguous_kernels_at``: [B, T, H, Dh] bf16, every row T
+    long, held to its plain version and timed beside SDPA."""
+    import torch.nn.functional as F
+    q, k, v = (randn(torch, gen, (B, T, n, Dh), torch.bfloat16)
+               for n in (H, Hkv, Hkv))
+    full = torch.full((B,), T, dtype=torch.int32, device="cuda")
+    err = hold(torch, f"{label} #6", pk.prefill_attention(q, k, v),
+               pk.prefill_attention_plain(q, k, v, full), 5e-3)
+    qs, ks, vs = (x.transpose(1, 2) for x in (q, k, v))
+    row = times(lambda: pk.prefill_attention(q, k, v),
+                lambda: pk.prefill_attention_plain(q, k, v, full),
+                lambda: F.scaled_dot_product_attention(
+                    qs, ks, vs, is_causal=True, enable_gqa=True), 10)
+    flops = 4.0 * B * (T * (T + 1) // 2) * H * Dh
+    bound_ms, by = bound_of(B * T * (H + 2 * Hkv + H) * Dh * 2, flops)
+    out = {"B": B, "T": T, "max_abs_err": err, **row,
+           "bound_ms": bound_ms, "bound_by": by,
+           "tflops": flops / row["ms"] / 1e9}
+    log(f"{label}: #6 at B {B}, T {T}, H {H} / Hkv {Hkv} (G {G}), bf16: "
+        f"{row['ms']:.4f} ms{dev(row)} "
+        f"({flops / row['ms'] / 1e9:.1f} TFLOP/s), plain "
+        f"{row['plain_ms']:.4f} ms, library sdpa {row['library_ms']:.4f} "
+        f"ms{dev(row, 'library_device_ms')}, bound {bound_ms:.4f} ms ({by});"
+        f" vs plain max abs {err:.3e}")
+    del q, k, v, qs, ks, vs
+    torch.cuda.empty_cache()
+    return out
+
+
 def contiguous_kernels_at(torch, cfg, dk, pk, flush, B, T, lens, rows, S,
-                          label, device=False):
+                          label, device=False, prefill=True):
     """#6 and #5 (padded) at the shapes an engine or a model-level call
     gives them, bf16, ``cfg``'s heads, L2 flushed: #6 on [B, T, H, Dh]
     (every row T long); #5 on ``len(lens)`` query rows over a slab of as
@@ -2121,7 +2177,7 @@ def contiguous_kernels_at(torch, cfg, dk, pk, flush, B, T, lens, rows, S,
     profiler's device time (phase 14 times by events only: this late in
     the process the profiler was seen to lose kernel records, and #5 then
     read below the time streaming its rows takes). #5 may not be timed
-    below streaming its whole slab."""
+    below streaming its whole slab. ``prefill=False`` leaves #6 out."""
     import torch.nn.functional as F
     H, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     G = H // Hkv
@@ -2145,29 +2201,9 @@ def contiguous_kernels_at(torch, cfg, dk, pk, flush, B, T, lens, rows, S,
     def dev(row, key="device_ms"):
         return f" (device {row[key]:.4f})" if device else ""
     out = {}
-    q, k, v = (randn(torch, gen, (B, T, n, Dh), torch.bfloat16)
-               for n in (H, Hkv, Hkv))
-    full = torch.full((B,), T, dtype=torch.int32, device="cuda")
-    err = hold(torch, f"{label} #6", pk.prefill_attention(q, k, v),
-               pk.prefill_attention_plain(q, k, v, full), 5e-3)
-    qs, ks, vs = (x.transpose(1, 2) for x in (q, k, v))
-    row = times(lambda: pk.prefill_attention(q, k, v),
-                lambda: pk.prefill_attention_plain(q, k, v, full),
-                lambda: F.scaled_dot_product_attention(
-                    qs, ks, vs, is_causal=True, enable_gqa=True), 10)
-    flops = 4.0 * B * (T * (T + 1) // 2) * H * Dh
-    bound_ms, by = bound_of(B * T * (H + 2 * Hkv + H) * Dh * 2, flops)
-    out["prefill"] = {"B": B, "T": T, "max_abs_err": err, **row,
-                      "bound_ms": bound_ms, "bound_by": by,
-                      "tflops": flops / row["ms"] / 1e9}
-    log(f"{label}: #6 at B {B}, T {T}, H {H} / Hkv {Hkv} (G {G}), bf16: "
-        f"{row['ms']:.4f} ms{dev(row)} "
-        f"({flops / row['ms'] / 1e9:.1f} TFLOP/s), plain "
-        f"{row['plain_ms']:.4f} ms, library sdpa {row['library_ms']:.4f} "
-        f"ms{dev(row, 'library_device_ms')}, bound {bound_ms:.4f} ms ({by});"
-        f" vs plain max abs {err:.3e}")
-    del q, k, v, qs, ks, vs
-    torch.cuda.empty_cache()
+    if prefill:
+        out["prefill"] = _prefill_at(torch, pk, gen, B, T, H, Hkv, Dh, G,
+                                     label, timed, times, dev)
     R = len(lens)
     q = randn(torch, gen, (R, H, Dh), torch.bfloat16)
     k, v = (randn(torch, gen, (R, S, Hkv, Dh), torch.bfloat16)
@@ -2734,6 +2770,21 @@ def family_kernels(np, torch, F, cfg_mod, tk, dk, pk, flush):
         max(n for n in WINDOW_PROMPTS if n <= WINDOW), lens,
         list(range(len(lens) - 1, -1, -1)), WINDOW,
         f"phase 18 (d) ({WINDOW_ARCH}, G 12)", device=True)
+    # phase 21: #6 and #5 at whisper-large-v3's heads (20 / 20 / 64, G 1):
+    # the decoder prompt at the position table's 448 rows, #5 on the
+    # self-KV slab (448 rows, at the last decode step's keys) and on the
+    # cross-KV (1500 rows, every key)
+    wh = cfg_mod.get_config(WHISPER_ARCH)
+    out["whisper"] = contiguous_kernels_at(
+        torch, wh, dk, pk, flush, WHISPER_B, wh.max_position,
+        [WHISPER_PROMPT + WHISPER_NEW] * WHISPER_B, list(range(WHISPER_B)),
+        wh.max_position, f"phase 21 ({WHISPER_ARCH}, G 1, self-KV)",
+        device=True)
+    out["whisper_cross"] = contiguous_kernels_at(
+        torch, wh, dk, pk, flush, WHISPER_B, 0,
+        [wh.encoder_seq] * WHISPER_B, list(range(WHISPER_B)),
+        wh.encoder_seq, f"phase 21 ({WHISPER_ARCH}, G 1, cross-KV)",
+        device=True, prefill=False)
     return out
 
 
@@ -2765,8 +2816,8 @@ def _vlm_slab_call(torch, model_mod, model, params, B, T, device):
                                    rows=row_map, **kw)
         return out.float()
     dec = decode(rows, mrope_positions=mrope)
-    ref, _ = transformer_mod.forward_full(params, cfg, tokens,
-                                          last_only=True, **batch)
+    ref, _, _ = transformer_mod.forward_full(params, cfg, tokens,
+                                             last_only=True, **batch)
 
     def controls():
         return {"text_ids": decode(rows),
@@ -3144,10 +3195,460 @@ def phase_rwkv(np, torch, cfg_mod, model_mod, engine_mod, request_mod,
             "cluster": cluster, "wkv": wkv, "cuda_cpu_streams": streams}
 
 
-def family_rows(fam, moe, vlm, win):
+# phases 20-22: zamba2's hybrid, whisper's encoder-decoder, training
+ZAMBA_ARCH, WHISPER_ARCH, TRAIN_ARCH = ("zamba2-2.7b", "whisper-large-v3",
+                                        "llama3.2-3b")
+ZAMBA_PROMPTS, ZAMBA_NEW = (1024, 4096), 32     # B 2 prompts of each length
+# a request's zamba2-2.7b state: the SSD state of 54 blocks (80 heads of
+# 64 x 64, f32), their conv state (3 rows of 5248, bf16) and the 9 sites'
+# K/V (2 x 32 heads x 80, bf16) per cached token
+ZAMBA_SSM_BYTES = 54 * 80 * 64 * 64 * 4
+ZAMBA_CONV_BYTES = 54 * 3 * (5120 + 2 * 64) * 2
+ZAMBA_KV_BYTES_PER_TOKEN = 9 * 2 * 32 * 80 * 2
+ZAMBA_SMALL = (6, 300, 8)   # (d): layers (one site), prompt, greedy tokens
+# whisper: B 2 x 1500 stub frames, a 4-token prompt, 64 decode steps, the
+# self-KV slab at the 448-row position table
+WHISPER_B, WHISPER_PROMPT, WHISPER_NEW = 2, 4, 64
+WHISPER_CROSS_BYTES = 32 * 2 * 1500 * 20 * 64 * 2    # a request's
+WHISPER_SMALL_NEW = 16
+# training: B 2 x T 1024 from the token stream, 8 AdamW steps, remat on
+TRAIN_B, TRAIN_T, TRAIN_STEPS, TRAIN_LR = 2, 1024, 8, 3e-4
+
+
+def _tree_bytes(tree):
+    from repro_torch.core.migration import tree_leaves
+    return sum(a.numel() * a.element_size() for a in tree_leaves(tree))
+
+
+def _synced_ms(torch, fn):
+    """``fn()`` and its wall time in ms on the host clock, the card
+    synchronised before and after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _greedy(torch, model, params, logits, cache, start, n, device):
+    """``n`` greedy decode steps from ``logits`` at positions ``start``..;
+    returns (tokens [n][B], logits of each step [n + 1, B, V] f32 on the
+    CPU, per-step host ms)."""
+    B = logits.shape[0]
+    toks, rows, ms = [], [logits.float().cpu()], []
+    for i in range(n):
+        tok = logits.argmax(-1)
+        toks.append(tok.cpu().tolist())
+        pos = torch.full((B,), start + i, dtype=torch.int32, device=device)
+        if device == "cuda":
+            (logits, cache), t = _synced_ms(torch, lambda: model.decode_step(
+                params, cache, tok, pos))
+            ms.append(t)
+        else:
+            logits, cache = model.decode_step(params, cache, tok, pos)
+        rows.append(logits.float().cpu())
+    return toks, torch.stack(rows), ms
+
+
+def _cuda_cpu(torch, label, model, gpu, cpu, run, tol=1e-4):
+    """``run(params, device) -> (tokens, logits)`` on the card and the CPU,
+    same weights: equal tokens, logits within ``tol`` of the largest
+    magnitude. Returns the tokens."""
+    out = {}
+    for dev, params in (("cuda", gpu), ("cpu", cpu)):
+        t0 = time.perf_counter()
+        out[dev] = run(params, dev)
+        log(f"{label}: {dev} run {time.perf_counter() - t0:.1f} s")
+    (ta, la), (tb, lb) = out["cuda"], out["cpu"]
+    err = float((la - lb).abs().max() / max(1.0, lb.abs().max().item()))
+    check(ta == tb, f"{label}: greedy tokens differ: cuda {ta} cpu {tb}")
+    check(err <= tol, f"{label}: logits differ by {err:.3e} of the largest "
+          f"(> {tol})")
+    return ta, err
+
+
+def phase_zamba(np, torch, cfg_mod, model_mod, tk, dk, pk):
+    """Phase 20: zamba2-2.7b at full width, bf16, seeded weights alone on
+    the card: (a) ``Model.prefill`` of B 2 prompts of 1024 and of 4096
+    tokens (the chunked SSD) into a state of T + 32 rows, then 32 greedy
+    decode steps: walls, the state's bytes per request, peak memory, and
+    no attention kernel launched (the shared block's Dh 80 takes the
+    plain paths by route); (b) one full-width block's SSD in f32 at T
+    1024, chunked against sequential (1e-5 of the largest magnitude, y
+    and the final state; also against the sequential form in f64), at the
+    init's decays and at Mamba2's spread of A and dt, with both times;
+    (c) 6 layers (one shared site) f32 on the card and the CPU: prefill
+    logits (1e-4) and 8 greedy tokens."""
+    from repro_torch.models import mamba2
+    base = cfg_mod.get_config(ZAMBA_ARCH)
+    held = _fresh_card(torch, "phase 20")
+    cfg = dataclasses.replace(base, dtype=torch.bfloat16)
+    model = model_mod.build_model(cfg)
+    params, nbytes = _draw_weights(torch, model, "phase 20")
+    rng = np.random.default_rng(SEED)
+    zero_counts(tk, dk, pk)
+    runs = {}
+    for T in ZAMBA_PROMPTS:
+        tokens = torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (2, T)).astype(np.int32)).cuda()
+        (logits, state), pre_ms = _synced_ms(torch, lambda: model.prefill(
+            params, tokens, T + ZAMBA_NEW))
+        check(bool(torch.isfinite(logits.float()).all()),
+              f"phase 20: prefill of {T} non-finite")
+        toks, rows, step_ms = _greedy(torch, model, params, logits, state, T,
+                                      ZAMBA_NEW, "cuda")
+        check(bool(torch.isfinite(rows).all()), f"phase 20: decode after {T}"
+              " non-finite")
+        per_req = {k: _tree_bytes(state[k]) // 2 for k in ("ssm", "conv",
+                                                           "kv")}
+        want = {"ssm": ZAMBA_SSM_BYTES, "conv": ZAMBA_CONV_BYTES,
+                "kv": ZAMBA_KV_BYTES_PER_TOKEN * (T + ZAMBA_NEW)}
+        check(per_req == want, f"phase 20: state bytes {per_req} != {want}")
+        runs[T] = {"prefill_ms": pre_ms, "decode_step_ms": step_ms,
+                   "decode_ms": sum(step_ms), "state_bytes": per_req,
+                   "tokens": toks}
+        log(f"phase 20 (a): prefill B 2 x {T} (chunked SSD, C "
+            f"{mamba2.SSD_CHUNK}) {pre_ms:.1f} ms ({2 * T / pre_ms:.0f} "
+            f"tokens/ms); {ZAMBA_NEW} greedy decode steps {sum(step_ms):.1f}"
+            f" ms (mean {sum(step_ms) / len(step_ms):.2f} ms, min "
+            f"{min(step_ms):.2f}, the first {step_ms[0]:.2f}; host clock "
+            f"around synchronised calls); state per request: SSM "
+            f"{per_req['ssm']} B, conv {per_req['conv']} B, KV "
+            f"{per_req['kv']} B ({ZAMBA_KV_BYTES_PER_TOKEN} B x {T + ZAMBA_NEW}"
+            f" rows; {ZAMBA_KV_BYTES_PER_TOKEN * 4096} B at 4096)")
+        del logits, state, tokens
+    launches = {k: v for k, v in launch_counts(tk, dk, pk).items() if v}
+    check(not launches, f"phase 20: Dh {cfg.head_dim} launched {launches}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"phase 20 (a): peak memory {peak_gb:.2f} GB ({nbytes / 1e9:.2f} GB "
+        f"of weights); attention launches {launches or 'none'} (Dh "
+        f"{cfg.head_dim} is plain by route)")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) one full-width block's SSD, f32, T 1024
+    cfg1 = dataclasses.replace(base, num_layers=base.attn_every,
+                               dtype=torch.float32)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 20)
+    pl = mamba2.init_mamba_block(gen, cfg1)
+    x = torch.randn((1, 1024, cfg1.d_model), generator=gen, device="cuda")
+    h = mamba2.rms_norm(x, pl["ln"], cfg1.norm_eps)
+    z, xs, Bm, Cm, dt = mamba2._split_proj(cfg1, h @ pl["w_in"])
+    d_inner, H, P, N = mamba2.dims(cfg1)
+    xs, Bm, Cm = torch.split(mamba2._conv_seq(pl, torch.cat(
+        [xs, Bm, Cm], -1)), [d_inner, N, N], dim=-1)
+    S0 = torch.zeros((1, H, P, N), device="cuda")
+    flush = torch.empty(128 * 1024 * 1024, dtype=torch.float32,
+                        device="cuda")
+    ssd = {"T": 1024, "chunk": mamba2.SSD_CHUNK}
+    for name, A_log, dt_bias in (
+            ("init decays", None, None),
+            ("spread decays", torch.linspace(-3.0, 2.7, H, device="cuda"),
+             torch.linspace(-7.0, -2.0, H, device="cuda"))):
+        if A_log is not None:
+            pl["A_log"].copy_(A_log)
+            pl["dt_bias"].copy_(dt_bias)
+        xh, dtf, la = mamba2.ssd_inputs(pl, cfg1, xs, dt)
+        ops = (xh, Bm, Cm, dtf, la, S0)
+        y_seq, S_seq = mamba2.ssd_sequential(*ops)
+        y_ch, S_ch = mamba2.ssd_chunked(*ops)
+        y64, S64 = mamba2.ssd_sequential(*(a.double() for a in ops))
+
+        def rel(a, b):
+            return float((a.double() - b.double()).abs().max()
+                         / b.double().abs().max())
+        errs = {"y": rel(y_ch, y_seq), "S": rel(S_ch, S_seq),
+                "y_chunked_vs_f64": rel(y_ch, y64),
+                "S_chunked_vs_f64": rel(S_ch, S64),
+                "y_sequential_vs_f64": rel(y_seq, y64),
+                "S_sequential_vs_f64": rel(S_seq, S64)}
+        check(all(e <= 1e-5 for n, e in errs.items()
+                  if "sequential_vs" not in n),
+              f"phase 20 (b) {name}: chunked SSD off the sequential one: "
+              f"{errs}")
+        seq_ms = time_ms(torch, lambda: mamba2.ssd_sequential(*ops), 2,
+                         flush)
+        ch_ms = time_ms(torch, lambda: mamba2.ssd_chunked(*ops), 5, flush)
+        log(f"phase 20 (b) {name}: one full-width block f32, T 1024, log "
+            f"decay in [{la.min().item():.3g}, {la.max().item():.3g}]: "
+            f"chunked SSD (C {mamba2.SSD_CHUNK}) vs sequential: max |diff| /"
+            f" max |ref| y {errs['y']:.3e}, S {errs['S']:.3e} (1e-5); vs the"
+            f" sequential form in f64: chunked y {errs['y_chunked_vs_f64']:.3e}"
+            f" S {errs['S_chunked_vs_f64']:.3e} (1e-5), sequential f32 y "
+            f"{errs['y_sequential_vs_f64']:.3e} S "
+            f"{errs['S_sequential_vs_f64']:.3e}; {ch_ms:.3f} ms vs "
+            f"{seq_ms:.3f} ms (events)")
+        ssd[name] = {"rel_err": errs, "chunked_ms": ch_ms,
+                     "sequential_ms": seq_ms}
+    del pl, x, h, z, xs, Bm, Cm, dt, xh, dtf, la, y_seq, y_ch, y64, flush
+    torch.cuda.empty_cache()
+
+    # (c) 6 layers (one shared site), f32: the card against the CPU
+    L, T, n = ZAMBA_SMALL
+    cfg6 = dataclasses.replace(base, num_layers=L, dtype=torch.float32)
+    model6 = model_mod.build_model(cfg6)
+    gpu6 = model6.init(SEED, device="cuda")
+    cpu6 = _tree_to(gpu6, torch.device("cpu"))
+    prompt = rng.integers(0, cfg6.vocab_size, (1, T)).astype(np.int32)
+
+    def run(params, dev):
+        logits, state = model6.prefill(params, torch.from_numpy(prompt).to(
+            dev), T + n)
+        toks, rows, _ = _greedy(torch, model6, params, logits, state, T, n,
+                                dev)
+        return toks, rows
+    toks, err = _cuda_cpu(torch, "phase 20 (c)", model6, gpu6, cpu6, run)
+    log(f"phase 20 (c): {L}-layer full-width f32 {ZAMBA_ARCH}, prompt {T}: "
+        f"cuda (chunked SSD) == cpu (sequential) greedy tokens "
+        f"{[t[0] for t in toks]}, logits within {err:.3e} of the largest "
+        "(1e-4)")
+    del gpu6, cpu6
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"held_before_gb": held / 1e9, "weights_gb": nbytes / 1e9,
+            "parameters": nbytes / 2, "peak_memory_gb": peak_gb,
+            "runs": runs, "launches": launches, "ssd": ssd,
+            "cuda_cpu_err": err}
+
+
+def phase_whisper(np, torch, cfg_mod, model_mod, tk, dk, pk):
+    """Phase 21: whisper-large-v3 at full width, bf16, alone on the card:
+    (a) the encoder over B 2 x 1500 stub frames, ``Model.prefill`` of a
+    4-token decoder prompt into a 448-row self-KV slab (#6 == 32 launches,
+    nothing else) and 64 greedy decode steps (#5 == 64 a step: 32 on the
+    self-KV, 32 on the cross-KV, counted by the slab they read, nothing
+    else); walls, the cross-KV's bytes a request; (b) 2 + 2 layers f32 on
+    the card and the CPU: the streams and logits (1e-4)."""
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import whisper
+    base = cfg_mod.get_config(WHISPER_ARCH)
+    held = _fresh_card(torch, "phase 21")
+    cfg = dataclasses.replace(base, dtype=torch.bfloat16)
+    model = model_mod.build_model(cfg)
+    params, nbytes = _draw_weights(torch, model, "phase 21")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 21)
+    B, P, n = WHISPER_B, WHISPER_PROMPT, WHISPER_NEW
+    audio = randn(torch, gen, (B, cfg.encoder_seq, cfg.d_model),
+                  torch.bfloat16)
+    rng = np.random.default_rng(SEED)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, P))
+                              .astype(np.int32)).cuda()
+    _, enc_ms = _synced_ms(torch, lambda: whisper.encode(params, cfg, audio))
+    zero_counts(tk, dk, pk)
+    (logits, cache), pre_ms = _synced_ms(torch, lambda: model.prefill(
+        params, prompt, cfg.max_position, audio_embeds=audio))
+    after_prefill = {k: v for k, v in launch_counts(tk, dk, pk).items() if v}
+    check(after_prefill == {"contiguous_prefill": cfg.num_layers},
+          f"phase 21: prefill launched {after_prefill}")
+    by_slab = {}
+    real = attn_mod.decode_attention
+
+    def counted(q, k, v, lengths, **kw):
+        by_slab[k.shape[1]] = by_slab.get(k.shape[1], 0) + 1
+        return real(q, k, v, lengths, **kw)
+    attn_mod.decode_attention = counted
+    try:
+        toks, rows, step_ms = _greedy(torch, model, params, logits, cache, P,
+                                      n, "cuda")
+    finally:
+        attn_mod.decode_attention = real
+    launches = {k: v for k, v in launch_counts(tk, dk, pk).items() if v}
+    want = {"contiguous_prefill": cfg.num_layers,
+            "contiguous_decode_padded": 2 * cfg.num_layers * n}
+    check(launches == want, f"phase 21: launches {launches} != {want}")
+    check(by_slab == {cfg.max_position: cfg.num_layers * n,
+                      cfg.encoder_seq: cfg.num_layers * n},
+          f"phase 21: #5 by slab rows {by_slab}")
+    check(bool(torch.isfinite(rows).all()), "phase 21: non-finite logits")
+    cross = _tree_bytes(cache.cross_kv) // B
+    check(cross == WHISPER_CROSS_BYTES, f"phase 21: cross-KV {cross} B")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"phase 21 (a): encode B {B} x {cfg.encoder_seq} frames "
+        f"{enc_ms:.1f} ms; prefill (encode + {P}-token prompt) {pre_ms:.1f} "
+        f"ms; {n} greedy decode steps {sum(step_ms):.1f} ms (mean "
+        f"{sum(step_ms) / n:.2f} ms, min {min(step_ms):.2f}; host clock "
+        f"around synchronised calls); cross-KV {cross} B a request; "
+        f"launches {json.dumps(launches)} (#5 by slab rows "
+        f"{json.dumps(by_slab)}); peak memory {peak_gb:.2f} GB")
+    out = {"held_before_gb": held / 1e9, "weights_gb": nbytes / 1e9,
+           "parameters": nbytes / 2, "encode_ms": enc_ms,
+           "prefill_ms": pre_ms, "decode_step_ms": step_ms,
+           "decode_ms": sum(step_ms), "cross_kv_bytes": cross,
+           "launches": launches, "decode_by_slab": by_slab,
+           "peak_memory_gb": peak_gb, "tokens": toks}
+    del params, cache, logits, audio
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) 2 + 2 layers, f32: the card against the CPU
+    cfg2 = dataclasses.replace(base, num_layers=2, encoder_layers=2,
+                               dtype=torch.float32)
+    model2 = model_mod.build_model(cfg2)
+    gpu2 = model2.init(SEED, device="cuda")
+    cpu2 = _tree_to(gpu2, torch.device("cpu"))
+    audio = torch.from_numpy(rng.normal(0, 1, (1, cfg2.encoder_seq,
+                                               cfg2.d_model))
+                             .astype(np.float32))
+    prompt = rng.integers(0, cfg2.vocab_size, (1, P)).astype(np.int32)
+
+    def run(params, dev):
+        logits, cache = model2.prefill(
+            params, torch.from_numpy(prompt).to(dev), P + WHISPER_SMALL_NEW,
+            audio_embeds=audio.to(dev))
+        toks, rows, _ = _greedy(torch, model2, params, logits, cache, P,
+                                WHISPER_SMALL_NEW, dev)
+        return toks, rows
+    toks, err = _cuda_cpu(torch, "phase 21 (b)", model2, gpu2, cpu2, run)
+    log(f"phase 21 (b): 2 + 2-layer full-width f32 {WHISPER_ARCH}: cuda == "
+        f"cpu greedy tokens {[t[0] for t in toks]}, logits within {err:.3e} "
+        "of the largest (1e-4)")
+    out["cuda_cpu_err"] = err
+    del gpu2, cpu2
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train(np, torch, cfg_mod, model_mod, tk, dk, pk):
+    """Phase 22: training. (a) llama3.2-3b at full width, bf16 params,
+    f32 moments, B 2 x T 1024 from ``TokenStream``, remat on, 8 AdamW
+    steps at lr 3e-4 (warmup 1): per step the loss, gradient norm, lr,
+    wall, tokens/s and peak memory; every loss finite and the last below
+    the first; #6 launched steps x layers x 2 times (remat runs each
+    layer's forward twice), nothing else; (b) 2 layers f32 on the card and
+    the CPU: the loss, every gradient and every parameter after one step
+    (1e-4 of the largest magnitude); the wrapped #6's gradients against
+    autograd through its plain version on the card (1e-4); a checkpoint
+    of the 2-layer model's attention weights and their AdamW state written
+    from the card and read back onto it, bit for bit."""
+    from repro_torch.kernels import prefill_attention as pk_mod
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.core.migration import tree_leaves
+    from repro_torch.training.checkpoint import (load_checkpoint,
+                                                 save_checkpoint)
+    from repro_torch.training.data import DataConfig, TokenStream
+    from repro_torch.training.optimizer import AdamWConfig, init_adamw
+    from repro_torch.training.trainer import batch_to, make_train_step
+    base = cfg_mod.get_config(TRAIN_ARCH)
+    held = _fresh_card(torch, "phase 22")
+    cfg = dataclasses.replace(base, dtype=torch.bfloat16)
+    model = model_mod.build_model(cfg)
+    params, nbytes = _draw_weights(torch, model, "phase 22")
+    opt_cfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=1,
+                          total_steps=TRAIN_STEPS)
+    step_fn = make_train_step(model, opt_cfg, remat=True)
+    opt_state = init_adamw(params)
+    stream = iter(TokenStream(cfg, DataConfig(batch_size=TRAIN_B,
+                                              seq_len=TRAIN_T, seed=SEED)))
+    zero_counts(tk, dk, pk)
+    steps = []
+    for i in range(TRAIN_STEPS):
+        batch = batch_to(next(stream), "cuda")
+        torch.cuda.reset_peak_memory_stats()
+        (params, opt_state, m), ms = _synced_ms(
+            torch, lambda: step_fn(params, opt_state, batch))
+        row = {"step": i + 1, "loss": float(m["loss"]),
+               "grad_norm": float(m["grad_norm"]), "lr": float(m["lr"]),
+               "ms": ms, "tokens_per_s": TRAIN_B * TRAIN_T / ms * 1e3,
+               "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+        steps.append(row)
+        log(f"phase 22 (a): step {row['step']} loss {row['loss']:.4f} "
+            f"grad_norm {row['grad_norm']:.4f} lr {row['lr']:.3e} "
+            f"{ms:.1f} ms ({row['tokens_per_s']:.0f} tokens/s, host clock "
+            f"around a synchronised step) peak memory "
+            f"{row['peak_memory_gb']:.2f} GB")
+    launches = {k: v for k, v in launch_counts(tk, dk, pk).items() if v}
+    want = {"contiguous_prefill": TRAIN_STEPS * cfg.num_layers * 2}
+    check(launches == want, f"phase 22: launches {launches} != {want} "
+          "(steps x layers x 2 with remat)")
+    losses = [r["loss"] for r in steps]
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"phase 22: losses {losses}")
+    out = {"held_before_gb": held / 1e9, "weights_gb": nbytes / 1e9,
+           "steps": steps, "launches": launches,
+           "moments_gb": 2 * sum(p.numel() for p in tree_leaves(params))
+           * 4 / 1e9}
+    del params, opt_state, m, batch, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) 2 layers, f32: the card against the CPU, the wrapped #6 against
+    # plain autograd, a checkpoint round trip on the card
+    cfg2 = dataclasses.replace(base, num_layers=2, dtype=torch.float32)
+    model2 = model_mod.build_model(cfg2)
+    gpu2 = model2.init(SEED, device="cuda")
+    cpu2 = _tree_to(gpu2, torch.device("cpu"))
+    batch = next(iter(TokenStream(cfg2, DataConfig(batch_size=2, seq_len=64,
+                                                   seed=SEED))))
+    got = {}
+    for dev, params in (("cuda", gpu2), ("cpu", cpu2)):
+        b = batch_to(batch, dev)
+        leaves = [p.requires_grad_() for p in tree_leaves(params)]
+        loss, _ = model2.loss(params, b, remat=True)
+        grads = torch.autograd.grad(loss, leaves)
+        if dev == "cuda":
+            full = torch.full((2,), 64, dtype=torch.int32, device="cuda")
+            wrapped = attn_mod.causal_prefill
+            attn_mod.causal_prefill = (
+                lambda q, k, v: pk_mod.prefill_attention_plain(q, k, v,
+                                                               full))
+            try:
+                plain_loss, _ = model2.loss(params, b)
+                plain = torch.autograd.grad(plain_loss, leaves)
+            finally:
+                attn_mod.causal_prefill = wrapped
+            wrap_err = max(float((g - h).abs().max()
+                                 / max(h.abs().max().item(), 1e-30))
+                           for g, h in zip(grads, plain))
+            check(wrap_err <= 1e-4, f"phase 22 (b): wrapped #6 grads off "
+                  f"plain autograd by {wrap_err:.3e}")
+        step = make_train_step(model2, opt_cfg, remat=True)
+        params, state, _ = step(params, init_adamw(params), b)
+        got[dev] = (float(loss.detach()), [g.cpu() for g in grads],
+                    [p.detach().cpu() for p in tree_leaves(params)], state)
+    (la, ga, pa, st), (lb, gb, pb, _) = got["cuda"], got["cpu"]
+    errs = [float((x - y).abs().max() / max(1.0, y.abs().max().item()))
+            for x, y in zip(ga + pa, gb + pb)]
+    check(abs(la - lb) <= 1e-5 * abs(lb) and max(errs) <= 1e-4,
+          f"phase 22 (b): cuda vs cpu loss {la} / {lb}, grads and params "
+          f"off by {max(errs):.3e}")
+    # the attention weights of both layers and their AdamW state (the
+    # whole model's would be 8.7 GB on disk)
+    path = ROOT / "build" / "phase22_checkpoint.npz"
+    tree = {"attn": gpu2["layers"]["attn"],
+            "opt": type(st)(st.step, st.mu["layers"]["attn"],
+                            st.nu["layers"]["attn"])}
+    save_checkpoint(str(path), tree, 1)
+    like = {"attn": {k: torch.zeros_like(v) for k, v in tree["attn"].items()},
+            "opt": tree["opt"]._replace(step=torch.zeros_like(st.step))}
+    back, step_no = load_checkpoint(str(path), like)
+    same = all(bool(torch.equal(a, b)) and b.device.type == "cuda"
+               for a, b in zip(tree_leaves(tree), tree_leaves(back)))
+    ck_bytes = path.stat().st_size
+    path.unlink()
+    check(step_no == 1 and same, "phase 22 (b): checkpoint round trip "
+          "changed a leaf")
+    log(f"phase 22 (b): 2-layer full-width f32 {TRAIN_ARCH}, one step: cuda "
+        f"loss {la:.6f} == cpu {lb:.6f}; grads and params within "
+        f"{max(errs):.3e} of the largest (1e-4); wrapped #6 grads within "
+        f"{wrap_err:.3e} of plain autograd (1e-4); checkpoint round trip on "
+        f"the card ({ck_bytes} B) bit for bit")
+    out.update(cuda_cpu_err=max(errs), wrapped_vs_plain_err=wrap_err,
+               checkpoint_bytes=ck_bytes)
+    del gpu2, cpu2, got, st, back, like, tree
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def family_rows(fam, moe, vlm, win, whisper):
     """The kernels JSON rows of the families' shapes (#1 at G 8; #2, #3,
-    #5, #6 at G 7; #5 and #6 at G 12; measured by ``family_kernels``),
-    with their launches on phases 16, 17 and 18 (a)'s paths."""
+    #5, #6 at G 7; #5 and #6 at G 12 and at G 1, #5 on whisper's self-
+    and cross-KV; measured by ``family_kernels``), with their launches on
+    phases 16, 17, 18 (a) and 21 (a)'s paths."""
     moe_launches = (moe["engine"]["launches"].get("fused", 0)
                     + moe["cluster"]["launches"].get("fused", 0))
     vl = vlm["engine"]["launches"]
@@ -3205,6 +3706,33 @@ def family_rows(fam, moe, vlm, win):
         rows.append(row)
     by_name = {row["name"]: row for row in rows}
     by_name["decode_attention_padded_g12"]["ptxas"] = win["ptxas_g12"]
+    wl = whisper["decode_by_slab"]
+    for k, name, src, tpu, launches, shape in (
+            (fam["whisper"]["prefill"], "prefill_attention_g1",
+             "contiguous_prefill.cu",
+             "src/repro/kernels/prefill_attention.py:125",
+             whisper["launches"].get("contiguous_prefill", 0),
+             f"{WHISPER_ARCH}: H 20 / Hkv 20 / Dh 64, B {WHISPER_B}, T 448"),
+            (fam["whisper"]["decode_padded"], "decode_attention_padded_g1",
+             "contiguous_decode.cu",
+             "src/repro/kernels/decode_attention.py:291",
+             wl.get(448, 0),
+             f"{WHISPER_ARCH}: self-KV, {WHISPER_B} rows of a 448-row slab "
+             f"at {WHISPER_PROMPT + WHISPER_NEW} keys"),
+            (fam["whisper_cross"]["decode_padded"],
+             "decode_attention_padded_g1_cross", "contiguous_decode.cu",
+             "src/repro/kernels/decode_attention.py:291", wl.get(1500, 0),
+             f"{WHISPER_ARCH}: cross-KV, {WHISPER_B} rows of 1500 keys, "
+             "every key valid")):
+        rows.append({"name": name, "ok": True, "route": "cuda",
+                     "source": f"src/repro_torch/kernels/csrc/{src}",
+                     "replaces": tpu, "launches": launches, "shape": shape,
+                     **{key: k[key] for key in (
+                         "max_abs_err", "ms", "plain_ms", "bound_ms",
+                         "bound_by", "library_ms", "device_ms",
+                         "library_device_ms") if key in k},
+                     "kernel_ms": k["ms"],
+                     "bound_share": k["bound_ms"] / k["ms"]})
     d128 = fam["moe_dh128"]       # #1 at the published head width
     rows[0]["dh128"] = {key: d128[key] for key in (
         "max_abs_err", "max_abs_err_f32", "ms", "device_ms", "plain_ms",
@@ -3404,7 +3932,30 @@ def main() -> int:
     rwkv["phase_s"] = time.perf_counter() - t19
     log(f"phase 19: took {rwkv['phase_s']:.1f} s")
 
-    # 20. results
+    # 20. zamba2-2.7b: the Mamba2 hybrid at full width (the chunked SSD,
+    # the shared block's plain Dh-80 attention), the SSD forms against each
+    # other, 6 layers f32 on the card and the CPU
+    t20 = time.perf_counter()
+    zamba = phase_zamba(np, torch, cfg_mod, model_mod, tk, dk, pk)
+    zamba["phase_s"] = time.perf_counter() - t20
+    log(f"phase 20: took {zamba['phase_s']:.1f} s")
+
+    # 21. whisper-large-v3: the encoder-decoder at full width (#6 on the
+    # decoder prompt, #5 on the self- and cross-KV), 2 + 2 layers f32 on
+    # the card and the CPU
+    t21 = time.perf_counter()
+    whisper = phase_whisper(np, torch, cfg_mod, model_mod, tk, dk, pk)
+    whisper["phase_s"] = time.perf_counter() - t21
+    log(f"phase 21: took {whisper['phase_s']:.1f} s")
+
+    # 22. training: llama3.2-3b at full width (#6 forward under autograd,
+    # remat), 2 layers f32 on the card and the CPU, a checkpoint round trip
+    t22 = time.perf_counter()
+    training = phase_train(np, torch, cfg_mod, model_mod, tk, dk, pk)
+    training["phase_s"] = time.perf_counter() - t22
+    log(f"phase 22: took {training['phase_s']:.1f} s")
+
+    # 23. results
     kernels = [{
         "name": "paged_mixed_attention", "ok": True, "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/mixed_attention.cu",
@@ -3500,8 +4051,11 @@ def main() -> int:
         "prefill"]
     by_name["decode_attention_padded"]["engine_shape"] = modes["kernels"][
         "decode_padded"]
-    # the same kernels at the MoE and VLM configs' head groupings
-    kernels += family_rows(fam, moe, vlm, window)
+    # #6 also trains: its launches on phase 22's path
+    by_name["prefill_attention"]["train_launches"] = training["launches"][
+        "contiguous_prefill"]
+    # the same kernels at the MoE, VLM, window and whisper configs' heads
+    kernels += family_rows(fam, moe, vlm, window, whisper)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke_report.json").write_text(json.dumps(
@@ -3510,9 +4064,10 @@ def main() -> int:
          "grid_cluster": grid_cluster, "dense_int8": dense_int8,
          "fig2": fig2, "engine_modes": modes, "cost_model": cost_model,
          "family_kernels": fam, "moe": moe, "vlm": vlm, "window": window,
-         "rwkv": rwkv}, indent=1,
+         "rwkv": rwkv, "zamba": zamba, "whisper": whisper,
+         "training": training}, indent=1,
         default=str))
-    log(f"chip_smoke: phases 1-19 took {time.perf_counter() - t_main:.1f} s")
+    log(f"chip_smoke: phases 1-22 took {time.perf_counter() - t_main:.1f} s")
     # the card again, so that the end of the output names it beside the
     # numbers
     log(smi)

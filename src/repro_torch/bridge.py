@@ -2,8 +2,8 @@
 
 The port keeps the JAX layout at its public functions (``x @ W`` with
 ``W [in, out]``, layer-stacked leaves, pools ``[L, NB, BS, Hkv, Dh]``), so
-converting is a renaming; migration pieces cross the same way (rwkv6's
-recurrent state as a dict of its three leaves). The bridge imports no
+converting is a renaming, for every family; migration pieces cross the
+same way (rwkv6's recurrent state as a dict of its three leaves). The bridge imports no
 JAX: a caller holding
 JAX arrays maps them to numpy first (``jax.tree.map(np.asarray, params)``).
 """
@@ -32,8 +32,9 @@ def _to_tensor(a: np.ndarray, dtype, device) -> torch.Tensor:
     return t.to(device)
 
 
-# leaves the reference keeps in f32 whatever the model dtype
-F32_LEAVES = ("router",)
+# leaves the reference keeps in f32 whatever the model dtype: an MoE's
+# router, a Mamba2 block's decay, step bias and skip
+F32_LEAVES = ("router", "A_log", "dt_bias", "D_skip")
 
 
 def _tree_to_torch(tree: Any, dtype, device, key=None):
@@ -59,42 +60,69 @@ RWKV_LAYER_KEYS = frozenset((
     "ln_att", "ln_ffn", "mu_r", "mu_k", "mu_v", "mu_w", "mu_g", "w_r", "w_k",
     "w_v", "w_g", "w_o", "decay_w0", "decay_A", "decay_B", "bonus_u", "ln_x",
     "mu_ck", "mu_cr", "cw_k", "cw_v", "cw_r"))
+# the 9 leaves of a Mamba2 block (``mamba2.init_mamba_block``)
+MAMBA_KEYS = frozenset(("ln", "w_in", "conv_w", "conv_b", "A_log",
+                        "dt_bias", "D_skip", "ln_gate", "w_out"))
+# zamba2's shared attention + FFN block, and whisper's layers
+SHARED_KEYS = frozenset(("ln_attn", "ln_mlp", "attn", "ffn"))
+ENC_LAYER_KEYS = frozenset(("ln1", "ln2", "attn", "ffn"))
+DEC_LAYER_KEYS = frozenset(("ln1", "ln2", "ln3", "self_attn", "cross_attn",
+                            "ffn"))
+
+
+def _layout(cfg: ModelConfig):
+    """The family's top-level keys, and for each subtree the keys it must
+    have and the leading dims every leaf of it is stacked on."""
+    L = cfg.num_layers
+    if cfg.family == "ssm":
+        return ({"embed", "layers", "ln_f", "unembed"},
+                {"layers": (RWKV_LAYER_KEYS, (L,))})
+    if cfg.family == "hybrid":
+        return ({"embed", "mamba", "shared", "ln_f", "unembed"},
+                {"mamba": (MAMBA_KEYS, (L // cfg.attn_every,
+                                        cfg.attn_every)),
+                 "shared": (SHARED_KEYS, ())})
+    if cfg.family == "encdec":
+        return ({"enc_pos", "enc_layers", "enc_ln", "embed", "dec_pos",
+                 "dec_layers", "dec_ln"},
+                {"enc_layers": (ENC_LAYER_KEYS, (cfg.encoder_layers,)),
+                 "dec_layers": (DEC_LAYER_KEYS, (L,)),
+                 "enc_ln": ({"w", "b"}, ()), "dec_ln": ({"w", "b"}, ())})
+    return ({"embed", "layers", "ln_f"} | (
+        set() if cfg.tie_embeddings else {"unembed"}),
+        {"layers": (_layer_keys(cfg), (L,))})
 
 
 def params_from_numpy(tree: Mapping, cfg: ModelConfig, device="cuda"):
-    """JAX params (nested dicts of numpy arrays) of a decoder or of rwkv6
-    -> the port's params on ``device`` in ``cfg.dtype``, the reference's
-    dtype for every leaf (an MoE router stays f32, as the reference keeps
-    it). Checks the top-level and layer layouts and that every layer leaf
-    is stacked on ``cfg.num_layers``."""
-    if cfg.family == "ssm":
-        _check_keys(tree, {"embed", "layers", "ln_f", "unembed"},
-                    RWKV_LAYER_KEYS)
-    else:
-        _check_keys(tree, {"embed", "layers", "ln_f"} | (
-            set() if cfg.tie_embeddings else {"unembed"}), _layer_keys(cfg))
+    """JAX params (nested dicts of numpy arrays) of any family -> the
+    port's params on ``device`` in ``cfg.dtype``, the reference's dtype for
+    every leaf (an MoE router and a Mamba2 block's ``A_log`` / ``dt_bias``
+    / ``D_skip`` stay f32, as the reference keeps them). Checks the
+    top-level keys, each subtree's keys, and that every leaf of a layer
+    stack leads with the stack's dims: ``num_layers`` (whisper's encoder:
+    ``encoder_layers``; zamba2's Mamba2 blocks: ``[groups, attn_every]``)."""
+    top, subtrees = _layout(cfg)
+    if set(tree) != top:
+        raise KeyError(f"params keys {sorted(tree)} != {sorted(top)}")
+    for name, (keys, _) in subtrees.items():
+        if set(tree[name]) != set(keys):
+            raise KeyError(f"{name} keys {sorted(tree[name])} != "
+                           f"{sorted(keys)}")
     out = _tree_to_torch(tree, cfg.dtype, device)
     if tuple(out["embed"].shape) != (cfg.vocab_size, cfg.d_model):
         raise ValueError(f"embed {tuple(out['embed'].shape)} does not match "
                          f"{cfg.name}")
 
-    def check(layers, path):
+    def check(layers, path, lead):
         for k, v in layers.items():
             if isinstance(v, dict):
-                check(v, f"{path}/{k}")
-            elif v.shape[0] != cfg.num_layers:
-                raise ValueError(f"{path}/{k}: leading dim {v.shape[0]} != "
-                                 f"num_layers {cfg.num_layers}")
-    check(out["layers"], "layers")
+                check(v, f"{path}/{k}", lead)
+            elif tuple(v.shape[:len(lead)]) != lead:
+                raise ValueError(f"{path}/{k}: leading dims "
+                                 f"{tuple(v.shape[:len(lead)])} != {lead}")
+    for name, (_, lead) in subtrees.items():
+        check(out[name], name, lead)
     return out
-
-
-def _check_keys(tree: Mapping, want: set, layer_keys) -> None:
-    if set(tree) != want:
-        raise KeyError(f"params keys {sorted(tree)} != {sorted(want)}")
-    if set(tree["layers"]) != set(layer_keys):
-        raise KeyError(f"layer keys {sorted(tree['layers'])} != "
-                       f"{sorted(layer_keys)}")
 
 
 def pool_from_numpy(pool: Any, device="cuda", dtype=None):

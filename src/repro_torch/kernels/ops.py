@@ -16,6 +16,11 @@ import torch
 # maxima, and ``exp(NEG_INF - m)`` underflows to an exact 0.
 NEG_INF = -1e30
 
+# The head dims the attention kernels are built for (one template instance
+# each); a model whose head dim is not here routes around them before any
+# launch (``models.attention``).
+KERNEL_HEAD_DIMS = (64, 128)
+
 
 def flat_work_list(lengths: torch.Tensor, nbt: int, block_s: int,
                    num_work: int):
@@ -45,7 +50,8 @@ def flat_work_list(lengths: torch.Tensor, nbt: int, block_s: int,
 
 def check_paged_operands(name: str, q: torch.Tensor, k_pool: torch.Tensor,
                          v_pool: torch.Tensor, block_tables: torch.Tensor,
-                         per_row, head_dims=(64, 128), max_group=None):
+                         per_row, head_dims=KERNEL_HEAD_DIMS,
+                         max_group=None):
     """Raise unless the operands of an attention kernel are what its CUDA
     build takes: f32/bf16 ``q`` and pools of one dtype, a head dim in
     ``head_dims``, ``H % Hkv == 0`` (and ``H // Hkv <= max_group``), int32

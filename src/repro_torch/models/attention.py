@@ -20,6 +20,16 @@ tables ``[B, NBT]`` int32. Slab and pool writes are IN PLACE
 layer per step, so each function returns the cache it was given, updated.
 The paged paths are full-attention only, as in the reference: a window's
 ring has no block-table layout.
+
+Whisper's cross-attention reads the encoder's K/V: one decoder token at a
+time through the contiguous decode kernel (every key valid), a prompt's
+queries in plain PyTorch, as the reference computes both in XLA. A head
+dim that no kernel build takes (``KERNEL_HEAD_DIMS``: zamba2's 80) is
+routed before any launch: prefill through :func:`window_attention` with a
+window of the whole prompt, decode through the plain padded decode.
+
+The causal prefill is differentiable (:func:`causal_prefill`): the loss
+path runs the kernel forward and differentiates its plain version.
 """
 from __future__ import annotations
 
@@ -30,13 +40,15 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.kernels.decode_attention import (decode_attention,
+                                                  decode_attention_plain,
                                                   paged_decode_attention,
                                                   paged_decode_attention_flat)
 from repro_torch.kernels.mixed_attention import paged_mixed_attention
-from repro_torch.kernels.ops import NEG_INF
+from repro_torch.kernels.ops import KERNEL_HEAD_DIMS, NEG_INF
 from repro_torch.kernels.prefill_attention import (paged_prefill_attention,
-                                                   prefill_attention)
-from repro_torch.models.common import ModelConfig
+                                                   prefill_attention,
+                                                   prefill_attention_plain)
+from repro_torch.models.common import ModelConfig, dense_init
 
 # Paged attention backends (the JAX package's four):
 #   dense — gather pool[block_tables] + masked SDPA in plain PyTorch: a
@@ -124,6 +136,27 @@ def _rotate(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
             apply_rope(k, positions, cfg.rope_theta))
 
 
+def init_attention(gen: torch.Generator, cfg: ModelConfig,
+                   layers: Optional[int] = None):
+    """Attention weights ``wq``/``wk``/``wv``/``wo`` (``x @ W``, fan_in the
+    input width) and, with ``qkv_bias``, zero biases; with ``layers``,
+    stacked on a leading axis of that many layers, drawn in that layout."""
+    d, h, hk, dh = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+                    cfg.head_dim)
+    dev, dt = gen.device, cfg.dtype
+    lead = () if layers is None else (layers,)
+    att = {
+        "wq": dense_init(gen, lead + (d, h * dh), dt, fan_in=d),
+        "wk": dense_init(gen, lead + (d, hk * dh), dt, fan_in=d),
+        "wv": dense_init(gen, lead + (d, hk * dh), dt, fan_in=d),
+        "wo": dense_init(gen, lead + (h * dh, d), dt, fan_in=h * dh),
+    }
+    if cfg.qkv_bias:
+        for name, n in (("bq", h), ("bk", hk), ("bv", hk)):
+            att[name] = torch.zeros(lead + (n * dh,), dtype=dt, device=dev)
+    return att
+
+
 def _project_qkv(p, cfg: ModelConfig, x: torch.Tensor):
     B, T, _ = x.shape
     q = x @ p["wq"]
@@ -198,6 +231,42 @@ def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+class _CausalPrefill(torch.autograd.Function):
+    """#6 under autograd: forward runs ``prefill_attention`` (the kernel,
+    its plain version for CPU tensors); backward recomputes the plain
+    version under autograd from the saved q, k, v and differentiates it.
+    The reference trains through XLA and has no backward kernel either; a
+    hand-written backward kernel is later work."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        ctx.save_for_backward(q, k, v)
+        return prefill_attention(q, k, v)
+
+    @staticmethod
+    def backward(ctx, grad):
+        saved = ctx.saved_tensors
+        with torch.enable_grad():
+            q, k, v = (t.detach().requires_grad_(need) for t, need in
+                       zip(saved, ctx.needs_input_grad[:3]))
+            full = torch.full((q.shape[0],), q.shape[1], dtype=torch.int32,
+                              device=q.device)
+            out = prefill_attention_plain(q, k, v, full)
+            wanted = [t for t in (q, k, v) if t.requires_grad]
+            grads = iter(torch.autograd.grad(out, wanted, grad))
+        return tuple(next(grads) if t.requires_grad else None
+                     for t in (q, k, v))
+
+
+def causal_prefill(q: torch.Tensor, k: torch.Tensor,
+                   v: torch.Tensor) -> torch.Tensor:
+    """Causal attention over a whole prompt (q [B, T, H, Dh], k, v
+    [B, T, Hkv, Dh], contiguous) through #6, differentiable: see
+    :class:`_CausalPrefill`. Launches the kernel once a forward (again
+    when a checkpointed layer recomputes it), never in backward."""
+    return _CausalPrefill.apply(q, k, v)
+
+
 def attention_prefill(p, cfg: ModelConfig, x: torch.Tensor,
                       positions: torch.Tensor, *, mrope_positions=None):
     """Causal self-attention over a whole prompt: x [B, T, D], positions
@@ -206,7 +275,10 @@ def attention_prefill(p, cfg: ModelConfig, x: torch.Tensor,
     tensors); the reference's two XLA branches (masked SDPA up to T² =
     2048², the flash scan above) compute this one function. With a
     sliding window W, a prompt of T <= W runs the same kernel (the window
-    masks nothing) and a longer one :func:`window_attention`. Returns
+    masks nothing) and a longer one :func:`window_attention`; so does a
+    head dim outside ``KERNEL_HEAD_DIMS`` (zamba2's 80), with a window of
+    T, checked before any launch. The kernel runs through
+    :func:`causal_prefill`, so the loss can differentiate it. Returns
     (out [B, T, D], (k, v) [B, T, Hkv, Dh] after RoPE)."""
     B, T, _ = x.shape
     q, k, v = _project_qkv(p, cfg, x)
@@ -215,8 +287,12 @@ def attention_prefill(p, cfg: ModelConfig, x: torch.Tensor,
     W = cfg.sliding_window
     if W and T > W:
         out = window_attention(q, k, v, W)
+    elif cfg.head_dim not in KERNEL_HEAD_DIMS:
+        # no kernel instance for this head dim: the tiled plain path,
+        # whose window of T masks nothing beyond causality
+        out = window_attention(q, k, v, T)
     else:
-        out = prefill_attention(q, k, v)
+        out = causal_prefill(q, k, v)
     return out.reshape(B, T, -1) @ p["wo"], (k, v)
 
 
@@ -251,8 +327,9 @@ def attention_decode(p, cfg: ModelConfig, x: torch.Tensor, cache_l: KVCache,
     plain version for CPU tensors). In a ring the valid slots are always
     that prefix: slots 0..pos before it wraps, all W of the last W
     positions after, and attention does not depend on the keys' order
-    (RoPE rotated K before it was cached). Returns (out [B, 1, D],
-    cache_l)."""
+    (RoPE rotated K before it was cached). A head dim outside
+    ``KERNEL_HEAD_DIMS`` runs the plain padded decode. Returns
+    (out [B, 1, D], cache_l)."""
     B = x.shape[0]
     q, k, v = _project_qkv(p, cfg, x)
     q, k = _rotate(cfg, q, k, pos[:, None], mrope_positions)
@@ -266,9 +343,17 @@ def attention_decode(p, cfg: ModelConfig, x: torch.Tensor, cache_l: KVCache,
     cache_l.v.index_put_(idx, v[:, 0].to(cache_l.v.dtype))
     lengths = torch.clamp(pos + 1, max=S).to(torch.int32)
     kv_rows = None if rows is None else rows.to(torch.int32)
-    o = decode_attention(q[:, 0].contiguous(), cache_l.k, cache_l.v, lengths,
-                         ragged=False, kv_rows=kv_rows)
+    o = _decode(cfg, q[:, 0].contiguous(), cache_l.k, cache_l.v, lengths,
+                kv_rows)
     return o.reshape(B, 1, -1) @ p["wo"], cache_l
+
+
+def _decode(cfg: ModelConfig, q, k, v, lengths, kv_rows=None):
+    """The padded contiguous decode: the kernel, or for a head dim outside
+    ``KERNEL_HEAD_DIMS`` its plain version, chosen before any launch."""
+    fn = (decode_attention if cfg.head_dim in KERNEL_HEAD_DIMS
+          else decode_attention_plain)
+    return fn(q, k, v, lengths, ragged=False, kv_rows=kv_rows)
 
 
 # --------------------------------------------------------------------------
@@ -589,3 +674,41 @@ def attention_mixed_paged(p, cfg: ModelConfig, x_dec: torch.Tensor,
     out_d, out_c = o[:Bd, :1], o[Bd:]
     return (out_d.reshape(Bd, 1, -1) @ p["wo"],
             out_c.reshape(Bp, C, -1) @ p["wo"], pool_l)
+
+
+# --------------------------------------------------------------------------
+# Cross-attention (whisper's decoder): K/V computed once from the encoder
+# --------------------------------------------------------------------------
+def cross_attention(p, cfg: ModelConfig, x: torch.Tensor,
+                    enc_kv: KVCache) -> torch.Tensor:
+    """Decoder queries x [B, T, D] over the encoder's K/V [B, S_enc, Hkv,
+    Dh], every key visible. One token (T = 1, a decode step) runs the
+    contiguous decode kernel in its padded mode with ``lengths = S_enc``
+    (the plain version for CPU tensors or a head dim no kernel takes); a
+    prompt's T queries run the plain ``_gqa_sdpa``, as the reference's XLA
+    does: #6 is causal only. Returns [B, T, D]."""
+    B, T, _ = x.shape
+    q = x @ p["wq"]
+    if "bq" in p:
+        q = q + p["bq"]
+    q = q.reshape(B, T, cfg.num_heads, cfg.head_dim)
+    if T == 1:
+        S = enc_kv.k.shape[1]
+        lengths = torch.full((B,), S, dtype=torch.int32, device=x.device)
+        out = _decode(cfg, q[:, 0].contiguous(), enc_kv.k, enc_kv.v,
+                      lengths)[:, None]
+    else:
+        out = _gqa_sdpa(q, enc_kv.k, enc_kv.v, None)
+    return out.reshape(B, T, -1) @ p["wo"]
+
+
+def encode_cross_kv(p, cfg: ModelConfig, enc_out: torch.Tensor) -> KVCache:
+    """The encoder output [B, S, D] projected to cross-attention K/V
+    [B, S, Hkv, Dh] (with the biases where the layer has them)."""
+    B, S, _ = enc_out.shape
+    k = enc_out @ p["wk"]
+    v = enc_out @ p["wv"]
+    if "bk" in p:
+        k, v = k + p["bk"], v + p["bv"]
+    shape = (B, S, cfg.num_kv_heads, cfg.head_dim)
+    return KVCache(k.reshape(shape), v.reshape(shape))

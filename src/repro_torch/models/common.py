@@ -157,9 +157,41 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor,
     return (x * weight.float()).to(dt)
 
 
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm over the last axis: statistics in f32, the result cast
+    back to x's dtype (the reference's ``layer_norm``)."""
+    dt = x.dtype
+    x = x.float()
+    mu = x.mean(dim=-1, keepdim=True)
+    var = torch.square(x - mu).mean(dim=-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * weight.float() + bias.float()).to(dt)
+
+
 def act_fn(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
     if name == "swiglu":
         return F.silu
     if name == "gelu":
         return lambda x: F.gelu(x, approximate="tanh")
     raise ValueError(f"unknown activation {name!r}")
+
+
+# --------------------------------------------------------------------------
+# Losses
+# --------------------------------------------------------------------------
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
+                 mask=None) -> torch.Tensor:
+    """Mean next-token cross-entropy in f32: ``logsumexp(logits)`` minus
+    the gold logit, per position of ``logits [..., V]`` / ``labels``
+    int [...]; with ``mask`` [...], the masked mean
+    ``sum(nll * mask) / max(sum(mask), 1)`` (the reference's
+    ``softmax_xent``)."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        mask = mask.float()
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)

@@ -32,21 +32,24 @@ MOE_TILE_BYTES = 1 << 30
 # --------------------------------------------------------------------------
 # Dense FFN
 # --------------------------------------------------------------------------
-def init_ffn(gen: torch.Generator, cfg: ModelConfig, num_layers: int):
-    """Layer-stacked FFN weights ``[L, in, out]``."""
-    d, f, L = cfg.d_model, cfg.d_ff, num_layers
+def init_ffn(gen: torch.Generator, cfg: ModelConfig,
+             num_layers: int | None):
+    """Layer-stacked FFN weights ``[L, in, out]`` (``num_layers=None``:
+    one layer's, ``[in, out]``)."""
+    d, f = cfg.d_model, cfg.d_ff
+    L = () if num_layers is None else (num_layers,)
     if cfg.act == "swiglu":
         return {
-            "w_gate": dense_init(gen, (L, d, f), cfg.dtype, fan_in=d),
-            "w_up": dense_init(gen, (L, d, f), cfg.dtype, fan_in=d),
-            "w_down": dense_init(gen, (L, f, d), cfg.dtype, fan_in=f),
+            "w_gate": dense_init(gen, L + (d, f), cfg.dtype, fan_in=d),
+            "w_up": dense_init(gen, L + (d, f), cfg.dtype, fan_in=d),
+            "w_down": dense_init(gen, L + (f, d), cfg.dtype, fan_in=f),
         }
     dev = gen.device
     return {
-        "w_up": dense_init(gen, (L, d, f), cfg.dtype, fan_in=d),
-        "b_up": torch.zeros((L, f), dtype=cfg.dtype, device=dev),
-        "w_down": dense_init(gen, (L, f, d), cfg.dtype, fan_in=f),
-        "b_down": torch.zeros((L, d), dtype=cfg.dtype, device=dev),
+        "w_up": dense_init(gen, L + (d, f), cfg.dtype, fan_in=d),
+        "b_up": torch.zeros(L + (f,), dtype=cfg.dtype, device=dev),
+        "w_down": dense_init(gen, L + (f, d), cfg.dtype, fan_in=f),
+        "b_down": torch.zeros(L + (d,), dtype=cfg.dtype, device=dev),
     }
 
 

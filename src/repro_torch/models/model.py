@@ -1,11 +1,13 @@
 """Model record over the port's families — the counterpart of
 ``repro.models.model``, with the entry-point signatures of its serving
-paths (tokens are int tensors, not the reference's batch dicts):
+paths (tokens are int tensors, not the reference's batch dicts) and its
+``loss`` (which takes the reference's batch dict):
 
     model = build_model(cfg)
     params = model.init(seed, device="cuda")
+    loss, metrics = model.loss(params, batch, remat=False)
     logits, cache = model.prefill(params, tokens, cache_len)   # [B, V]
-    extras = synthetic_batch(cfg, B, T, device="cuda")  # a VLM's extras
+    extras = synthetic_batch(cfg, B, T, device="cuda")  # a family's extras
     logits, cache = model.prefill(params, extras.pop("tokens"), cache_len,
                                   **extras)
     slab = model.init_cache(batch, seq, device="cuda")
@@ -18,19 +20,28 @@ paths (tokens are int tensors, not the reference's batch dicts):
     dec_logits, ck_logits, pool = model.mixed_step(
         params, pool, dec_token, ck_tokens, bt_dec, bt_ck, pos, ctx, clen)
 
-The decoder families are ported: dense, MoE (``mlp.moe``, arctic's dense
-residual) and the VLM backbone (vision merge, M-RoPE). A VLM's extras are
-keyword arguments: ``vision_embeds`` / ``vision_mask`` /
+Every family of the reference is ported: the decoders — dense, MoE
+(``mlp.moe``, arctic's dense residual) and the VLM backbone (vision
+merge, M-RoPE) — rwkv6 (``family="ssm"``), zamba2's Mamba2 hybrid
+(``"hybrid"``) and whisper's encoder-decoder (``"encdec"``). A VLM's
+extras are keyword arguments: ``vision_embeds`` / ``vision_mask`` /
 ``mrope_positions`` on the whole-prompt entry points, ``mrope_positions``
 on the decode and chunk ones (text positions on all three streams by
-default); ``mixed_step`` refuses M-RoPE, as the reference's does.
-A sliding-window decoder keeps its K/V in a ring of ``min(seq, window)``
-rows (position p at row ``p % W``) and has the whole-prompt entry points
-only: ``prefill``, ``decode_step`` and ``init_cache``, as in the
-reference. So has rwkv6 (``family="ssm"``), whose cache is its recurrent
-state ``{"S", "att_prev", "ffn_prev"}``; its ``prefill`` ignores
-``cache_len``. The paged entry points are ``None`` for both, and
-``build_model`` raises for the hybrid and encoder-decoder families.
+default); ``mixed_step`` refuses M-RoPE, as the reference's does; whisper
+takes ``audio_embeds`` on ``prefill``. A sliding-window decoder keeps its
+K/V in a ring of ``min(seq, window)`` rows (position p at row ``p % W``)
+and has the whole-prompt entry points only: ``prefill``, ``decode_step``
+and ``init_cache``, as in the reference. So have rwkv6, whose cache is
+its recurrent state ``{"S", "att_prev", "ffn_prev"}`` (its ``prefill``
+ignores ``cache_len``), zamba2 (``{"conv", "ssm", "kv"}``, one KV per
+shared-block site) and whisper (``WhisperCache``: the decoder's self-KV
+slab and the fixed cross-KV). The paged entry points are ``None`` for
+them all.
+
+``loss`` is the reference's: the next-token cross-entropy of
+``batch["tokens"]`` (masked by ``loss_mask``), plus an MoE's aux loss
+summed over layers; ``(loss, {"xent", "aux"})``. ``remat`` recomputes
+each layer (a zamba2 group) in backward.
 """
 from __future__ import annotations
 
@@ -40,9 +51,9 @@ from typing import Any, Callable, Dict, Optional, Union
 import numpy as np
 import torch
 
-from repro_torch.models import rwkv6, transformer
+from repro_torch.models import mamba2, rwkv6, transformer, whisper
 from repro_torch.models.attention import KVCache
-from repro_torch.models.common import ModelConfig
+from repro_torch.models.common import ModelConfig, softmax_xent
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,9 +61,13 @@ class Model:
     cfg: ModelConfig
     # init(rng, device="cuda") -> params; rng is a seed or a torch.Generator
     init: Callable[..., Any]
+    # loss(params, batch, remat=False) -> (loss, metrics): batch the
+    # reference's dict of tensors ("tokens", "loss_mask", a family's extras)
+    loss: Callable[..., Any]
     # prefill(params, tokens [B, T], cache_len=None, **vlm_extras)
     #     -> (last-token logits [B, V], slab [L, B, cache_len or T, ...];
-    #         a window's ring of min(cache_len or T, W) rows; rwkv6's state)
+    #         a window's ring of min(cache_len or T, W) rows; rwkv6's or
+    #         zamba2's state; whisper's WhisperCache)
     prefill: Callable[..., Any]
     # decode_step(params, slab, token, pos, rows=None,
     #             mrope_positions=None) -> (logits, slab)
@@ -115,9 +130,26 @@ def _relay_kv(piece: KVCache, cfg: ModelConfig, cache_len: int) -> KVCache:
     return KVCache(relay(piece.k), relay(piece.v))
 
 
+def _xent(logits: torch.Tensor, batch) -> torch.Tensor:
+    """Next-token cross-entropy: logits at t predict token t + 1, masked
+    by ``loss_mask`` at t + 1 when the batch has one."""
+    tokens, mask = batch["tokens"], batch.get("loss_mask")
+    return softmax_xent(logits[:, :-1], tokens[:, 1:],
+                        None if mask is None else mask[:, 1:])
+
+
 def _decoder_model(cfg: ModelConfig) -> Model:
     def init(rng: Union[int, torch.Generator] = 0, device="cuda"):
         return transformer.init_decoder(_seeded(rng, device), cfg)
+
+    def loss(params, batch, remat: bool = False):
+        logits, _, aux = transformer.forward_full(
+            params, cfg, batch["tokens"],
+            vision_embeds=batch.get("vision_embeds"),
+            vision_mask=batch.get("vision_mask"),
+            mrope_positions=batch.get("mrope_positions"), remat=remat)
+        xe = _xent(logits, batch)
+        return xe + aux, {"xent": xe, "aux": aux}
 
     def init_paged_cache(num_blocks: int, block_size: int, device="cuda",
                          dtype=None, kv_dtype: str = "bf16"):
@@ -149,9 +181,9 @@ def _decoder_model(cfg: ModelConfig) -> Model:
 
     def prefill(params, tokens, cache_len: Optional[int] = None,
                 **extras):
-        logits, cache = transformer.forward_full(params, cfg, tokens,
-                                                 return_cache=True,
-                                                 last_only=True, **extras)
+        logits, cache, _ = transformer.forward_full(params, cfg, tokens,
+                                                    return_cache=True,
+                                                    last_only=True, **extras)
         return logits[:, -1], _relay_kv(cache, cfg,
                                         cache_len or tokens.shape[1])
 
@@ -166,15 +198,15 @@ def _decoder_model(cfg: ModelConfig) -> Model:
                                       device=device)
 
     def prefill_bucketed(params, tokens, true_len, **extras):
-        logits, cache = transformer.forward_full(
+        logits, cache, _ = transformer.forward_full(
             params, cfg, tokens, return_cache=True, last_index=true_len - 1,
             **extras)
         return logits[:, 0], cache
 
     if cfg.sliding_window:
         # a ring has no block-table layout: the slab serves it
-        return Model(cfg, init, prefill, decode_step, init_cache)
-    return Model(cfg, init, prefill, decode_step, init_cache,
+        return Model(cfg, init, loss, prefill, decode_step, init_cache)
+    return Model(cfg, init, loss, prefill, decode_step, init_cache,
                  init_paged_cache=init_paged_cache,
                  decode_step_paged=decode_step_paged,
                  prefill_chunk=prefill_chunk, mixed_step=mixed_step,
@@ -184,6 +216,11 @@ def _decoder_model(cfg: ModelConfig) -> Model:
 def _rwkv_model(cfg: ModelConfig) -> Model:
     def init(rng: Union[int, torch.Generator] = 0, device="cuda"):
         return rwkv6.init_model(_seeded(rng, device), cfg)
+
+    def loss(params, batch, remat: bool = False):
+        xe = _xent(rwkv6.forward_full(params, cfg, batch["tokens"],
+                                      remat=remat), batch)
+        return xe, {"xent": xe}
 
     def prefill(params, tokens, cache_len: Optional[int] = None):
         return rwkv6.prefill(params, cfg, tokens, cache_len)
@@ -195,7 +232,58 @@ def _rwkv_model(cfg: ModelConfig) -> Model:
     def init_cache(batch: int, seq: int, device="cuda", dtype=None):
         return rwkv6.init_state(cfg, batch, device=device, dtype=dtype)
 
-    return Model(cfg, init, prefill, decode_step, init_cache)
+    return Model(cfg, init, loss, prefill, decode_step, init_cache)
+
+
+def _zamba_model(cfg: ModelConfig) -> Model:
+    def init(rng: Union[int, torch.Generator] = 0, device="cuda"):
+        return mamba2.init_zamba(_seeded(rng, device), cfg)
+
+    def loss(params, batch, remat: bool = False):
+        logits, _, _ = mamba2.forward_full(params, cfg, batch["tokens"],
+                                           remat=remat)
+        xe = _xent(logits, batch)
+        return xe, {"xent": xe}
+
+    def prefill(params, tokens, cache_len: Optional[int] = None):
+        return mamba2.prefill(params, cfg, tokens, cache_len)
+
+    def decode_step(params, cache, token, pos):
+        return mamba2.forward_decode(params, cfg, token, cache, pos)
+
+    def init_cache(batch: int, seq: int, device="cuda", dtype=None):
+        return mamba2.init_state(cfg, batch, seq, device=device, dtype=dtype)
+
+    return Model(cfg, init, loss, prefill, decode_step, init_cache)
+
+
+def _whisper_model(cfg: ModelConfig) -> Model:
+    def init(rng: Union[int, torch.Generator] = 0, device="cuda"):
+        return whisper.init_model(_seeded(rng, device), cfg)
+
+    def loss(params, batch, remat: bool = False):
+        logits, _, _ = whisper.forward_full(params, cfg, batch["tokens"],
+                                            batch["audio_embeds"],
+                                            remat=remat)
+        xe = _xent(logits, batch)
+        return xe, {"xent": xe}
+
+    def prefill(params, tokens, cache_len: Optional[int] = None, *,
+                audio_embeds):
+        logits, cache, _ = whisper.forward_full(
+            params, cfg, tokens, audio_embeds, return_cache=True,
+            last_only=True)
+        self_kv = _relay_kv(cache.self_kv, cfg, cache_len or tokens.shape[1])
+        return logits[:, -1], whisper.WhisperCache(self_kv, cache.cross_kv)
+
+    def decode_step(params, cache, token, pos):
+        return whisper.forward_decode(params, cfg, token, cache, pos)
+
+    def init_cache(batch: int, seq: int, device="cuda", dtype=None):
+        return whisper.init_cache(cfg, batch, seq, device=device,
+                                  dtype=dtype)
+
+    return Model(cfg, init, loss, prefill, decode_step, init_cache)
 
 
 def build_model(cfg: ModelConfig) -> Model:
@@ -203,9 +291,11 @@ def build_model(cfg: ModelConfig) -> Model:
         return _decoder_model(cfg)
     if cfg.family == "ssm":
         return _rwkv_model(cfg)
-    raise NotImplementedError(
-        f"{cfg.name}: family {cfg.family!r} is not ported to repro_torch "
-        "yet")
+    if cfg.family == "hybrid":
+        return _zamba_model(cfg)
+    if cfg.family == "encdec":
+        return _whisper_model(cfg)
+    raise ValueError(f"unknown family {cfg.family!r}")
 
 
 def mrope_grid_positions(batch: int, seq: int, n_patch: int) -> np.ndarray:
@@ -227,7 +317,8 @@ def synthetic_batch(cfg: ModelConfig, batch: int, seq: int,
                     np_seed: int = 0, device="cuda") -> Dict[str, Any]:
     """A runnable batch with the family's extras, drawn from
     ``np.random.default_rng(np_seed)`` in the reference's order (the same
-    numbers): ``tokens`` [batch, seq] int32; a VLM adds ``vision_embeds``
+    numbers): ``tokens`` [batch, seq] int32; whisper adds ``audio_embeds``
+    [batch, encoder_seq, D] in ``cfg.dtype``; a VLM adds ``vision_embeds``
     [batch, seq // 4, D] in ``cfg.dtype``, ``vision_mask`` (the first
     seq // 4 positions) and ``mrope_positions``: with ``tokens`` popped,
     the keyword arguments of ``Model.prefill``."""
@@ -235,6 +326,10 @@ def synthetic_batch(cfg: ModelConfig, batch: int, seq: int,
     out: Dict[str, Any] = {"tokens": torch.from_numpy(
         r.integers(0, cfg.vocab_size, (batch, seq), dtype=np.int32)
     ).to(device)}
+    if cfg.family == "encdec":
+        out["audio_embeds"] = torch.from_numpy(
+            r.normal(0, 1, (batch, cfg.encoder_seq, cfg.d_model))).to(
+                device=device, dtype=cfg.dtype)
     if cfg.family == "vlm":
         n_patch = max(1, seq // 4)
         vm = np.zeros((batch, seq), bool)

@@ -29,7 +29,7 @@ import torch.nn.functional as F
 
 from repro_torch.models.common import (ModelConfig, dense_init, embed_init,
                                        rms_norm)
-from repro_torch.models.transformer import layer_params
+from repro_torch.models.transformer import checkpointed, layer_params
 
 LORA_R = 32
 # Tokens per chunk of the chunked WKV. Its intra-chunk part holds every
@@ -302,11 +302,14 @@ def layer_seq(pl, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return x + channel_mix(pl, cfg, h, _shift(h))
 
 
-def forward_full(p, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
-    """Logits [B, T, V] of tokens [B, T]."""
+def forward_full(p, cfg: ModelConfig, tokens: torch.Tensor,
+                 remat: bool = False) -> torch.Tensor:
+    """Logits [B, T, V] of tokens [B, T]; ``remat`` recomputes each layer
+    in backward."""
     x = F.embedding(tokens.long(), p["embed"])
     for l in range(cfg.num_layers):
-        x = layer_seq(layer_params(p["layers"], l), cfg, x)
+        x = checkpointed(layer_seq, remat, layer_params(p["layers"], l),
+                         cfg, x)
     return rms_norm(x, p["ln_f"], cfg.norm_eps) @ p["unembed"]
 
 

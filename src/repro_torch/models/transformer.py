@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch.kernels.ops import flat_work_list
 from repro_torch.models import attention as attn
@@ -32,19 +33,9 @@ from repro_torch.models.mlp import ffn, init_ffn, init_moe, moe
 def init_decoder(gen: torch.Generator, cfg: ModelConfig):
     """Random weights on ``gen``'s device, drawn directly in the stacked
     layout (no per-layer copies to stack)."""
-    d, h, hk, dh, L = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
-                       cfg.head_dim, cfg.num_layers)
+    d, L = cfg.d_model, cfg.num_layers
     dev, dt = gen.device, cfg.dtype
-    att = {
-        "wq": dense_init(gen, (L, d, h * dh), dt, fan_in=d),
-        "wk": dense_init(gen, (L, d, hk * dh), dt, fan_in=d),
-        "wv": dense_init(gen, (L, d, hk * dh), dt, fan_in=d),
-        "wo": dense_init(gen, (L, h * dh, d), dt, fan_in=h * dh),
-    }
-    if cfg.qkv_bias:
-        att["bq"] = torch.zeros((L, h * dh), dtype=dt, device=dev)
-        att["bk"] = torch.zeros((L, hk * dh), dtype=dt, device=dev)
-        att["bv"] = torch.zeros((L, hk * dh), dtype=dt, device=dev)
+    att = attn.init_attention(gen, cfg, L)
     layers = {
         "ln_attn": torch.ones((L, d), dtype=dt, device=dev),
         "ln_mlp": torch.ones((L, d), dtype=dt, device=dev),
@@ -96,19 +87,24 @@ def unembed(p, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return x @ w
 
 
-def _mlp_part(pl, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+def _mlp_aux(pl, cfg: ModelConfig, x: torch.Tensor):
     """The block's MLP half: the FFN, or the MoE (``cfg.moe_impl``) plus,
-    with ``dense_residual``, a dense FFN on ``rms_norm(x, ln_res)``. The
-    MoE's aux loss is dropped: the serving passes ignore it, as the
-    reference's do."""
+    with ``dense_residual``, a dense FFN on ``rms_norm(x, ln_res)``.
+    Returns (out, the MoE's aux loss or None)."""
     h = rms_norm(x, pl["ln_mlp"], cfg.norm_eps)
     if not cfg.num_experts:
-        return ffn(pl["ffn"], cfg, h)
-    out, _ = moe(pl["moe"], cfg, h, cfg.moe_impl)
+        return ffn(pl["ffn"], cfg, h), None
+    out, aux = moe(pl["moe"], cfg, h, cfg.moe_impl)
     if cfg.dense_residual:
         out = out + ffn(pl["ffn"], cfg,
                         rms_norm(x, pl["ln_res"], cfg.norm_eps))
-    return out
+    return out, aux
+
+
+def _mlp_part(pl, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """:func:`_mlp_aux` without the aux loss: the serving passes ignore
+    it, as the reference's do."""
+    return _mlp_aux(pl, cfg, x)[0]
 
 
 # --------------------------------------------------------------------------
@@ -116,29 +112,34 @@ def _mlp_part(pl, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 # --------------------------------------------------------------------------
 def block_full(pl, cfg: ModelConfig, x: torch.Tensor,
                positions: torch.Tensor, mrope_positions=None):
-    """One layer over a whole sequence. Returns (x, KVCache(k, v)) with
-    the layer's K/V rows [B, T, Hkv, Dh]."""
+    """One layer over a whole sequence. Returns (x, KVCache(k, v), aux)
+    with the layer's K/V rows [B, T, Hkv, Dh] and its MoE aux loss (None
+    without experts)."""
     h = rms_norm(x, pl["ln_attn"], cfg.norm_eps)
     a, (k, v) = attn.attention_prefill(pl["attn"], cfg, h, positions,
                                        mrope_positions=mrope_positions)
     x = x + a
-    return x + _mlp_part(pl, cfg, x), KVCache(k, v)
+    m, aux = _mlp_aux(pl, cfg, x)
+    return x + m, KVCache(k, v), aux
 
 
 def forward_full(p, cfg: ModelConfig, tokens: torch.Tensor, *,
                  vision_embeds=None, vision_mask=None, mrope_positions=None,
-                 return_cache: bool = False, last_only: bool = False,
-                 last_index=None):
-    """The prefill pass over tokens [B, T] (a VLM's extras: patch
+                 return_cache: bool = False, remat: bool = False,
+                 last_only: bool = False, last_index=None):
+    """The train / prefill pass over tokens [B, T] (a VLM's extras: patch
     embeddings placed at ``vision_mask``, M-RoPE ids ``mrope_positions``
     [B, T, 3], by default the text positions on all three streams).
-    Returns (logits, cache|None):
+    Returns (logits, cache|None, aux):
     logits [B, T, V], or [B, 1, V] at position ``last_index`` (an int or a
     0-d tensor: the bucketed prefill, whose true last token sits before a
     pow2 padding tail; causality keeps the rows and logits below the true
     length independent of that tail) or at the last position
     (``last_only``); cache leaves [L, B, T, Hkv, Dh], written layer by
-    layer into one buffer."""
+    layer into one buffer (none is made without ``return_cache``); aux
+    the MoE aux loss summed over layers, an f32 scalar (0 without
+    experts). ``remat`` recomputes each layer in backward
+    (``torch.utils.checkpoint``), the reference's ``jax.checkpoint``."""
     B, T = tokens.shape
     x = embed_tokens(p, cfg, tokens, vision_embeds, vision_mask)
     positions = torch.arange(T, device=x.device)[None].expand(B, T)
@@ -147,9 +148,15 @@ def forward_full(p, cfg: ModelConfig, tokens: torch.Tensor, *,
     shape = (cfg.num_layers, B, T, cfg.num_kv_heads, cfg.head_dim)
     cache = (KVCache(x.new_empty(shape), x.new_empty(shape))
              if return_cache else None)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def layer(x, l):
+        return block_full(layer_params(p["layers"], l), cfg, x, positions,
+                          mrope_positions)
     for l in range(cfg.num_layers):
-        x, kv = block_full(layer_params(p["layers"], l), cfg, x, positions,
-                           mrope_positions)
+        x, kv, a = checkpointed(layer, remat, x, l)
+        if a is not None:
+            aux = aux + a
         if cache is not None:
             cache.k[l].copy_(kv.k)
             cache.v[l].copy_(kv.v)
@@ -161,7 +168,17 @@ def forward_full(p, cfg: ModelConfig, tokens: torch.Tensor, *,
     elif last_only:
         x = x[:, -1:]
     x = rms_norm(x, p["ln_f"], cfg.norm_eps)
-    return unembed(p, cfg, x), cache
+    return unembed(p, cfg, x), cache, aux
+
+
+def checkpointed(fn, remat: bool, *args):
+    """``fn(*args)``, or with ``remat`` under ``torch.utils.checkpoint``
+    (non-reentrant: the weights ``fn`` closes over get their grads): its
+    activations are dropped after the forward and recomputed in
+    backward."""
+    if not remat:
+        return fn(*args)
+    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
 
 
 def forward_decode(p, cfg: ModelConfig, token: torch.Tensor, cache: KVCache,

@@ -200,14 +200,14 @@ def test_forward_full_matches_reference(jx, setup, mode):
         jkw["last_index"] = jx.jnp.int32(10)
     jlogits, jcache, _ = jx.tr.forward_full(
         jx.params, jx.cfg, jx.jnp.asarray(tokens), return_cache=True, **jkw)
-    logits, cache = ttr.forward_full(params, cfg, t(tokens),
-                                     return_cache=True, **kw)
+    logits, cache, _ = ttr.forward_full(params, cfg, t(tokens),
+                                        return_cache=True, **kw)
     _close(logits, jlogits, LOGIT_TOL)
     _close(cache.k, jcache.k, POOL_TOL)
     _close(cache.v, jcache.v, POOL_TOL)
     if mode == "last_index":        # a 0-d tensor index gives the same
-        again, none = ttr.forward_full(params, cfg, t(tokens),
-                                       last_index=torch.tensor(10))
+        again, none, _ = ttr.forward_full(params, cfg, t(tokens),
+                                          last_index=torch.tensor(10))
         assert none is None
         torch.testing.assert_close(again, logits, rtol=0, atol=0)
 

@@ -1,9 +1,11 @@
 """On the card: the attention kernels at the MoE and VLM configs' head
 groupings (qwen3-moe-30b-a3b: 32 / 4 / Dh 64, G 8, and at the published
-Dh 128; qwen2-vl-7b: 28 / 4 / Dh 128, G 7; block 16), each held to its plain version in bf16 (5e-3)
-and f32 (1e-4), and ``moe_dense`` and reduced MoE and VLM engines on the
-card against the CPU. Every test here needs a CUDA card and skips
-without one; none imports JAX (the card's machine has none)."""
+Dh 128; qwen2-vl-7b: 28 / 4 / Dh 128, G 7; block 16) and #5 / #6 at
+whisper's (20 / 20 / Dh 64, G 1), each held to its plain version in bf16
+(5e-3) and f32 (1e-4); ``moe_dense``, reduced MoE and VLM engines, reduced
+zamba2 and whisper (prefill + greedy decode) and one training step on the
+card against the CPU. Every test here needs a CUDA card and skips without
+one; none imports JAX (the card's machine has none)."""
 import dataclasses
 
 import numpy as np
@@ -16,9 +18,12 @@ from repro_torch.kernels import decode_attention as dk  # noqa: E402
 from repro_torch.kernels import mixed_attention as tk  # noqa: E402
 from repro_torch.kernels import prefill_attention as pk  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
-from repro_torch.models import mlp  # noqa: E402
+from repro_torch.models import mlp, synthetic_batch  # noqa: E402
 from repro_torch.serving.engine import Engine  # noqa: E402
 from repro_torch.serving.request import ServeRequest  # noqa: E402
+from repro_torch.training.optimizer import (AdamWConfig,  # noqa: E402
+                                            init_adamw)
+from repro_torch.training.trainer import make_train_step  # noqa: E402
 
 BS = 16
 # H, Hkv, Dh: qwen3-moe as the repo's config gives it (Dh 64) and at the
@@ -178,6 +183,103 @@ def test_family_engine_on_the_card_matches_the_cpu(cuda, name, backend):
         eng.check_drained()
         streams[dev] = [r.generated for r in reqs]
     assert streams["cuda"] == streams["cpu"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", TOLS)
+def test_contiguous_kernels_at_g1(cuda, dtype, tol):
+    """#6 at whisper's decoder prompt (B 2, T 448, 20 / 20 / Dh 64) and #5
+    padded on its self-KV (S 448, one row short) and its cross-KV (S 1500,
+    every key valid)."""
+    H = Hkv = 20
+    DH = 64
+    g = torch.Generator(device=cuda)
+    g.manual_seed(5)
+    B, T = 2, 448
+    q, k, v = (torch.randn((B, T, n, DH), generator=g, device=cuda,
+                           dtype=dtype) for n in (H, Hkv, Hkv))
+    full = torch.full((B,), T, dtype=torch.int32, device=cuda)
+    _hold(pk.prefill_attention(q, k, v),
+          pk.prefill_attention_plain(q, k, v, full), tol)
+    for S, lens in ((448, [68, 448]), (1500, [1500, 1500])):
+        q = torch.randn((B, H, DH), generator=g, device=cuda, dtype=dtype)
+        k, v = (torch.randn((B, S, Hkv, DH), generator=g, device=cuda,
+                            dtype=dtype) for _ in range(2))
+        ln = torch.tensor(lens, dtype=torch.int32, device=cuda)
+        _hold(dk.decode_attention(q, k, v, ln),
+              dk.decode_attention_plain(q, k, v, ln), tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["zamba2-2.7b", "whisper-large-v3"])
+def test_hybrid_and_encdec_on_the_card_match_the_cpu(cuda, name):
+    """Reduced widths, 2 layers, f32: ``Model.prefill`` of 40 tokens
+    (zamba2's chunked SSD on the card, chunks of 16 so the last is short,
+    against the CPU's sequential one) and 6 greedy decode steps: logits
+    within 1e-4 of their largest magnitude, equal tokens."""
+    from repro_torch.models import mamba2
+    cfg = get_config(name).reduced()
+    model = build_model(cfg)
+    cpu_params = model.init(0, device="cpu")
+    batch = synthetic_batch(cfg, 2, 40, device="cpu")
+    out = {}
+    old = mamba2.SSD_CHUNK
+    mamba2.SSD_CHUNK = 16
+    try:
+        for dev in ("cuda", "cpu"):
+            params = cpu_params if dev == "cpu" else _tree(cpu_params, cuda)
+            extras = {k: v.to(dev) for k, v in batch.items()
+                      if k != "tokens"}
+            logits, cache = model.prefill(params, batch["tokens"].to(dev),
+                                          48, **extras)
+            rows, toks = [logits.float().cpu()], []
+            for i in range(6):
+                tok = logits.argmax(-1)
+                toks.append(tok.cpu().tolist())
+                pos = torch.full((2,), 40 + i, dtype=torch.int32, device=dev)
+                logits, cache = model.decode_step(params, cache, tok, pos)
+                rows.append(logits.float().cpu())
+            out[dev] = (torch.stack(rows), toks)
+    finally:
+        mamba2.SSD_CHUNK = old
+    (a, ta), (b, tb) = out["cuda"], out["cpu"]
+    assert ta == tb
+    torch.testing.assert_close(a, b, rtol=0,
+                               atol=1e-4 * max(1.0, b.abs().max().item()))
+
+
+@pytest.mark.gpu
+def test_train_step_on_the_card_matches_the_cpu(cuda):
+    """One AdamW step of reduced llama3.2-3b (2 layers, f32, remat on) on
+    the card (#6 forward, its plain version differentiated) and the CPU:
+    the loss, every gradient and every parameter after the step."""
+    cfg = get_config("llama3.2-3b").reduced()
+    model = build_model(cfg)
+    cpu_params = model.init(0, device="cpu")
+    batch = synthetic_batch(cfg, 2, 64, device="cpu")
+    got = {}
+    for dev in ("cuda", "cpu"):
+        params = _tree(cpu_params, torch.device(dev))
+        leaves = [p.requires_grad_() for p in _leaves(params)]
+        b = {k: v.to(dev) for k, v in batch.items()}
+        loss, _ = model.loss(params, b, remat=True)
+        grads = torch.autograd.grad(loss, leaves)
+        step = make_train_step(model, AdamWConfig(warmup_steps=1),
+                               remat=True)
+        params, _, m = step(params, init_adamw(params), b)
+        got[dev] = (float(loss.detach()), [g.cpu() for g in grads],
+                    [p.detach().cpu() for p in _leaves(params)])
+    (la, ga, pa), (lb, gb, pb) = got["cuda"], got["cpu"]
+    assert abs(la - lb) <= 1e-5 * abs(lb)
+    for x, y in zip(ga + pa, gb + pb):
+        torch.testing.assert_close(x, y, rtol=0, atol=1e-4 * max(
+            1.0, y.abs().max().item()))
+
+
+def _leaves(tree):
+    for k in sorted(tree):
+        v = tree[k]
+        yield from (_leaves(v) if isinstance(v, dict) else (v,))
 
 
 def _tree(tree, device):

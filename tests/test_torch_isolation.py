@@ -52,6 +52,11 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
     # the MoE and VLM decoder families' modules
     assert {"repro_torch.models." + m for m in (
         "mlp", "attention", "transformer", "model")} <= loaded
+    # the hybrid and encoder-decoder families and the training stack
+    assert {"repro_torch.models.mamba2", "repro_torch.models.whisper",
+            "repro_torch.launch.train"} | {
+        "repro_torch.training." + m for m in (
+            "optimizer", "data", "checkpoint", "trainer")} <= loaded
 
 
 @pytest.mark.parametrize("path", _port_files(),

@@ -205,7 +205,8 @@ def test_forward_full_matches_reference(pair):
         .astype(np.int32)
     jlog, jcache, _ = jtr.forward_full(jparams, jcfg, jnp.asarray(tok),
                                        return_cache=True)
-    tlog, tcache = ttr.forward_full(params, cfg, t(tok), return_cache=True)
+    tlog, tcache, _ = ttr.forward_full(params, cfg, t(tok),
+                                       return_cache=True)
     _close(tlog.numpy(), jlog, LOGIT_TOL)
     _close(tcache.k.numpy(), jcache.k)
     _close(tcache.v.numpy(), jcache.v)

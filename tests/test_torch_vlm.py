@@ -131,7 +131,7 @@ def test_forward_full_matches_reference(pair, extras):
         jparams, jcfg, jb["tokens"], vision_embeds=jb.get("vision_embeds"),
         vision_mask=jb.get("vision_mask"),
         mrope_positions=jb.get("mrope_positions"), return_cache=True)
-    tlog, tcache = ttr.forward_full(
+    tlog, tcache, _ = ttr.forward_full(
         params, cfg, tb.pop("tokens"), return_cache=True, **tb)
     _close(tlog.numpy(), jlog, LOGIT_TOL)
     _close(tcache.k.numpy(), jcache.k, OP_TOL)
@@ -153,7 +153,7 @@ def test_prefill_and_slab_decode_match_full_forward(pair):
     dec, _ = model.decode_step(
         params, cache, full["tokens"][:, T], pos,
         mrope_positions=full["mrope_positions"][:, T:T + 1])
-    ref, _ = ttr.forward_full(params, cfg, full.pop("tokens"), **full)
+    ref, _, _ = ttr.forward_full(params, cfg, full.pop("tokens"), **full)
     _close(dec.numpy(), ref[:, -1].numpy(), LOGIT_TOL)
     jref, _, _ = jtr.forward_full(
         jparams, jcfg, jfull["tokens"], vision_embeds=jfull["vision_embeds"],
