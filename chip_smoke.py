@@ -200,8 +200,25 @@ the last line:
     nothing else; (b) 2 layers f32 on the card and the CPU (loss, grads,
     params after a step), the wrapped #6's grads against plain autograd,
     a checkpoint round trip on the card;
-23. one JSON line of every kernel (the rows of phases 16-18's and 21's
-    shapes added), then, last, ``{"ok": true, ...}``.
+23. tensor-parallel serving on the machine's one card: two ranks (this
+    process, the leader, and one ``launch.tp_worker``) on ``cuda:0`` over
+    gloo (NCCL puts one rank on a card, so it is not measured); (a)
+    llama3.2-3b at full width, bf16, as a tp=2 fused engine on phase 4's
+    requests: twice phase 4's blocks at the same per-rank budget, each
+    rank's pool leaf with 4 of the 8 kv heads and its share of the
+    weights (shipped once from the leader), one d2h a step on the leader
+    and none on the worker, #1 == 28 x forwards on each rank and nothing
+    else, step time, tokens/s, the collectives' time a step and each
+    process' peak memory (all "two ranks on one card; not a TP
+    speedup"); its streams against phase 4's, where they part phase 11's
+    margin rule on fresh whole-prompt tp=1 and tp=2 engines; (b) 2 layers
+    f32: tp=2 on the card == tp=1 on the CPU on flat and grid, each rank
+    launching its kernels layers x forwards times; (c) a (1, 2, 1) cluster
+    at 2 layers f32 whose stages make every request move tp=1 -> tp=2 ->
+    tp=1, its stream the unmigrated engine's; #1 at a rank's 12 / 4 heads
+    is measured early, in phase 3's ``family_kernels``;
+24. one JSON line of every kernel (the rows of phases 16-18's, 21's and
+    23's shapes added), then, last, ``{"ok": true, ...}``.
 
 It needs one CUDA card and fails without one; it imports nothing of JAX.
 """
@@ -1113,6 +1130,7 @@ def phase_engine(np, torch, cfg_mod, model_mod, engine_mod, request_mod, tk):
         "peak_memory_gb": peak_gb, "warm_cached_tokens": warm.cached_tokens,
         "warm_wall_s": warm_wall,
         "streams": [list(r.generated) for r in reqs],
+        "num_blocks": eng.num_blocks,
     }
     del eng, params
     torch.cuda.empty_cache()
@@ -1374,7 +1392,9 @@ def phase_cluster(np, torch, cfg_mod, model_mod, engine_mod, request_mod,
     real_attn_call = engine_mod.attn_call
 
     def attn_call(fn, *a, **k):
-        kinds["prefill" if fn is model.prefill_chunk else "decode"] += 1
+        # the engine's chunk forward is its device op ``_chunk_forward``
+        chunk = fn.__name__ == "_chunk_forward"
+        kinds["prefill" if chunk else "decode"] += 1
         return real_attn_call(fn, *a, **k)
 
     worst = {"d2h": 0, "attn": 0, "both": 0}
@@ -2406,7 +2426,7 @@ def _forward_kinds(engine_mod, model):
     real = engine_mod.attn_call
 
     def attn_call(fn, *a, **k):
-        prompt = fn is model.prefill_chunk or fn is model.prefill
+        prompt = fn.__name__ == "_chunk_forward" or fn is model.prefill
         kinds["prefill" if prompt else "decode"] += 1
         return real(fn, *a, **k)
     engine_mod.attn_call = attn_call
@@ -2742,7 +2762,8 @@ def family_kernels(np, torch, F, cfg_mod, tk, dk, pk, flush):
     largest grouping of any config; #5's 16-row tile instance) on phase
     18 (a)'s shapes. #1 is also held at Dh 128, the published
     Qwen3-30B-A3B's head width (the repo's config leaves head_dim unset,
-    so the engine runs Dh 64)."""
+    so the engine runs Dh 64), and at a tp=2 rank's llama3.2-3b heads
+    (12 / 4, phase 23)."""
     moe = cfg_mod.get_config(MOE_ARCH)
     vlm = cfg_mod.get_config(VLM_ARCH)
     out = {"moe": phase_kernels(np, torch, F, tk, flush, H=moe.num_heads,
@@ -2785,6 +2806,11 @@ def family_kernels(np, torch, F, cfg_mod, tk, dk, pk, flush):
         [wh.encoder_seq] * WHISPER_B, list(range(WHISPER_B)),
         wh.encoder_seq, f"phase 21 ({WHISPER_ARCH}, G 1, cross-KV)",
         device=True, prefill=False)
+    # phase 23: #1 at a tp=2 rank's heads of llama3.2-3b (12 / 4 / 128,
+    # G 3 as the whole model's 24 / 8)
+    out["tp_rank"] = phase_kernels(np, torch, F, tk, flush, H=12, Hkv=4,
+                                   Dh=128, label="phase 3 (llama3.2-3b, a "
+                                   "tp=2 rank, 12 / 4 heads)")
     return out
 
 
@@ -3644,6 +3670,370 @@ def phase_train(np, torch, cfg_mod, model_mod, tk, dk, pk):
     return out
 
 
+# --------------------------------------------------------------------------
+# Phase 23: tensor-parallel serving, two ranks on one card
+# --------------------------------------------------------------------------
+TP_NOTE = "two ranks on one card; not a TP speedup"
+TP_DEVICES = ("cuda:0", "cuda:0")
+# the (1, 2, 1) chain: stages [0, 64), [64, 128), [128, inf) of one
+# instance-unit each, claimed in order by a tp=1 engine, the tp=2 one (its
+# capacity weight 2 covers the unit) and a tp=1 engine; each request
+# decodes across both boundaries
+TP_CHAIN = (1, 2, 1)
+TP_CHAIN_LENS = ((40, 110), (50, 100), (30, 120))
+
+
+def _tp_shard_bytes(params, tp):
+    """Bytes one rank holds of ``params`` under the serving rules."""
+    from repro_torch.launch import shardings
+    specs = shardings.serving_param_spec_tree(params, tp)
+    return sum(a.numel() * a.element_size() // (tp if specs[p] else 1)
+               for p, a in shardings.param_leaves(params))
+
+
+def _probe_logits(np, eng, request_mod, tokens):
+    """The first-token logits [V] (f32, on the host) of ``tokens`` as one
+    prompt through ``eng`` (drained, whole-prompt prefill): what that
+    engine decides after this context. Spies on the leader's model; the
+    ranks compute as always."""
+    seen = []
+    real = eng.model
+
+    def spied(fn):
+        def call(*a, **k):
+            out = fn(*a, **k)
+            seen.append(out[0][0])
+            return out
+        return call
+    eng.model = dataclasses.replace(
+        real, prefill_bucketed=spied(real.prefill_bucketed))
+    r = request_mod.ServeRequest(0, np.asarray(tokens, np.int32), 1)
+    eng.submit(r)
+    for _ in range(200):
+        if eng.step():
+            break
+    check(r.state.name == "FINISHED", "phase 23: a margin probe did not "
+          "finish")
+    eng.model = real
+    return seen[-1].float().cpu()
+
+
+def _tp_margins(np, torch, cfg, model, params, engine_mod, request_mod,
+                mesh, streams, ref_streams):
+    """Where a tp=2 stream parts from tp=1's: each engine (fresh, on
+    whole-prompt prefill: one forward a probe) fed the context up to that
+    token must hold both tokens within ``MARGIN_ULPS`` bf16 ulps of its
+    best logit (phase 11's rule). Returns the divergence points with
+    their margins."""
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in PROMPTS]
+    parted = [i for i, (a, b) in enumerate(zip(streams, ref_streams))
+              if a != b]
+    if not parted:
+        return []
+    kw = dict(max_slots=1, max_seq=8192, preemption=False,
+              chunked_prefill=False)
+    probes = {"tp1": engine_mod.Engine(0, model, params, **kw),
+              "tp2": engine_mod.Engine(1, model, params, tp=2, mesh=mesh,
+                                       **kw)}
+    rows = []
+    for i in parted:
+        a, b = streams[i], ref_streams[i]
+        j = next(x for x in range(len(a)) if a[x] != b[x])
+        row = {"request": i, "token": j, "tp2": a[j], "tp1": b[j]}
+        for who, eng in probes.items():
+            lg = _probe_logits(np, eng, request_mod, list(prompts[i]) + a[:j])
+            top2 = torch.topk(lg, 2).values
+            top = float(top2[0])
+            behind = max(top - float(lg[a[j]]), top - float(lg[b[j]]))
+            tol = MARGIN_ULPS * bf16_ulp(top)
+            check(behind <= tol, f"phase 23: request {i} token {j}: the "
+                  f"{who} probe puts a stream's token {behind} behind its "
+                  f"best {top} (> {MARGIN_ULPS} bf16 ulps, {tol})")
+            row[f"{who}_top"] = top
+            row[f"{who}_top2_gap"] = float(top2[0] - top2[1])
+            row[f"{who}_gap_between_the_two"] = float(lg[a[j]] - lg[b[j]])
+            row[f"{who}_behind_best"] = behind
+            row[f"{who}_tolerance"] = tol
+        rows.append(row)
+    for eng in probes.values():
+        eng.shutdown()
+    return rows
+
+
+def _tp_engine(np, torch, cfg, model, params, engine_mod, request_mod, mesh,
+               tk, dk, pk, ref_streams, ref_blocks):
+    """Phase 23 (a): the full-width tp=2 fused engine on phase 4's
+    requests."""
+    t0 = time.perf_counter()
+    eng = engine_mod.Engine(0, model, params, max_slots=8, max_seq=8192,
+                            preemption=False, tp=2, mesh=mesh)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    check(eng.fused_mixed, "phase 23: the tp=2 engine is not on fused")
+    L, Hkv = cfg.num_layers, cfg.num_kv_heads
+    check(eng.num_blocks == 2 * ref_blocks,
+          f"phase 23: {eng.num_blocks} blocks, tp=1 {ref_blocks}")
+    leaf = (L, eng.num_blocks + 1, eng.block_size, Hkv // 2, cfg.head_dim)
+    worker = mesh.worker_stats()[0]["engines"][eng._tp_key]
+    check(all(tuple(a.shape) == leaf for a in eng.cache)
+          and all(tuple(s) == leaf for s in worker["pool_shapes"]),
+          f"phase 23: pool leaves {[tuple(a.shape) for a in eng.cache]} / "
+          f"{worker['pool_shapes']} != {leaf}")
+    full = sum(v.numel() * v.element_size() for v in _leaves(params))
+    shard = _tp_shard_bytes(params, 2)
+    mine = sum(v.numel() * v.element_size() for v in _leaves(eng.params))
+    check(mine == shard == worker["param_bytes"],
+          f"phase 23: weights a rank {mine} / {worker['param_bytes']} B, "
+          f"the rules give {shard}")
+    log(f"phase 23 (a): tp=2 fused engine ready in {build_s:.1f} s (each "
+        f"worker's weight shard shipped once over the host channel): "
+        f"{eng.num_blocks} blocks = 2 x tp=1's {ref_blocks} at the same "
+        f"per-rank token budget; each rank's pool leaf {leaf} (Hkv "
+        f"{Hkv} / 2), {worker['pool_bytes'] / 1e9:.4f} GB a rank; weights "
+        f"{shard / 1e9:.4f} GB a rank = {shard / full:.4f} of "
+        f"{full / 1e9:.4f} GB")
+    rng = np.random.default_rng(SEED)
+    reqs = [request_mod.ServeRequest(
+        i, rng.integers(0, cfg.vocab_size, n).astype(np.int32), m)
+        for i, (n, m) in enumerate(zip(PROMPTS, NEW_TOKENS))]
+    zero_counts(tk, dk, pk)
+    mesh.zero_worker_stats()
+    engine_mod.ATTN_CALLS = engine_mod.D2H_CALLS = 0
+    mesh.coll_calls, mesh.coll_s = 0, 0.0
+    torch.cuda.reset_peak_memory_stats()
+    for r in reqs:
+        eng.submit(r)
+    step_ms, end_at, done = [], {}, []
+    t_start = time.perf_counter()
+    while len(done) < len(reqs):
+        check(eng.steps < 2000, "phase 23: the tp=2 engine did not drain")
+        d0, a0 = engine_mod.D2H_CALLS, engine_mod.ATTN_CALLS
+        g0 = sum(len(r.generated) for r in reqs)
+        t = time.perf_counter()
+        done += eng.step()
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        end_at[eng.steps] = time.perf_counter() - t_start
+        grew = sum(len(r.generated) for r in reqs) > g0
+        check(engine_mod.ATTN_CALLS - a0 == 1, f"phase 23: step "
+              f"{eng.steps}: {engine_mod.ATTN_CALLS - a0} forwards")
+        check(engine_mod.D2H_CALLS - d0 == (1 if grew else 0),
+              f"phase 23: step {eng.steps}: {engine_mod.D2H_CALLS - d0} d2h "
+              f"(tokens reached the host: {grew})")
+    wall = time.perf_counter() - t_start
+    forwards = engine_mod.ATTN_CALLS
+    lead = launch_counts(tk, dk, pk)
+    work = mesh.worker_stats()[0]
+    for who, counts in (("leader", lead), ("worker", work["launches"])):
+        check(counts["fused"] == L * forwards > 0,
+              f"phase 23: {who} launched #1 {counts['fused']} times, not "
+              f"{L} x {forwards}")
+        others = {k: n for k, n in counts.items() if n and k != "fused"}
+        check(not others, f"phase 23: {who} ran other kernels: {others}")
+    check(work["d2h"] == 0 and work["attn_calls"] == forwards,
+          f"phase 23: the worker made {work['d2h']} d2h and "
+          f"{work['attn_calls']} forwards ({forwards} on the leader)")
+    for r in reqs:
+        check(len(r.generated) == r.max_new_tokens and not r.rejected,
+              f"phase 23: request {r.req_id}: {len(r.generated)} tokens")
+    streams = [list(r.generated) for r in reqs]
+    ntok = sum(len(s) for s in streams)
+    steps = eng.steps
+    peak = {"leader": torch.cuda.max_memory_allocated(),
+            "worker": work["peak_memory_bytes"]}
+    ttft_s = [end_at[r.first_token_step] for r in reqs]
+    tpot_s = [(end_at[r.finish_step] - end_at[r.first_token_step])
+              / (len(r.generated) - 1) for r in reqs]
+    coll = {"leader_calls": mesh.coll_calls, "leader_s": mesh.coll_s,
+            "worker_calls": work["coll_calls"], "worker_s": work["coll_s"]}
+    log(f"phase 23 (a) [{TP_NOTE}]: {len(reqs)} requests drained in "
+        f"{steps} steps, {wall:.3f} s; {ntok} tokens, {ntok / wall:.1f} "
+        f"tokens/s; step ms mean {sum(step_ms) / len(step_ms):.2f} min "
+        f"{min(step_ms):.2f} max {max(step_ms):.2f}; #1 launches "
+        f"{lead['fused']} on the leader, {work['launches']['fused']} on the "
+        f"worker = {L} x {forwards} forwards; d2h {engine_mod.D2H_CALLS} on "
+        f"the leader, {work['d2h']} on the worker")
+    log(f"phase 23 (a) [{TP_NOTE}]: collectives a step: leader "
+        f"{mesh.coll_calls / steps:.1f} calls, "
+        f"{mesh.coll_s / steps * 1e3:.2f} ms; worker "
+        f"{work['coll_calls'] / steps:.1f} calls, "
+        f"{work['coll_s'] / steps * 1e3:.2f} ms (host time inside gloo, "
+        f"which stages each CUDA tensor through host memory and waits for "
+        f"the kernels that produce it); peak memory leader "
+        f"{peak['leader'] / 1e9:.2f} GB (the whole weights beside its "
+        f"shard), worker {peak['worker'] / 1e9:.2f} GB")
+    log(f"phase 23 (a) [{TP_NOTE}]: TTFT s {[round(x, 4) for x in ttft_s]}"
+        f"; TPOT s {[round(x, 5) for x in tpot_s]}")
+    eng.check_drained()
+    eng.shutdown()
+    same = sum(a == b for a, b in zip(streams, ref_streams))
+    margins = _tp_margins(np, torch, cfg, model, params, engine_mod,
+                          request_mod, mesh, streams, ref_streams)
+    log(f"phase 23 (a): tp=2 vs tp=1 (phase 4, same card and weights) "
+        f"greedy streams: {same}/{len(streams)} identical" + (
+            "; where they part, each probe has both tokens within "
+            f"{MARGIN_ULPS} bf16 ulps of its best; the margins: "
+            + json.dumps(margins) if margins else ""))
+    return {"steps": steps, "wall_s": wall, "tokens": ntok,
+            "tokens_per_s": ntok / wall, "step_ms": step_ms,
+            "ttft_s": ttft_s, "tpot_s": tpot_s, "build_s": build_s,
+            "forwards": forwards, "launches": {"leader": lead,
+                                               "worker": work["launches"]},
+            "collectives": coll, "peak_memory_bytes": peak,
+            "num_blocks": eng.num_blocks, "tp1_blocks": ref_blocks,
+            "pool_leaf": leaf, "pool_bytes_a_rank": worker["pool_bytes"],
+            "weight_bytes_a_rank": shard, "weight_bytes": full,
+            "identical_streams": same, "diverged": margins,
+            "streams": streams}
+
+
+def _tp_small(np, torch, cfg_mod, model_mod, engine_mod, request_mod,
+              server_mod, mesh, tk, dk, pk):
+    """Phase 23 (b): 2 layers f32, tp=2 on the card == tp=1 on the CPU on
+    flat and grid; (c) the (1, 2, 1) chain cluster on the card."""
+    from repro_torch.core.partition import PipelinePlan, Stage
+    cfg = dataclasses.replace(cfg_mod.get_config("llama3.2-3b"),
+                              num_layers=2, dtype=torch.float32)
+    model = model_mod.build_model(cfg)
+    cpu_params = model.init(SEED, device="cpu")
+    gpu_params = _tree_to(cpu_params, torch.device("cuda"))
+    kinds = {"flat": ("flat_decode", "chunked_prefill"),
+             "grid": ("grid_decode", "chunked_prefill")}
+    out = {}
+    for backend, names in kinds.items():
+        runs = {}
+        for dev, params, tp in (("cpu", cpu_params, 1),
+                                ("cuda", gpu_params, 2)):
+            zero_counts(tk, dk, pk)
+            mesh.zero_worker_stats()
+            a0 = engine_mod.ATTN_CALLS
+            eng = engine_mod.Engine(0, model, params, max_slots=3,
+                                    max_seq=512, prefill_token_budget=64,
+                                    preemption=False, attn_backend=backend,
+                                    tp=tp, mesh=mesh if tp > 1 else None)
+            reqs = _small_requests(np, request_mod, cfg.vocab_size)
+            for r in reqs:
+                eng.submit(r)
+            while not all(r.state.name == "FINISHED" for r in reqs):
+                check(eng.steps < 200, "phase 23 (b): did not drain")
+                eng.step()
+            eng.shutdown()
+            runs[dev] = [list(r.generated) for r in reqs]
+        forwards = engine_mod.ATTN_CALLS - a0
+        lead = launch_counts(tk, dk, pk)
+        work = mesh.worker_stats()[0]["launches"]
+        for who, counts in (("leader", lead), ("worker", work)):
+            got = sum(counts[k] for k in names)
+            check(got == cfg.num_layers * forwards > 0,
+                  f"phase 23 (b) {backend}: {who} launched {got}, not "
+                  f"{cfg.num_layers} x {forwards}")
+        check(runs["cuda"] == runs["cpu"], f"phase 23 (b) {backend}: tp=2 "
+              f"cuda {runs['cuda']} != tp=1 cpu {runs['cpu']}")
+        out[backend] = runs["cuda"]
+        log(f"phase 23 (b): 2-layer full-width f32 {cfg.name} on "
+            f"{backend}: tp=2 on the card == tp=1 on the CPU, greedy "
+            f"streams {runs['cuda']}; {cfg.num_layers} x {forwards} "
+            f"launches of {names} on each rank")
+    # (c) a request decoding across both boundaries moves tp=1 -> tp=2
+    # -> tp=1 through the control plane; its stream is the one a single
+    # tp=1 engine on the card decodes
+    plan = PipelinePlan([Stage(0.0, 64.0, 1), Stage(64.0, 128.0, 1),
+                         Stage(128.0, float("inf"), 1)], 0.0)
+    kw = dict(max_slots=4, max_seq=512, prefill_token_budget=64,
+              preemption=False)
+
+    def factory(i):
+        return engine_mod.Engine(i, model, gpu_params, tp=TP_CHAIN[i],
+                                 mesh=mesh if TP_CHAIN[i] > 1 else None,
+                                 **kw)
+
+    def chain_reqs():
+        rng = np.random.default_rng(SEED + 2)
+        return [request_mod.ServeRequest(
+            i, rng.integers(0, cfg.vocab_size, p).astype(np.int32), n)
+            for i, (p, n) in enumerate(TP_CHAIN_LENS)]
+    srv = server_mod.MILSServer(
+        model, gpu_params, plan, None, server_mod.ServerConfig(
+            refinement="none", balancing="rr", seed=SEED, preemption=False),
+        tp=TP_CHAIN, engine_factory=factory)
+    reqs = chain_reqs()
+    for i, r in enumerate(reqs):
+        srv.submit_at(r, i)
+    t0 = time.perf_counter()
+    srv.run(max_steps=600)
+    wall = time.perf_counter() - t0
+    check([st.instance_ids for st in srv.plane.stages] == [[0], [1], [2]],
+          f"phase 23 (c): stages {srv.plane.stages}")
+    migs = [d for d in srv.plane.decisions if d[0] == "migrate"]
+    for r in reqs:
+        hops = [(d[2], d[3]) for d in migs if d[1] == r.req_id]
+        check(hops == [(0, 1), (1, 2)],
+              f"phase 23 (c): request {r.req_id} moved {hops}")
+    srv.close()
+    ref = engine_mod.Engine(9, model, gpu_params, **kw)
+    alone = chain_reqs()
+    for r in alone:
+        ref.submit(r)
+    while not all(r.state.name == "FINISHED" for r in alone):
+        check(ref.steps < 600, "phase 23 (c): the tp=1 engine did not drain")
+        ref.step()
+    ref.shutdown()
+    check([r.generated for r in reqs] == [r.generated for r in alone],
+          "phase 23 (c): a migrated stream parts from the unmigrated one")
+    log(f"phase 23 (c) [{TP_NOTE}]: a (1, 2, 1) cluster, 2-layer f32: "
+        f"each of {len(reqs)} requests moved tp=1 -> tp=2 -> tp=1 "
+        f"({len(migs)} migrations, {srv.migrated_bytes / 1e6:.3f} MB), its "
+        f"stream the unmigrated tp=1 engine's; {srv.steps} steps, "
+        f"{wall:.2f} s")
+    out["chain"] = {"migrations": len(migs), "steps": srv.steps,
+                    "wall_s": wall, "migrated_bytes": srv.migrated_bytes}
+    return out
+
+
+def phase_tp(np, torch, cfg_mod, model_mod, engine_mod, request_mod,
+             server_mod, tk, dk, pk, ref_streams, ref_blocks):
+    """Phase 23: tensor-parallel serving on the card's one device, two
+    ranks (this process and a ``launch.tp_worker``) on ``cuda:0`` over
+    gloo. (a) llama3.2-3b at full width, bf16, as a tp=2 fused engine on
+    phase 4's requests: twice the blocks at the same per-rank budget, each
+    rank half the pool leaf's heads and its share of the weights, one
+    d2h a step on the leader and none on the worker, #1 == layers x
+    forwards on each rank and nothing else, the streams against phase 4's
+    (where they part, phase 11's margin rule on fresh tp=1 and tp=2
+    engines); (b) 2 layers f32: tp=2 on the card == tp=1 on the CPU on
+    flat and grid; (c) the (1, 2, 1) chain."""
+    from repro_torch.launch import mesh as mesh_mod
+    _fresh_card(torch, "phase 23")
+    t0 = time.perf_counter()
+    mesh = mesh_mod.make_tp_mesh(2, list(TP_DEVICES), "gloo")
+    log(f"phase 23: a mesh of 2 ranks on {list(TP_DEVICES)} over "
+        f"{mesh.backend} (the worker started and joined in "
+        f"{time.perf_counter() - t0:.1f} s); NCCL not measured: the machine "
+        f"has {torch.cuda.device_count()} device and NCCL puts one rank on "
+        f"a card")
+    try:
+        cfg = dataclasses.replace(cfg_mod.get_config("llama3.2-3b"),
+                                  dtype=torch.bfloat16)
+        model = model_mod.build_model(cfg)
+        params, _ = _draw_weights(torch, model, "phase 23")
+        out = _tp_engine(np, torch, cfg, model, params, engine_mod,
+                         request_mod, mesh, tk, dk, pk, ref_streams,
+                         ref_blocks)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        out.update(_tp_small(np, torch, cfg_mod, model_mod, engine_mod,
+                             request_mod, server_mod, mesh, tk, dk, pk))
+    finally:
+        mesh.close()
+    out["backend"] = mesh.backend
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def family_rows(fam, moe, vlm, win, whisper):
     """The kernels JSON rows of the families' shapes (#1 at G 8; #2, #3,
     #5, #6 at G 7; #5 and #6 at G 12 and at G 1, #5 on whisper's self-
@@ -3955,7 +4345,17 @@ def main() -> int:
     training["phase_s"] = time.perf_counter() - t22
     log(f"phase 22: took {training['phase_s']:.1f} s")
 
-    # 23. results
+    # 23. tensor-parallel serving: llama3.2-3b as a tp=2 fused engine, two
+    # ranks on the card over gloo; 2 layers f32 tp=2 on the card == tp=1
+    # on the CPU; a (1, 2, 1) cluster migrating across the tp sizes
+    t23 = time.perf_counter()
+    tp = phase_tp(np, torch, cfg_mod, model_mod, engine_mod, request_mod,
+                  server_mod, tk, dk, pk, eng_summary["streams"],
+                  eng_summary["num_blocks"])
+    tp["phase_s"] = time.perf_counter() - t23
+    log(f"phase 23: took {tp['phase_s']:.1f} s")
+
+    # 24. results
     kernels = [{
         "name": "paged_mixed_attention", "ok": True, "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/mixed_attention.cu",
@@ -4056,6 +4456,24 @@ def main() -> int:
         "contiguous_prefill"]
     # the same kernels at the MoE, VLM, window and whisper configs' heads
     kernels += family_rows(fam, moe, vlm, window, whisper)
+    # #1 at a tp=2 rank's heads (12 / 4), launched by both ranks in 23 (a)
+    k = fam["tp_rank"]
+    kernels.append({
+        "name": "paged_mixed_attention_tp2_rank", "ok": True,
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/mixed_attention.cu",
+        "replaces": "src/repro/kernels/mixed_attention.py:187",
+        "launches": tp["launches"]["leader"]["fused"],
+        "worker_launches": tp["launches"]["worker"]["fused"],
+        "shape": "llama3.2-3b at tp=2, a rank: H 12 / Hkv 4 / Dh 128 (G 3), "
+                 "phase 3's segments",
+        "max_abs_err": k["max_abs_err"],
+        "max_abs_err_f32": k["max_abs_err_f32"], "ms": k["ms"],
+        "kernel_ms": k["ms"], "plain_ms": k["plain_ms"],
+        "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+        "library_ms": k["library_ms"], "bound_share": k["bound_ms"] / k["ms"],
+        **{key: k[key] for key in ("device_ms", "library_device_ms",
+                                   "host_us") if key in k}})
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke_report.json").write_text(json.dumps(
@@ -4065,9 +4483,9 @@ def main() -> int:
          "fig2": fig2, "engine_modes": modes, "cost_model": cost_model,
          "family_kernels": fam, "moe": moe, "vlm": vlm, "window": window,
          "rwkv": rwkv, "zamba": zamba, "whisper": whisper,
-         "training": training}, indent=1,
+         "training": training, "tp": tp}, indent=1,
         default=str))
-    log(f"chip_smoke: phases 1-22 took {time.perf_counter() - t_main:.1f} s")
+    log(f"chip_smoke: phases 1-23 took {time.perf_counter() - t_main:.1f} s")
     # the card again, so that the end of the output names it beside the
     # numbers
     log(smi)

@@ -19,8 +19,11 @@ prefill (``--no-chunked-prefill``), the prefix cache
 ``--transfer-loss-p``, ...) — plus ``--device``, ``--full-width``,
 ``--dtype`` and ``--sliding-window``. An arch without a paged path (rwkv6,
 or any decoder given a window) serves from slab engines: the host loop
-and whole-prompt prefill, the host tier off. Tensor parallelism is not
-ported.
+and whole-prompt prefill, the host tier off. ``--tp 2`` shards every
+engine over two ranks, ``--tp 2,1,1,1`` only the first (a heterogeneous
+cluster); ``--tp-devices`` lists the ranks' devices (default one card
+each, refused when the machine has fewer; ``cuda:0,cuda:0`` puts two
+ranks on one card) and ``--tp-backend`` the collectives' (gloo, nccl).
 """
 from __future__ import annotations
 
@@ -76,6 +79,19 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                     choices=["float32", "bfloat16"],
                     help="weights and activations (and bf16 KV pools)")
     ap.add_argument("--engines", type=int, default=4)
+    ap.add_argument("--tp", default="1",
+                    help="tensor-parallel ranks per engine: one int ('2') "
+                         "for every engine, or a comma list ('2,1,1,1') "
+                         "for a heterogeneous cluster")
+    ap.add_argument("--tp-devices", default=None,
+                    help="the ranks' devices, comma-separated (default: "
+                         "cuda:0..N-1, refused when fewer cards are "
+                         "present, or the CPU with --device cpu); list one "
+                         "card twice (cuda:0,cuda:0) to share it")
+    ap.add_argument("--tp-backend", default=None, choices=["gloo", "nccl"],
+                    help="the forward's collectives (default: nccl on "
+                         "cards, gloo on the CPU; two ranks on one card "
+                         "need gloo)")
     ap.add_argument("--requests", type=int, default=12)
     ap.add_argument("--policy", default="cascade",
                     choices=["cascade", "round-robin", "least-loaded"])
@@ -177,6 +193,12 @@ def fault_spec(args: argparse.Namespace) -> Optional[FaultSpec]:
                      transfer_stall_p=args.transfer_stall_p)
 
 
+def parse_tp(text: str, engines: int) -> List[int]:
+    """``--tp``: one int for every engine, or a comma list of one each."""
+    tps = [int(x) for x in text.split(",")]
+    return tps if len(tps) > 1 else tps * engines
+
+
 def build_server(args: argparse.Namespace) -> MILSServer:
     """The launcher's cluster: ``--arch`` weights (reduced unless
     ``--full-width``) from seed 0 on ``--device``, shared by ``--engines``
@@ -212,7 +234,11 @@ def build_server(args: argparse.Namespace) -> MILSServer:
                      prefill_token_budget=args.prefill_budget,
                      chunked_prefill=(False if args.no_chunked_prefill
                                       else None),
-                     prefix_cache=args.prefix_cache)
+                     prefix_cache=args.prefix_cache,
+                     tp=parse_tp(args.tp, args.engines),
+                     tp_devices=(args.tp_devices.split(",")
+                                 if args.tp_devices else None),
+                     tp_backend=args.tp_backend)
     spec = WorkloadSpec(rate=args.arrival_rate,
                         duration=args.requests / args.arrival_rate,
                         seed=args.seed)
@@ -233,10 +259,14 @@ def build_server(args: argparse.Namespace) -> MILSServer:
 def main(argv: Optional[List[str]] = None) -> None:
     args = parse_args(argv)
     srv = build_server(args)
-    srv.run(max_steps=100 * args.requests)
-    print("summary:", {k: round(v, 2) if isinstance(v, float) else v
-                       for k, v in srv.summary().items()})
-    print("stage bounds:", srv.stage_bounds)
+    try:
+        srv.run(max_steps=100 * args.requests)
+        print("summary:", {k: round(v, 2) if isinstance(v, float) else v
+                           for k, v in srv.summary().items()})
+        print("stage bounds:", srv.stage_bounds)
+        print("tp:", srv.tps)
+    finally:
+        srv.close()
 
 
 if __name__ == "__main__":

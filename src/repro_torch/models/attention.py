@@ -48,7 +48,7 @@ from repro_torch.kernels.ops import KERNEL_HEAD_DIMS, NEG_INF
 from repro_torch.kernels.prefill_attention import (paged_prefill_attention,
                                                    prefill_attention,
                                                    prefill_attention_plain)
-from repro_torch.models.common import ModelConfig, dense_init
+from repro_torch.models.common import ModelConfig, dense_init, psum_if_tp
 
 # Paged attention backends (the JAX package's four):
 #   dense — gather pool[block_tables] + masked SDPA in plain PyTorch: a
@@ -293,7 +293,7 @@ def attention_prefill(p, cfg: ModelConfig, x: torch.Tensor,
         out = window_attention(q, k, v, T)
     else:
         out = causal_prefill(q, k, v)
-    return out.reshape(B, T, -1) @ p["wo"], (k, v)
+    return psum_if_tp(out.reshape(B, T, -1) @ p["wo"], cfg), (k, v)
 
 
 def make_cache(cfg: ModelConfig, batch: int, seq: int,
@@ -345,7 +345,7 @@ def attention_decode(p, cfg: ModelConfig, x: torch.Tensor, cache_l: KVCache,
     kv_rows = None if rows is None else rows.to(torch.int32)
     o = _decode(cfg, q[:, 0].contiguous(), cache_l.k, cache_l.v, lengths,
                 kv_rows)
-    return o.reshape(B, 1, -1) @ p["wo"], cache_l
+    return psum_if_tp(o.reshape(B, 1, -1) @ p["wo"], cfg), cache_l
 
 
 def _decode(cfg: ModelConfig, q, k, v, lengths, kv_rows=None):
@@ -386,7 +386,8 @@ def make_paged_pool(cfg: ModelConfig, num_blocks: int, block_size: int,
     layout with zero scales, so the garbage block (and any row never
     written) dequantizes to exact zeros."""
     assert kv_dtype in KV_DTYPES, kv_dtype
-    shape = (num_blocks, block_size, cfg.num_kv_heads, cfg.head_dim)
+    shape = (num_blocks, block_size, cfg.num_kv_heads // cfg.tp_size,
+             cfg.head_dim)
     if layers is not None:
         shape = (layers,) + shape
     if kv_dtype == "int8":
@@ -558,7 +559,7 @@ def attention_decode_paged(p, cfg: ModelConfig, x: torch.Tensor,
         o = _paged_decode(attn_backend, q[:, 0].contiguous(), pool_l,
                           block_tables, pos + 1, attn_num_work,
                           attn_work_list)
-    return o.reshape(B, 1, -1) @ p["wo"], pool_l
+    return psum_if_tp(o.reshape(B, 1, -1) @ p["wo"], cfg), pool_l
 
 
 def attention_prefill_chunk_paged(p, cfg: ModelConfig, x: torch.Tensor,
@@ -601,7 +602,7 @@ def attention_prefill_chunk_paged(p, cfg: ModelConfig, x: torch.Tensor,
     else:
         o = paged_prefill_attention(q, pool_l.k, pool_l.v, block_tables,
                                     ctx, clen)
-    return o.reshape(B, C, -1) @ p["wo"], pool_l
+    return psum_if_tp(o.reshape(B, C, -1) @ p["wo"], cfg), pool_l
 
 
 def attention_mixed_paged(p, cfg: ModelConfig, x_dec: torch.Tensor,
@@ -650,15 +651,15 @@ def attention_mixed_paged(p, cfg: ModelConfig, x_dec: torch.Tensor,
     if attn_backend == "dense":
         out_d = _dense_attention(qd, pool_l, bt_dec, pos[:, None])
         out_c = _dense_attention(qc, pool_l, bt_ck, positions)
-        return (out_d.reshape(Bd, 1, -1) @ p["wo"],
-                out_c.reshape(Bp, C, -1) @ p["wo"], pool_l)
+        return (psum_if_tp(out_d.reshape(Bd, 1, -1) @ p["wo"], cfg),
+                psum_if_tp(out_c.reshape(Bp, C, -1) @ p["wo"], cfg), pool_l)
     if attn_backend != "fused":
         out_d = _paged_decode(attn_backend, qd[:, 0].contiguous(), pool_l,
                               bt_dec, pos + 1)
         out_c = paged_prefill_attention(qc.contiguous(), pool_l.k, pool_l.v,
                                         bt_ck, ctx, clen)
-        return (out_d.reshape(Bd, 1, -1) @ p["wo"],
-                out_c.reshape(Bp, C, -1) @ p["wo"], pool_l)
+        return (psum_if_tp(out_d.reshape(Bd, 1, -1) @ p["wo"], cfg),
+                psum_if_tp(out_c.reshape(Bp, C, -1) @ p["wo"], cfg), pool_l)
     # decode q rides in row 0 of a chunk-wide tile; tables pad to a common
     # width (padded entries lie past every segment's total: never read)
     NBT = max(bt_dec.shape[1], bt_ck.shape[1])
@@ -672,8 +673,8 @@ def attention_mixed_paged(p, cfg: ModelConfig, x_dec: torch.Tensor,
         torch.cat([torch.zeros_like(pos), torch.ones_like(ctx)]),
         *_pool_scales(pool_l), num_work=attn_num_work)
     out_d, out_c = o[:Bd, :1], o[Bd:]
-    return (out_d.reshape(Bd, 1, -1) @ p["wo"],
-            out_c.reshape(Bp, C, -1) @ p["wo"], pool_l)
+    return (psum_if_tp(out_d.reshape(Bd, 1, -1) @ p["wo"], cfg),
+            psum_if_tp(out_c.reshape(Bp, C, -1) @ p["wo"], cfg), pool_l)
 
 
 # --------------------------------------------------------------------------

@@ -24,7 +24,10 @@ Params = Any  # nested dict of torch.Tensor
 class ModelConfig:
     """One config per architecture (src/repro_torch/configs/). Field for
     field the JAX ``ModelConfig``, minus its sharding hints; ``dtype`` is
-    a ``torch.dtype``."""
+    a ``torch.dtype``. ``tp_axis`` keeps the reference's name, but where
+    the reference names a mesh axis it holds the tensor-parallel group
+    itself (a ``launch.mesh.TPMesh``) that a serving forward runs in, or
+    None."""
 
     name: str
     family: str  # dense | moe | ssm | hybrid | encdec | vlm
@@ -67,10 +70,22 @@ class ModelConfig:
     tie_embeddings: bool = False
     dtype: torch.dtype = torch.float32
     source: str = ""
+    # serving tensor parallelism: with a group, every weight is this
+    # rank's shard (q/kv heads, FFN dim, vocab split over the ranks) and
+    # the forward adds the collectives: an all-reduce after each wo and
+    # w_down contraction and after the vocab-split embedding lookup, an
+    # all-gather of the logits. None: one device, no collective.
+    tp_axis: Any = dataclasses.field(default=None, compare=False,
+                                     repr=False)
 
     def __post_init__(self):
         if self.head_dim == 0 and self.num_heads:
             object.__setattr__(self, "head_dim", self.d_model // self.num_heads)
+
+    @property
+    def tp_size(self) -> int:
+        """Ranks a tensor-parallel forward runs on (1 without a group)."""
+        return 1 if self.tp_axis is None else self.tp_axis.size
 
     def reduced(self, **over) -> "ModelConfig":
         """Smoke-test variant: <=2 layers, d_model<=256, <=4 experts."""
@@ -144,6 +159,14 @@ def embed_init(gen: torch.Generator, shape: Sequence[int],
                dtype: torch.dtype) -> torch.Tensor:
     out = torch.empty(tuple(shape), dtype=dtype, device=gen.device)
     return _fill_normal(out, gen, 0.02)
+
+
+def psum_if_tp(x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """All-reduce a partial activation over the tensor-parallel group —
+    ``x`` itself without one, so one-device forwards run as before."""
+    if cfg.tp_axis is None:
+        return x
+    return cfg.tp_axis.all_reduce(x.contiguous())
 
 
 # --------------------------------------------------------------------------

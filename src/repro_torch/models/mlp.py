@@ -13,6 +13,14 @@ Two MoE dispatch implementations, as in the reference:
 
 The router works in f32 whatever the model dtype (its weight is kept f32),
 and both return the Switch load-balance auxiliary loss beside the output.
+
+Under serving tensor parallelism (``cfg.tp_axis``) the FFN dim F is the
+split axis — every rank holds every expert, F / tp wide, and the whole
+router — so each contraction over F is a partial sum, all-reduced once:
+after ``w_down`` in :func:`ffn` (a GELU FFN's replicated ``b_down`` adds
+after it), and after the f32 combine in the MoE (the combine is linear,
+so one reduce of ``[N, D]`` stands for the reference's reduce of every
+expert's ``[E, N, D]`` output).
 """
 from __future__ import annotations
 
@@ -21,7 +29,8 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import ModelConfig, act_fn, dense_init
+from repro_torch.models.common import (ModelConfig, act_fn, dense_init,
+                                       psum_if_tp)
 
 # moe_dense's temporaries per tile of tokens (inputs broadcast to every
 # expert, the gate/up/down products, the f32 combine): at qwen3-moe's
@@ -56,8 +65,10 @@ def init_ffn(gen: torch.Generator, cfg: ModelConfig,
 def ffn(p, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     a = act_fn(cfg.act)
     if "w_gate" in p:
-        return (a(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
-    return a(x @ p["w_up"] + p["b_up"]) @ p["w_down"] + p["b_down"]
+        return psum_if_tp(
+            (a(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"], cfg)
+    return psum_if_tp(a(x @ p["w_up"] + p["b_up"]) @ p["w_down"], cfg) \
+        + p["b_down"]
 
 
 # --------------------------------------------------------------------------
@@ -135,6 +146,7 @@ def moe_dense(p, cfg: ModelConfig, x: torch.Tensor):
         y = _experts(p, cfg, xs.expand((E,) + xs.shape))       # [E, n, D]
         out[s:s + tile] = torch.einsum("end,ne->nd", y.float(),
                                        combine[s:s + tile])
+    out = psum_if_tp(out, cfg)
     return out.reshape(B, T, D).to(x.dtype), aux
 
 
@@ -173,7 +185,7 @@ def moe_gshard(p, cfg: ModelConfig, x: torch.Tensor,
 
     xe = torch.einsum("gsec,gsd->egcd", dispatch, x)             # [E,G,C,D]
     y = _experts(p, cfg, xe)                                     # [E,G,C,D]
-    out = torch.einsum("egcd,gsec->gsd", y.float(), combine)
+    out = psum_if_tp(torch.einsum("egcd,gsec->gsd", y.float(), combine), cfg)
     return out.to(x.dtype), aux
 
 

@@ -23,7 +23,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models.attention import (KVCache, layer_pool, make_cache,
                                          make_paged_pool)
 from repro_torch.models.common import (ModelConfig, dense_init, embed_init,
-                                       rms_norm)
+                                       psum_if_tp, rms_norm)
 from repro_torch.models.mlp import ffn, init_ffn, init_moe, moe
 
 
@@ -71,8 +71,19 @@ def embed_tokens(p, cfg: ModelConfig, tokens: torch.Tensor,
                  vision_embeds=None, vision_mask=None) -> torch.Tensor:
     """Token embeddings [B, T, D]; with ``vision_embeds`` [B, P, D] and
     ``vision_mask`` [B, T] bool, the patch embeddings (the VLM's stubbed
-    frontend) replace the masked positions, in order."""
-    x = F.embedding(tokens.long(), p["embed"])
+    frontend) replace the masked positions, in order. Under tensor
+    parallelism each rank holds V / tp consecutive rows: an id outside
+    them reads a clamped row that is zeroed, and the all-reduce
+    assembles the one real row — exact, since one rank contributes it."""
+    if cfg.tp_axis is not None:
+        vloc = p["embed"].shape[0]
+        local = tokens.long() - cfg.tp_axis.rank * vloc
+        ok = (local >= 0) & (local < vloc)
+        x = F.embedding(torch.clamp(local, 0, vloc - 1), p["embed"])
+        x = psum_if_tp(torch.where(ok[..., None], x, torch.zeros_like(x)),
+                       cfg)
+    else:
+        x = F.embedding(tokens.long(), p["embed"])
     if vision_embeds is not None and vision_mask is not None:
         idx = torch.cumsum(vision_mask.to(torch.int32), dim=1) - 1
         idx = torch.clamp(idx, 0, vision_embeds.shape[1] - 1).long()
@@ -83,8 +94,15 @@ def embed_tokens(p, cfg: ModelConfig, tokens: torch.Tensor,
 
 
 def unembed(p, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """Logits [..., V]. Under tensor parallelism each rank computes its
+    V / tp columns (tied embeddings split V on dim 0, so the transpose
+    lines up) and the all-gather gives every rank the whole vocabulary:
+    argmax then runs on each rank and they all hold the same tokens."""
     w = p["embed"].T if cfg.tie_embeddings else p["unembed"]
-    return x @ w
+    logits = x @ w
+    if cfg.tp_axis is not None:
+        logits = cfg.tp_axis.all_gather(logits)
+    return logits
 
 
 def _mlp_aux(pl, cfg: ModelConfig, x: torch.Tensor):
@@ -145,7 +163,8 @@ def forward_full(p, cfg: ModelConfig, tokens: torch.Tensor, *,
     positions = torch.arange(T, device=x.device)[None].expand(B, T)
     # the prompt's T rows, every one written below (under a window too:
     # the caller relays them into its ring)
-    shape = (cfg.num_layers, B, T, cfg.num_kv_heads, cfg.head_dim)
+    shape = (cfg.num_layers, B, T, cfg.num_kv_heads // cfg.tp_size,
+             cfg.head_dim)
     cache = (KVCache(x.new_empty(shape), x.new_empty(shape))
              if return_cache else None)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)

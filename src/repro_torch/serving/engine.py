@@ -46,7 +46,7 @@ at admission. ``preemption=True`` keeps the waiting queue in SLO order
 and lets a blocked higher-class request park a lower-class decode (a
 slot shortage) or drop and recompute its KV (a memory shortage).
 
-Every engine mode of the reference but tensor parallelism is ported:
+Every engine mode of the reference is ported:
 ``paged=False`` keeps KV in a monolithic slab ``[L, max_slots, max_seq,
 Hkv, Dh]`` (decoded in place by the contiguous decode kernel, padded),
 the only layout of a sliding-window decoder (a ring of ``min(max_seq,
@@ -60,10 +60,25 @@ contiguous causal prefill kernel; the §2.1 head-of-line baseline, where a
 long prompt stalls every decode for its step) and ``prefix_cache=False``
 turns the prefix index off. Every loop makes one device-to-host transfer
 a step: a first token sampled at admission stays on the device until it.
+
+``tp=N`` shards the weights and the paged pool over N ranks of a
+``launch.mesh.TPMesh``: each rank holds ``Hkv / N`` heads of every block
+(``token_budget`` counts per rank, so the engine holds N times the
+blocks) and its share of every weight (``launch.shardings``). This
+process is rank 0, the *leader*: it keeps all host state (the allocator,
+the block tables, the prefix index, the scheduler, the host KV tier and
+the migration wire). Every operation on the device state is one method,
+a *device op* (:func:`_device_op`): the leader sends it, with its host
+arguments, to the workers (``launch.tp_worker``), which run the same op
+on their shards in the same order, so the device mirrors stay equal on
+every rank and each forward's collectives pair up. The logits are
+gathered inside ``unembed``, so every rank samples the same tokens on
+the device; the step's one transfer happens on the leader alone.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import weakref
 from collections import deque
 from typing import Deque, Dict, List, NamedTuple, Optional, Tuple
@@ -76,10 +91,15 @@ from repro_torch.core.migration import (gather_kv_blocks, kv_bytes,
                                         scatter_kv_blocks, tree_leaves,
                                         tree_map)
 from repro_torch.kernels.cost import pow2_bucket
-from repro_torch.models.attention import (KV_DTYPES, QuantKVCache,
+from repro_torch.launch.mesh import make_tp_mesh
+from repro_torch.launch.shardings import (join_pool, param_leaves,
+                                          serving_param_spec_tree,
+                                          shard_leaf, shard_params,
+                                          split_pool)
+from repro_torch.models.attention import (KV_DTYPES, KVCache, QuantKVCache,
                                           dequantize_piece, quantize_piece,
                                           resolve_paged_backend)
-from repro_torch.models.model import Model
+from repro_torch.models.model import Model, build_model
 from repro_torch.sched.policy import park_or_recompute
 from repro_torch.sched.slo import (aging_promotion, insert_sorted,
                                    priority_of, queue_key, tpot_hopeless)
@@ -126,6 +146,74 @@ def attn_call(fn, *args, **kwargs):
     global ATTN_CALLS
     ATTN_CALLS += 1
     return fn(*args, **kwargs)
+
+
+# the device ops that are attention-bearing forwards: the leader issues
+# each through attn_call, and a tensor-parallel worker counts them too
+ATTN_OPS = ("_mixed", "_decode", "_chunk_forward", "_prefill_whole")
+
+
+class PieceShare(NamedTuple):
+    """What a device op's command carries in place of a KV piece
+    argument: the piece's type and each leaf's (shape, dtype) of one
+    rank's share; the leaves follow as host tensors."""
+    kind: type
+    leaves: list
+
+
+def _device_op(fn):
+    """Mark ``fn`` a device op: a step of the engine on its device state
+    (the KV pool, the device mirrors) whose arguments are host values (a
+    KV piece argument: a whole piece). Under tensor parallelism the
+    leader sends it to every worker, a piece cut into the ranks' head
+    shares, then runs it on its own shard; a worker runs it as it
+    comes."""
+    @functools.wraps(fn)
+    def op(self, *args):
+        if self.tp > 1 and self.mesh.is_leader:
+            args = self._send_op(fn.__name__, args)
+        return fn(self, *args)
+    return op
+
+
+def _device_read(fn):
+    """A :func:`_device_op` that reads pool rows and returns a piece: each
+    rank reads its heads' share, and under tensor parallelism the leader
+    gathers the shares (on the host) into the whole piece."""
+    inner = _device_op(fn)
+
+    @functools.wraps(fn)
+    def op(self, *args):
+        out = inner(self, *args)
+        if self.tp > 1 and self.mesh.is_leader:
+            out = self._gather_shares(out)
+        return out
+    op.tp_read = True
+    return op
+
+
+def _check_tp(model: Model, tp: int, paged, device_resident) -> None:
+    """The reference's refusals of a tensor-parallel engine."""
+    cfg = model.cfg
+    if not model.supports_paged or paged is False:
+        raise ValueError("tensor-parallel serving needs the paged block "
+                         "pool")
+    if device_resident is False:
+        raise ValueError("tensor-parallel serving needs the "
+                         "device-resident loop")
+    for name, n in (("kv heads", cfg.num_kv_heads), ("heads", cfg.num_heads),
+                    ("vocab", cfg.vocab_size), ("d_ff", cfg.d_ff)):
+        if n % tp:
+            raise ValueError(f"{name} {n} not divisible by tp={tp}")
+
+
+def _tp_release(mesh, key: int, owned: bool) -> None:
+    """An engine's end on its mesh: the mesh itself if the engine made
+    it, else the workers' state of this engine."""
+    if owned:
+        mesh.close()
+    else:
+        mesh.release(key)
 
 
 def h2d(arr, device: torch.device) -> torch.Tensor:
@@ -191,7 +279,9 @@ class Engine:
                  attn_backend: Optional[str] = None,
                  kv_dtype: str = "bf16", host_kv_budget: int = 0,
                  preemption: Optional[bool] = None,
-                 slo_time_scale: float = 1.0):
+                 slo_time_scale: float = 1.0, tp: int = 1, mesh=None,
+                 tp_devices: Optional[List[str]] = None,
+                 tp_backend: Optional[str] = None):
         """The engine runs on the device of ``params["embed"]``; several
         engines may share one ``params`` (each owns only its KV cache).
         ``paged`` (default on) keeps KV in the block pool, off in the
@@ -209,7 +299,15 @@ class Engine:
         The decoder families (dense, MoE, VLM) and rwkv6 (``ssm``) are
         served; a sliding window or rwkv6 has the slab only. A VLM's fused
         mixed step is refused here, where the reference fails at its first
-        step (M-RoPE is RoPE-only on that path)."""
+        step (M-RoPE is RoPE-only on that path).
+
+        ``tp > 1`` serves from ``tp`` ranks of ``mesh``, or of a mesh of
+        its own (``launch.mesh.make_tp_mesh(tp, tp_devices, tp_backend)``
+        on the device type of ``params``, closed with the engine): paged,
+        device-resident, with heads, kv heads, vocab and ``d_ff``
+        divisible by ``tp``, else ValueError (the reference's refusals).
+        ``params`` are the whole weights; the leader keeps rank 0's shard
+        and ships each worker its own once."""
         if model.cfg.family not in ("dense", "moe", "vlm", "ssm"):
             raise ValueError("engine supports decoder-only families")
         if kv_dtype not in KV_DTYPES:
@@ -219,6 +317,24 @@ class Engine:
                                                              "dense"):
             raise ValueError("int8 KV needs the 'fused' or 'dense' "
                              "attention backend")
+        self.tp = int(tp)
+        self.mesh = None
+        self._owns_mesh = False
+        if self.tp > 1:
+            _check_tp(model, self.tp, paged, device_resident)
+            if mesh is None:
+                mesh = make_tp_mesh(self.tp, tp_devices, tp_backend,
+                                    device_type=params["embed"].device.type)
+                self._owns_mesh = True
+            model, params = self._tp_join(model, params, mesh, dict(
+                max_slots=max_slots, max_seq=max_seq,
+                token_budget=token_budget, paged=paged,
+                block_size=block_size, device_resident=device_resident,
+                prefill_token_budget=prefill_token_budget,
+                chunked_prefill=chunked_prefill, prefix_cache=prefix_cache,
+                attn_backend=attn_backend, kv_dtype=kv_dtype,
+                host_kv_budget=host_kv_budget, preemption=preemption,
+                slo_time_scale=slo_time_scale))
         self.id = engine_id
         self.model = model
         self.params = params
@@ -232,7 +348,9 @@ class Engine:
             if not model.supports_paged:
                 raise ValueError(f"{model.cfg.name} has no paged path")
             self.block_size = block_size
-            self.num_blocks = self.token_budget // block_size
+            # token_budget counts per rank: each rank holds Hkv / tp heads
+            # of every block, so tp ranks hold tp times the blocks
+            self.num_blocks = (self.token_budget * self.tp) // block_size
             assert self.num_blocks > 0, "token_budget < one block"
             # capacity is block-granular
             self.token_budget = self.num_blocks * block_size
@@ -249,9 +367,9 @@ class Engine:
             self.cache = model.init_paged_cache(
                 self.num_blocks + 1, block_size, device=self.device,
                 kv_dtype=kv_dtype)
-            # pool bytes per block, scales included
-            self._bytes_per_block = kv_bytes(self.cache) / (self.num_blocks
-                                                             + 1)
+            # pool bytes per block on all ranks, scales included
+            self._bytes_per_block = (kv_bytes(self.cache) * self.tp
+                                     / (self.num_blocks + 1))
             self.block_tables: List[List[int]] = [[] for _ in
                                                   range(max_slots)]
             self._slot_rblocks = [0] * max_slots   # reserved blocks per slot
@@ -279,6 +397,8 @@ class Engine:
                                         device=self.device)
         # first tokens sampled this step, on the device until its transfer
         self._pending_first: List[Tuple[ServeRequest, torch.Tensor]] = []
+        # the last chunk forward's first-token samples (on the device)
+        self._ck_tok: Optional[torch.Tensor] = None
         # chunked prefill: prompts advance by chunks beside the decode
         # batch; off, admission prefills each whole prompt (the §2.1
         # head-of-line baseline)
@@ -360,11 +480,86 @@ class Engine:
                 f"engine {self.id}: leaked slot lengths"
 
     def shutdown(self) -> None:
-        """Asserts the engine drained clean, then drops its KV cache."""
+        """Asserts the engine drained clean, then :meth:`close`."""
         self.check_drained()
+        self.close()
+
+    def close(self) -> None:
+        """Drop the KV cache and, under tensor parallelism, the workers'
+        state of this engine (and the mesh, if the engine made it)."""
         self.cache = None
         if self.paged:
             self.block_tables = [[] for _ in self.block_tables]
+        if self.tp > 1 and self.mesh.is_leader:
+            self._tp_final()
+
+    # ---- tensor parallelism -----------------------------------------------
+    def _tp_join(self, model: Model, params, mesh, engine_kw):
+        """Put the engine on the tensor-parallel ``mesh``. A worker's
+        ``params`` are its shard already. The leader sends each worker
+        the engine's construction (the config, ``engine_kw``, its matmul
+        settings), then its weight shard, leaf by leaf, point to point:
+        the weights come from one place. Returns the model on the mesh's
+        group and this rank's params."""
+        dev = params["embed"].device
+        if mesh.size != self.tp:
+            raise ValueError(f"tp={self.tp} on a mesh of {mesh.size}")
+        if torch.device(mesh.devices[mesh.rank]) != dev:
+            raise ValueError(f"rank {mesh.rank} runs on "
+                             f"{mesh.devices[mesh.rank]}, params on {dev}")
+        self.mesh = mesh
+        cfg = model.cfg
+        model = build_model(dataclasses.replace(cfg, tp_axis=mesh))
+        if not mesh.is_leader:
+            return model, params
+        self._tp_key = mesh.new_key()
+        specs = serving_param_spec_tree(params, self.tp)
+        leaves = param_leaves(params)
+        meta = [(path, tuple(shard_leaf(a, specs[path], self.tp, 1).shape),
+                 a.dtype) for path, a in leaves]
+        matmul = dict(tf32=torch.backends.cuda.matmul.allow_tf32,
+                      cudnn_tf32=torch.backends.cudnn.allow_tf32,
+                      threads=torch.get_num_threads())
+        mesh.command(("build", self._tp_key, dataclasses.replace(
+            cfg, tp_axis=None), engine_kw, meta, matmul))
+        for r in range(1, self.tp):
+            for path, a in leaves:
+                mesh.send(shard_leaf(a, specs[path], self.tp, r), r)
+        self._tp_final = weakref.finalize(self, _tp_release, mesh,
+                                          self._tp_key, self._owns_mesh)
+        return model, shard_params(params, self.tp, 0, specs)
+
+    def _send_op(self, name: str, args: tuple) -> tuple:
+        """The leader's half of a device op: the op and its host arguments
+        to every worker, a KV piece argument as a :class:`PieceShare`
+        whose leaves follow the command (each worker's heads, over the
+        mesh's host channel). Returns the arguments rank 0 runs it on."""
+        wire, local, shares = [], [], []
+        for a in args:
+            if isinstance(a, (KVCache, QuantKVCache)):
+                parts = split_pool(a, self.tp)
+                wire.append(PieceShare(type(a), [(tuple(t.shape), t.dtype)
+                                                 for t in parts[1]]))
+                local.append(parts[0])
+                shares.append(parts)
+            else:
+                wire.append(a)
+                local.append(a)
+        self.mesh.command(("call", self._tp_key, name, tuple(wire)))
+        for parts in shares:
+            for r in range(1, self.tp):
+                for t in parts[r]:
+                    self.mesh.send(t, r)
+        return tuple(local)
+
+    def _gather_shares(self, piece):
+        """The leader's half of a device read: its own share and each
+        worker's, joined on the host into the whole piece."""
+        shares = [type(piece)(*(a.cpu() for a in piece))]
+        for r in range(1, self.tp):
+            shares.append(type(piece)(*(self.mesh.recv(a.shape, a.dtype, r)
+                                        for a in piece)))
+        return join_pool(shares)
 
     # ---- load views (what the control plane reads) ---------------------------
     def active(self) -> List[ServeRequest]:
@@ -481,7 +676,10 @@ class Engine:
         pinned host memory, then an event. Stream order makes the copy
         read the block BEFORE the allocation that triggered the reclaim
         overwrites it; only :meth:`_flush_demotes` (after the step's one
-        d2h) or a promote of the same block waits for the event."""
+        d2h) or a promote of the same block waits for the event. Under
+        tensor parallelism the ranks' shares are gathered at once."""
+        if self.tp > 1:
+            return self._read_block(block_id)
         leaves = []
         for a in self.cache:
             src = a[:, block_id:block_id + 1]
@@ -497,6 +695,12 @@ class Engine:
             event = torch.cuda.Event()
             event.record()
         return _PendingDemote(type(self.cache)(*leaves), event)
+
+    @_device_read
+    def _read_block(self, block_id: int):
+        """Block ``block_id``'s leaves ``[L, 1, BS, ...]`` (a copy)."""
+        return type(self.cache)(*(a[:, block_id:block_id + 1].clone()
+                                  for a in self.cache))
 
     def _flush_demotes(self) -> None:
         """Wait for this step's demote copies and keep their host leaves.
@@ -518,9 +722,23 @@ class Engine:
         # pressure must never evict the very entries being promoted
         payloads = [_materialize(self.allocator.host_pop(h)) for h in promo]
         ids = self.allocator.allocate(len(promo))
-        host = [torch.as_tensor(np.asarray(ids, np.int64))] + [
+        self._write_blocks(type(self.cache)(*(
             torch.cat([p[i] for p in payloads], dim=1)
-            for i in range(len(self.cache))]
+            for i in range(len(self.cache)))), ids)
+        digests = self._req_digests(req)
+        d0 = len(shared)
+        for j, (b, h) in enumerate(zip(ids, promo)):
+            parent = digests[d0 + j - 1] if d0 + j > 0 else 0
+            self.allocator.publish(b, h, head=(d0 + j == 0), parent=parent)
+        self.promoted_blocks_total += len(ids)
+        return ids
+
+    @_device_op
+    def _write_blocks(self, piece, ids: List[int]) -> None:
+        """Scatter host leaves ``[L, nb, BS, ...]`` (the pool's layout)
+        into blocks ``ids`` with ONE pinned upload (every leaf's bytes and
+        the block ids packed into one buffer) and one call."""
+        host = [torch.as_tensor(np.asarray(ids, np.int64))] + list(piece)
         buf = h2d(torch.cat([t.contiguous().reshape(-1).view(torch.uint8)
                              for t in host]), self.device)
         dev, at = [], 0
@@ -529,13 +747,6 @@ class Engine:
             dev.append(buf[at:at + n].view(t.dtype).view(t.shape))
             at += n
         scatter_kv_blocks(self.cache, type(self.cache)(*dev[1:]), dev[0])
-        digests = self._req_digests(req)
-        d0 = len(shared)
-        for j, (b, h) in enumerate(zip(ids, promo)):
-            parent = digests[d0 + j - 1] if d0 + j > 0 else 0
-            self.allocator.publish(b, h, head=(d0 + j == 0), parent=parent)
-        self.promoted_blocks_total += len(ids)
-        return ids
 
     @property
     def cache_demotions(self) -> int:
@@ -660,7 +871,7 @@ class Engine:
         self.slot_reserved[slot] = worst
 
     # ---- device mirrors -------------------------------------------------------
-    def _ensure_nbt_cap(self, need: int) -> None:
+    def _grow(self, need: int) -> None:
         """Grow the device table width to a pow2 >= need (capped at the
         max_seq block count)."""
         if need <= self._nbt_cap:
@@ -671,14 +882,46 @@ class Engine:
                              value=self.garbage_block)
         self._nbt_cap = new
 
-    def _dev_set_table(self, slot: int, ids: List[int]) -> None:
+    def _set_row(self, slot: int, ids: List[int]) -> None:
+        """Slot ``slot``'s device table row: ``ids``, garbage after."""
+        self._grow(len(ids))
         row = np.full((self._nbt_cap,), self.garbage_block, np.int32)
         row[:len(ids)] = ids
         self._dev_bt[slot] = h2d(row, self.device)
 
+    def _arm(self, slot: int, ids: List[int], length: int, tok) -> None:
+        """Seed a slot's mirrors: its table, cache length and last token
+        (an int, or a 0-d tensor on the device)."""
+        self._set_row(slot, ids)
+        self._dev_len[slot].fill_(length)
+        if isinstance(tok, torch.Tensor):
+            self._dev_tok[slot] = tok
+        else:
+            # fill_ takes the scalar as a kernel argument; item assignment
+            # of a Python number would upload it with a blocking copy
+            self._dev_tok[slot].fill_(tok)
+
+    @_device_op
+    def _dev_table(self, slot: int, ids: List[int]) -> None:
+        """A decoding slot's grown table."""
+        self._set_row(slot, ids)
+
+    @_device_op
+    def _dev_arm(self, slot: int, ids: List[int], length: int,
+                 tok: int) -> None:
+        """Arm a slot to decode from a host token (an unpark, a finished
+        resume, an adopted migration)."""
+        self._arm(slot, ids, length, tok)
+
+    @_device_op
+    def _dev_arm_chunk(self, slot: int, ids: List[int], length: int,
+                       row: int) -> None:
+        """Arm a slot whose prompt's last chunk just ran: its first token
+        is row ``row`` of that chunk forward's samples."""
+        self._arm(slot, ids, length, self._ck_tok[row])
+
+    @_device_op
     def _dev_clear_slot(self, slot: int) -> None:
-        # fill_ takes the scalar as a kernel argument; item assignment of
-        # a Python number would upload it with a blocking copy
         self._dev_bt[slot].fill_(self.garbage_block)
         self._dev_len[slot].fill_(0)
 
@@ -723,20 +966,25 @@ class Engine:
         P = min(_next_pow2(T), _next_pow2(self.max_seq))
         toks = np.zeros((1, P), np.int32)
         toks[0, :T] = req.prompt
-        logits, piece = attn_call(self.model.prefill_bucketed, self.params,
-                                  h2d(toks, self.device), T)
         ids = self.allocator.allocate(blocks_for(T, self.block_size))
         self.block_tables[slot] = ids
-        self._write_prompt_blocks(type(piece)(*(a[:, :, :T] for a in piece)),
-                                  ids)
+        tok_dev = attn_call(self._prefill_whole, slot, toks, T, ids)
         self.prefill_work_blocks += len(ids)
         self.prefill_tokens_done += T
-        tok_dev = torch.argmax(logits[0]).to(torch.int32)
-        self._ensure_nbt_cap(len(ids))
-        self._dev_set_table(slot, ids)
-        self._dev_len[slot].fill_(T + 1)
-        self._dev_tok[slot] = tok_dev
         self._seat_prefilled(req, slot, T, tok_dev)
+
+    @_device_op
+    def _prefill_whole(self, slot: int, toks: np.ndarray, T: int,
+                       ids: List[int]) -> torch.Tensor:
+        """The bucketed forward of one whole prompt (``toks`` [1, P]): its
+        T rows into blocks ``ids``, the slot armed; returns the first
+        token (on the device)."""
+        logits, piece = self.model.prefill_bucketed(
+            self.params, h2d(toks, self.device), T)
+        self._scatter_piece(type(piece)(*(a[:, :, :T] for a in piece)), ids)
+        tok = torch.argmax(logits[0]).to(torch.int32)
+        self._arm(slot, ids, T + 1, tok)
+        return tok
 
     def _seat_prefilled(self, req: ServeRequest, slot: int, T: int,
                         tok_dev: torch.Tensor) -> None:
@@ -777,13 +1025,22 @@ class Engine:
         rejected, plan = self._plan_chunks()
         completed: List[ServeRequest] = []
         if plan:
-            arrays = self._prepare_chunk_arrays(plan)
-            logits, self.cache = attn_call(
-                self.model.prefill_chunk, self.params, self.cache, *arrays,
-                attn_backend=self.attn_backend)
-            self._finish_chunks(
-                plan, torch.argmax(logits, dim=-1).to(torch.int32), completed)
+            first = attn_call(self._chunk_forward,
+                              *self._prepare_chunk_arrays(plan))
+            self._finish_chunks(plan, first, completed)
         return rejected, completed
+
+    @_device_op
+    def _chunk_forward(self, toks, bt, ctx, clen) -> torch.Tensor:
+        """One forward of the step's prompt chunks (host arrays, see
+        :meth:`_prepare_chunk_arrays`). Returns, and keeps, each chunk's
+        first-token sample (on the device)."""
+        logits, self.cache = self.model.prefill_chunk(
+            self.params, self.cache,
+            *(h2d(a, self.device) for a in (toks, bt, ctx, clen)),
+            attn_backend=self.attn_backend)
+        self._ck_tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        return self._ck_tok
 
     def _plan_chunks(self) -> Tuple[List[ServeRequest],
                                     List[Tuple[int, int]]]:
@@ -843,7 +1100,7 @@ class Engine:
         return rejected, plan
 
     def _prepare_chunk_arrays(self, plan: List[Tuple[int, int]]):
-        """Device arrays for all of the step's planned chunks, padded to a
+        """Host arrays for all of the step's planned chunks, padded to a
         common pow2 chunk bucket and a common pow2 table width. Each
         chunk's blocks are allocated here (covered by its reservation);
         table tails are the garbage block, so padding rows never touch
@@ -878,7 +1135,7 @@ class Engine:
             bt[j, :len(table)] = table
             ctxs[j] = ctx
             clens[j] = clen
-        return tuple(h2d(a, self.device) for a in (toks, bt, ctxs, clens))
+        return toks, bt, ctxs, clens
 
     def _finish_chunks(self, plan: List[Tuple[int, int]],
                        first_toks: torch.Tensor,
@@ -912,11 +1169,7 @@ class Engine:
             self.tokens_out += 1
             self.slot_len[slot] = T + 1
             if self.device_resident:
-                table = self.block_tables[slot]
-                self._ensure_nbt_cap(len(table))
-                self._dev_set_table(slot, table)
-                self._dev_len[slot].fill_(T + 1)
-                self._dev_tok[slot] = tok_dev
+                self._dev_arm_chunk(slot, self.block_tables[slot], T + 1, j)
             self._pending_first.append((req, tok_dev))
             completed.append(req)
 
@@ -1110,10 +1363,8 @@ class Engine:
         req.state = State.RUNNING
         self.resumes += 1
         if self.device_resident:
-            self._ensure_nbt_cap(len(rec.table))
-            self._dev_set_table(slot, rec.table)
-            self._dev_len[slot].fill_(rec.slot_len)
-            self._dev_tok[slot].fill_(int(req.generated[-1]))
+            self._dev_arm(slot, rec.table, rec.slot_len,
+                          int(req.generated[-1]))
 
     def _finish_resume(self, req: ServeRequest, slot: int, T: int) -> None:
         """A recompute resume's last chunk landed: rows 0..T-1 are back;
@@ -1126,11 +1377,8 @@ class Engine:
         self.slot_len[slot] = T + 1
         self.resumes += 1
         if self.device_resident:
-            table = self.block_tables[slot]
-            self._ensure_nbt_cap(len(table))
-            self._dev_set_table(slot, table)
-            self._dev_len[slot].fill_(T + 1)
-            self._dev_tok[slot].fill_(int(req.generated[-1]))
+            self._dev_arm(slot, self.block_tables[slot], T + 1,
+                          int(req.generated[-1]))
 
     # ---- one continuous-batching iteration ----------------------------------
     @torch.no_grad()
@@ -1189,8 +1437,7 @@ class Engine:
                 table = self.block_tables[i]
                 if need > len(table):
                     table.extend(self.allocator.allocate(need - len(table)))
-                    self._ensure_nbt_cap(need)
-                    self._dev_set_table(i, table)
+                    self._dev_table(i, table)
             ck_toks, bt_ck, ctxs, clens = \
                 self._prepare_chunk_arrays(chunk_plan)
             dec_blocks = [blocks_for(int(self.slot_len[i]), self.block_size)
@@ -1238,8 +1485,7 @@ class Engine:
                 table = self.block_tables[i]
                 if need > len(table):
                     table.extend(self.allocator.allocate(need - len(table)))
-                    self._ensure_nbt_cap(need)
-                    self._dev_set_table(i, table)
+                    self._dev_table(i, table)
             real = sum(blocks_for(int(self.slot_len[i]) + h - 1,
                                   self.block_size) for i, _ in live)
             # num_work shapes only the work-list kernels (flat, fused)
@@ -1338,9 +1584,13 @@ class Engine:
         self.peak_kv_bytes = max(self.peak_kv_bytes, self.kv_bytes_pinned())
         assert self.free_tokens() >= 0, "admission let the budget go negative"
 
+    @_device_op
     def _mixed(self, num_work: int, ck_tokens, bt_ck, ctx, clen):
-        """The fused forward of a mixed iteration; advances the device
-        mirrors. Returns (decode tokens [max_slots], chunk first tokens)."""
+        """The fused forward of a mixed iteration (the chunks as host
+        arrays); advances the device mirrors. Returns (decode tokens
+        [max_slots], chunk first tokens, also kept)."""
+        ck_tokens, bt_ck, ctx, clen = (h2d(a, self.device) for a in
+                                       (ck_tokens, bt_ck, ctx, clen))
         live = self._dev_len > 0
         pos = self._dev_len - 1            # dead slots: -1 -> 0 attn length
         dec_logits, ck_logits, self.cache = self.model.mixed_step(
@@ -1349,8 +1599,10 @@ class Engine:
         new_tok = torch.argmax(dec_logits, dim=-1).to(torch.int32)
         self._dev_tok = torch.where(live, new_tok, self._dev_tok)
         self._dev_len = torch.where(live, self._dev_len + 1, self._dev_len)
-        return new_tok, torch.argmax(ck_logits, dim=-1).to(torch.int32)
+        self._ck_tok = torch.argmax(ck_logits, dim=-1).to(torch.int32)
+        return new_tok, self._ck_tok
 
+    @_device_op
     def _decode(self, num_work: int) -> torch.Tensor:
         """One decode iteration of the whole batch on the device mirrors.
         Returns the sampled tokens [max_slots]."""
@@ -1443,15 +1695,22 @@ class Engine:
                 lambda a: (a[:, slot:slot + 1, :length] if trim
                            else a[:, slot:slot + 1]).clone(), self.cache)
             return req, piece, kv_bytes(piece)
-        ids = h2d(np.asarray(self.block_tables[slot], np.int64), self.device)
-        gathered = gather_kv_blocks(self.cache, ids)
+        piece = self._read_blocks(list(self.block_tables[slot]), length)
+        return req, piece, kv_bytes(piece)
+
+    @_device_read
+    def _read_blocks(self, ids: List[int], length: int):
+        """Rows ``0..length-1`` of the blocks ``ids`` (in table order) as a
+        contiguous ``[L, 1, length, Hkv, Dh]`` piece, full-width: an int8
+        pool's rows dequantize (bf16 and int8 engines interoperate)."""
+        gathered = gather_kv_blocks(
+            self.cache, h2d(np.asarray(ids, np.int64), self.device))
         piece = type(gathered)(*(
             a.reshape(a.shape[0], 1, -1, *a.shape[3:])[:, :, :length]
             for a in gathered))
         if isinstance(piece, QuantKVCache):
-            # the wire stays full-width: bf16 and int8 engines interoperate
             piece = dequantize_piece(piece, self.model.cfg.dtype)
-        return req, piece, kv_bytes(piece)
+        return piece
 
     def evict_slot(self, slot: int) -> None:
         self._release(slot)
@@ -1490,11 +1749,8 @@ class Engine:
             self._prefill_order.append(slot)
         elif self.device_resident:
             # an adopted decode carries >= 1 generated token: the mirrors
-            # seed from host values (fill_, no blocking upload)
-            self._ensure_nbt_cap(len(ids))
-            self._dev_set_table(slot, ids)
-            self._dev_len[slot].fill_(length)
-            self._dev_tok[slot].fill_(int(req.generated[-1]))
+            # seed from host values
+            self._dev_arm(slot, ids, length, int(req.generated[-1]))
         req.engine_id = self.id
         req.slot = slot
         req.state = State.RUNNING
@@ -1506,7 +1762,13 @@ class Engine:
         self._flush_demotes()       # the import's allocation may demote
         return True
 
-    def _write_prompt_blocks(self, piece, block_ids: List[int]):
+    @_device_op
+    def _write_prompt_blocks(self, piece, block_ids: List[int]) -> None:
+        """Write a contiguous piece into physical blocks ``block_ids``
+        (:meth:`_scatter_piece`)."""
+        self._scatter_piece(piece, block_ids)
+
+    def _scatter_piece(self, piece, block_ids: List[int]) -> None:
         """Scatter a contiguous piece (leaves ``[L, 1, T, ...]``, T <=
         len(block_ids) * BS) into physical blocks ``block_ids``; a
         full-width piece headed for an int8 pool is quantized first (its

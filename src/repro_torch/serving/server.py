@@ -106,9 +106,9 @@ class EngineView:
         return float(self.eng.queued_tokens())
 
     def capacity_weight(self) -> float:
-        """Instance-units this engine counts for (its tensor-parallel ways;
-        the port's engines are one device each)."""
-        return 1.0
+        """Instance-units this engine counts for: its tensor-parallel ways
+        (an engine without a ``tp`` weighs 1)."""
+        return float(getattr(self.eng, "tp", 1) or 1)
 
     def requests(self) -> List[ReqView]:
         return [_req_view(r) for r in self.eng.slots if r is not None]
@@ -239,11 +239,19 @@ class MILSServer:
                  prefix_cache: Optional[bool] = None,
                  kv_dtype: Optional[str] = None,
                  host_kv_budget: Optional[int] = None,
+                 tp: Any = 1, tp_devices: Optional[Sequence[str]] = None,
+                 tp_backend: Optional[str] = None,
                  engine_factory: Optional[Callable[[int], Any]] = None,
                  on_token: Optional[TokenCallback] = None):
         """Engines run on the device of ``params`` (every engine shares
         them) unless ``engine_factory(i)`` builds them; constructor
-        arguments override the ``ServerConfig``'s."""
+        arguments override the ``ServerConfig``'s. ``tp`` gives every
+        engine that many tensor-parallel ranks, or engine i ``tp[i]`` (a
+        heterogeneous cluster, e.g. ``(2, 1, 1)``): the control plane
+        weighs each engine by its ``tp`` in stage claiming and load
+        normalisation. Each ``tp > 1`` engine makes a mesh of its own on
+        the first ``tp`` of ``tp_devices`` over ``tp_backend``
+        (``launch.mesh.make_tp_mesh``'s defaults when None)."""
         self.cfg = cfg
         self.plan = plan
         self.on_token = on_token
@@ -251,6 +259,14 @@ class MILSServer:
         kv_dtype = kv_dtype or cfg.kv_dtype
         host_kv_budget = (cfg.host_kv_budget if host_kv_budget is None
                           else int(host_kv_budget))
+        if isinstance(tp, (list, tuple)):
+            tps = [int(x) for x in tp]
+            if len(tps) != plan.num_instances:
+                raise ValueError(f"tp has {len(tps)} entries for "
+                                 f"{plan.num_instances} engines")
+        else:
+            tps = [int(tp)] * plan.num_instances
+        self.tps = tps
         if engine_factory is None:
             def engine_factory(i):
                 return Engine(i, model, params, max_slots=max_slots,
@@ -263,7 +279,11 @@ class MILSServer:
                               attn_backend=attn_backend, kv_dtype=kv_dtype,
                               host_kv_budget=host_kv_budget,
                               preemption=cfg.preemption,
-                              slo_time_scale=cfg.slo_time_scale)
+                              slo_time_scale=cfg.slo_time_scale,
+                              tp=tps[i], tp_devices=(
+                                  None if tp_devices is None
+                                  else list(tp_devices)[:tps[i]]),
+                              tp_backend=tp_backend)
         self._engine_factory = engine_factory
         self.engines = [engine_factory(i)
                         for i in range(plan.num_instances)]
@@ -365,8 +385,7 @@ class MILSServer:
         full-width pools for one engine slot."""
         old = self.engines[iid]
         old._faulted = True
-        old.cache = None
-        old.block_tables = [[] for _ in old.block_tables]
+        old.close()
         fresh = self._engine_factory(iid)
         self.engines[iid] = fresh
         self.plane.instances[iid] = EngineView(fresh)
@@ -458,6 +477,11 @@ class MILSServer:
                 if eng.id not in self.crashed:
                     eng.check_drained(strict=True)
         return self.finished
+
+    def close(self) -> None:
+        """Close every engine (a tensor-parallel one ends its workers)."""
+        for eng in self.engines:
+            eng.close()
 
     # ---- metrics -------------------------------------------------------------
     def summary(self) -> Dict[str, float]:

@@ -57,6 +57,31 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
             "repro_torch.launch.train"} | {
         "repro_torch.training." + m for m in (
             "optimizer", "data", "checkpoint", "trainer")} <= loaded
+    # tensor-parallel serving: the mesh, the sharding rules, the worker
+    assert {"repro_torch.launch." + m for m in (
+        "mesh", "shardings", "tp_worker")} <= loaded
+
+
+def test_the_tp_worker_loads_no_jax_and_no_repro():
+    """A tensor-parallel worker's process, as ``make_tp_mesh`` starts it
+    (``python -m repro_torch.launch.tp_worker``), imports neither JAX nor
+    the JAX package: its module and everything it pulls in."""
+    code = (
+        "import runpy, sys\n"
+        "sys.argv = ['tp_worker', '--help']\n"
+        "try:\n"
+        "    runpy.run_module('repro_torch.launch.tp_worker',\n"
+        "                     run_name='__main__')\n"
+        "except SystemExit:\n"
+        "    pass\n"
+        "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
+        f"{FORBIDDEN!r})\n"
+        "assert not bad, bad\n"
+        "assert 'repro_torch.serving.engine' in sys.modules\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
 
 
 @pytest.mark.parametrize("path", _port_files(),
