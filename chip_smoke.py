@@ -217,8 +217,23 @@ the last line:
     at 2 layers f32 whose stages make every request move tp=1 -> tp=2 ->
     tp=1, its stream the unmigrated engine's; #1 at a rank's 12 / 4 heads
     is measured early, in phase 3's ``family_kernels``;
-24. one JSON line of every kernel (the rows of phases 16-18's, 21's and
-    23's shapes added), then, last, ``{"ok": true, ...}``.
+24. sharded training on the machine's one card: two ranks (this process
+    and one ``launch.train_worker``) on ``cuda:0`` over gloo; (a)
+    llama3.2-3b at full width, bf16, model 2 (tensor parallelism: 12 / 4
+    heads, half the FFN and vocab a rank), phase 22's setting for 4
+    steps: loss, gradient norm, wall and tokens/s a step, each rank's
+    collectives (count, host seconds) and peak memory (all "two ranks on
+    one card; not a speedup"); the ranks' metrics equal, the losses
+    within one bf16 ulp of phase 22's first 4, #6 == 4 x 28 x 2 launches
+    on each rank and nothing else; #6 at a rank's heads on that batch is
+    measured early, in phase 3's ``family_kernels``; (b) 2 layers f32 at
+    (data 1, model 2) and (2, 1), and rwkv6, zamba2 and whisper reduced
+    at (1, 2) by gather-on-use: loss, gradient norm and params after 2
+    steps (AdamW at eps 1e-5) == the unsharded step on the CPU on the
+    same weights within 1e-5; (c) whisper's (1, 2) checkpoint reads back
+    bit for bit and equals the unsharded run's;
+25. one JSON line of every kernel (the rows of phases 16-18's, 21's,
+    23's and 24's shapes added), then, last, ``{"ok": true, ...}``.
 
 It needs one CUDA card and fails without one; it imports nothing of JAX.
 """
@@ -2185,7 +2200,7 @@ def _prefill_at(torch, pk, gen, B, T, H, Hkv, Dh, G, label, timed, times,
 
 
 def contiguous_kernels_at(torch, cfg, dk, pk, flush, B, T, lens, rows, S,
-                          label, device=False, prefill=True):
+                          label, device=False, prefill=True, decode=True):
     """#6 and #5 (padded) at the shapes an engine or a model-level call
     gives them, bf16, ``cfg``'s heads, L2 flushed: #6 on [B, T, H, Dh]
     (every row T long); #5 on ``len(lens)`` query rows over a slab of as
@@ -2197,7 +2212,8 @@ def contiguous_kernels_at(torch, cfg, dk, pk, flush, B, T, lens, rows, S,
     profiler's device time (phase 14 times by events only: this late in
     the process the profiler was seen to lose kernel records, and #5 then
     read below the time streaming its rows takes). #5 may not be timed
-    below streaming its whole slab. ``prefill=False`` leaves #6 out."""
+    below streaming its whole slab. ``prefill=False`` leaves #6 out,
+    ``decode=False`` #5."""
     import torch.nn.functional as F
     H, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     G = H // Hkv
@@ -2224,6 +2240,8 @@ def contiguous_kernels_at(torch, cfg, dk, pk, flush, B, T, lens, rows, S,
     if prefill:
         out["prefill"] = _prefill_at(torch, pk, gen, B, T, H, Hkv, Dh, G,
                                      label, timed, times, dev)
+    if not decode:
+        return out
     R = len(lens)
     q = randn(torch, gen, (R, H, Dh), torch.bfloat16)
     k, v = (randn(torch, gen, (R, S, Hkv, Dh), torch.bfloat16)
@@ -2763,7 +2781,8 @@ def family_kernels(np, torch, F, cfg_mod, tk, dk, pk, flush):
     18 (a)'s shapes. #1 is also held at Dh 128, the published
     Qwen3-30B-A3B's head width (the repo's config leaves head_dim unset,
     so the engine runs Dh 64), and at a tp=2 rank's llama3.2-3b heads
-    (12 / 4, phase 23)."""
+    (12 / 4, phase 23); #6 at those heads on phase 24 (a)'s training
+    batch (B 2, T 1024)."""
     moe = cfg_mod.get_config(MOE_ARCH)
     vlm = cfg_mod.get_config(VLM_ARCH)
     out = {"moe": phase_kernels(np, torch, F, tk, flush, H=moe.num_heads,
@@ -2811,6 +2830,14 @@ def family_kernels(np, torch, F, cfg_mod, tk, dk, pk, flush):
     out["tp_rank"] = phase_kernels(np, torch, F, tk, flush, H=12, Hkv=4,
                                    Dh=128, label="phase 3 (llama3.2-3b, a "
                                    "tp=2 rank, 12 / 4 heads)")
+    # phase 24 (a): #6 at a model-parallel rank's heads of llama3.2-3b
+    # (12 / 4 / 128) on the training batch, B 2 x T 1024
+    llama = cfg_mod.get_config("llama3.2-3b")
+    out["train_tp_rank"] = contiguous_kernels_at(
+        torch, dataclasses.replace(llama, num_heads=12, num_kv_heads=4),
+        dk, pk, flush, TRAIN_B, TRAIN_T, [], [], 0,
+        "phase 3 (llama3.2-3b, a model-parallel rank, 12 / 4 heads)",
+        device=True, decode=False)["prefill"]
     return out
 
 
@@ -4034,6 +4061,333 @@ def phase_tp(np, torch, cfg_mod, model_mod, engine_mod, request_mod,
     return out
 
 
+# --------------------------------------------------------------------------
+# Phase 24: sharded training, two ranks on one card
+# --------------------------------------------------------------------------
+SHARD_NOTE = "two ranks on one card; not a speedup"
+SHARD_STEPS = 4            # (a): phase 22's first 4 steps
+SHARD_SMALL_STEPS = 2      # (b)
+SHARD_TOL = 1e-5           # (b): loss / grad norm relative; params of
+                           # max(1, |p|)
+# (b) runs AdamW at eps 1e-5: at 1e-8 its first step moves an element by
+# lr * g / (|g| + eps), so a gradient element near 1e-7 whose f32 sums
+# run in another order moves its parameter up to ~8% of lr apart
+# (tests/test_torch_sharded_training.py)
+SHARD_EPS = 1e-5
+# (b) the gather-on-use families at their published widths, cut to 2
+# layers (zamba2: a shared-block site every 2 Mamba2 layers; whisper: 2
+# encoder and 2 decoder layers)
+SHARD_FAMILIES = {"rwkv6-7b": {"num_layers": 2},
+                  "zamba2-2.7b": {"num_layers": 2, "attn_every": 2},
+                  "whisper-large-v3": {"num_layers": 2, "encoder_layers": 2}}
+# rwkv6's second step is ill-conditioned in exact arithmetic: bonus_u and
+# the state start at 0, so after one step the first token's WKV output
+# has a variance per head of ~3e-8, far below its group norm's eps 1e-5.
+# tools/gather_witness.py at (b)'s setting (NVIDIA H100 80GB HBM3, 700 W):
+# the f64 step from weights each moved by 1e-7 lands 5.8e-6 (step-2
+# loss), 0.224 (step-2 grad norm) and 4.2e-5 (params after 2 steps) from
+# the f64 step; the CPU's f32 step 7.3e-6 / 0.267 / 4.2e-5 and the card's
+# 1.0e-5 / 0.318 / 3.5e-5 from it (card vs CPU: 1.8e-5 / 0.80 / <= 7.7e-5);
+# step 1 stays within 6.1e-6 everywhere, and three card runs were equal
+# bit for bit. So rwkv6 is held to SHARD_TOL on step 1 (its loss, grad
+# norm, and the params after it, from a 1-step run of their own) and on
+# step 2 to these limits, each a few times the card-vs-CPU reading
+RWKV_STEP2_LIMITS = {"loss": 1e-4, "grad_norm": 2.0, "params": 4e-4}
+
+
+def _unsharded_steps(torch, model, opt_cfg, data_cfg, steps, device,
+                     params=None, first=None):
+    """The port's unsharded step on ``device`` from ``params`` (default:
+    drawn from seed ``SEED`` there): (metrics a step, params). With a
+    list ``first``, a copy of the params after step 1 is appended to
+    it."""
+    from repro_torch.training.data import TokenStream
+    from repro_torch.training.optimizer import init_adamw
+    from repro_torch.training.trainer import batch_to, make_train_step
+    if params is None:
+        params = model.init(SEED, device=device)
+    opt = init_adamw(params)
+    step = make_train_step(model, opt_cfg)
+    it = iter(TokenStream(model.cfg, data_cfg))
+    hist = []
+    for _ in range(steps):
+        params, opt, m = step(params, opt, batch_to(next(it), device))
+        hist.append({k: float(v) for k, v in m.items()})
+        if first is not None and not first:
+            first.append(_tree_to(params, torch.device("cpu"), copy=True))
+    return hist, params
+
+
+def _params_err(got, want):
+    """The largest |got - want| over the leaves, each over max(1, its
+    largest magnitude)."""
+    return max(float((a.detach().cpu() - b.detach().cpu()).abs().max())
+               / max(1.0, float(b.detach().abs().max()))
+               for a, b in zip(_leaves(got), _leaves(want)))
+
+
+def _metrics_err(hist, ref, keys=("loss", "grad_norm")):
+    return max(abs(h[k] - r[k]) / max(abs(r[k]), 1e-30)
+               for h, r in zip(hist, ref) for k in keys)
+
+
+def _shard_big(torch, mesh, cfg_mod, model_mod, pk, phase22):
+    """Phase 24 (a): llama3.2-3b at full width, model 2."""
+    from repro_torch.training.data import DataConfig
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.trainer import ShardedRun, train_sharded
+    cfg = dataclasses.replace(cfg_mod.get_config("llama3.2-3b"),
+                              dtype=torch.bfloat16)
+    run = ShardedRun(cfg, SHARD_STEPS,
+                     AdamWConfig(lr=TRAIN_LR, warmup_steps=1,
+                                 total_steps=TRAIN_STEPS),
+                     DataConfig(batch_size=TRAIN_B, seq_len=TRAIN_T,
+                                seed=SEED),
+                     init=SEED, remat=True)
+    t0 = time.perf_counter()
+    res = mesh.run(train_sharded, run, layout=(1, 2))
+    wall = time.perf_counter() - t0
+    check([r["mechanism"] for r in res] == ["tensor"] * 2,
+          f"phase 24 (a): mechanisms {[r['mechanism'] for r in res]}")
+    want = {"contiguous_prefill": SHARD_STEPS * cfg.num_layers * 2}
+    for r in res:
+        launched = {k: n for k, n in r["launches"].items() if n}
+        check(launched == want, f"phase 24 (a): rank {r['rank']} launched "
+              f"{launched}, not {want}")
+        shapes = r["shard_shapes"]
+        check(shapes["layers/attn/wq"][-1] == 12 * cfg.head_dim
+              and shapes["layers/attn/wk"][-1] == 4 * cfg.head_dim,
+              f"phase 24 (a): rank {r['rank']} attention shard "
+              f"{shapes['layers/attn/wq']} / {shapes['layers/attn/wk']}")
+        check([{k: h[k] for k in ("loss", "grad_norm", "lr")}
+               for h in r["history"]] ==
+              [{k: h[k] for k in ("loss", "grad_norm", "lr")}
+               for h in res[0]["history"]],
+              "phase 24 (a): the ranks' metrics differ")
+    hist = res[0]["history"]
+    ref = [row["loss"] for row in phase22["steps"][:SHARD_STEPS]]
+    gaps = [abs(h["loss"] - x) for h, x in zip(hist, ref)]
+    ulps = [bf16_ulp(x) for x in ref]
+    check(all(math.isfinite(h["loss"]) for h in hist)
+          and all(g <= u for g, u in zip(gaps, ulps)),
+          f"phase 24 (a): losses {[h['loss'] for h in hist]} vs phase 22's "
+          f"{ref}: gaps {gaps} beyond one bf16 ulp {ulps}")
+    for h in hist:
+        h["tokens_per_s"] = TRAIN_B * TRAIN_T / h["ms"] * 1e3
+        log(f"phase 24 (a) [{SHARD_NOTE}]: step {h['step']} loss "
+            f"{h['loss']:.4f} (phase 22 {ref[h['step'] - 1]:.4f}) grad_norm "
+            f"{h['grad_norm']:.4f} lr {h['lr']:.3e} {h['ms']:.1f} ms "
+            f"({h['tokens_per_s']:.0f} tokens/s, host clock around a "
+            f"synchronised step on rank 0)")
+    ranks = []
+    for r in res:
+        calls, secs = r["collectives"]["model (1x2)"]
+        ranks.append({"rank": r["rank"], "collectives": calls,
+                      "collective_s": secs,
+                      "peak_memory_gb": r.get("peak_memory_bytes", 0) / 1e9,
+                      "launches": r["launches"]["contiguous_prefill"]})
+        log(f"phase 24 (a) [{SHARD_NOTE}]: rank {r['rank']}: {calls} "
+            f"collectives in {SHARD_STEPS} steps ({calls / SHARD_STEPS:.0f} "
+            f"a step), {secs:.3f} s of host time "
+            f"({secs / sum(h['ms'] for h in hist) * 1e3:.1%} of the steps' "
+            f"wall), peak memory {ranks[-1]['peak_memory_gb']:.2f} GB, #6 "
+            f"{r['launches']['contiguous_prefill']} launches at 12 / 4 "
+            f"heads")
+    log(f"phase 24 (a) [{SHARD_NOTE}]: {r['why']}; losses within one bf16 "
+        f"ulp of phase 22's (gaps {[round(g, 4) for g in gaps]}); the job "
+        f"took {wall:.1f} s with the weights' draw")
+    return {"steps": hist, "ranks": ranks, "loss_gaps": gaps,
+            "phase22_losses": ref, "job_s": wall, "why": res[0]["why"]}
+
+
+def _shard_small(torch, mesh, cfg_mod, model_mod):
+    """Phase 24 (b) and (c): 2 layers f32 sharded on the card == the
+    unsharded step on the CPU on the same weights (drawn on the card from
+    ``SEED`` by each rank and, for the CPU, once here and copied);
+    llama3.2-3b and the gather-on-use families (``SHARD_FAMILIES``) at
+    their published widths, rwkv6's second step to
+    ``RWKV_STEP2_LIMITS``; the sharded run's checkpoint. The CPU steps
+    run in a thread of their own while the card runs the sharded jobs
+    (each reference needs only its weights, copied first)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.training.checkpoint import load_checkpoint
+    from repro_torch.training.data import DataConfig
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.trainer import ShardedRun, train_sharded
+    opt = AdamWConfig(lr=TRAIN_LR, eps=SHARD_EPS, warmup_steps=1,
+                      total_steps=SHARD_SMALL_STEPS)
+    data = DataConfig(batch_size=2, seq_len=64, seed=SEED)
+    llama = dataclasses.replace(cfg_mod.get_config("llama3.2-3b"),
+                                num_layers=2)
+    cases = [(llama, (1, 2), "tensor"), (llama, (2, 1), "replicated")]
+    cases += [(dataclasses.replace(cfg_mod.get_config(a), **cut), (1, 2),
+               "gather") for a, cut in SHARD_FAMILIES.items()]
+    cases = [(dataclasses.replace(c, dtype=torch.float32), layout, mech)
+             for c, layout, mech in cases]
+    ckpt_name = cases[-1][0].name          # (c): whisper's tree
+
+    def reference(model, weights, after1):
+        t0 = time.perf_counter()
+        hist, params = _unsharded_steps(torch, model, opt, data,
+                                        SHARD_SMALL_STEPS, "cpu",
+                                        params=weights, first=after1)
+        return hist, params, after1, time.perf_counter() - t0
+    out = {}
+    refs = {}
+    cpu_pool = ThreadPoolExecutor(max_workers=1)
+    for cfg, _, _ in cases:
+        if cfg.name not in refs:
+            model = model_mod.build_model(cfg)
+            weights = _tree_to(model.init(SEED, device="cuda"),
+                               torch.device("cpu"))
+            torch.cuda.empty_cache()
+            refs[cfg.name] = cpu_pool.submit(
+                reference, model, weights,
+                [] if cfg.family == "ssm" else None)
+    try:
+        for cfg, layout, mech in cases:
+            arch = cfg.name
+            rwkv = cfg.family == "ssm"
+            ckpt = ROOT / "build" / "phase24_checkpoint.npz"
+            ckpt.parent.mkdir(exist_ok=True)
+            first = arch == ckpt_name
+            t0 = time.perf_counter()
+            res = mesh.run(train_sharded, ShardedRun(
+                cfg, SHARD_SMALL_STEPS, opt, data, init=SEED, gather=True,
+                ckpt_path=str(ckpt) if first else ""),
+                layout=layout)
+            job_s = time.perf_counter() - t0
+            ref_hist, ref_params, ref_after1, cpu_s = refs[arch].result()
+            check([r["mechanism"] for r in res] == [mech] * 2,
+                  f"phase 24 (b) {arch} {layout}: {res[0]['mechanism']}")
+            check(all(r["device"] == "cuda:0" for r in res),
+                  f"phase 24 (b): ranks on {[r['device'] for r in res]}")
+            check(res[1]["forbidden_modules"] == [],
+                  f"phase 24 (b): the rank imported "
+                  f"{res[1]['forbidden_modules']}")
+            key = f"{arch} {layout[0]}x{layout[1]}"
+            rec = {"mechanism": mech, "job_s": job_s, "cpu_reference_s": cpu_s}
+            if rwkv:
+                # step 1 to SHARD_TOL, the params after it from a 1-step
+                # run; step 2 and the params after it to RWKV_STEP2_LIMITS
+                m1 = max(_metrics_err(r["history"][:1], ref_hist[:1])
+                         for r in res)
+                one = mesh.run(train_sharded, ShardedRun(
+                    cfg, 1, opt, data, init=SEED, gather=True), layout=layout)
+                p1 = _params_err(one[0]["params"], ref_after1[0])
+                del one
+                gaps = {k: max(_metrics_err(r["history"][1:], ref_hist[1:],
+                                            (k,)) for r in res)
+                        for k in ("loss", "grad_norm")}
+                gaps["params"] = _params_err(res[0]["params"], ref_params)
+                check(m1 <= SHARD_TOL and p1 <= SHARD_TOL,
+                      f"phase 24 (b) {key}: step 1 on the card vs the CPU: "
+                      f"metrics {m1:.3e}, params {p1:.3e} (tolerance "
+                      f"{SHARD_TOL})")
+                check(all(gaps[k] <= RWKV_STEP2_LIMITS[k] for k in gaps),
+                      f"phase 24 (b) {key}: step 2 on the card vs the CPU "
+                      f"{gaps} beyond {RWKV_STEP2_LIMITS}")
+                rec.update(step1_metrics_err=m1, step1_params_err=p1,
+                           step2_gaps=gaps, step2_limits=RWKV_STEP2_LIMITS)
+                held = (f"step 1 metrics within {m1:.2e} and its params "
+                        f"within {p1:.2e} ({SHARD_TOL}); step 2 loss / "
+                        f"grad norm / "
+                        f"params {gaps['loss']:.2e} / {gaps['grad_norm']:.3f} "
+                        f"/ {gaps['params']:.2e} (limits {RWKV_STEP2_LIMITS}: "
+                        f"the step is ill-conditioned, "
+                        f"tools/gather_witness.py)")
+            else:
+                m_err = max(_metrics_err(r["history"], ref_hist) for r in res)
+                p_err = _params_err(res[0]["params"], ref_params)
+                check(m_err <= SHARD_TOL and p_err <= SHARD_TOL,
+                      f"phase 24 (b) {key}: sharded on the card vs unsharded "
+                      f"on the CPU: metrics {m_err:.3e}, params {p_err:.3e} "
+                      f"(tolerance {SHARD_TOL})")
+                rec.update(metrics_err=m_err, params_err=p_err)
+                held = (f"metrics within {m_err:.2e}, params within "
+                        f"{p_err:.2e} ({SHARD_TOL})")
+            launched = {k: n for k, n in res[1]["launches"].items() if n}
+            rec.update(launches=launched,
+                       losses=[h["loss"] for h in res[0]["history"]],
+                       grad_norms=[h["grad_norm"] for h in res[0]["history"]])
+            out[key] = rec
+            log(f"phase 24 (b) {key} ({mech}, {SHARD_SMALL_STEPS} steps "
+                f"f32 on {res[0]['device']} x 2): loss "
+                f"{[round(h['loss'], 6) for h in res[0]['history']]}, "
+                f"grad norm "
+                f"{[round(h['grad_norm'], 4) for h in res[0]['history']]} vs "
+                f"unsharded on the CPU "
+                f"{[round(h['loss'], 6) for h in ref_hist]}, "
+                f"{[round(h['grad_norm'], 4) for h in ref_hist]}; {held}; "
+                f"launches on rank 1 {launched}; the job {job_s:.1f} s, the "
+                f"CPU steps {cpu_s:.1f} s (beside the jobs)")
+            if first:
+                # (c) the sharded run's checkpoint (the gathered whole tree)
+                # against the gathered params bit for bit and the unsharded
+                # run's f32 params (what its checkpoint holds) within (b)'s
+                # tolerance
+                back, step_no = load_checkpoint(str(ckpt), ref_params)
+                same = all(bool(torch.equal(a, b)) for a, b in zip(
+                    _leaves(back), _leaves(res[0]["params"])))
+                c_err = _params_err(back, ref_params)
+                nbytes = ckpt.stat().st_size
+                ckpt.unlink()
+                check(step_no == SHARD_SMALL_STEPS and same
+                      and c_err <= SHARD_TOL,
+                      f"phase 24 (c): checkpoint step {step_no}, bit-equal to "
+                      f"the gathered params {same}, vs the unsharded run's "
+                      f"{c_err:.3e}")
+                out["checkpoint"] = {"arch": arch, "bytes": nbytes,
+                                     "vs_unsharded": c_err}
+                log(f"phase 24 (c): the {arch} (1, 2) run's checkpoint "
+                    f"({nbytes} B) reads back bit for bit and within "
+                    f"{c_err:.2e} of the unsharded run's ({SHARD_TOL})")
+            del res, ref_params, ref_after1
+            if mech == "gather":
+                refs.pop(arch)
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        cpu_pool.shutdown(cancel_futures=True)
+    return out
+
+
+def phase_sharded_train(np, torch, cfg_mod, model_mod, pk, phase22):
+    """Phase 24: sharded training on the card's one device, two ranks
+    (this process and a ``launch.train_worker``) on ``cuda:0`` over gloo.
+    (a) llama3.2-3b at full width, model 2 (tensor parallelism): phase
+    22's setting for 4 steps; per step the loss, gradient norm, wall and
+    tokens/s, per rank the collectives (count, host seconds) and the peak
+    memory; the ranks' metrics equal, the losses within one bf16 ulp of
+    phase 22's first 4; #6 == 4 x 28 x 2 launches on each rank at its 12
+    / 4 heads and no other kernel; (b) 2 layers f32 at (1, 2) and (2, 1),
+    and rwkv6, zamba2 and whisper at (1, 2) by gather-on-use, all at
+    their published widths: loss, grad norm and params after 2 steps ==
+    the unsharded step on the CPU within 1e-5 (rwkv6: step 1 and the
+    params after it within 1e-5, step 2 within ``RWKV_STEP2_LIMITS``);
+    (c) whisper's sharded checkpoint == the unsharded run's."""
+    from repro_torch.launch import mesh as mesh_mod
+    _fresh_card(torch, "phase 24")
+    t0 = time.perf_counter()
+    mesh = mesh_mod.make_train_mesh(2, list(TP_DEVICES), "gloo")
+    log(f"phase 24: a training group of 2 ranks on {list(TP_DEVICES)} over "
+        f"{mesh.backend} (rank 1 started and joined in "
+        f"{time.perf_counter() - t0:.1f} s); NCCL not measured: the machine "
+        f"has {torch.cuda.device_count()} device")
+    try:
+        out = {"big": _shard_big(torch, mesh, cfg_mod, model_mod, pk,
+                                 phase22)}
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["small"] = _shard_small(torch, mesh, cfg_mod, model_mod)
+    finally:
+        mesh.close()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def family_rows(fam, moe, vlm, win, whisper):
     """The kernels JSON rows of the families' shapes (#1 at G 8; #2, #3,
     #5, #6 at G 7; #5 and #6 at G 12 and at G 1, #5 on whisper's self-
@@ -4136,8 +4490,9 @@ def _leaves(tree):
         yield from (_leaves(v) if isinstance(v, dict) else (v,))
 
 
-def _tree_to(tree, device):
-    return {k: (_tree_to(v, device) if isinstance(v, dict) else v.to(device))
+def _tree_to(tree, device, copy=False):
+    return {k: (_tree_to(v, device, copy) if isinstance(v, dict)
+                else v.detach().to(device, copy=copy))
             for k, v in tree.items()}
 
 
@@ -4355,7 +4710,17 @@ def main() -> int:
     tp["phase_s"] = time.perf_counter() - t23
     log(f"phase 23: took {tp['phase_s']:.1f} s")
 
-    # 24. results
+    # 24. sharded training: llama3.2-3b at model 2 on two ranks sharing
+    # the card (tensor parallelism, #6 at 12 / 4 heads); 2 layers f32
+    # sharded on the card == unsharded on the CPU, the gather-on-use
+    # families; the sharded checkpoint
+    t24 = time.perf_counter()
+    sharded = phase_sharded_train(np, torch, cfg_mod, model_mod, pk,
+                                  training)
+    sharded["phase_s"] = time.perf_counter() - t24
+    log(f"phase 24: took {sharded['phase_s']:.1f} s")
+
+    # 25. results
     kernels = [{
         "name": "paged_mixed_attention", "ok": True, "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/mixed_attention.cu",
@@ -4474,6 +4839,23 @@ def main() -> int:
         "library_ms": k["library_ms"], "bound_share": k["bound_ms"] / k["ms"],
         **{key: k[key] for key in ("device_ms", "library_device_ms",
                                    "host_us") if key in k}})
+    # #6 at a model-parallel rank's heads (12 / 4), launched by both ranks
+    # in 24 (a)
+    k = fam["train_tp_rank"]
+    ranks = sharded["big"]["ranks"]
+    kernels.append({
+        "name": "prefill_attention_tp2_rank", "ok": True, "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/contiguous_prefill.cu",
+        "replaces": "src/repro/kernels/prefill_attention.py:125",
+        "launches": ranks[0]["launches"],
+        "worker_launches": ranks[1]["launches"],
+        "shape": "llama3.2-3b at model 2, a rank: H 12 / Hkv 4 / Dh 128 "
+                 "(G 3), B 2, T 1024 (phase 24 (a)'s training batch)",
+        **{key: k[key] for key in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "device_ms", "library_device_ms", "tflops")
+           if key in k},
+        "kernel_ms": k["ms"], "bound_share": k["bound_ms"] / k["ms"]})
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke_report.json").write_text(json.dumps(
@@ -4483,9 +4865,10 @@ def main() -> int:
          "fig2": fig2, "engine_modes": modes, "cost_model": cost_model,
          "family_kernels": fam, "moe": moe, "vlm": vlm, "window": window,
          "rwkv": rwkv, "zamba": zamba, "whisper": whisper,
-         "training": training, "tp": tp}, indent=1,
+         "training": training, "tp": tp, "sharded_training": sharded},
+        indent=1,
         default=str))
-    log(f"chip_smoke: phases 1-23 took {time.perf_counter() - t_main:.1f} s")
+    log(f"chip_smoke: phases 1-24 took {time.perf_counter() - t_main:.1f} s")
     # the card again, so that the end of the output names it beside the
     # numbers
     log(smi)

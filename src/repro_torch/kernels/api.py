@@ -4,15 +4,35 @@ The port's counterpart of ``repro.kernels.ops.decode_attention`` and
 ``prefill_attention``: each picks the ``kernels/ref.py`` oracle
 (``backend="ref"``) or the hand-written kernel (``backend="kernel"``: the
 CUDA kernel for CUDA tensors, its plain PyTorch version for CPU tensors,
-never one in place of the other).
+never one in place of the other), and every wrapper's launch counter.
 """
 from __future__ import annotations
 
 from repro_torch.kernels import decode_attention as dk
+from repro_torch.kernels import mixed_attention as tk
 from repro_torch.kernels import prefill_attention as pk
 from repro_torch.kernels import ref
 
 BACKENDS = ("ref", "kernel")
+
+# every kernel wrapper's launch counter in this process: (module, attribute)
+LAUNCH_COUNTERS = {
+    "fused": (tk, "LAUNCHES"), "fused_int8": (tk, "INT8_LAUNCHES"),
+    "flat_decode": (dk, "LAUNCHES"), "grid_decode": (dk, "GRID_LAUNCHES"),
+    "chunked_prefill": (pk, "LAUNCHES"),
+    "contiguous_decode_padded": (dk, "PADDED_LAUNCHES"),
+    "contiguous_decode_ragged": (dk, "RAGGED_LAUNCHES"),
+    "contiguous_prefill": (pk, "CONTIG_LAUNCHES")}
+
+
+def launch_counts() -> dict:
+    """Each kernel's launches in this process since the last zero."""
+    return {k: getattr(m, a) for k, (m, a) in LAUNCH_COUNTERS.items()}
+
+
+def zero_launch_counts() -> None:
+    for m, a in LAUNCH_COUNTERS.values():
+        setattr(m, a, 0)
 
 
 def decode_attention(q, k, v, lengths, *, backend: str = "ref",

@@ -27,28 +27,16 @@ next collective or command then fails.
 from __future__ import annotations
 
 import argparse
-import pickle
 import sys
 from typing import Dict, List, Optional
 
 import torch
 
-from repro_torch.kernels import decode_attention as dk
-from repro_torch.kernels import mixed_attention as tk
-from repro_torch.kernels import prefill_attention as pk
-from repro_torch.launch.mesh import TPMesh
+from repro_torch.kernels.api import launch_counts, zero_launch_counts
+from repro_torch.launch.mesh import TPMesh, read_commands
 from repro_torch.launch.shardings import param_leaves, params_from_leaves
 from repro_torch.models.model import build_model
 from repro_torch.serving import engine as engine_mod
-
-# the kernel wrappers' launch counters (module, attribute)
-COUNTERS = {"fused": (tk, "LAUNCHES"), "fused_int8": (tk, "INT8_LAUNCHES"),
-            "flat_decode": (dk, "LAUNCHES"),
-            "grid_decode": (dk, "GRID_LAUNCHES"),
-            "chunked_prefill": (pk, "LAUNCHES"),
-            "contiguous_decode_padded": (dk, "PADDED_LAUNCHES"),
-            "contiguous_decode_ragged": (dk, "RAGGED_LAUNCHES"),
-            "contiguous_prefill": (pk, "CONTIG_LAUNCHES")}
 
 
 def stats(mesh: TPMesh, engines: Dict[int, engine_mod.Engine]) -> dict:
@@ -58,7 +46,7 @@ def stats(mesh: TPMesh, engines: Dict[int, engine_mod.Engine]) -> dict:
     JAX or its package (none), each engine's pool and weight bytes (and
     the pool's leaf shapes), and on a card the peak memory allocated."""
     out = {"rank": mesh.rank, "device": str(mesh.device),
-           "launches": {k: getattr(m, a) for k, (m, a) in COUNTERS.items()},
+           "launches": launch_counts(),
            "attn_calls": engine_mod.ATTN_CALLS,
            "d2h": engine_mod.D2H_CALLS,
            "coll_calls": mesh.coll_calls, "coll_s": mesh.coll_s,
@@ -79,8 +67,7 @@ def stats(mesh: TPMesh, engines: Dict[int, engine_mod.Engine]) -> dict:
 
 
 def zero(mesh: TPMesh) -> None:
-    for m, a in COUNTERS.values():
-        setattr(m, a, 0)
+    zero_launch_counts()
     engine_mod.ATTN_CALLS = 0
     engine_mod.D2H_CALLS = 0
     mesh.coll_calls = 0
@@ -141,15 +128,6 @@ def serve(mesh: TPMesh, commands) -> None:
             raise ValueError(f"unknown command {kind!r}")
 
 
-def _commands(stream):
-    """The pickled commands of ``stream`` until it closes."""
-    while True:
-        try:
-            yield pickle.load(stream)
-        except EOFError:
-            return
-
-
 def main(argv: Optional[List[str]] = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rank", type=int, required=True)
@@ -163,7 +141,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         torch.cuda.set_device(device)
     mesh = TPMesh.join(args.rank, devices, args.backend, args.port)
     with torch.no_grad():
-        serve(mesh, _commands(sys.stdin.buffer))
+        serve(mesh, read_commands(sys.stdin.buffer))
     return 0
 
 

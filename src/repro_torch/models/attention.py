@@ -48,7 +48,8 @@ from repro_torch.kernels.ops import KERNEL_HEAD_DIMS, NEG_INF
 from repro_torch.kernels.prefill_attention import (paged_prefill_attention,
                                                    prefill_attention,
                                                    prefill_attention_plain)
-from repro_torch.models.common import ModelConfig, dense_init, psum_if_tp
+from repro_torch.models.common import (ModelConfig, copy_to_tp, dense_init,
+                                       psum_if_tp)
 
 # Paged attention backends (the JAX package's four):
 #   dense — gather pool[block_tables] + masked SDPA in plain PyTorch: a
@@ -159,6 +160,7 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig,
 
 def _project_qkv(p, cfg: ModelConfig, x: torch.Tensor):
     B, T, _ = x.shape
+    x = copy_to_tp(x, cfg)     # column-parallel under tensor parallelism
     q = x @ p["wq"]
     k = x @ p["wk"]
     v = x @ p["wv"]

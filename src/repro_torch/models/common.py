@@ -26,8 +26,10 @@ class ModelConfig:
     field the JAX ``ModelConfig``, minus its sharding hints; ``dtype`` is
     a ``torch.dtype``. ``tp_axis`` keeps the reference's name, but where
     the reference names a mesh axis it holds the tensor-parallel group
-    itself (a ``launch.mesh.TPMesh``) that a serving forward runs in, or
-    None."""
+    itself (a ``launch.mesh.Collectives``: a serving ``TPMesh``, or a
+    training mesh's model group) that a forward runs in, or None. A
+    data-parallel loss takes its data group as an argument
+    (``Model.loss(..., data_group=)``)."""
 
     name: str
     family: str  # dense | moe | ssm | hybrid | encdec | vlm
@@ -161,12 +163,96 @@ def embed_init(gen: torch.Generator, shape: Sequence[int],
     return _fill_normal(out, gen, 0.02)
 
 
+# --------------------------------------------------------------------------
+# Collectives under autograd (Megatron's f / g pair): a serving forward
+# (no grad) runs the group's ops as they are; a training forward runs them
+# through these Functions, whose backward is the collective's adjoint.
+# --------------------------------------------------------------------------
+class _Sum(torch.autograd.Function):
+    """All-reduce: the sum in forward (into a copy: the group's op works
+    in place), the gradient as it is in backward (every rank's partial
+    contributed once to the sum every rank holds)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return group.all_reduce(x.contiguous().clone())
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _Copy(torch.autograd.Function):
+    """A replicated value entering a rank's partial computation: the
+    identity in forward, the all-reduce of its gradient in backward (each
+    rank's gradient covers only its shard's share)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.group.all_reduce(grad.contiguous().clone()), None
+
+
+class _Gather(torch.autograd.Function):
+    """All-gather along ``dim``: every rank's piece in forward, this
+    rank's slice of the gradient in backward (every rank computes the
+    same whole gradient from the gathered value)."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.rank, ctx.dim, ctx.n = group.rank, dim, x.shape[dim]
+        return group.all_gather(x, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.narrow(ctx.dim, ctx.rank * ctx.n, ctx.n), None, None
+
+
+def _tracked(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+def all_reduce(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of ``x`` over ``group`` (a ``launch.mesh.Collectives``),
+    differentiable (:class:`_Sum`); ``x`` itself without a group."""
+    if group is None:
+        return x
+    if _tracked(x):
+        return _Sum.apply(x, group)
+    return group.all_reduce(x.contiguous().clone())
+
+
+def all_gather(x: torch.Tensor, group, dim: int = -1) -> torch.Tensor:
+    """Every rank's ``x`` along ``dim``, differentiable
+    (:class:`_Gather`); ``x`` itself without a group."""
+    if group is None:
+        return x
+    if _tracked(x):
+        return _Gather.apply(x, group, dim)
+    return group.all_gather(x, dim)
+
+
 def psum_if_tp(x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """All-reduce a partial activation over the tensor-parallel group —
-    ``x`` itself without one, so one-device forwards run as before."""
-    if cfg.tp_axis is None:
+    ``x`` itself without one, so one-device forwards run as before. A
+    serving forward reduces ``x`` in place; under autograd the sum is
+    :class:`_Sum`."""
+    if cfg.tp_axis is not None and not _tracked(x):
+        return cfg.tp_axis.all_reduce(x.contiguous())
+    return all_reduce(x, cfg.tp_axis)
+
+
+def copy_to_tp(x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """``x`` (replicated over the tensor-parallel group) where it enters a
+    column-parallel product: under autograd :class:`_Copy`, so its
+    gradient sums the ranks' partials; otherwise ``x`` itself."""
+    if cfg.tp_axis is None or not _tracked(x):
         return x
-    return cfg.tp_axis.all_reduce(x.contiguous())
+    return _Copy.apply(x, cfg.tp_axis)
 
 
 # --------------------------------------------------------------------------
@@ -204,16 +290,23 @@ def act_fn(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
 # Losses
 # --------------------------------------------------------------------------
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
-                 mask=None) -> torch.Tensor:
+                 mask=None, group=None) -> torch.Tensor:
     """Mean next-token cross-entropy in f32: ``logsumexp(logits)`` minus
     the gold logit, per position of ``logits [..., V]`` / ``labels``
     int [...]; with ``mask`` [...], the masked mean
     ``sum(nll * mask) / max(sum(mask), 1)`` (the reference's
-    ``softmax_xent``)."""
+    ``softmax_xent``). With a data-parallel ``group`` the rows are this
+    rank's share: the rank's sum over the group's whole count (mask sum,
+    or positions), so the ranks' values add up to the whole batch's
+    mean."""
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     nll = logz - gold
+    if group is not None:
+        w = torch.ones_like(nll) if mask is None else mask.float()
+        count = group.all_reduce(w.sum().detach().reshape(1))[0]
+        return torch.sum(nll * w) / torch.clamp(count, min=1.0)
     if mask is not None:
         mask = mask.float()
         return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)

@@ -20,7 +20,15 @@ router — so each contraction over F is a partial sum, all-reduced once:
 after ``w_down`` in :func:`ffn` (a GELU FFN's replicated ``b_down`` adds
 after it), and after the f32 combine in the MoE (the combine is linear,
 so one reduce of ``[N, D]`` stands for the reference's reduce of every
-expert's ``[E, N, D]`` output).
+expert's ``[E, N, D]`` output). The training layout splits the expert
+axis E instead (each rank E / tp whole experts, the router whole):
+``moe_dense`` sees it in the leaf's shape, runs the rank's experts on
+every row with their combine weights and reduces the same way. In
+training the replicated inputs of the rank's products (the rows, the
+combine weights) enter through ``copy_to_tp``. Under data parallelism
+(the ``data_group`` argument of :func:`moe`) the aux loss's expert
+fractions and mean probabilities are the whole batch's: sums over the
+data group over its token count.
 """
 from __future__ import annotations
 
@@ -29,7 +37,8 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import (ModelConfig, act_fn, dense_init,
+from repro_torch.models.common import (ModelConfig, act_fn, all_reduce,
+                                       copy_to_tp, dense_init,
                                        psum_if_tp)
 
 # moe_dense's temporaries per tile of tokens (inputs broadcast to every
@@ -64,6 +73,7 @@ def init_ffn(gen: torch.Generator, cfg: ModelConfig,
 
 def ffn(p, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     a = act_fn(cfg.act)
+    x = copy_to_tp(x, cfg)
     if "w_gate" in p:
         return psum_if_tp(
             (a(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"], cfg)
@@ -89,10 +99,12 @@ def init_moe(gen: torch.Generator, cfg: ModelConfig, num_layers: int):
     }
 
 
-def _route(p, cfg: ModelConfig, xf: torch.Tensor):
+def _route(p, cfg: ModelConfig, xf: torch.Tensor, data_group=None):
     """xf [N, D] -> (probs [N, E], topw [N, K], topi [N, K], aux): f32
     router and softmax, the top K in descending order (as ``lax.top_k``),
-    renormalised by ``max(sum, 1e-9)``, and the Switch aux loss."""
+    renormalised by ``max(sum, 1e-9)``, and the Switch aux loss; with a
+    ``data_group`` (xf this rank's rows of a batch split over it) the aux
+    loss's statistics are the whole batch's."""
     E, K = cfg.num_experts, cfg.experts_per_token
     logits = xf.float() @ p["router"]
     probs = torch.softmax(logits, dim=-1)
@@ -100,8 +112,15 @@ def _route(p, cfg: ModelConfig, xf: torch.Tensor):
     topw = topw / torch.clamp(topw.sum(-1, keepdim=True), min=1e-9)
     # the one-hots summed over K: the K experts of a token are distinct
     chosen = torch.zeros_like(probs).scatter_(1, topi, 1.0)
-    frac = chosen.mean(0)                                   # tokens/expert
-    aux = E * torch.sum(frac * probs.mean(0)) * cfg.router_aux_coef
+    if data_group is None:
+        frac = chosen.mean(0)                               # tokens/expert
+        prob = probs.mean(0)
+    else:       # the whole batch's: sums over the data group, its count
+        n = chosen.new_full((1,), chosen.shape[0])
+        stats = data_group.all_reduce(torch.cat([chosen.sum(0), n]))
+        frac = stats[:E] / stats[E]
+        prob = all_reduce(probs.sum(0), data_group) / stats[E]
+    aux = E * torch.sum(frac * prob) * cfg.router_aux_coef
     return probs, topw, topi, aux
 
 
@@ -127,23 +146,31 @@ def moe_token_tile(cfg: ModelConfig, elem_bytes: int) -> int:
     return max(1, MOE_TILE_BYTES // per_token)
 
 
-def moe_dense(p, cfg: ModelConfig, x: torch.Tensor):
+def moe_dense(p, cfg: ModelConfig, x: torch.Tensor, data_group=None):
     """Exact dropless MoE by running all experts on all tokens: x [B, T, D]
     -> (out [B, T, D] in x's dtype, aux). The combine is in f32 against
     the top-K weights scattered to ``[N, E]``. Tokens are independent, so
     the token axis runs in tiles of :func:`moe_token_tile` tokens and any
-    tiling gives the same output."""
+    tiling gives the same output. Expert leaves of fewer than E experts
+    are a tensor-parallel rank's share of the expert axis (the training
+    layout): rank r's E / tp experts start at ``r * E / tp``."""
     B, T, D = x.shape
     E = cfg.num_experts
     xf = x.reshape(B * T, D)
-    _, topw, topi, aux = _route(p, cfg, xf)
+    _, topw, topi, aux = _route(p, cfg, xf, data_group)
     combine = torch.zeros((B * T, E), dtype=torch.float32,
                           device=x.device).scatter_(1, topi, topw)
+    combine = copy_to_tp(combine, cfg)
+    xf = copy_to_tp(xf, cfg)
+    e_loc = p["w_gate"].shape[-3]
+    if e_loc < E:
+        e0 = cfg.tp_axis.rank * e_loc
+        combine = combine[:, e0:e0 + e_loc]
     tile = moe_token_tile(cfg, x.element_size())
     out = torch.empty((B * T, D), dtype=torch.float32, device=x.device)
     for s in range(0, B * T, tile):
         xs = xf[s:s + tile]
-        y = _experts(p, cfg, xs.expand((E,) + xs.shape))       # [E, n, D]
+        y = _experts(p, cfg, xs.expand((e_loc,) + xs.shape))   # [E, n, D]
         out[s:s + tile] = torch.einsum("end,ne->nd", y.float(),
                                        combine[s:s + tile])
     out = psum_if_tp(out, cfg)
@@ -151,7 +178,7 @@ def moe_dense(p, cfg: ModelConfig, x: torch.Tensor):
 
 
 def moe_gshard(p, cfg: ModelConfig, x: torch.Tensor,
-               capacity_factor: float = 1.25):
+               capacity_factor: float = 1.25, data_group=None):
     """Capacity-based dispatch: x [G, S, D] in G groups; each expert takes
     at most ``C = max(1, ceil(S·K/E·cf))`` (token, k) pairs per group, in
     token order, and drops the rest with their combine weight (GShard).
@@ -161,7 +188,7 @@ def moe_gshard(p, cfg: ModelConfig, x: torch.Tensor,
     C = max(1, math.ceil(S * K / E * capacity_factor))
 
     xf = x.reshape(G * S, D)
-    _, topw, topi, aux = _route(p, cfg, xf)
+    _, topw, topi, aux = _route(p, cfg, xf, data_group)
     topw = topw.reshape(G, S, K)
     topi = topi.reshape(G, S, K)
 
@@ -189,10 +216,11 @@ def moe_gshard(p, cfg: ModelConfig, x: torch.Tensor,
     return out.to(x.dtype), aux
 
 
-def moe(p, cfg: ModelConfig, x: torch.Tensor, impl: str | None = None):
+def moe(p, cfg: ModelConfig, x: torch.Tensor, impl: str | None = None,
+        data_group=None):
     impl = impl or cfg.moe_impl
     if impl == "dense":
-        return moe_dense(p, cfg, x)
+        return moe_dense(p, cfg, x, data_group=data_group)
     if impl == "gshard":
-        return moe_gshard(p, cfg, x)
+        return moe_gshard(p, cfg, x, data_group=data_group)
     raise ValueError(f"unknown moe impl {impl!r}")

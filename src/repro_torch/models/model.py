@@ -41,7 +41,10 @@ them all.
 ``loss`` is the reference's: the next-token cross-entropy of
 ``batch["tokens"]`` (masked by ``loss_mask``), plus an MoE's aux loss
 summed over layers; ``(loss, {"xent", "aux"})``. ``remat`` recomputes
-each layer (a zamba2 group) in backward.
+each layer (a zamba2 group) in backward. With a ``data_group`` (data
+parallelism: ``training.trainer.make_sharded_train_step``) the batch is
+this rank's rows and ``xent`` this rank's share of the whole batch's,
+while ``aux`` is the whole batch's on every rank.
 """
 from __future__ import annotations
 
@@ -61,8 +64,9 @@ class Model:
     cfg: ModelConfig
     # init(rng, device="cuda") -> params; rng is a seed or a torch.Generator
     init: Callable[..., Any]
-    # loss(params, batch, remat=False) -> (loss, metrics): batch the
-    # reference's dict of tensors ("tokens", "loss_mask", a family's extras)
+    # loss(params, batch, remat=False, data_group=None) -> (loss, metrics):
+    # batch the reference's dict of tensors ("tokens", "loss_mask", a
+    # family's extras), data_group a data-parallel group or None
     loss: Callable[..., Any]
     # prefill(params, tokens [B, T], cache_len=None, **vlm_extras)
     #     -> (last-token logits [B, V], slab [L, B, cache_len or T, ...];
@@ -130,25 +134,28 @@ def _relay_kv(piece: KVCache, cfg: ModelConfig, cache_len: int) -> KVCache:
     return KVCache(relay(piece.k), relay(piece.v))
 
 
-def _xent(logits: torch.Tensor, batch) -> torch.Tensor:
+def _xent(logits: torch.Tensor, batch, group=None) -> torch.Tensor:
     """Next-token cross-entropy: logits at t predict token t + 1, masked
-    by ``loss_mask`` at t + 1 when the batch has one."""
+    by ``loss_mask`` at t + 1 when the batch has one; with a data-parallel
+    ``group`` this rank's share of the whole batch's mean."""
     tokens, mask = batch["tokens"], batch.get("loss_mask")
     return softmax_xent(logits[:, :-1], tokens[:, 1:],
-                        None if mask is None else mask[:, 1:])
+                        None if mask is None else mask[:, 1:],
+                        group=group)
 
 
 def _decoder_model(cfg: ModelConfig) -> Model:
     def init(rng: Union[int, torch.Generator] = 0, device="cuda"):
         return transformer.init_decoder(_seeded(rng, device), cfg)
 
-    def loss(params, batch, remat: bool = False):
+    def loss(params, batch, remat: bool = False, data_group=None):
         logits, _, aux = transformer.forward_full(
             params, cfg, batch["tokens"],
             vision_embeds=batch.get("vision_embeds"),
             vision_mask=batch.get("vision_mask"),
-            mrope_positions=batch.get("mrope_positions"), remat=remat)
-        xe = _xent(logits, batch)
+            mrope_positions=batch.get("mrope_positions"), remat=remat,
+            data_group=data_group)
+        xe = _xent(logits, batch, data_group)
         return xe + aux, {"xent": xe, "aux": aux}
 
     def init_paged_cache(num_blocks: int, block_size: int, device="cuda",
@@ -217,9 +224,9 @@ def _rwkv_model(cfg: ModelConfig) -> Model:
     def init(rng: Union[int, torch.Generator] = 0, device="cuda"):
         return rwkv6.init_model(_seeded(rng, device), cfg)
 
-    def loss(params, batch, remat: bool = False):
+    def loss(params, batch, remat: bool = False, data_group=None):
         xe = _xent(rwkv6.forward_full(params, cfg, batch["tokens"],
-                                      remat=remat), batch)
+                                      remat=remat), batch, data_group)
         return xe, {"xent": xe}
 
     def prefill(params, tokens, cache_len: Optional[int] = None):
@@ -239,10 +246,10 @@ def _zamba_model(cfg: ModelConfig) -> Model:
     def init(rng: Union[int, torch.Generator] = 0, device="cuda"):
         return mamba2.init_zamba(_seeded(rng, device), cfg)
 
-    def loss(params, batch, remat: bool = False):
+    def loss(params, batch, remat: bool = False, data_group=None):
         logits, _, _ = mamba2.forward_full(params, cfg, batch["tokens"],
                                            remat=remat)
-        xe = _xent(logits, batch)
+        xe = _xent(logits, batch, data_group)
         return xe, {"xent": xe}
 
     def prefill(params, tokens, cache_len: Optional[int] = None):
@@ -261,11 +268,11 @@ def _whisper_model(cfg: ModelConfig) -> Model:
     def init(rng: Union[int, torch.Generator] = 0, device="cuda"):
         return whisper.init_model(_seeded(rng, device), cfg)
 
-    def loss(params, batch, remat: bool = False):
+    def loss(params, batch, remat: bool = False, data_group=None):
         logits, _, _ = whisper.forward_full(params, cfg, batch["tokens"],
                                             batch["audio_embeds"],
                                             remat=remat)
-        xe = _xent(logits, batch)
+        xe = _xent(logits, batch, data_group)
         return xe, {"xent": xe}
 
     def prefill(params, tokens, cache_len: Optional[int] = None, *,

@@ -22,8 +22,9 @@ from repro_torch.kernels.ops import flat_work_list
 from repro_torch.models import attention as attn
 from repro_torch.models.attention import (KVCache, layer_pool, make_cache,
                                          make_paged_pool)
-from repro_torch.models.common import (ModelConfig, dense_init, embed_init,
-                                       psum_if_tp, rms_norm)
+from repro_torch.models.common import (ModelConfig, all_gather, copy_to_tp,
+                                       dense_init, embed_init, psum_if_tp,
+                                       rms_norm)
 from repro_torch.models.mlp import ffn, init_ffn, init_moe, moe
 
 
@@ -97,22 +98,24 @@ def unembed(p, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     """Logits [..., V]. Under tensor parallelism each rank computes its
     V / tp columns (tied embeddings split V on dim 0, so the transpose
     lines up) and the all-gather gives every rank the whole vocabulary:
-    argmax then runs on each rank and they all hold the same tokens."""
+    argmax then runs on each rank and they all hold the same tokens. In
+    training ``x`` enters through ``copy_to_tp`` and the gather hands
+    each rank its columns' gradient."""
     w = p["embed"].T if cfg.tie_embeddings else p["unembed"]
-    logits = x @ w
-    if cfg.tp_axis is not None:
-        logits = cfg.tp_axis.all_gather(logits)
-    return logits
+    if cfg.tp_axis is None:
+        return x @ w
+    return all_gather(copy_to_tp(x, cfg) @ w, cfg.tp_axis)
 
 
-def _mlp_aux(pl, cfg: ModelConfig, x: torch.Tensor):
+def _mlp_aux(pl, cfg: ModelConfig, x: torch.Tensor, data_group=None):
     """The block's MLP half: the FFN, or the MoE (``cfg.moe_impl``) plus,
     with ``dense_residual``, a dense FFN on ``rms_norm(x, ln_res)``.
-    Returns (out, the MoE's aux loss or None)."""
+    Returns (out, the MoE's aux loss or None; over ``data_group``'s whole
+    batch with one)."""
     h = rms_norm(x, pl["ln_mlp"], cfg.norm_eps)
     if not cfg.num_experts:
         return ffn(pl["ffn"], cfg, h), None
-    out, aux = moe(pl["moe"], cfg, h, cfg.moe_impl)
+    out, aux = moe(pl["moe"], cfg, h, cfg.moe_impl, data_group)
     if cfg.dense_residual:
         out = out + ffn(pl["ffn"], cfg,
                         rms_norm(x, pl["ln_res"], cfg.norm_eps))
@@ -129,7 +132,8 @@ def _mlp_part(pl, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 # The whole prompt, and decode against the monolithic slab
 # --------------------------------------------------------------------------
 def block_full(pl, cfg: ModelConfig, x: torch.Tensor,
-               positions: torch.Tensor, mrope_positions=None):
+               positions: torch.Tensor, mrope_positions=None,
+               data_group=None):
     """One layer over a whole sequence. Returns (x, KVCache(k, v), aux)
     with the layer's K/V rows [B, T, Hkv, Dh] and its MoE aux loss (None
     without experts)."""
@@ -137,14 +141,14 @@ def block_full(pl, cfg: ModelConfig, x: torch.Tensor,
     a, (k, v) = attn.attention_prefill(pl["attn"], cfg, h, positions,
                                        mrope_positions=mrope_positions)
     x = x + a
-    m, aux = _mlp_aux(pl, cfg, x)
+    m, aux = _mlp_aux(pl, cfg, x, data_group)
     return x + m, KVCache(k, v), aux
 
 
 def forward_full(p, cfg: ModelConfig, tokens: torch.Tensor, *,
                  vision_embeds=None, vision_mask=None, mrope_positions=None,
                  return_cache: bool = False, remat: bool = False,
-                 last_only: bool = False, last_index=None):
+                 last_only: bool = False, last_index=None, data_group=None):
     """The train / prefill pass over tokens [B, T] (a VLM's extras: patch
     embeddings placed at ``vision_mask``, M-RoPE ids ``mrope_positions``
     [B, T, 3], by default the text positions on all three streams).
@@ -156,7 +160,8 @@ def forward_full(p, cfg: ModelConfig, tokens: torch.Tensor, *,
     (``last_only``); cache leaves [L, B, T, Hkv, Dh], written layer by
     layer into one buffer (none is made without ``return_cache``); aux
     the MoE aux loss summed over layers, an f32 scalar (0 without
-    experts). ``remat`` recomputes each layer in backward
+    experts; over ``data_group``'s whole batch with one: the rows are
+    this rank's share). ``remat`` recomputes each layer in backward
     (``torch.utils.checkpoint``), the reference's ``jax.checkpoint``."""
     B, T = tokens.shape
     x = embed_tokens(p, cfg, tokens, vision_embeds, vision_mask)
@@ -171,7 +176,7 @@ def forward_full(p, cfg: ModelConfig, tokens: torch.Tensor, *,
 
     def layer(x, l):
         return block_full(layer_params(p["layers"], l), cfg, x, positions,
-                          mrope_positions)
+                          mrope_positions, data_group)
     for l in range(cfg.num_layers):
         x, kv, a = checkpointed(layer, remat, x, l)
         if a is not None:

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, NamedTuple, Tuple
+from typing import Any, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -71,12 +71,16 @@ def global_norm(tree) -> torch.Tensor:
 
 
 @torch.no_grad()
-def adamw_update(cfg: AdamWConfig, grads, state: AdamWState,
-                 params) -> Tuple[Any, AdamWState, dict]:
+def adamw_update(cfg: AdamWConfig, grads, state: AdamWState, params,
+                 gnorm: Optional[torch.Tensor] = None
+                 ) -> Tuple[Any, AdamWState, dict]:
     """One AdamW step of ``grads`` (shaped like ``params``). Returns
     (params, state, {"lr", "grad_norm"}), params and moments updated in
-    place; the scalars stay on the device (no host read)."""
-    gnorm = global_norm(grads)
+    place; the scalars stay on the device (no host read). ``gnorm`` is
+    the clip's global norm when the caller has it (a sharded step: the
+    whole model's, not this shard's); by default ``global_norm(grads)``."""
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
     step = state.step + 1
     lr = schedule(cfg, step)

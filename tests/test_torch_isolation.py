@@ -57,9 +57,12 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
             "repro_torch.launch.train"} | {
         "repro_torch.training." + m for m in (
             "optimizer", "data", "checkpoint", "trainer")} <= loaded
-    # tensor-parallel serving: the mesh, the sharding rules, the worker
+    # tensor-parallel serving: the mesh, the sharding rules, the worker;
+    # sharded training's rank process; the reference's import shims
     assert {"repro_torch.launch." + m for m in (
-        "mesh", "shardings", "tp_worker")} <= loaded
+        "mesh", "shardings", "tp_worker", "train_worker")} <= loaded
+    assert {"repro_torch.core.bidask", "repro_torch.core.refinement"} \
+        <= loaded
 
 
 def test_the_tp_worker_loads_no_jax_and_no_repro():
@@ -78,6 +81,29 @@ def test_the_tp_worker_loads_no_jax_and_no_repro():
         f"{FORBIDDEN!r})\n"
         "assert not bad, bad\n"
         "assert 'repro_torch.serving.engine' in sys.modules\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+
+
+def test_the_train_worker_loads_no_jax_and_no_repro():
+    """A training rank's process, as ``make_train_mesh`` starts it
+    (``python -m repro_torch.launch.train_worker``), and the job it runs
+    (``training.trainer.train_sharded``) import neither JAX nor the JAX
+    package."""
+    code = (
+        "import runpy, sys\n"
+        "sys.argv = ['train_worker', '--help']\n"
+        "try:\n"
+        "    runpy.run_module('repro_torch.launch.train_worker',\n"
+        "                     run_name='__main__')\n"
+        "except SystemExit:\n"
+        "    pass\n"
+        "import repro_torch.training.trainer\n"
+        "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
+        f"{FORBIDDEN!r})\n"
+        "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
                          capture_output=True, text=True, timeout=300)

@@ -8,7 +8,8 @@ plain version, one ``adamw_update`` against the reference's, the tests of
 stream, a 40-step run whose loss falls, the checkpoint round trip and its
 errors), ``TokenStream`` batches bit-equal to the reference's, checkpoints
 written by one package and loaded by the other both ways, and the
-``launch.train`` CLI.
+``launch.train`` CLI on one rank (and its refusal of ranks that do not
+split into model groups).
 
 Tolerances: the loss within ``LOSS_TOL`` = 1e-5 (relative); each
 gradient leaf within ``GRAD_TOL`` = 5e-4 of its largest magnitude (f32
@@ -359,5 +360,9 @@ def test_launch_train_cli(tmp_path, capsys):
     assert all(np.isfinite(out["losses"]))
     printed = capsys.readouterr().out
     assert "step    1 loss" in printed and "saved" in printed
-    with pytest.raises(SystemExit, match="tensor parallelism"):
-        launch_train.main(["--device", "cpu", "--model-parallel", "2"])
+    assert printed.startswith("1 rank on cpu: no sharding")
+    # ranks that do not split into model groups are refused before any
+    # process starts (the sharded runs: tests/test_torch_sharded_*.py)
+    with pytest.raises(SystemExit, match="do not split into model groups"):
+        launch_train.main(["--device", "cpu", "--devices", "cpu,cpu,cpu",
+                           "--model-parallel", "2"])

@@ -121,11 +121,11 @@ class Profiler:
         from torch.profiler import record_function
         real, seen = self.real_moe, self.seen
 
-        def moe(p, c, x, impl=None):
+        def moe(p, c, x, *args, **kwargs):
             seen["calls"] += 1
             seen["rows"] += x.shape[0] * x.shape[1]
             with record_function("moe_layer"):
-                return real(p, c, x, impl)
+                return real(p, c, x, *args, **kwargs)
         self.tr.moe = moe
 
     def restore(self):
