@@ -232,8 +232,22 @@ the last line:
     steps (AdamW at eps 1e-5) == the unsharded step on the CPU on the
     same weights within 1e-5; (c) whisper's (1, 2) checkpoint reads back
     bit for bit and equals the unsharded run's;
-25. one JSON line of every kernel (the rows of phases 16-18's, 21's,
-    23's and 24's shapes added), then, last, ``{"ok": true, ...}``.
+25. the dry run on the card: llama3.2-3b's programs from
+    ``launch.cases.build_case`` at (data 1, model 1), bf16, seeded
+    weights, each global batch cut to what the card holds (prefill_32k B
+    1 x 32768, decode_32k B 8 against 32768 rows, long_500k B 1 on an
+    8192-row ring, train_4k B 1 x 4096, which must fit by the trace's
+    reckoning): each traced on the CPU under fake meta tensors
+    (``launch.dryrun``: FLOPs, bytes, the roofline priced on the H100),
+    then one warm run, 3 runs timed by CUDA events and one profiled: ms,
+    t_compute, t_memory, dominant, the roofline's share and the device's
+    busy share; outputs finite, #6 == 28 a prefill (56 a train step) and
+    #5 == 28 a decode and no other kernel, and the card's counted FLOPs
+    and bytes equal to the trace's (1e-9); #6 at B 1, T 32768 (held on
+    256 query rows at its start, middle and end) and #5 on the 8 rows and
+    on the ring are measured early, in phase 3's ``family_kernels``;
+26. one JSON line of every kernel (the rows of phases 16-18's, 21's,
+    23's, 24's and 25's shapes added), then, last, ``{"ok": true, ...}``.
 
 It needs one CUDA card and fails without one; it imports nothing of JAX.
 """
@@ -2782,7 +2796,8 @@ def family_kernels(np, torch, F, cfg_mod, tk, dk, pk, flush):
     Qwen3-30B-A3B's head width (the repo's config leaves head_dim unset,
     so the engine runs Dh 64), and at a tp=2 rank's llama3.2-3b heads
     (12 / 4, phase 23); #6 at those heads on phase 24 (a)'s training
-    batch (B 2, T 1024)."""
+    batch (B 2, T 1024); #6 and #5 at phase 25's shapes
+    (:func:`dryrun_kernels`)."""
     moe = cfg_mod.get_config(MOE_ARCH)
     vlm = cfg_mod.get_config(VLM_ARCH)
     out = {"moe": phase_kernels(np, torch, F, tk, flush, H=moe.num_heads,
@@ -2838,6 +2853,8 @@ def family_kernels(np, torch, F, cfg_mod, tk, dk, pk, flush):
         dk, pk, flush, TRAIN_B, TRAIN_T, [], [], 0,
         "phase 3 (llama3.2-3b, a model-parallel rank, 12 / 4 heads)",
         device=True, decode=False)["prefill"]
+    # phase 25: #6 and #5 at the dry run's llama3.2-3b shapes
+    out["dryrun"] = dryrun_kernels(torch, cfg_mod, dk, pk, flush)
     return out
 
 
@@ -4254,8 +4271,8 @@ def _shard_small(torch, mesh, cfg_mod, model_mod):
             first = arch == ckpt_name
             t0 = time.perf_counter()
             res = mesh.run(train_sharded, ShardedRun(
-                cfg, SHARD_SMALL_STEPS, opt, data, init=SEED, gather=True,
-                ckpt_path=str(ckpt) if first else ""),
+                cfg, SHARD_SMALL_STEPS, opt, data, init=SEED,
+                gather=("params",), ckpt_path=str(ckpt) if first else ""),
                 layout=layout)
             job_s = time.perf_counter() - t0
             ref_hist, ref_params, ref_after1, cpu_s = refs[arch].result()
@@ -4274,7 +4291,8 @@ def _shard_small(torch, mesh, cfg_mod, model_mod):
                 m1 = max(_metrics_err(r["history"][:1], ref_hist[:1])
                          for r in res)
                 one = mesh.run(train_sharded, ShardedRun(
-                    cfg, 1, opt, data, init=SEED, gather=True), layout=layout)
+                    cfg, 1, opt, data, init=SEED, gather=("params",)),
+                    layout=layout)
                 p1 = _params_err(one[0]["params"], ref_after1[0])
                 del one
                 gaps = {k: max(_metrics_err(r["history"][1:], ref_hist[1:],
@@ -4385,6 +4403,258 @@ def phase_sharded_train(np, torch, cfg_mod, model_mod, pk, phase22):
         mesh.close()
     gc.collect()
     torch.cuda.empty_cache()
+    return out
+
+
+# --------------------------------------------------------------------------
+# Phase 25: the dry run's llama3.2-3b programs on the card
+# --------------------------------------------------------------------------
+DRYRUN_ARCH = "llama3.2-3b"
+# (shape, the global batch cut to what one card holds at (data 1, model 1))
+DRYRUN_CUTS = (("prefill_32k", 1), ("decode_32k", 8), ("long_500k", 1),
+               ("train_4k", 1))
+DRYRUN_RUNS = 3            # timed by CUDA events after one warm run
+# #6 at T 32768 is held on blocks of DRYRUN_ROWS query rows at the start,
+# the middle and the end of the prompt, each to atol DRYRUN_TOL_STD x the
+# block's own spread (its plain version's std) and rtol DRYRUN_RTOL (one
+# bf16 step of the output, where the early rows' outputs are O(1))
+DRYRUN_ROWS = 256
+DRYRUN_TOL_STD = 0.05
+DRYRUN_RTOL = 2.0 ** -7
+DRYRUN_REL = 1e-9          # the card's FLOPs and bytes vs the trace's
+
+
+def _prefill_rows_plain(torch, q, k, v, r0, n):
+    """Query rows ``[r0, r0 + n)`` of the causal prefill in plain
+    PyTorch, f32, over the keys ``< r0 + n`` they can see
+    (``prefill_attention_plain``'s arithmetic on those rows; the whole
+    plain version at T 32768 would hold 103 GB of f32 scores)."""
+    B, T, H, Dh = q.shape
+    Hkv = k.shape[2]
+    end = r0 + n
+    qt = q[:, r0:end].reshape(B, n, Hkv, H // Hkv, Dh).float()
+    s = torch.einsum("bthgd,bshd->bhgts", qt, k[:, :end].float()) \
+        / math.sqrt(Dh)
+    qpos = torch.arange(r0, end, device=q.device)[:, None]
+    keep = torch.arange(end, device=q.device)[None] <= qpos
+    s = torch.where(keep, s, float("-inf"))
+    o = torch.einsum("bhgts,bshd->bthgd", torch.softmax(s, -1),
+                     v[:, :end].float())
+    return o.reshape(B, n, H, Dh).to(q.dtype)
+
+
+def dryrun_kernels(torch, cfg_mod, dk, pk, flush):
+    """Phase 3 at phase 25's shapes, llama3.2-3b's heads (24 / 8 / 128, G
+    3), bf16, early in the process: #6 on one 32768-token prompt (held to
+    its plain version on ``DRYRUN_ROWS`` query rows at its start, middle
+    and end; the plain time given is the last block's; timed beside one
+    causal SDPA call), #5 padded on 8 rows of 32768 keys (decode_32k's
+    slab) and on one 8192-row ring (long_500k's window)."""
+    import torch.nn.functional as F
+    llama = cfg_mod.get_config(DRYRUN_ARCH)
+    H, Hkv, Dh = llama.num_heads, llama.num_kv_heads, llama.head_dim
+    T = 32768
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 25)
+    q, k, v = (randn(torch, gen, (1, T, n, Dh), torch.bfloat16)
+               for n in (H, Hkv, Hkv))
+    got = pk.prefill_attention(q, k, v)
+    err, tols = 0.0, []
+    for r0 in (0, T // 2, T - DRYRUN_ROWS):
+        block = got[:, r0:r0 + DRYRUN_ROWS].float()
+        want = _prefill_rows_plain(torch, q, k, v, r0, DRYRUN_ROWS).float()
+        tol = DRYRUN_TOL_STD * want.std().item()
+        e = (block - want).abs().max().item()
+        check(math.isfinite(e), "phase 3 (dry run) #6: non-finite output")
+        torch.testing.assert_close(block, want, atol=tol, rtol=DRYRUN_RTOL,
+                                   msg=lambda m, r0=r0: f"phase 3 (dry run) "
+                                   f"#6 rows {r0}+{DRYRUN_ROWS}: {m}")
+        err = max(err, e)
+        tols.append({"rows": [r0, r0 + DRYRUN_ROWS], "max_abs_err": e,
+                     "atol": tol, "rtol": DRYRUN_RTOL})
+    del got, block, want
+    qs, ks, vs = (x.transpose(1, 2) for x in (q, k, v))
+    t = time_ms(torch, lambda: pk.prefill_attention(q, k, v), 5, flush,
+                device=True)
+    lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        qs, ks, vs, is_causal=True, enable_gqa=True), 5, flush, device=True)
+    plain = time_ms(torch, lambda: _prefill_rows_plain(
+        torch, q, k, v, T - DRYRUN_ROWS, DRYRUN_ROWS), 2, flush)
+    flops = 4.0 * (T * (T + 1) // 2) * H * Dh
+    bound_ms, by = bound_of(T * (H + 2 * Hkv + H) * Dh * 2, flops)
+    out = {"prefill": {
+        "B": 1, "T": T, "max_abs_err": err, "held": tols, "ms": float(t),
+        "device_ms": t.device, "plain_ms": plain,
+        "plain_rows": DRYRUN_ROWS, "library_ms": float(lib),
+        "library_device_ms": lib.device, "bound_ms": bound_ms,
+        "bound_by": by, "tflops": flops / float(t) / 1e9}}
+    log(f"phase 3 (dry run, {DRYRUN_ARCH}, G 3): #6 at B 1, T {T}, bf16: "
+        f"{float(t):.4f} ms (device {t.device:.4f}, "
+        f"{flops / float(t) / 1e9:.1f} TFLOP/s), library sdpa "
+        f"{float(lib):.4f} ms (device {lib.device:.4f}), bound "
+        f"{bound_ms:.4f} ms ({by}); held on query rows "
+        + ", ".join(f"{h['rows'][0]}+{DRYRUN_ROWS} (max abs "
+                    f"{h['max_abs_err']:.3e}, atol {h['atol']:.3e})"
+                    for h in tols)
+        + f"; the plain version on the last block {plain:.4f} ms")
+    del q, k, v, qs, ks, vs
+    torch.cuda.empty_cache()
+    out["decode"] = contiguous_kernels_at(
+        torch, llama, dk, pk, flush, 8, 0, [T] * 8, list(range(8)), T,
+        f"phase 3 (dry run, {DRYRUN_ARCH}, G 3, decode_32k)", device=True,
+        prefill=False)["decode_padded"]
+    W = 8192
+    out["ring"] = contiguous_kernels_at(
+        torch, llama, dk, pk, flush, 1, 0, [W], [0], W,
+        f"phase 3 (dry run, {DRYRUN_ARCH}, G 3, long_500k's ring)",
+        device=True, prefill=False)["decode_padded"]
+    return out
+
+
+def _finite(torch, tree):
+    """Every float leaf finite, read through one f32 sum a leaf (a NaN or
+    an inf anywhere makes it non-finite) so that a 15 GB cache leaf needs
+    no leaf-sized temporaries."""
+    from repro_torch.core.migration import tree_leaves
+    leaves = (tree_leaves(tree) if not isinstance(tree, torch.Tensor)
+              else [tree])
+    return all(bool(torch.isfinite(a.sum(dtype=torch.float32)))
+               for a in leaves if a.is_floating_point())
+
+
+def _busy_ms(torch, fn):
+    """The device time of the kernels one call of ``fn`` launches, from
+    ``torch.profiler`` (the profiler's own host cost is not in it)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for e in prof.key_averages():
+        t = getattr(e, "device_time_total", None)
+        total += (e.cuda_time_total if t is None else t) or 0.0
+    return total / 1e3
+
+
+def phase_dryrun(torch):
+    """Phase 25: the dry run's llama3.2-3b programs (``launch.cases.
+    build_case``) at the layout one card holds, (data 1, model 1), each
+    case's global batch cut to ``DRYRUN_CUTS``: the program traced on the
+    CPU under fake meta tensors (``launch.dryrun.trace_case``: FLOPs,
+    bytes, peak, the roofline priced on ``kernels.cost.H100``), then run
+    for real on the card (seeded weights and inputs): one warm run under
+    ``FlopCounterMode`` and ``dryrun.Traffic``, ``DRYRUN_RUNS`` timed by
+    CUDA events, one under ``torch.profiler`` for the device's busy time.
+    Checks: train_4k's reckoned memory (its arguments plus the trace's
+    peak) fits the card's free memory; finite outputs; #6 launched 28
+    times a prefill (56 a train step: remat) and #5 padded 28 times a
+    decode, no other kernel; the card's counted FLOPs and bytes equal the
+    trace's within ``DRYRUN_REL``: the trace is the card's program, so
+    the roofline is that program's."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.kernels.api import launch_counts as api_counts
+    from repro_torch.kernels.api import zero_launch_counts
+    from repro_torch.launch import cases as cases_mod
+    from repro_torch.launch import dryrun as dryrun_mod
+    from repro_torch.launch.mesh import Layout
+    _fresh_card(torch, "phase 25")
+    one = Layout({"data": 1, "model": 1})
+    out = {}
+    for shape, B in DRYRUN_CUTS:
+        t0 = time.perf_counter()
+        sp = cases_mod.SHAPES[shape]
+        kind = cases_mod.shape_kind(shape)
+        fake = cases_mod.build_case(DRYRUN_ARCH, shape, one, batch=B)
+        traced = dryrun_mod.trace_case(fake)
+        rl = dryrun_mod.roofline_of(fake, traced, "1x1", one)
+        cfg, T = fake.cfg, fake.seq
+        S = min(T, cfg.sliding_window) if cfg.sliding_window else T
+        trace_s = time.perf_counter() - t0
+        free = torch.cuda.mem_get_info()[0]
+        need = fake.arg_bytes + traced["temp_bytes"]
+        log(f"phase 25 {shape}: global batch {sp['global_batch']} cut to "
+            f"{B} (one card, data 1 x model 1), T {T}"
+            + (f", a ring of {S} rows" if S != T else "")
+            + f"; the rank holds {fake.arg_bytes / 1e9:.2f} GB, its traced "
+            f"peak above that {traced['temp_bytes'] / 1e9:.2f} GB "
+            f"(reckoned {need / 1e9:.2f} GB of {free / 1e9:.2f} GB free); "
+            f"traced on the CPU in {trace_s:.1f} s")
+        if kind == "train":
+            check(need <= free, f"phase 25 {shape}: reckoned "
+                  f"{need / 1e9:.2f} GB, over the card's "
+                  f"{free / 1e9:.2f} GB free")
+        del fake
+        torch.cuda.reset_peak_memory_stats()
+        case = cases_mod.build_case(DRYRUN_ARCH, shape, one, batch=B,
+                                    device="cuda", seed=SEED)
+        torch.cuda.synchronize()
+        zero_launch_counts()
+        traffic = dryrun_mod.Traffic(dryrun_mod.storages(case.args))
+        with FlopCounterMode(display=False) as fc, traffic:
+            res = case.fn(*case.args)
+        torch.cuda.synchronize()
+        check(_finite(torch, res[2] if kind == "train" else res),
+              f"phase 25 {shape}: non-finite outputs")
+        loss = float(res[2]["loss"]) if kind == "train" else None
+        del res
+        starts = [torch.cuda.Event(enable_timing=True)
+                  for _ in range(DRYRUN_RUNS)]
+        ends = [torch.cuda.Event(enable_timing=True)
+                for _ in range(DRYRUN_RUNS)]
+        for s_ev, e_ev in zip(starts, ends):
+            s_ev.record()
+            case.fn(*case.args)
+            e_ev.record()
+        torch.cuda.synchronize()
+        ms = sum(a.elapsed_time(b) for a, b in zip(starts, ends)) / \
+            DRYRUN_RUNS
+        busy = _busy_ms(torch, lambda: case.fn(*case.args))
+        peak = torch.cuda.max_memory_allocated()
+        counts = {k: n for k, n in api_counts().items() if n}
+        runs = 2 + DRYRUN_RUNS
+        key = ("contiguous_decode_padded" if kind == "decode"
+               else "contiguous_prefill")
+        per = cfg.num_layers * (2 if kind == "train" else 1)
+        check(counts == {key: per * runs},
+              f"phase 25 {shape}: launches {counts}, want {key} == "
+              f"{per} x {runs} runs and nothing else")
+        card = {"flops": float(fc.get_total_flops()),
+                "bytes": traffic.bytes}
+        rel = {k: abs(card[k] - traced[k]) / traced[k] for k in card}
+        check(max(rel.values()) <= DRYRUN_REL,
+              f"phase 25 {shape}: the card's program counted {card}, the "
+              f"trace {traced['flops']:.6e} FLOPs, {traced['bytes']:.6e} "
+              f"bytes (rel {rel})")
+        bound_s = max(rl.t_compute, rl.t_memory, rl.t_collective)
+        rec = {"batch": B, "global_batch": sp["global_batch"], "seq": T,
+               "slab_rows": S, "ms": ms, "t_compute": rl.t_compute,
+               "t_memory": rl.t_memory, "t_collective": rl.t_collective,
+               "dominant": rl.dominant,
+               "roofline_share": bound_s / (ms / 1e3),
+               "busy_ms": busy, "busy_share": busy / ms,
+               "flops_analytic": rl.flops_per_chip,
+               "flops_traced": traced["flops"], "flops_card": card["flops"],
+               "bytes_traced": traced["bytes"], "bytes_card": card["bytes"],
+               "card_vs_trace_rel": rel, "traced_ops": traced["ops"],
+               "arg_bytes": case.arg_bytes, "temp_bytes": traced["temp_bytes"],
+               "peak_memory_bytes": peak, "launches": counts,
+               "trace_s": trace_s, "loss": loss}
+        out[shape] = rec
+        log(f"phase 25 {shape}: {ms:.3f} ms a run (events, {DRYRUN_RUNS} "
+            f"runs after a warm one), device busy {busy:.3f} ms of it "
+            f"({rec['busy_share']:.3f}, profiler); roofline t_compute "
+            f"{rl.t_compute * 1e3:.3f} ms, t_memory {rl.t_memory * 1e3:.3f} "
+            f"ms ({traced['bytes'] / 1e9:.2f} GB), dominant {rl.dominant}, "
+            f"share of the measured time {rec['roofline_share']:.3f}; FLOPs "
+            f"analytic {rl.flops_per_chip:.6e}, traced {traced['flops']:.6e} "
+            f"== the card's {card['flops']:.6e}, bytes traced == the card's "
+            f"(rel {max(rel.values()):.1e}); {traced['ops']} ops; {key} "
+            f"{counts[key]} launches; peak {peak / 1e9:.2f} GB"
+            + (f"; loss {loss:.4f}" if loss is not None else ""))
+        del case
+        gc.collect()
+        torch.cuda.empty_cache()
     return out
 
 
@@ -4720,7 +4990,14 @@ def main() -> int:
     sharded["phase_s"] = time.perf_counter() - t24
     log(f"phase 24: took {sharded['phase_s']:.1f} s")
 
-    # 25. results
+    # 25. the dry run's llama3.2-3b programs on the card against their
+    # roofline (#6 and #5 through build_case's programs)
+    t25 = time.perf_counter()
+    dry = phase_dryrun(torch)
+    dry["phase_s"] = time.perf_counter() - t25
+    log(f"phase 25: took {dry['phase_s']:.1f} s")
+
+    # 26. results
     kernels = [{
         "name": "paged_mixed_attention", "ok": True, "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/mixed_attention.cu",
@@ -4856,6 +5133,37 @@ def main() -> int:
             "library_ms", "device_ms", "library_device_ms", "tflops")
            if key in k},
         "kernel_ms": k["ms"], "bound_share": k["bound_ms"] / k["ms"]})
+    # #6 and #5 at the dry run's shapes, launched by phase 25's programs
+    dk_rows = fam["dryrun"]
+    for k, name, src, tpu, launches, shape in (
+            (dk_rows["prefill"], "prefill_attention_dryrun_32k",
+             "contiguous_prefill.cu",
+             "src/repro/kernels/prefill_attention.py:125",
+             dry["prefill_32k"]["launches"]["contiguous_prefill"],
+             f"{DRYRUN_ARCH}: H 24 / Hkv 8 / Dh 128 (G 3), B 1, T 32768 "
+             f"(prefill_32k cut to one row; held on {DRYRUN_ROWS} query "
+             f"rows at 0, T/2 and the end; plain_ms on the last block)"),
+            (dk_rows["decode"], "decode_attention_padded_dryrun_32k",
+             "contiguous_decode.cu",
+             "src/repro/kernels/decode_attention.py:291",
+             dry["decode_32k"]["launches"]["contiguous_decode_padded"],
+             f"{DRYRUN_ARCH}: G 3, 8 rows of 32768 keys (decode_32k cut to "
+             f"8 rows)"),
+            (dk_rows["ring"], "decode_attention_padded_dryrun_ring",
+             "contiguous_decode.cu",
+             "src/repro/kernels/decode_attention.py:291",
+             dry["long_500k"]["launches"]["contiguous_decode_padded"],
+             f"{DRYRUN_ARCH}: G 3, one row over long_500k's 8192-row "
+             f"window ring")):
+        kernels.append({
+            "name": name, "ok": True, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{src}",
+            "replaces": tpu, "launches": launches, "shape": shape,
+            **{key: k[key] for key in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "device_ms", "library_device_ms", "tflops",
+                "stream_bound_ms", "plain_rows") if key in k},
+            "kernel_ms": k["ms"], "bound_share": k["bound_ms"] / k["ms"]})
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke_report.json").write_text(json.dumps(
@@ -4865,10 +5173,11 @@ def main() -> int:
          "fig2": fig2, "engine_modes": modes, "cost_model": cost_model,
          "family_kernels": fam, "moe": moe, "vlm": vlm, "window": window,
          "rwkv": rwkv, "zamba": zamba, "whisper": whisper,
-         "training": training, "tp": tp, "sharded_training": sharded},
+         "training": training, "tp": tp, "sharded_training": sharded,
+         "dryrun": dry},
         indent=1,
         default=str))
-    log(f"chip_smoke: phases 1-24 took {time.perf_counter() - t_main:.1f} s")
+    log(f"chip_smoke: phases 1-25 took {time.perf_counter() - t_main:.1f} s")
     # the card again, so that the end of the output names it beside the
     # numbers
     log(smi)

@@ -26,9 +26,10 @@ read) and what its design does about that.
 
 Each wrapper launches its kernel for CUDA tensors — or raises; it never
 falls back — and runs its plain PyTorch version (``*_plain``) only for
-tensors on the CPU. Launches are counted per kernel, one per call:
-``LAUNCHES`` (flat), ``GRID_LAUNCHES``, ``PADDED_LAUNCHES`` and
-``RAGGED_LAUNCHES``.
+tensors on the CPU. The contiguous one launches through the operator
+``repro_torch::contiguous_decode`` (``kernels.ops.LIBRARY``). Launches
+are counted per kernel, one per call: ``LAUNCHES`` (flat),
+``GRID_LAUNCHES``, ``PADDED_LAUNCHES`` and ``RAGGED_LAUNCHES``.
 
 Paged semantics (those of ``_flat_paged_kernel`` and
 ``_paged_decode_kernel``): request ``b`` attends its one query token,
@@ -45,11 +46,13 @@ from fractions import Fraction
 from typing import Optional
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import build
 from repro_torch.kernels.mixed_attention import paged_mixed_attention_plain
-from repro_torch.kernels.ops import (NEG_INF, check_paged_operands,
-                                     flat_work_list)
+from repro_torch.kernels.ops import (LIBRARY, NEG_INF,
+                                     check_paged_operands, flat_work_list)
 
 # kernel launches by this process (CUDA path only)
 LAUNCHES = 0          # flat
@@ -316,25 +319,39 @@ def decode_attention(q, k, v, lengths, *, block_s: int = DEFAULT_BLOCK,
     returns  [B, H, Dh] in q's dtype. A length-0 row is zeros when ragged
     and, as the TPU kernel gives it, the mean of V over the padded rows
     when not.
+
+    A CUDA tensor goes through the operator ``repro_torch::
+    contiguous_decode`` (``kernels.ops.LIBRARY``), whose CUDA version
+    launches the kernel; so does a fake tensor off the CPU, which gets
+    the operator's fake version (a dry run's trace of the card's
+    program, on the meta device).
     """
     if q.device.type == "cpu":
         return decode_attention_plain(q, k, v, lengths, block_s=block_s,
                                       ragged=ragged, kv_rows=kv_rows)
-    if q.device.type != "cuda":
+    if q.device.type != "cuda" and not isinstance(q, FakeTensor):
         raise ValueError(f"decode_attention: no kernel for {q.device}")
-    global PADDED_LAUNCHES, RAGGED_LAUNCHES
     name = "decode_attention"
     if q.dim() != 3 or k.dim() != 4:
         raise ValueError(f"{name}: q is [B, H, Dh] and k, v [B, S, Hkv, "
                          f"Dh], got {tuple(q.shape)}, {tuple(k.shape)}")
-    B, H, Dh = q.shape
-    S, Hkv = k.shape[1], k.shape[2]
+    B = q.shape[0]
+    S = k.shape[1]
     if ((k.shape[0] != B and kv_rows is None) or k.shape[0] < 1 or S < 1
             or block_s < 1):
         raise ValueError(f"{name}: k {tuple(k.shape)} for q "
                          f"{tuple(q.shape)}, block_s {block_s}")
     per_row = (lengths,) if kv_rows is None else (lengths, kv_rows)
     check_paged_operands(name, q, k, v, None, per_row, max_group=_MAX_GROUP)
+    return torch.ops.repro_torch.contiguous_decode(q, k, v, lengths, kv_rows,
+                                                   block_s, ragged)
+
+
+def _launch_contiguous(q, k, v, lengths, kv_rows, block_s, ragged):
+    """The operator's CUDA version: one launch of the kernel."""
+    global PADDED_LAUNCHES, RAGGED_LAUNCHES
+    B, H, Dh = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
     if B == 0:
         return out
@@ -358,12 +375,33 @@ def decode_attention(q, k, v, lengths, *, block_s: int = DEFAULT_BLOCK,
                 out.data_ptr(), B, S, H, Hkv, Dh, bs, int(ragged), n, keys,
                 _DTYPES[q.dtype], stream)
     if rc != 0:
-        raise RuntimeError(f"{name}: launch failed (cudaError {rc})")
+        raise RuntimeError(f"decode_attention: launch failed "
+                           f"(cudaError {rc})")
     if ragged:
         RAGGED_LAUNCHES += 1
     else:
         PADDED_LAUNCHES += 1
     return out
+
+
+LIBRARY.define("contiguous_decode(Tensor q, Tensor k, Tensor v, "
+               "Tensor lengths, Tensor? kv_rows, int block_s, "
+               "bool ragged) -> Tensor")
+LIBRARY.impl("contiguous_decode", _launch_contiguous, "CUDA")
+torch.library.register_fake(
+    "repro_torch::contiguous_decode",
+    lambda q, k, v, lengths, kv_rows, block_s, ragged: torch.empty_like(q),
+    lib=LIBRARY)
+
+
+@register_flop_formula(torch.ops.repro_torch.contiguous_decode)
+def _decode_flops(q_shape, k_shape, v_shape, lengths_shape, kv_rows_shape,
+                  block_s, ragged, out_shape=None, **kwargs) -> int:
+    """The products of one query token a row over the S cached keys: 4·Dh
+    FLOPs per (query head, key). The lengths are data the formula does
+    not see, so a ragged launch is counted as padded."""
+    B, H, Dh = q_shape
+    return 4 * B * H * k_shape[1] * Dh
 
 
 def decode_attention_plain(q, k, v, lengths, *, block_s: int = DEFAULT_BLOCK,

@@ -7,10 +7,20 @@ core that the Pallas kernels share (``_flash_block_update``/
 ``csrc/mixed_attention.cu`` and, for the others, ``csrc/flash_core.cuh``.
 The reference's public ``decode_attention``/``prefill_attention`` entry
 points sit above the wrappers, in ``kernels/api.py``.
+
+``LIBRARY`` is the dispatcher's ``repro_torch`` namespace. The
+contiguous kernels (#5 ``contiguous_decode``, #6 ``contiguous_prefill``)
+launch through an operator of it, with a fake version (the result's
+shape, for fake tensors) and a FLOP formula. So a mode that counts a
+program's work (``torch.utils.flop_counter``, ``launch.dryrun.Traffic``)
+sees a launch as one op over its operands, on the card and in a trace
+on fake tensors (``launch.dryrun``) alike.
 """
 from __future__ import annotations
 
 import torch
+
+LIBRARY = torch.library.Library("repro_torch", "DEF")
 
 # Finite, as in the JAX package: a fully masked row keeps finite running
 # maxima, and ``exp(NEG_INF - m)`` underflows to an exact 0.

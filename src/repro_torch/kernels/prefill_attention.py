@@ -22,8 +22,10 @@ and what the design does about that.
 
 Each wrapper launches its kernel for CUDA tensors — or raises; it never
 falls back — and runs its plain PyTorch version (``*_plain``) only for
-tensors on the CPU. ``LAUNCHES`` counts the paged kernel's launches,
-``CONTIG_LAUNCHES`` the contiguous one's.
+tensors on the CPU. The contiguous one launches through the operator
+``repro_torch::contiguous_prefill`` (``kernels.ops.LIBRARY``).
+``LAUNCHES`` counts the paged kernel's launches, ``CONTIG_LAUNCHES``
+the contiguous one's.
 
 Paged semantics (those of ``_paged_prefill_kernel``): query row ``i`` of
 chunk ``b`` attends keys ``idx < ctx_b + clen_b`` and ``idx <= ctx_b + i``;
@@ -38,10 +40,12 @@ import math
 from typing import Optional
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import build
 from repro_torch.kernels.mixed_attention import paged_mixed_attention_plain
-from repro_torch.kernels.ops import NEG_INF, check_paged_operands
+from repro_torch.kernels.ops import LIBRARY, NEG_INF, check_paged_operands
 
 # kernel launches by this process (CUDA path only)
 LAUNCHES = 0          # paged (chunked) prefill
@@ -123,20 +127,30 @@ def prefill_attention(q, k, v, lengths=None):
     lengths  [B] int32 valid keys per row (clamped to T), or None = T
     returns  [B, T, H, Dh] in q's dtype: query t over keys s <= t,
              s < length; a row that sees no key is zeros
-    """
+
+    A CUDA tensor goes through the operator ``repro_torch::
+    contiguous_prefill`` (``kernels.ops.LIBRARY``), whose CUDA version
+    launches the kernel; so does a fake tensor off the CPU, which gets
+    the operator's fake version (a dry run's trace of the card's
+    program, on the meta device)."""
     if lengths is None:
         lengths = torch.full((q.shape[0],), q.shape[1], dtype=torch.int32,
                              device=q.device)
     if q.device.type == "cpu":
         return prefill_attention_plain(q, k, v, lengths)
-    if q.device.type != "cuda":
+    if q.device.type != "cuda" and not isinstance(q, FakeTensor):
         raise ValueError(f"prefill_attention: no kernel for {q.device}")
-    global CONTIG_LAUNCHES
     name = "prefill_attention"
     if q.dim() != 4 or k.shape[:2] != q.shape[:2]:
         raise ValueError(f"{name}: q [B, T, H, Dh], k, v [B, T, Hkv, Dh]; "
                          f"got {tuple(q.shape)}, {tuple(k.shape)}")
     check_paged_operands(name, q, k, v, None, (lengths,))
+    return torch.ops.repro_torch.contiguous_prefill(q, k, v, lengths)
+
+
+def _launch_contiguous(q, k, v, lengths):
+    """The operator's CUDA version: one launch of the kernel."""
+    global CONTIG_LAUNCHES
     B, T, H, Dh = q.shape
     out = torch.empty_like(q)
     if B == 0 or T == 0:
@@ -149,9 +163,28 @@ def prefill_attention(q, k, v, lengths=None):
                 out.data_ptr(), B, T, H, k.shape[2], Dh, _DTYPES[q.dtype],
                 stream)
     if rc != 0:
-        raise RuntimeError(f"{name}: launch failed (cudaError {rc})")
+        raise RuntimeError(f"prefill_attention: launch failed "
+                           f"(cudaError {rc})")
     CONTIG_LAUNCHES += 1
     return out
+
+
+LIBRARY.define("contiguous_prefill(Tensor q, Tensor k, Tensor v, "
+               "Tensor lengths) -> Tensor")
+LIBRARY.impl("contiguous_prefill", _launch_contiguous, "CUDA")
+torch.library.register_fake("repro_torch::contiguous_prefill",
+                            lambda q, k, v, lengths: torch.empty_like(q),
+                            lib=LIBRARY)
+
+
+@register_flop_formula(torch.ops.repro_torch.contiguous_prefill)
+def _prefill_flops(q_shape, k_shape, v_shape, lengths_shape,
+                   out_shape=None, **kwargs) -> int:
+    """The products a causal prompt needs: 4·Dh FLOPs per (query head,
+    visible key), T·(T + 1)/2 visible keys a head (whole prompts: a
+    shorter ``lengths`` is data the formula does not see)."""
+    B, T, H, Dh = q_shape
+    return 2 * B * H * Dh * T * (T + 1)
 
 
 def prefill_attention_plain(q, k, v, lengths):

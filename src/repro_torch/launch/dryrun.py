@@ -1,0 +1,322 @@
+"""Multi-pod dry run — the port's counterpart of ``repro.launch.dryrun``:
+every (architecture × input shape) on the production layouts, one rank's
+program counted and priced on the H100.
+
+Usage:
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch all \\
+        --shape all --mesh both --out /tmp/dryrun_torch.json [--jobs 4]
+
+**It needs no card.** This entry point runs no kernel and allocates no
+device memory, because it is the counterpart of the reference's lowering:
+it runs on the CPU wherever it is started, unlike the port's other entry
+points, which run on the card unless asked for the CPU.
+
+Where the reference lowers and compiles the global step on 512 forced
+host devices, the port traces one rank's program (``launch.cases.
+build_case``) once, on fake tensors on the meta device (``FakeTensorMode``:
+shapes and dtypes, no storage), under three counting modes:
+
+  * ``FlopCounterMode``: the program's FLOPs -> ``flops_hlo_per_chip``;
+  * :class:`Traffic`: every op's operand and result bytes (views and
+    allocations that read nothing excluded; gathers and in-place
+    scatters by the rows they address), what XLA's "bytes accessed"
+    sums -> ``bytes_hlo_per_chip``; and the peak of live bytes above the
+    arguments, found through weak references to the storages the ops
+    make -> ``temp_bytes_per_chip`` (the counterpart of
+    ``temp_size_in_bytes``; it includes the outputs while they are live);
+  * the rank's recording groups (``launch.mesh.RecordingCollectives``):
+    its collectives, priced by ``launch.roofline.collective_wire_bytes``.
+
+The meta device stands for the card (``models.common.card_device``), so
+what is counted is the card's program: the recurrences' chunked forms,
+and #5 and #6 as one op each (their operators, ``kernels.ops.LIBRARY``:
+a kernel's operands and result, and the FLOPs of the products it needs,
+the causal half of a prompt's scores for #6); #6's backward in a train
+step is its plain version, as on the card. The counted numbers differ
+from the analytic ones by terms that can be named: a decode's traced
+FLOPs are ``analytic_flops_global`` less ``2·V·d·B`` (the embedding
+lookup, no product), and a prefill's also lack the unembedding of every
+token but each row's last and the keys past each query, which the
+formula counts in full.
+
+Rows keep the reference's keys (``launch.roofline.Roofline.row`` plus
+``status``, ``optimized``, ``output_bytes``); ``t_trace`` (build and
+trace) takes the place of ``t_lower`` + ``t_compile``, and ``args/chip``
+is printed against the card's 80 GB. ``--opt`` is refused: its levers
+are ROADMAP Queue 1 item 9.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import time
+import traceback
+from typing import Dict, Optional
+
+import torch
+from torch.multiprocessing.reductions import StorageWeakRef
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
+
+from repro_torch.configs import ARCHS
+from repro_torch.launch.cases import (OPTIMIZED_REFUSAL, SHAPES,
+                                      adjusted_config, build_case,
+                                      fake_scope, shape_kind, skip_reason)
+from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.launch.roofline import (Roofline, analytic_flops_global,
+                                         analytic_min_bytes,
+                                         collective_wire_bytes, model_flops)
+
+ASSIGNED = [a for a in ARCHS if a != "llama3.2-3b"]
+
+CARD_BYTES = 80e9                   # the H100's 80 GB of HBM3
+
+# ops that allocate without reading, or alias: no traffic of their own
+# (as view ops, and ops that return no tensor, such as ``prim.device``)
+_NO_TRAFFIC = ("empty", "empty_like", "empty_strided", "new_empty",
+               "new_empty_strided", "detach", "alias", "lift_fresh",
+               "_unsafe_view")
+# ops that read (gathers) or write in place (scatters) their first operand
+# at indices: the rows addressed move, not the whole tensor, as XLA's
+# "bytes accessed" counts a gather and a dynamic-update-slice
+_GATHERS = ("embedding", "index", "index_select", "gather")
+_SCATTERS = ("index_put_", "index_copy_", "scatter_")
+
+
+def _tensors(tree):
+    return [t for t in tree_leaves(tree) if isinstance(t, torch.Tensor)]
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+class Traffic(TorchDispatchMode):
+    """Counts, over the ops run under it, the bytes each op reads and
+    writes (``bytes``: its tensor operands' and results' bytes; view ops,
+    allocations that read nothing and ops that return no tensor count
+    0; a gather its indices and twice its result, an in-place scatter its
+    indices and twice its values) and the peak of the bytes
+    held by storages the ops made and that are still alive (``peak``).
+    Storages in ``skip`` (the arguments') are not counted. A storage's
+    life is followed through a weak reference to it, checked whenever the
+    bytes counted as live would set a new peak."""
+
+    def __init__(self, skip=()):
+        super().__init__()
+        self.bytes = 0.0
+        self.ops = 0
+        self.skip = set(skip)
+        self.live: Dict[int, tuple] = {}
+        self.held = 0
+        self.peak = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        if func is torch.ops.prim.device.default:
+            return out                   # a metadata query: no op
+        self.ops += 1
+        outs = _tensors(out)
+        name = func.overloadpacket.__name__
+        if outs and not func.is_view and name not in _NO_TRAFFIC:
+            rest = sum(_nbytes(t) for t in _tensors((args[1:], kwargs)))
+            if name in _GATHERS:          # the rows read, then written
+                self.bytes += rest + 2 * sum(_nbytes(t) for t in outs)
+            elif name in _SCATTERS:       # indices and values read, written
+                self.bytes += rest + sum(_nbytes(t) for t in
+                                         _tensors(args[-1]))
+            else:
+                self.bytes += rest + sum(_nbytes(t) for t in
+                                         _tensors(args[:1]) + outs)
+        for t in outs:
+            st = t.untyped_storage()
+            key = st._cdata
+            if key in self.skip:
+                continue
+            known = self.live.get(key)
+            if known is not None and not known[0].expired():
+                continue
+            self.live[key] = (StorageWeakRef(st), st.nbytes())
+            self.held += st.nbytes()
+        if self.held > self.peak:
+            self.live = {k: v for k, v in self.live.items()
+                         if not v[0].expired()}
+            self.held = sum(nb for _, nb in self.live.values())
+            self.peak = max(self.peak, self.held)
+        return out
+
+
+def storages(tree) -> set:
+    """The storage keys of every tensor of ``tree``."""
+    return {t.untyped_storage()._cdata for t in _tensors(tree)}
+
+
+def trace_case(case) -> dict:
+    """Run ``case``'s program once under its fake-tensor mode and the
+    counting modes. Returns ``flops``, ``bytes`` (operand + result bytes
+    of every op), ``temp_bytes`` (the peak of live bytes above the
+    arguments), ``output_bytes``, the collective ``records`` and the
+    number of ``ops``."""
+    from torch.utils.flop_counter import FlopCounterMode
+    case.rank.records.clear()
+    with fake_scope(case.mode):
+        traffic = Traffic(storages(case.args))
+        with FlopCounterMode(display=False) as fc, traffic:
+            out = case.fn(*case.args)
+        seen = set()
+        out_bytes = 0
+        for t in _tensors(out):
+            st = t.untyped_storage()
+            if st._cdata not in seen:
+                seen.add(st._cdata)
+                out_bytes += st.nbytes()
+    return {"flops": float(fc.get_total_flops()), "bytes": traffic.bytes,
+            "temp_bytes": float(traffic.peak), "output_bytes": float(out_bytes),
+            "records": list(case.rank.records), "ops": traffic.ops}
+
+
+def roofline_of(case, traced: dict, mesh_name: str, layout) -> Roofline:
+    """The roofline of a traced case on ``layout``: compute from the
+    analytic FLOPs over the chips, memory from the larger of the traced
+    bytes and the analytic floor, the recorded collectives' wire bytes
+    (the reference's choice of terms)."""
+    chips = 1
+    for n in layout.shape.values():
+        chips *= n
+    cfg, shape = case.cfg, case.shape_name
+    floor = analytic_min_bytes(cfg, shape, case.seq, case.batch,
+                               dict(layout.shape))
+    return Roofline(
+        arch=case.arch, shape=shape, mesh=mesh_name,
+        flops_per_chip=analytic_flops_global(cfg, shape, case.seq,
+                                             case.batch) / chips,
+        bytes_per_chip=max(traced["bytes"], floor),
+        collective_bytes_per_chip=collective_wire_bytes(traced["records"]),
+        num_chips=chips,
+        model_flops_global=model_flops(cfg, shape, case.seq, case.batch),
+        flops_hlo_per_chip=traced["flops"],
+        bytes_hlo_per_chip=traced["bytes"],
+        n_collectives=len(traced["records"]),
+        temp_bytes_per_chip=traced["temp_bytes"],
+        arg_bytes_per_chip=case.arg_bytes)
+
+
+def run_case(arch: str, shape_name: str, multi_pod: bool,
+             verbose: bool = True, optimized: bool = False, *,
+             layout=None, **case_kwargs) -> dict:
+    """One row: rank 0's program of (arch, shape) on the production
+    layout (``layout`` overrides it; ``case_kwargs`` go to
+    ``build_case``: ``cfg``, ``seq``, ``batch``) traced and priced.
+    ``optimized=True`` is refused (ValueError); a failure is a row of
+    status ``fail``."""
+    if optimized:
+        raise ValueError(OPTIMIZED_REFUSAL)
+    if layout is None:
+        layout = make_production_mesh(multi_pod=multi_pod)
+        mesh_name = "2x16x16" if multi_pod else "16x16"
+    else:
+        mesh_name = "x".join(str(n) for n in layout.shape.values())
+    reason = skip_reason(arch, shape_name)
+    if reason:
+        return dict(arch=arch, shape=shape_name, mesh=mesh_name,
+                    status="skipped", reason=reason)
+    t0 = time.time()
+    try:
+        case = build_case(arch, shape_name, layout, **case_kwargs)
+        traced = trace_case(case)
+        t_trace = time.time() - t0
+        rl = roofline_of(case, traced, mesh_name, layout)
+        row = rl.row()
+        row.update(status="ok", optimized=False, t_trace=t_trace,
+                   output_bytes=traced["output_bytes"],
+                   mechanism=case.mechanism, rank_rows=case.rows,
+                   context_parallel=case.context_parallel,
+                   traced_ops=traced["ops"])
+        if verbose:
+            print(f"[ok] {arch:22s} {shape_name:12s} {mesh_name:8s} "
+                  f"comp={rl.t_compute:.3e}s mem={rl.t_memory:.3e}s "
+                  f"coll={rl.t_collective:.3e}s dom={rl.dominant:10s} "
+                  f"args/chip={rl.arg_bytes_per_chip / 1e9:.2f} of "
+                  f"{CARD_BYTES / 1e9:.0f} GB "
+                  f"temp/chip={rl.temp_bytes_per_chip / 1e9:.2f} GB "
+                  f"({case.mechanism}; trace {t_trace:.1f}s)", flush=True)
+        return row
+    except Exception as e:  # noqa: BLE001 — report, don't abort the sweep
+        if verbose:
+            print(f"[FAIL] {arch} {shape_name} {mesh_name}: {e}", flush=True)
+            traceback.print_exc()
+        return dict(arch=arch, shape=shape_name, mesh=mesh_name,
+                    status="fail", error=f"{type(e).__name__}: {e}")
+
+
+def _cost_rank(job) -> int:
+    """Longest traces first: the recurrent families' chunk loops, then
+    the train steps."""
+    arch, shape, _ = job
+    family = adjusted_config(arch, shape).family
+    return (0 if family in ("hybrid", "ssm") else 1,
+            0 if shape_kind(shape) == "train" else 1)
+
+
+def run_cases(jobs, n_jobs: int = 1) -> list:
+    """:func:`run_case` over ``(arch, shape, multi_pod)`` jobs, in their
+    order; with ``n_jobs`` > 1 in that many processes (spawned), the
+    longest first."""
+    if n_jobs <= 1:
+        return [run_case(*job) for job in jobs]
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    order = sorted(range(len(jobs)), key=lambda i: _cost_rank(jobs[i]))
+    with ProcessPoolExecutor(n_jobs, mp_context=multiprocessing.get_context(
+            "spawn")) as pool:
+        futures = {i: pool.submit(run_case, *jobs[i]) for i in order}
+        return [futures[i].result() for i in range(len(jobs))]
+
+
+def main(argv: Optional[list] = None) -> None:
+    ap = argparse.ArgumentParser(
+        description="Trace one rank's program of every (arch x shape) on "
+                    "the production layouts, on the CPU, and price it on "
+                    "the H100")
+    ap.add_argument("--arch", default="all")
+    ap.add_argument("--shape", default="all")
+    ap.add_argument("--mesh", default="single",
+                    choices=["single", "multi", "both"])
+    ap.add_argument("--out", default="")
+    ap.add_argument("--jobs", type=int, default=1,
+                    help="cases traced at once, each in a process of its "
+                         "own (default 1: one after another, here)")
+    ap.add_argument("--opt", action="store_true",
+                    help="the beyond-paper sharding levers (refused: not "
+                         "in the port yet)")
+    args = ap.parse_args(argv)
+    if args.opt:
+        ap.error(OPTIMIZED_REFUSAL)
+
+    archs = ASSIGNED if args.arch == "all" else args.arch.split(",")
+    shapes = list(SHAPES) if args.shape == "all" else args.shape.split(",")
+    meshes = {"single": [False], "multi": [True],
+              "both": [False, True]}[args.mesh]
+
+    t0 = time.time()
+    jobs = [(arch, shape, mp) for mp in meshes for arch in archs
+            for shape in shapes]
+    rows = run_cases(jobs, args.jobs)
+    ok = sum(1 for r in rows if r["status"] == "ok")
+    skip = sum(1 for r in rows if r["status"] == "skipped")
+    fail = sum(1 for r in rows if r["status"] == "fail")
+    print(f"\n== dry-run: {ok} ok / {skip} skipped / {fail} FAILED "
+          f"of {len(rows)} ({time.time() - t0:.1f} s)")
+    if args.out:
+        os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(rows, f, indent=1)
+        print("wrote", args.out)
+    if fail:
+        raise SystemExit(1)
+
+
+if __name__ == "__main__":
+    main()

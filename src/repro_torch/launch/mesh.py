@@ -13,6 +13,9 @@ process (one per tensor-parallel engine of a heterogeneous cluster).
 **Layouts** (:func:`make_host_mesh`, :func:`make_production_mesh`,
 :func:`batch_axes`) start no process: they hold the reference's axis
 names and sizes, which the sharding rules (``launch.shardings``) read.
+Neither does a :class:`VirtualRank`: one rank of a layout whose groups
+(:class:`RecordingCollectives`) record their collectives instead of
+communicating, the dry run's stand-in for the reference's compiler.
 
 **Serving** (:class:`TPMesh`): the leader (rank 0) owns the ``Engine``
 and all of its host state; the workers (``python -m
@@ -186,6 +189,81 @@ class Collectives:
         self.coll_calls += 1
         self.coll_s += time.perf_counter() - t0
         return torch.cat(parts, dim=dim)
+
+
+class RecordingCollectives:
+    """The :class:`Collectives` interface with no process group behind
+    it, for tracing one rank's program (``launch.dryrun``): ``rank`` and
+    ``size`` as the group's, :meth:`all_reduce` returns its input (the
+    rank's own partial stands for the sum) and :meth:`all_gather` a tensor
+    of the gathered shape (``size`` copies of the rank's piece). Every
+    call appends a record to ``records`` in ``launch.roofline``'s schema:
+    ``op``, ``name`` (``axis/n``), ``operand_bytes``, ``result_bytes`` and
+    ``mult`` 1 (the port's layers are a Python loop, so a collective of a
+    layer is recorded once per layer)."""
+
+    def __init__(self, rank: int, size: int, axis: str = "",
+                 records: Optional[List[dict]] = None):
+        self.rank = rank
+        self.size = size
+        self.axis = axis
+        self.records = [] if records is None else records
+        self.coll_calls = 0
+        self.coll_s = 0.0
+
+    def _record(self, op: str, x: torch.Tensor, out: torch.Tensor) -> None:
+        self.coll_calls += 1
+        self.records.append(dict(
+            op=op, name=f"{self.axis}/{len(self.records)}",
+            operand_bytes=float(x.numel() * x.element_size()),
+            result_bytes=float(out.numel() * out.element_size()), mult=1))
+
+    def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
+        self._record("all-reduce", x, x)
+        return x
+
+    def all_gather(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        out = torch.cat([x.contiguous()] * self.size, dim=dim)
+        self._record("all-gather", x, out)
+        return out
+
+
+class VirtualRank:
+    """Rank 0 of a :class:`Layout`, written out for tracing its program:
+    what ``training.trainer.ShardedTrainStep`` reads from a
+    :class:`TrainMesh` (``model``, ``data``, ``model_group``,
+    ``data_group``, ``rank``, ``device``, ``shape``, ``coords``,
+    ``axis_names``) with :class:`RecordingCollectives` for groups, which
+    share one list of ``records``. The batch axes (``("pod", "data")``,
+    :func:`batch_axes`) fold into one data group of ``pod × data`` ranks,
+    since the batch shards over both. No process is started."""
+
+    def __init__(self, layout, device="cpu"):
+        data = 1
+        for a in batch_axes(layout):
+            data *= layout.shape[a]
+        model = layout.shape.get("model", 1)
+        self.data, self.model = data, model
+        self.d = self.m = self.rank = 0
+        self.size = data * model
+        self.device = torch.device(device)
+        self.axis_names = ("data", "model")
+        self.records: List[dict] = []
+        self.model_group, self.data_group = (
+            None if n == 1 else RecordingCollectives(0, n, axis, self.records)
+            for axis, n in (("model", model), ("data", data)))
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return {"data": self.data, "model": self.model}
+
+    @property
+    def coords(self) -> Dict[str, int]:
+        return {"data": self.d, "model": self.m}
+
+    def __repr__(self) -> str:
+        return (f"VirtualRank(rank {self.rank} of data {self.data} x "
+                f"model {self.model})")
 
 
 class _Ranks:

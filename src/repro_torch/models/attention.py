@@ -317,7 +317,7 @@ def make_cache(cfg: ModelConfig, batch: int, seq: int,
 
 def attention_decode(p, cfg: ModelConfig, x: torch.Tensor, cache_l: KVCache,
                      pos: torch.Tensor, rows: Optional[torch.Tensor] = None,
-                     *, mrope_positions=None):
+                     *, mrope_positions=None, seq_group=None):
     """One token against a slab layer: x [B, 1, D]; pos [B] int32 tokens
     already cached; cache_l [B, S, Hkv, Dh], or with ``rows`` ([B] int32,
     the slab row of each x row) a slab of any number of rows. Writes the
@@ -330,16 +330,25 @@ def attention_decode(p, cfg: ModelConfig, x: torch.Tensor, cache_l: KVCache,
     that prefix: slots 0..pos before it wraps, all W of the last W
     positions after, and attention does not depend on the keys' order
     (RoPE rotated K before it was cached). A head dim outside
-    ``KERNEL_HEAD_DIMS`` runs the plain padded decode. Returns
+    ``KERNEL_HEAD_DIMS`` runs the plain padded decode. With
+    ``seq_group`` (a ``launch.mesh.Collectives``) the slab's sequence is
+    split over that group, ``cache_l`` holding this rank's consecutive
+    rows: context parallelism, :func:`context_parallel_decode`. Returns
     (out [B, 1, D], cache_l)."""
     B = x.shape[0]
     q, k, v = _project_qkv(p, cfg, x)
     q, k = _rotate(cfg, q, k, pos[:, None], mrope_positions)
     S = cache_l.k.shape[1]
-    slab_row = (torch.arange(B, device=pos.device) if rows is None
-                else rows.long())
     W = cfg.sliding_window
     write = torch.remainder(pos, W) if W else pos
+    if seq_group is not None:
+        if rows is not None:
+            raise ValueError("context-parallel decode takes no row map")
+        o = context_parallel_decode(q[:, 0], k[:, 0], v[:, 0], cache_l,
+                                    write, pos, seq_group)
+        return psum_if_tp(o.reshape(B, 1, -1) @ p["wo"], cfg), cache_l
+    slab_row = (torch.arange(B, device=pos.device) if rows is None
+                else rows.long())
     idx = (slab_row, torch.clamp(write, max=S - 1).long())
     cache_l.k.index_put_(idx, k[:, 0].to(cache_l.k.dtype))
     cache_l.v.index_put_(idx, v[:, 0].to(cache_l.v.dtype))
@@ -356,6 +365,73 @@ def _decode(cfg: ModelConfig, q, k, v, lengths, kv_rows=None):
     fn = (decode_attention if cfg.head_dim in KERNEL_HEAD_DIMS
           else decode_attention_plain)
     return fn(q, k, v, lengths, ragged=False, kv_rows=kv_rows)
+
+
+def decode_attention_partial(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, lengths: torch.Tensor):
+    """One rank's share of a decode whose keys are split over ranks, in
+    plain PyTorch, f32: q [B, H, Dh] over the keys ``< lengths`` of k, v
+    [B, S, Hkv, Dh]. Returns (out [B, H, Dh] f32, the log-sum-exp of the
+    scores [B, H] f32). A row with no key here weighs each of its keys
+    ``exp(0)`` under masked scores of ``NEG_INF``, so its log-sum-exp is
+    ``NEG_INF`` up to rounding and the merge gives it no weight."""
+    B, H, Dh = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    qg = q.reshape(B, Hkv, H // Hkv, Dh).float()
+    s = torch.einsum("bhgd,bshd->bhgs", qg, k.float()) / math.sqrt(Dh)
+    keep = (torch.arange(S, device=q.device)
+            < lengths.long()[:, None, None, None])
+    s = torch.where(keep, s, NEG_INF)
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(-1, keepdim=True)
+    acc = torch.einsum("bhgs,bshd->bhgd", p, v.float())
+    return ((acc / l).reshape(B, H, Dh),
+            (m + torch.log(l)).reshape(B, H))
+
+
+def merge_decode_partials(out: torch.Tensor, lse: torch.Tensor,
+                          group) -> torch.Tensor:
+    """The whole decode from every rank's :func:`decode_attention_partial`
+    (out [B, H, Dh], lse [B, H], f32): one all-gather of both over
+    ``group``, then each rank's output weighed by ``exp(lse - max)``.
+    Returns [B, H, Dh] f32."""
+    B, H, Dh = out.shape
+    both = torch.cat([out.reshape(B, H * Dh), lse], dim=-1)[None]
+    parts = group.all_gather(both, 0)              # [ranks, B, H·Dh + H]
+    outs = parts[..., :H * Dh].reshape(-1, B, H, Dh)
+    lses = parts[..., H * Dh:]
+    w = torch.exp(lses - lses.amax(0, keepdim=True))
+    return (w[..., None] * outs).sum(0) / w.sum(0)[..., None]
+
+
+def context_parallel_decode(q: torch.Tensor, k_new: torch.Tensor,
+                            v_new: torch.Tensor, cache_l: KVCache,
+                            write: torch.Tensor, pos: torch.Tensor,
+                            group) -> torch.Tensor:
+    """Decode against a slab whose sequence is split over ``group``: this
+    rank holds rows ``[rank·S, (rank + 1)·S)`` of the ``S·size``-row slab
+    (or ring) in ``cache_l`` [B, S, Hkv, Dh]. The new token's K/V
+    (k_new, v_new [B, Hkv, Dh]) land at slab row ``write`` (clamped to the
+    last row, as the unsplit decode clamps it) on the rank that owns it;
+    each rank attends q [B, H, Dh] over its share of the keys ``<
+    min(pos + 1, S·size)`` (:func:`decode_attention_partial`) and the
+    shares merge by log-sum-exp (:func:`merge_decode_partials`). The
+    reference's ``long_500k`` decode shards the cache's sequence on
+    ``data`` this way (GSPMD writes the merge). Returns [B, H, Dh] in
+    q's dtype."""
+    B = q.shape[0]
+    S = cache_l.k.shape[1]
+    lo = group.rank * S
+    total = S * group.size
+    local = torch.clamp(write, max=total - 1).long() - lo
+    own = ((local >= 0) & (local < S))[:, None, None]
+    idx = (torch.arange(B, device=pos.device), torch.clamp(local, 0, S - 1))
+    for buf, new in ((cache_l.k, k_new), (cache_l.v, v_new)):
+        buf.index_put_(idx, torch.where(own, new.to(buf.dtype), buf[idx]))
+    lengths = torch.clamp(torch.clamp(pos + 1, max=total) - lo, 0, S)
+    out, lse = decode_attention_partial(q, cache_l.k, cache_l.v, lengths)
+    return merge_decode_partials(out, lse, group).to(q.dtype)
 
 
 # --------------------------------------------------------------------------

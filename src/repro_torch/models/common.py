@@ -255,6 +255,14 @@ def copy_to_tp(x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return _Copy.apply(x, cfg.tp_axis)
 
 
+def card_device(device) -> bool:
+    """Whether code on ``device`` takes the card's forms (the chunked
+    recurrences, the attention kernels' operators): on the card, and on
+    the meta device, which holds no data and stands for the card where a
+    program is only counted (``launch.dryrun``)."""
+    return torch.device(device).type in ("cuda", "meta")
+
+
 # --------------------------------------------------------------------------
 # Normalization / activations
 # --------------------------------------------------------------------------

@@ -36,8 +36,8 @@ import torch.nn.functional as F
 
 from repro_torch.models import attention as attn
 from repro_torch.models.attention import KVCache
-from repro_torch.models.common import (ModelConfig, dense_init, embed_init,
-                                       rms_norm)
+from repro_torch.models.common import (ModelConfig, card_device,
+                                       dense_init, embed_init, rms_norm)
 from repro_torch.models.mlp import ffn, init_ffn
 from repro_torch.models.transformer import checkpointed
 
@@ -175,11 +175,11 @@ def ssd_chunked(xh, Bm, Cm, dtf, la, S0, chunk: int = SSD_CHUNK):
 
 def default_chunk(cfg: ModelConfig, T: int, device) -> int:
     """The SSD form a sequence of T tokens on ``device`` runs: on the card
-    chunks of ``cfg.ssm_chunk`` or ``SSD_CHUNK``; elsewhere the
+    (``common.card_device``) chunks of ``cfg.ssm_chunk`` or ``SSD_CHUNK``; elsewhere the
     reference's choice, chunks of ``cfg.ssm_chunk`` when it divides T,
     else 0 (token by token)."""
     c = cfg.ssm_chunk
-    if torch.device(device).type == "cuda":
+    if card_device(device):
         return c or SSD_CHUNK
     return c if c and T % c == 0 and T >= c else 0
 
@@ -302,12 +302,14 @@ def _shared_full(ps, cfg: ModelConfig, x, positions):
     return x, KVCache(k, v)
 
 
-def _shared_decode(ps, cfg: ModelConfig, x, cache_site: KVCache, pos):
+def _shared_decode(ps, cfg: ModelConfig, x, cache_site: KVCache, pos,
+                   seq_group=None):
     """The shared block on one token x [B, 1, D] against one site's KV
-    [B, S, Hkv, Dh] (written in place)."""
+    [B, S, Hkv, Dh] (written in place; with ``seq_group`` this rank's
+    rows of a sequence split over that group)."""
     h = rms_norm(x, ps["ln_attn"], cfg.norm_eps)
     a, cache_site = attn.attention_decode(ps["attn"], cfg, h, cache_site,
-                                          pos)
+                                          pos, seq_group=seq_group)
     x = x + a
     x = x + ffn(ps["ffn"], cfg, rms_norm(x, ps["ln_mlp"], cfg.norm_eps))
     return x, cache_site
@@ -393,9 +395,11 @@ def prefill(p, cfg: ModelConfig, tokens: torch.Tensor,
 
 
 def forward_decode(p, cfg: ModelConfig, token: torch.Tensor, state,
-                   pos: torch.Tensor):
-    """token [B] int; pos [B] int32 tokens already in the sites' KV.
-    Returns (logits [B, V], state), the state updated IN PLACE."""
+                   pos: torch.Tensor, seq_group=None):
+    """token [B] int; pos [B] int32 tokens already in the sites' KV (with
+    ``seq_group``, this rank's rows of KV whose sequence is split over
+    that group: context parallelism). Returns (logits [B, V], state), the
+    state updated IN PLACE."""
     x = F.embedding(token.long(), p["embed"])
     kv = state["kv"]
     for g in range(_groups(cfg)):
@@ -405,7 +409,7 @@ def forward_decode(p, cfg: ModelConfig, token: torch.Tensor, state,
             state["conv"][g, a].copy_(conv)
             state["ssm"][g, a].copy_(S)
         x2, _ = _shared_decode(p["shared"], cfg, x[:, None],
-                               KVCache(kv.k[g], kv.v[g]), pos)
+                               KVCache(kv.k[g], kv.v[g]), pos, seq_group)
         x = x2[:, 0]
     x = rms_norm(x, p["ln_f"], cfg.norm_eps)
     return x @ p["unembed"], state

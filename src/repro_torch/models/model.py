@@ -74,7 +74,9 @@ class Model:
     #         zamba2's state; whisper's WhisperCache)
     prefill: Callable[..., Any]
     # decode_step(params, slab, token, pos, rows=None,
-    #             mrope_positions=None) -> (logits, slab)
+    #             mrope_positions=None, seq_group=None) -> (logits, slab);
+    #     seq_group (decoders, zamba2's sites): the slab's sequence split
+    #     over that group, this rank's rows (context parallelism)
     decode_step: Callable[..., Any]
     # init_cache(batch, seq, device="cuda", dtype=None) -> zeroed slab
     init_cache: Callable[..., Any]
@@ -195,10 +197,11 @@ def _decoder_model(cfg: ModelConfig) -> Model:
                                         cache_len or tokens.shape[1])
 
     def decode_step(params, cache, token, pos, rows=None,
-                    mrope_positions=None):
+                    mrope_positions=None, seq_group=None):
         return transformer.forward_decode(params, cfg, token, cache, pos,
                                           rows=rows,
-                                          mrope_positions=mrope_positions)
+                                          mrope_positions=mrope_positions,
+                                          seq_group=seq_group)
 
     def init_cache(batch: int, seq: int, device="cuda", dtype=None):
         return transformer.init_cache(cfg, batch, seq, dtype=dtype,
@@ -255,8 +258,9 @@ def _zamba_model(cfg: ModelConfig) -> Model:
     def prefill(params, tokens, cache_len: Optional[int] = None):
         return mamba2.prefill(params, cfg, tokens, cache_len)
 
-    def decode_step(params, cache, token, pos):
-        return mamba2.forward_decode(params, cfg, token, cache, pos)
+    def decode_step(params, cache, token, pos, seq_group=None):
+        return mamba2.forward_decode(params, cfg, token, cache, pos,
+                                     seq_group)
 
     def init_cache(batch: int, seq: int, device="cuda", dtype=None):
         return mamba2.init_state(cfg, batch, seq, device=device, dtype=dtype)

@@ -27,8 +27,8 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import (ModelConfig, dense_init, embed_init,
-                                       rms_norm)
+from repro_torch.models.common import (ModelConfig, card_device,
+                                       dense_init, embed_init, rms_norm)
 from repro_torch.models.transformer import checkpointed, layer_params
 
 LORA_R = 32
@@ -263,8 +263,9 @@ def time_mix_seq(pl, cfg: ModelConfig, x: torch.Tensor, S0=None,
     """A whole sequence: x [B, T, D] -> [B, T, D] in x's dtype. The
     token-shift lerps and every projection run over the whole sequence;
     only the WKV recurrence is sequential, or chunked: ``chunk`` tokens at
-    a time (0 = token by token; None = ``WKV_CHUNK`` on the card, token by
-    token elsewhere, the reference's form). ``S0`` [B, H, K, K] and
+    a time (0 = token by token; None = ``WKV_CHUNK`` on the card,
+    ``common.card_device``, token by token elsewhere, the reference's
+    form). ``S0`` [B, H, K, K] and
     ``x_prev0`` [B, D] continue from a decode state; ``return_state``
     adds (S, the last input row) for the decode that follows."""
     H, K = _heads(cfg)
@@ -274,7 +275,7 @@ def time_mix_seq(pl, cfg: ModelConfig, x: torch.Tensor, S0=None,
     if S0 is None:
         S0 = torch.zeros((B, H, K, K), dtype=torch.float32, device=x.device)
     if chunk is None:
-        chunk = WKV_CHUNK if x.device.type == "cuda" else 0
+        chunk = WKV_CHUNK if card_device(x.device) else 0
     if chunk:
         y, S = wkv_chunked(rf, kf, vf, lw, u, S0, chunk)
     else:

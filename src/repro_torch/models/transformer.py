@@ -206,12 +206,15 @@ def checkpointed(fn, remat: bool, *args):
 
 
 def forward_decode(p, cfg: ModelConfig, token: torch.Tensor, cache: KVCache,
-                   pos: torch.Tensor, rows=None, *, mrope_positions=None):
+                   pos: torch.Tensor, rows=None, *, mrope_positions=None,
+                   seq_group=None):
     """token [B] int; cache leaves [L, B, S, Hkv, Dh] (with ``rows`` [B]
     int32, the slab row of each token: a slab of any number of rows, whose
     live rows decode in place; a sliding window's ring of S = min(seq, W)
     rows takes position p at row p % W); pos [B] int32 tokens already cached;
-    ``mrope_positions`` [B, 1, 3] (default ``pos`` on all three streams).
+    ``mrope_positions`` [B, 1, 3] (default ``pos`` on all three streams);
+    ``seq_group``: the slab's sequence is split over that group, this
+    rank's rows in ``cache`` (``attention.context_parallel_decode``).
     Returns (logits [B, V], cache) — the slab updated in place."""
     x = embed_tokens(p, cfg, token[:, None])
     for l in range(cfg.num_layers):
@@ -219,7 +222,8 @@ def forward_decode(p, cfg: ModelConfig, token: torch.Tensor, cache: KVCache,
         h = rms_norm(x, pl["ln_attn"], cfg.norm_eps)
         a, _ = attn.attention_decode(pl["attn"], cfg, h, layer_pool(cache, l),
                                      pos, rows=rows,
-                                     mrope_positions=mrope_positions)
+                                     mrope_positions=mrope_positions,
+                                     seq_group=seq_group)
         x = x + a
         x = x + _mlp_part(pl, cfg, x)
     x = rms_norm(x, p["ln_f"], cfg.norm_eps)

@@ -245,8 +245,10 @@ class ShardedTrainStep:
         return {k: local_shard(v, specs[k], self.mesh).to(self.mesh.device)
                 for k, v in batch.items()}
 
-    def _whole(self, params):
-        """The whole tree gathered under autograd (gather-on-use)."""
+    def whole(self, params):
+        """The whole tree gathered under autograd (gather-on-use): every
+        split leaf all-gathered over the model group, the rest as they
+        are."""
         group = self.mesh.model_group
         return _rebuild(params, lambda path, leaf: all_gather(
             leaf, group, self.split[path]) if path in self.split else leaf)
@@ -269,12 +271,15 @@ class ShardedTrainStep:
         return torch.sqrt(split[0] + rep)
 
     def __call__(self, params, opt_state: AdamWState, batch):
-        local = self.rows(batch)
+        return self.local_step(params, opt_state, self.rows(batch))
+
+    def local_step(self, params, opt_state: AdamWState, local):
+        """The step on this rank's rows of the batch (:meth:`rows`)."""
         paths, leaves = zip(*_sorted_paths(params))
         for p in leaves:
             p.requires_grad_()
         with torch.enable_grad():
-            tree = (self._whole(params) if self.mechanism == "gather"
+            tree = (self.whole(params) if self.mechanism == "gather"
                     else params)
             loss, aux = self.model.loss(tree, local, remat=self.remat,
                                         data_group=self.mesh.data_group)
@@ -324,10 +329,10 @@ class ShardedRun:
     shard) or the whole tree as nested
     dicts of numpy arrays. ``log_every``: rank 0 prints the reference
     launcher's line every that many steps and at step 1 (0: never).
-    ``gather`` returns the whole trained tree and moments from rank 0;
-    ``ckpt_path`` writes the tree there. ``settings`` carries the
-    creating process' intra-op threads and TF32 switches
-    (:func:`host_settings`) to every rank."""
+    ``gather`` names what rank 0 returns whole: ``"params"`` (the trained
+    tree), ``"mu"``, ``"nu"`` (its AdamW moments); ``ckpt_path`` writes
+    the tree there. ``settings`` carries the creating process' intra-op
+    threads and TF32 switches (:func:`host_settings`) to every rank."""
     cfg: ModelConfig
     steps: int
     opt: AdamWConfig
@@ -335,7 +340,7 @@ class ShardedRun:
     init: Any = 0
     remat: bool = False
     log_every: int = 0
-    gather: bool = False
+    gather: Tuple[str, ...] = ()
     ckpt_path: str = ""
     settings: dict = dataclasses.field(
         default_factory=lambda: host_settings())
@@ -369,9 +374,8 @@ def train_sharded(mesh, run: ShardedRun) -> dict:
     this rank's record: the mechanism, per step the metrics and the wall
     (ms, host clock around a synchronised step), the kernels' launches
     and each subgroup's collectives (count, host seconds) over the
-    steps, the shard's shapes, the peak memory (a card), and with
-    ``gather`` (rank 0) the whole trained tree and its AdamW moments
-    (``params``, ``mu``, ``nu``)."""
+    steps, the shard's shapes, the peak memory (a card), and (rank 0)
+    each part of ``gather`` whole, under its name."""
     torch.set_num_threads(run.settings["threads"])
     torch.backends.cuda.matmul.allow_tf32 = run.settings["tf32"]
     torch.backends.cudnn.allow_tf32 = run.settings["cudnn_tf32"]
@@ -423,8 +427,9 @@ def train_sharded(mesh, run: ShardedRun) -> dict:
         whole = step.gather(params)
         if whole is not None and run.ckpt_path:
             save_checkpoint(run.ckpt_path, whole, run.steps)
-        if run.gather:
-            moments = [step.gather(t) for t in (opt_state.mu, opt_state.nu)]
-            if whole is not None:
-                out.update(params=whole, mu=moments[0], nu=moments[1])
+        for part in run.gather:
+            tree = (whole if part == "params"
+                    else step.gather(getattr(opt_state, part)))
+            if tree is not None:
+                out[part] = tree
     return out

@@ -122,7 +122,7 @@ def runs(mesh):
             if a == arch:
                 res = mesh.run(train_sharded, ShardedRun(
                     cfg, STEPS, OPT, DATA, init=arrays,
-                    gather=True), layout=layout)
+                    gather=("params", "mu", "nu")), layout=layout)
                 out[(arch, layout)] = (cfg, res, ref, gspmd)
     return out
 

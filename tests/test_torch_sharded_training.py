@@ -315,7 +315,8 @@ def runs(mesh):
             if a == arch:
                 res = mesh.run(train_sharded, ShardedRun(
                     cfg, STEPS, OPT, DATA, init=arrays,
-                    remat=True, gather=True), layout=layout)
+                    remat=True, gather=("params", "mu", "nu")),
+                    layout=layout)
                 out[(arch, layout)] = (res, ref, gspmd)
     return out
 

@@ -288,7 +288,7 @@ def main(argv=None) -> dict:
                 t0 = time.perf_counter()
                 res = mesh.run(train_sharded, ShardedRun(
                     cfg, args.steps, opt_cfg, data, init=args.seed,
-                    gather=True), layout=(1, 2))
+                    gather=("params",)), layout=(1, 2))
                 out["mechanism"] = res[0]["mechanism"]
                 keep(report(f"sharded #{i + 1}", res[0]["history"],
                             res[0]["params"], ref, ref_params,
