@@ -118,27 +118,21 @@ the last line:
     by CUDA events beside SDPA and their bounds (#5 no faster than
     streaming its rows); then the four modes at 2 layers f32 on the card
     and the CPU: equal streams and counters;
-15. the H100 cost model against the card, in a process of its own
-    (``tools/calibrate_h100.py``): the constants of ``kernels.cost.H100``
-    measured (host staging of KV blocks, #1's launch and padding
-    overheads, ``t_fixed``), and the model's predicted step times beside
-    the full-width engine's device busy time and host wall on decode-only,
-    mixed and whole-prompt prefill steps (#1 and #6, every launch
-    recorded by the profiler); Fig. 2's tax on the H100 model beside
-    phase 13's; the QoE fit on the H100 profile and Fig. 13's error
-    against the static baseline;
+15. not run here, for the script's time limit: the H100 cost model
+    against the card is ``tools/calibrate_h100.py --fig2-tax X``, run on
+    its own (the constants of ``kernels.cost.H100``, the model's step
+    times beside the engine's device busy time and host wall, the QoE
+    fit);
 16. the MoE family at full width: with under 1 GB left allocated,
     qwen3-moe-30b-a3b's 30.1 B bf16 weights drawn on the card: (a) one
     fused engine (8 slots, max_seq 8192, 32768-token pool,
     preemption off) serving phase 4's requests arriving one a step, under
     sync-debug "error", one d2h a step that brings tokens, one forward a
-    step, #1 launches == 48 x forwards and nothing else, TTFT/TPOT; then,
-    in a fresh process (``tools/profile_torch_engine.py --arch``), the
-    trace served again and three mixed steps (from the longest prompt's
-    ctx 2560) and three decode-only steps profiled one at a time: device
-    busy split into the MoE layer (beside its bound), the attention kernel
-    and the rest; (b) a 2-engine ``MILSServer`` (16384-token pools,
-    stages [0, 2048) and [2048, inf)) on phase 6's 16 requests: drained,
+    step, #1 launches == 48 x forwards and nothing else, TTFT/TPOT (the
+    step's device time split into the MoE layer, the attention kernel and
+    the rest is ``tools/profile_torch_engine.py --arch``'s, run on its
+    own); (b) a 2-engine ``MILSServer`` (16384-token pools, stages [0,
+    2048) and [2048, inf)) on phase 6's first 8 requests: drained,
     at least one migration, at most one d2h and one forward an engine
     step, #1 launches == 48 x forwards; (c) 2 layers f32 on the card and
     the CPU: equal greedy streams, ``moe_dense`` within 1e-4; (d) arctic-
@@ -197,9 +191,9 @@ the last line:
     loss, gradient norm, lr, wall, tokens/s and peak memory a step;
     losses finite and falling; #6 == 8 x 28 x 2 launches (remat runs each
     layer's forward twice; backward differentiates #6's plain version),
-    nothing else; (b) 2 layers f32 on the card and the CPU (loss, grads,
-    params after a step), the wrapped #6's grads against plain autograd,
-    a checkpoint round trip on the card;
+    nothing else; (b) 2 layers f32 on the card: the wrapped #6's grads
+    against plain autograd, one step, a checkpoint round trip (the step
+    against the CPU's: phase 24 (b)'s llama3.2-3b case);
 23. tensor-parallel serving on the machine's one card: two ranks (this
     process, the leader, and one ``launch.tp_worker``) on ``cuda:0`` over
     gloo (NCCL puts one rank on a card, so it is not measured); (a)
@@ -226,11 +220,12 @@ the last line:
     one card; not a speedup"); the ranks' metrics equal, the losses
     within one bf16 ulp of phase 22's first 4, #6 == 4 x 28 x 2 launches
     on each rank and nothing else; #6 at a rank's heads on that batch is
-    measured early, in phase 3's ``family_kernels``; (b) 2 layers f32 at
-    (data 1, model 2) and (2, 1), and rwkv6, zamba2 and whisper reduced
-    at (1, 2) by gather-on-use: loss, gradient norm and params after 2
-    steps (AdamW at eps 1e-5) == the unsharded step on the CPU on the
-    same weights within 1e-5; (c) whisper's (1, 2) checkpoint reads back
+    measured early, in phase 3's ``family_kernels``; (b) 2 layers f32:
+    llama3.2-3b at (data 1, model 2), smollm-360m at (2, 1), and rwkv6,
+    zamba2 and whisper reduced at (1, 2) by gather-on-use: loss, gradient
+    norm and params after one step (AdamW at eps 1e-5) == the unsharded
+    step on the CPU on the same weights within 1e-5; (c)
+    whisper's (1, 2) checkpoint reads back
     bit for bit and equals the unsharded run's;
 25. the dry run on the card: llama3.2-3b's programs from
     ``launch.cases.build_case`` at (data 1, model 1), bf16, seeded
@@ -246,8 +241,30 @@ the last line:
     and bytes equal to the trace's (1e-9); #6 at B 1, T 32768 (held on
     256 query rows at its start, middle and end) and #5 on the 8 rows and
     on the ring are measured early, in phase 3's ``family_kernels``;
-26. one JSON line of every kernel (the rows of phases 16-18's, 21's,
-    23's, 24's and 25's shapes added), then, last, ``{"ok": true, ...}``.
+26. the per-leaf partition of a rank's program: smollm-360m at full
+    width (32 layers, H 15 / Hkv 5, Dh 64), whose heads divide no model
+    axis while every dim the rules split does, at (data 1, model 2) on
+    two ranks sharing the card over gloo (this process and one
+    ``launch.train_worker``); (a) bf16, seeded weights: a prefill of B 2
+    x 2048 (#6 on each rank's 15 one-head (row, head) pairs), a decode of
+    B 8 against 4096 rows on the cache split on its head dim (partial
+    scores all-reduced in f32, no #5) and a train step of B 2 x 1024
+    (remat; the loss on vocab-split logits), each
+    ``launch.dryrun.run_rank`` on both ranks: ms by CUDA events (3 runs
+    after a warm one), each rank's collectives (count, host s) and peak
+    memory (all "two ranks on one card; not a speedup"); the collectives
+    of a run == ``part_collectives`` (counted from the code) == the (1, 2)
+    trace's, #6 == 32 a prefill run and 64 a train step on each rank and
+    nothing in a decode, rank 0's counted FLOPs and bytes == its trace's
+    (1e-9; the traces run in two processes of their own from the start,
+    beside the build); #6 on
+    the pairs is measured early, in phase 3's ``family_kernels``; (b) 2
+    layers f32: each rank's prefill logits and cache slice, a decode
+    step's, and a train step's loss, grad norm and params on the card ==
+    the unsharded port on the CPU within 1e-5;
+27. one JSON line of every kernel (the rows of phases 16-18's, 21's,
+    23's, 24's, 25's and 26's shapes added), then, last,
+    ``{"ok": true, ...}``.
 
 It needs one CUDA card and fails without one; it imports nothing of JAX.
 """
@@ -257,10 +274,12 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import re
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -1318,7 +1337,7 @@ def phase_devices(np, torch, cfg_mod, model_mod, engine_mod, request_mod,
     cfg = dataclasses.replace(cfg_mod.get_config("llama3.2-3b"),
                               num_layers=2, dtype=torch.float32)
     model = model_mod.build_model(cfg)
-    cpu_params = model.init(SEED, device="cpu")
+    cpu_params = cpu_weights(model)
     gpu_params = _tree_to(cpu_params, torch.device("cuda"))
     streams = {}
     for name, params in (("cuda", gpu_params), ("cpu", cpu_params)):
@@ -1537,7 +1556,7 @@ def phase_cluster_devices(np, torch, cfg_mod, model_mod, request_mod,
     cfg = dataclasses.replace(cfg_mod.get_config("llama3.2-3b"),
                               num_layers=2, dtype=torch.float32)
     model = model_mod.build_model(cfg)
-    cpu_params = model.init(SEED, device="cpu")
+    cpu_params = cpu_weights(model)
     runs = {}
     for name, params in (("cuda", _tree_to(cpu_params, torch.device("cuda"))),
                          ("cpu", cpu_params)):
@@ -1838,7 +1857,7 @@ def phase_chaos_devices(np, torch, cfg, model_mod, engine_mod, request_mod,
     the card and on the CPU; then, on the card, the same trace with
     preemption and faults off."""
     model = model_mod.build_model(cfg)
-    cpu_params = model.init(SEED, device="cpu")
+    cpu_params = cpu_weights(model)
     gpu_params = _tree_to(cpu_params, torch.device("cuda"))
     quiet = dict(SMALL_CHAOS_ENGINE, preemption=False)
     runs = {}
@@ -2309,7 +2328,7 @@ def phase_engine_modes_devices(np, torch, cfg_mod, model_mod, engine_mod,
     cfg = dataclasses.replace(cfg_mod.get_config("llama3.2-3b"),
                               num_layers=2, dtype=torch.float32)
     model = model_mod.build_model(cfg)
-    cpu_params = model.init(SEED, device="cpu")
+    cpu_params = cpu_weights(model)
     gpu_params = _tree_to(cpu_params, torch.device("cuda"))
     for name, kw in ENGINE_MODES:
         runs = {}
@@ -2335,49 +2354,6 @@ def phase_engine_modes_devices(np, torch, cfg_mod, model_mod, engine_mod,
         log(f"phase 14: {name}, 2-layer full-width f32 llama3.2-3b: cuda == "
             f"cpu greedy streams {runs['cuda'][0]} and counters "
             f"{runs['cuda'][1]}")
-
-
-# --------------------------------------------------------------------------
-# Phase 15: the H100 cost model against the card
-# --------------------------------------------------------------------------
-COST_MODEL_POINTS = 12     # 6 + 1 decode-only, 2 mixed, 3 prefill steps
-
-
-def phase_cost_model(torch, fig2_tax):
-    """``tools/calibrate_h100.py`` in a fresh process (its profiler must
-    record every kernel of the steps it times; late in this process
-    records went missing), its lines printed as they come; fails unless
-    it exits 0 with every point present and every number finite."""
-    gc.collect()
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    out = ROOT / "chiprun_out" / "phase15_cost_model.json"
-    out.unlink(missing_ok=True)
-    rc = subprocess.run(
-        [sys.executable, str(ROOT / "tools" / "calibrate_h100.py"),
-         "--json", str(out), "--fig2-tax", repr(float(fig2_tax))],
-        timeout=600).returncode
-    check(rc == 0 and out.is_file(), f"phase 15 failed (exit {rc})")
-    res = json.loads(out.read_text())
-    check(len(res["points"]) == COST_MODEL_POINTS,
-          f"phase 15: {len(res['points'])} of {COST_MODEL_POINTS} points")
-    nums = [res["t_fixed_s"], res["host_gap_s"], res["fig2_tax_model"],
-            res["launch_skip"]["launch_overhead_s"],
-            res["launch_skip"]["skip_overhead_s"],
-            res["staging"]["fit"]["both"]["bw"],
-            res["staging"]["fit"]["both"]["overhead_s"],
-            res["qoe"]["model_mean_err"], res["qoe"]["static_mean_err"]]
-    nums += res["qoe"]["D"]
-    for p in res["points"]:
-        nums += [p["pred_s"], p["busy_s"], p["wall_s"], p["err_vs_busy"],
-                 p["err_vs_wall"]]
-    check(all(math.isfinite(x) for x in nums),
-          "phase 15: a number is not finite")
-    check(all(n > 0 for n in res["launches"].values()),
-          f"phase 15: launches {res['launches']}")
-    res["phase_s"] = time.perf_counter() - t0
-    log(f"phase 15: took {res['phase_s']:.1f} s")
-    return res
 
 
 # --------------------------------------------------------------------------
@@ -2518,33 +2494,6 @@ def _serve_trace(np, torch, engine_mod, request_mod, tk, dk, pk, eng, model,
             "forwards": dict(kinds), "forwards_total": forwards,
             "launches": launches, "peak_memory_gb": peak_gb,
             "streams": [list(r.generated) for r in reqs]}
-
-
-def phase_moe_profile(torch):
-    """``tools/profile_torch_engine.py --arch qwen3-moe-30b-a3b`` in a
-    fresh process (its profiler must record every kernel of the steps it
-    profiles; late in this process records went missing), with nothing of
-    this process's left on the card: mixed and decode-only engine steps,
-    each step's device busy split into the MoE layer (beside its bound),
-    the attention kernel and the rest. Fails unless it exits 0 with both
-    windows profiled and every number finite."""
-    _fresh_card(torch, "phase 16 (a) profile")
-    out = ROOT / "chiprun_out" / "phase16_moe_profile.json"
-    out.unlink(missing_ok=True)
-    rc = subprocess.run(
-        [sys.executable, str(ROOT / "tools" / "profile_torch_engine.py"),
-         "--arch", MOE_ARCH, "--json", str(out)], timeout=900).returncode
-    check(rc == 0 and out.is_file(), f"phase 16 (a) profile failed "
-          f"(exit {rc})")
-    res = json.loads(out.read_text())
-    check(len(res["windows"]) == 2, "phase 16 (a): a window not profiled")
-    for w in res["windows"]:
-        check(all(s["moe_calls"] for s in w["samples"]),
-              f"phase 16 (a): {w['label']}: a step ran no MoE layer")
-        check(all(math.isfinite(v) for s in w["samples"]
-                  for v in s.values() if isinstance(v, float)),
-              f"phase 16 (a): {w['label']}: a number is not finite")
-    return res
 
 
 def _small_requests(np, request_mod, vocab, lens=SMALL_REQS, new=6):
@@ -2700,11 +2649,11 @@ def _two_engine_cluster(np, torch, model, params, engine_mod, request_mod,
 def phase_moe(np, torch, cfg_mod, model_mod, engine_mod, request_mod,
               server_mod, serve_mod, qoe_mod, tk, dk, pk):
     """Phase 16: qwen3-moe-30b-a3b at full width, bf16, alone on the card:
-    (a) one fused engine serving phase 4's requests, then profiled steps
-    split into the MoE layer, the attention kernel and the rest (in a
-    fresh process); (b) a 2-engine cluster; (c) 2 layers f32 on the card
-    and the CPU (engine streams, ``moe_dense``); (d) arctic-480b reduced,
-    the same."""
+    (a) one fused engine serving phase 4's requests; (b) a 2-engine
+    cluster on phase 6's first 8; (c) 2 layers f32 on the card and the
+    CPU (engine streams, ``moe_dense``); (d) arctic-480b reduced, the
+    same. Where its step's time goes is ``tools/profile_torch_engine.py
+    --arch qwen3-moe-30b-a3b``, run on its own."""
     from repro_torch.models import mlp as mlp_mod
     base = cfg_mod.get_config(MOE_ARCH)
     held = _fresh_card(torch, "phase 16")
@@ -2715,7 +2664,7 @@ def phase_moe(np, torch, cfg_mod, model_mod, engine_mod, request_mod,
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
                for n in PROMPTS]
 
-    # (a) one engine, then a profiled pass on a fresh one
+    # (a) one engine
     eng = engine_mod.Engine(0, model, params, max_slots=8, max_seq=8192,
                             token_budget=32768, preemption=False)
     check(eng.fused_mixed, "phase 16: the engine is not on fused")
@@ -2726,14 +2675,16 @@ def phase_moe(np, torch, cfg_mod, model_mod, engine_mod, request_mod,
           f"phase 16 (a): launches {engine['launches']} != "
           f"{cfg.num_layers} x {engine['forwards_total']} fused forwards")
     eng.shutdown()
-    del eng, params
-    engine["profile"] = phase_moe_profile(torch)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    # (b) the 2-engine cluster, on the weights drawn again
-    params, _ = _draw_weights(torch, model, "phase 16 (b)")
+    # (b) the 2-engine cluster on phase 6's first 8 requests, on the same
+    # weights
     cluster = _two_engine_cluster(np, torch, model, params, engine_mod,
                                   request_mod, server_mod, serve_mod,
-                                  qoe_mod, tk, dk, pk, "phase 16 (b)")
+                                  qoe_mod, tk, dk, pk, "phase 16 (b)",
+                                  trace=CLUSTER_TRACE[:8])
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     del params
     gc.collect()
@@ -2797,7 +2748,7 @@ def family_kernels(np, torch, F, cfg_mod, tk, dk, pk, flush):
     so the engine runs Dh 64), and at a tp=2 rank's llama3.2-3b heads
     (12 / 4, phase 23); #6 at those heads on phase 24 (a)'s training
     batch (B 2, T 1024); #6 and #5 at phase 25's shapes
-    (:func:`dryrun_kernels`)."""
+    (:func:`dryrun_kernels`); #6 on phase 26's (row, head) pairs."""
     moe = cfg_mod.get_config(MOE_ARCH)
     vlm = cfg_mod.get_config(VLM_ARCH)
     out = {"moe": phase_kernels(np, torch, F, tk, flush, H=moe.num_heads,
@@ -2855,6 +2806,15 @@ def family_kernels(np, torch, F, cfg_mod, tk, dk, pk, flush):
         device=True, decode=False)["prefill"]
     # phase 25: #6 and #5 at the dry run's llama3.2-3b shapes
     out["dryrun"] = dryrun_kernels(torch, cfg_mod, dk, pk, flush)
+    # phase 26 (a): #6 on a model-parallel rank's (row, head) pairs of
+    # smollm-360m's prefill (B 2 x 15 heads over 2 ranks: 15 pairs of one
+    # head a rank, Dh 64)
+    sm = cfg_mod.get_config(PART_ARCH)
+    out["pairs"] = contiguous_kernels_at(
+        torch, dataclasses.replace(sm, num_heads=1, num_kv_heads=1), dk, pk,
+        flush, -(-2 * sm.num_heads // 2), PART_PAIRS_T, [], [], 0,
+        f"phase 3 ({PART_ARCH}, a model-parallel rank's (row, head) pairs)",
+        device=True, decode=False)["prefill"]
     return out
 
 
@@ -3588,12 +3548,12 @@ def phase_train(np, torch, cfg_mod, model_mod, tk, dk, pk):
     steps at lr 3e-4 (warmup 1): per step the loss, gradient norm, lr,
     wall, tokens/s and peak memory; every loss finite and the last below
     the first; #6 launched steps x layers x 2 times (remat runs each
-    layer's forward twice), nothing else; (b) 2 layers f32 on the card and
-    the CPU: the loss, every gradient and every parameter after one step
-    (1e-4 of the largest magnitude); the wrapped #6's gradients against
-    autograd through its plain version on the card (1e-4); a checkpoint
-    of the 2-layer model's attention weights and their AdamW state written
-    from the card and read back onto it, bit for bit."""
+    layer's forward twice), nothing else; (b) 2 layers f32 on the card:
+    the wrapped #6's gradients against autograd through its plain version
+    (1e-4), one step (finite; the step against the CPU's is phase 24
+    (b)'s llama3.2-3b case), a checkpoint of the 2-layer model's attention
+    weights and their AdamW state written from the card and read back onto
+    it, bit for bit."""
     from repro_torch.kernels import prefill_attention as pk_mod
     from repro_torch.models import attention as attn_mod
     from repro_torch.core.migration import tree_leaves
@@ -3645,46 +3605,37 @@ def phase_train(np, torch, cfg_mod, model_mod, tk, dk, pk):
     gc.collect()
     torch.cuda.empty_cache()
 
-    # (b) 2 layers, f32: the card against the CPU, the wrapped #6 against
-    # plain autograd, a checkpoint round trip on the card
+    # (b) 2 layers, f32, on the card: the wrapped #6 against plain
+    # autograd, one step, a checkpoint round trip (the step against the
+    # CPU's is phase 24 (b)'s llama3.2-3b case, on two ranks)
     cfg2 = dataclasses.replace(base, num_layers=2, dtype=torch.float32)
     model2 = model_mod.build_model(cfg2)
     gpu2 = model2.init(SEED, device="cuda")
-    cpu2 = _tree_to(gpu2, torch.device("cpu"))
-    batch = next(iter(TokenStream(cfg2, DataConfig(batch_size=2, seq_len=64,
-                                                   seed=SEED))))
-    got = {}
-    for dev, params in (("cuda", gpu2), ("cpu", cpu2)):
-        b = batch_to(batch, dev)
-        leaves = [p.requires_grad_() for p in tree_leaves(params)]
-        loss, _ = model2.loss(params, b, remat=True)
-        grads = torch.autograd.grad(loss, leaves)
-        if dev == "cuda":
-            full = torch.full((2,), 64, dtype=torch.int32, device="cuda")
-            wrapped = attn_mod.causal_prefill
-            attn_mod.causal_prefill = (
-                lambda q, k, v: pk_mod.prefill_attention_plain(q, k, v,
-                                                               full))
-            try:
-                plain_loss, _ = model2.loss(params, b)
-                plain = torch.autograd.grad(plain_loss, leaves)
-            finally:
-                attn_mod.causal_prefill = wrapped
-            wrap_err = max(float((g - h).abs().max()
-                                 / max(h.abs().max().item(), 1e-30))
-                           for g, h in zip(grads, plain))
-            check(wrap_err <= 1e-4, f"phase 22 (b): wrapped #6 grads off "
-                  f"plain autograd by {wrap_err:.3e}")
-        step = make_train_step(model2, opt_cfg, remat=True)
-        params, state, _ = step(params, init_adamw(params), b)
-        got[dev] = (float(loss.detach()), [g.cpu() for g in grads],
-                    [p.detach().cpu() for p in tree_leaves(params)], state)
-    (la, ga, pa, st), (lb, gb, pb, _) = got["cuda"], got["cpu"]
-    errs = [float((x - y).abs().max() / max(1.0, y.abs().max().item()))
-            for x, y in zip(ga + pa, gb + pb)]
-    check(abs(la - lb) <= 1e-5 * abs(lb) and max(errs) <= 1e-4,
-          f"phase 22 (b): cuda vs cpu loss {la} / {lb}, grads and params "
-          f"off by {max(errs):.3e}")
+    b = batch_to(next(iter(TokenStream(cfg2, DataConfig(
+        batch_size=2, seq_len=64, seed=SEED)))), "cuda")
+    leaves = [p.requires_grad_() for p in tree_leaves(gpu2)]
+    loss, _ = model2.loss(gpu2, b, remat=True)
+    grads = torch.autograd.grad(loss, leaves)
+    full = torch.full((2,), 64, dtype=torch.int32, device="cuda")
+    wrapped = attn_mod.causal_prefill
+    attn_mod.causal_prefill = (
+        lambda q, k, v: pk_mod.prefill_attention_plain(q, k, v, full))
+    try:
+        plain_loss, _ = model2.loss(gpu2, b)
+        plain = torch.autograd.grad(plain_loss, leaves)
+    finally:
+        attn_mod.causal_prefill = wrapped
+    wrap_err = max(float((g - h).abs().max()
+                         / max(h.abs().max().item(), 1e-30))
+                   for g, h in zip(grads, plain))
+    check(wrap_err <= 1e-4, f"phase 22 (b): wrapped #6 grads off plain "
+          f"autograd by {wrap_err:.3e}")
+    del grads, plain
+    step = make_train_step(model2, opt_cfg, remat=True)
+    gpu2, st, m = step(gpu2, init_adamw(gpu2), b)
+    la = float(m["loss"])
+    check(math.isfinite(la) and _finite(torch, gpu2),
+          f"phase 22 (b): the step's loss {la} or params not finite")
     # the attention weights of both layers and their AdamW state (the
     # whole model's would be 8.7 GB on disk)
     path = ROOT / "build" / "phase22_checkpoint.npz"
@@ -3701,14 +3652,12 @@ def phase_train(np, torch, cfg_mod, model_mod, tk, dk, pk):
     path.unlink()
     check(step_no == 1 and same, "phase 22 (b): checkpoint round trip "
           "changed a leaf")
-    log(f"phase 22 (b): 2-layer full-width f32 {TRAIN_ARCH}, one step: cuda "
-        f"loss {la:.6f} == cpu {lb:.6f}; grads and params within "
-        f"{max(errs):.3e} of the largest (1e-4); wrapped #6 grads within "
-        f"{wrap_err:.3e} of plain autograd (1e-4); checkpoint round trip on "
-        f"the card ({ck_bytes} B) bit for bit")
-    out.update(cuda_cpu_err=max(errs), wrapped_vs_plain_err=wrap_err,
-               checkpoint_bytes=ck_bytes)
-    del gpu2, cpu2, got, st, back, like, tree
+    log(f"phase 22 (b): 2-layer full-width f32 {TRAIN_ARCH}, one step on "
+        f"the card: loss {la:.6f}; wrapped #6 grads within {wrap_err:.3e} "
+        f"of plain autograd (1e-4); checkpoint round trip on the card "
+        f"({ck_bytes} B) bit for bit")
+    out.update(wrapped_vs_plain_err=wrap_err, checkpoint_bytes=ck_bytes)
+    del gpu2, st, back, like, tree
     gc.collect()
     torch.cuda.empty_cache()
     return out
@@ -3941,7 +3890,7 @@ def _tp_small(np, torch, cfg_mod, model_mod, engine_mod, request_mod,
     cfg = dataclasses.replace(cfg_mod.get_config("llama3.2-3b"),
                               num_layers=2, dtype=torch.float32)
     model = model_mod.build_model(cfg)
-    cpu_params = model.init(SEED, device="cpu")
+    cpu_params = cpu_weights(model)
     gpu_params = _tree_to(cpu_params, torch.device("cuda"))
     kinds = {"flat": ("flat_decode", "chunked_prefill"),
              "grid": ("grid_decode", "chunked_prefill")}
@@ -4083,7 +4032,14 @@ def phase_tp(np, torch, cfg_mod, model_mod, engine_mod, request_mod,
 # --------------------------------------------------------------------------
 SHARD_NOTE = "two ranks on one card; not a speedup"
 SHARD_STEPS = 4            # (a): phase 22's first 4 steps
-SHARD_SMALL_STEPS = 2      # (b)
+# (b): one step. The CPU references are (b)'s critical path, and rwkv6's
+# second step is ill-conditioned in exact arithmetic (bonus_u and the state
+# start at 0: after one step the first token's WKV output has a variance
+# per head of ~3e-8, far below its group norm's eps 1e-5; in f64 a 1e-7
+# move of the weights lands 0.224 away in the step-2 grad norm, while step
+# 1 stays within 6.1e-6: tools/gather_witness.py). Phase 24 (a) runs 4
+# steps against phase 22's
+SHARD_SMALL_STEPS = 1
 SHARD_TOL = 1e-5           # (b): loss / grad norm relative; params of
                            # max(1, |p|)
 # (b) runs AdamW at eps 1e-5: at 1e-8 its first step moves an element by
@@ -4097,27 +4053,12 @@ SHARD_EPS = 1e-5
 SHARD_FAMILIES = {"rwkv6-7b": {"num_layers": 2},
                   "zamba2-2.7b": {"num_layers": 2, "attn_every": 2},
                   "whisper-large-v3": {"num_layers": 2, "encoder_layers": 2}}
-# rwkv6's second step is ill-conditioned in exact arithmetic: bonus_u and
-# the state start at 0, so after one step the first token's WKV output
-# has a variance per head of ~3e-8, far below its group norm's eps 1e-5.
-# tools/gather_witness.py at (b)'s setting (NVIDIA H100 80GB HBM3, 700 W):
-# the f64 step from weights each moved by 1e-7 lands 5.8e-6 (step-2
-# loss), 0.224 (step-2 grad norm) and 4.2e-5 (params after 2 steps) from
-# the f64 step; the CPU's f32 step 7.3e-6 / 0.267 / 4.2e-5 and the card's
-# 1.0e-5 / 0.318 / 3.5e-5 from it (card vs CPU: 1.8e-5 / 0.80 / <= 7.7e-5);
-# step 1 stays within 6.1e-6 everywhere, and three card runs were equal
-# bit for bit. So rwkv6 is held to SHARD_TOL on step 1 (its loss, grad
-# norm, and the params after it, from a 1-step run of their own) and on
-# step 2 to these limits, each a few times the card-vs-CPU reading
-RWKV_STEP2_LIMITS = {"loss": 1e-4, "grad_norm": 2.0, "params": 4e-4}
 
 
 def _unsharded_steps(torch, model, opt_cfg, data_cfg, steps, device,
-                     params=None, first=None):
+                     params=None):
     """The port's unsharded step on ``device`` from ``params`` (default:
-    drawn from seed ``SEED`` there): (metrics a step, params). With a
-    list ``first``, a copy of the params after step 1 is appended to
-    it."""
+    drawn from seed ``SEED`` there): (metrics a step, params)."""
     from repro_torch.training.data import TokenStream
     from repro_torch.training.optimizer import init_adamw
     from repro_torch.training.trainer import batch_to, make_train_step
@@ -4130,8 +4071,6 @@ def _unsharded_steps(torch, model, opt_cfg, data_cfg, steps, device,
     for _ in range(steps):
         params, opt, m = step(params, opt, batch_to(next(it), device))
         hist.append({k: float(v) for k, v in m.items()})
-        if first is not None and not first:
-            first.append(_tree_to(params, torch.device("cpu"), copy=True))
     return hist, params
 
 
@@ -4220,14 +4159,12 @@ def _shard_big(torch, mesh, cfg_mod, model_mod, pk, phase22):
 def _shard_small(torch, mesh, cfg_mod, model_mod):
     """Phase 24 (b) and (c): 2 layers f32 sharded on the card == the
     unsharded step on the CPU on the same weights (drawn on the card from
-    ``SEED`` by each rank and, for the CPU, once here and copied);
-    llama3.2-3b and the gather-on-use families (``SHARD_FAMILIES``) at
-    their published widths, rwkv6's second step to
-    ``RWKV_STEP2_LIMITS``; the sharded run's checkpoint. The CPU steps
-    run in a thread of their own while the card runs the sharded jobs
-    (each reference needs only its weights, copied first)."""
-    from concurrent.futures import ThreadPoolExecutor
-
+    ``SEED`` by each rank and, for the CPU, once here and copied), all at
+    their published widths: llama3.2-3b at (1, 2), smollm-360m at (2, 1)
+    and the gather-on-use families (``SHARD_FAMILIES``) at (1, 2), for
+    ``SHARD_SMALL_STEPS``; the sharded run's checkpoint. The CPU steps run
+    in a thread of their own while the card runs the sharded jobs (each
+    reference needs only its weights, copied first)."""
     from repro_torch.training.checkpoint import load_checkpoint
     from repro_torch.training.data import DataConfig
     from repro_torch.training.optimizer import AdamWConfig
@@ -4235,37 +4172,33 @@ def _shard_small(torch, mesh, cfg_mod, model_mod):
     opt = AdamWConfig(lr=TRAIN_LR, eps=SHARD_EPS, warmup_steps=1,
                       total_steps=SHARD_SMALL_STEPS)
     data = DataConfig(batch_size=2, seq_len=64, seed=SEED)
-    llama = dataclasses.replace(cfg_mod.get_config("llama3.2-3b"),
-                                num_layers=2)
-    cases = [(llama, (1, 2), "tensor"), (llama, (2, 1), "replicated")]
+    llama, smollm = (dataclasses.replace(cfg_mod.get_config(a), num_layers=2)
+                     for a in ("llama3.2-3b", PART_ARCH))
+    cases = [(llama, (1, 2), "tensor"), (smollm, (2, 1), "replicated")]
     cases += [(dataclasses.replace(cfg_mod.get_config(a), **cut), (1, 2),
                "gather") for a, cut in SHARD_FAMILIES.items()]
     cases = [(dataclasses.replace(c, dtype=torch.float32), layout, mech)
              for c, layout, mech in cases]
     ckpt_name = cases[-1][0].name          # (c): whisper's tree
 
-    def reference(model, weights, after1):
+    def reference(model, weights):
         t0 = time.perf_counter()
         hist, params = _unsharded_steps(torch, model, opt, data,
                                         SHARD_SMALL_STEPS, "cpu",
-                                        params=weights, first=after1)
-        return hist, params, after1, time.perf_counter() - t0
+                                        params=weights)
+        return hist, params, time.perf_counter() - t0
     out = {}
     refs = {}
     cpu_pool = ThreadPoolExecutor(max_workers=1)
     for cfg, _, _ in cases:
-        if cfg.name not in refs:
-            model = model_mod.build_model(cfg)
-            weights = _tree_to(model.init(SEED, device="cuda"),
-                               torch.device("cpu"))
-            torch.cuda.empty_cache()
-            refs[cfg.name] = cpu_pool.submit(
-                reference, model, weights,
-                [] if cfg.family == "ssm" else None)
+        model = model_mod.build_model(cfg)
+        weights = _tree_to(model.init(SEED, device="cuda"),
+                           torch.device("cpu"))
+        torch.cuda.empty_cache()
+        refs[cfg.name] = cpu_pool.submit(reference, model, weights)
     try:
         for cfg, layout, mech in cases:
             arch = cfg.name
-            rwkv = cfg.family == "ssm"
             ckpt = ROOT / "build" / "phase24_checkpoint.npz"
             ckpt.parent.mkdir(exist_ok=True)
             first = arch == ckpt_name
@@ -4275,7 +4208,7 @@ def _shard_small(torch, mesh, cfg_mod, model_mod):
                 gather=("params",), ckpt_path=str(ckpt) if first else ""),
                 layout=layout)
             job_s = time.perf_counter() - t0
-            ref_hist, ref_params, ref_after1, cpu_s = refs[arch].result()
+            ref_hist, ref_params, cpu_s = refs.pop(arch).result()
             check([r["mechanism"] for r in res] == [mech] * 2,
                   f"phase 24 (b) {arch} {layout}: {res[0]['mechanism']}")
             check(all(r["device"] == "cuda:0" for r in res),
@@ -4284,62 +4217,31 @@ def _shard_small(torch, mesh, cfg_mod, model_mod):
                   f"phase 24 (b): the rank imported "
                   f"{res[1]['forbidden_modules']}")
             key = f"{arch} {layout[0]}x{layout[1]}"
-            rec = {"mechanism": mech, "job_s": job_s, "cpu_reference_s": cpu_s}
-            if rwkv:
-                # step 1 to SHARD_TOL, the params after it from a 1-step
-                # run; step 2 and the params after it to RWKV_STEP2_LIMITS
-                m1 = max(_metrics_err(r["history"][:1], ref_hist[:1])
-                         for r in res)
-                one = mesh.run(train_sharded, ShardedRun(
-                    cfg, 1, opt, data, init=SEED, gather=("params",)),
-                    layout=layout)
-                p1 = _params_err(one[0]["params"], ref_after1[0])
-                del one
-                gaps = {k: max(_metrics_err(r["history"][1:], ref_hist[1:],
-                                            (k,)) for r in res)
-                        for k in ("loss", "grad_norm")}
-                gaps["params"] = _params_err(res[0]["params"], ref_params)
-                check(m1 <= SHARD_TOL and p1 <= SHARD_TOL,
-                      f"phase 24 (b) {key}: step 1 on the card vs the CPU: "
-                      f"metrics {m1:.3e}, params {p1:.3e} (tolerance "
-                      f"{SHARD_TOL})")
-                check(all(gaps[k] <= RWKV_STEP2_LIMITS[k] for k in gaps),
-                      f"phase 24 (b) {key}: step 2 on the card vs the CPU "
-                      f"{gaps} beyond {RWKV_STEP2_LIMITS}")
-                rec.update(step1_metrics_err=m1, step1_params_err=p1,
-                           step2_gaps=gaps, step2_limits=RWKV_STEP2_LIMITS)
-                held = (f"step 1 metrics within {m1:.2e} and its params "
-                        f"within {p1:.2e} ({SHARD_TOL}); step 2 loss / "
-                        f"grad norm / "
-                        f"params {gaps['loss']:.2e} / {gaps['grad_norm']:.3f} "
-                        f"/ {gaps['params']:.2e} (limits {RWKV_STEP2_LIMITS}: "
-                        f"the step is ill-conditioned, "
-                        f"tools/gather_witness.py)")
-            else:
-                m_err = max(_metrics_err(r["history"], ref_hist) for r in res)
-                p_err = _params_err(res[0]["params"], ref_params)
-                check(m_err <= SHARD_TOL and p_err <= SHARD_TOL,
-                      f"phase 24 (b) {key}: sharded on the card vs unsharded "
-                      f"on the CPU: metrics {m_err:.3e}, params {p_err:.3e} "
-                      f"(tolerance {SHARD_TOL})")
-                rec.update(metrics_err=m_err, params_err=p_err)
-                held = (f"metrics within {m_err:.2e}, params within "
-                        f"{p_err:.2e} ({SHARD_TOL})")
+            m_err = max(_metrics_err(r["history"], ref_hist) for r in res)
+            p_err = _params_err(res[0]["params"], ref_params)
+            check(m_err <= SHARD_TOL and p_err <= SHARD_TOL,
+                  f"phase 24 (b) {key}: sharded on the card vs unsharded "
+                  f"on the CPU: metrics {m_err:.3e}, params {p_err:.3e} "
+                  f"(tolerance {SHARD_TOL})")
             launched = {k: n for k, n in res[1]["launches"].items() if n}
-            rec.update(launches=launched,
-                       losses=[h["loss"] for h in res[0]["history"]],
-                       grad_norms=[h["grad_norm"] for h in res[0]["history"]])
-            out[key] = rec
-            log(f"phase 24 (b) {key} ({mech}, {SHARD_SMALL_STEPS} steps "
-                f"f32 on {res[0]['device']} x 2): loss "
+            out[key] = {
+                "mechanism": mech, "job_s": job_s,
+                "cpu_reference_s": cpu_s, "metrics_err": m_err,
+                "params_err": p_err, "launches": launched,
+                "losses": [h["loss"] for h in res[0]["history"]],
+                "grad_norms": [h["grad_norm"] for h in res[0]["history"]]}
+            log(f"phase 24 (b) {key} ({mech}, {SHARD_SMALL_STEPS} step f32 on "
+                f"{res[0]['device']} x 2): loss "
                 f"{[round(h['loss'], 6) for h in res[0]['history']]}, "
                 f"grad norm "
                 f"{[round(h['grad_norm'], 4) for h in res[0]['history']]} vs "
                 f"unsharded on the CPU "
                 f"{[round(h['loss'], 6) for h in ref_hist]}, "
-                f"{[round(h['grad_norm'], 4) for h in ref_hist]}; {held}; "
-                f"launches on rank 1 {launched}; the job {job_s:.1f} s, the "
-                f"CPU steps {cpu_s:.1f} s (beside the jobs)")
+                f"{[round(h['grad_norm'], 4) for h in ref_hist]}; metrics "
+                f"within {m_err:.2e}, params within {p_err:.2e} "
+                f"({SHARD_TOL}); launches on rank 1 {launched}; the job "
+                f"{job_s:.1f} s, the CPU steps {cpu_s:.1f} s (beside the "
+                f"jobs)")
             if first:
                 # (c) the sharded run's checkpoint (the gathered whole tree)
                 # against the gathered params bit for bit and the unsharded
@@ -4361,9 +4263,7 @@ def _shard_small(torch, mesh, cfg_mod, model_mod):
                 log(f"phase 24 (c): the {arch} (1, 2) run's checkpoint "
                     f"({nbytes} B) reads back bit for bit and within "
                     f"{c_err:.2e} of the unsharded run's ({SHARD_TOL})")
-            del res, ref_params, ref_after1
-            if mech == "gather":
-                refs.pop(arch)
+            del res, ref_params
             gc.collect()
             torch.cuda.empty_cache()
     finally:
@@ -4379,12 +4279,12 @@ def phase_sharded_train(np, torch, cfg_mod, model_mod, pk, phase22):
     tokens/s, per rank the collectives (count, host seconds) and the peak
     memory; the ranks' metrics equal, the losses within one bf16 ulp of
     phase 22's first 4; #6 == 4 x 28 x 2 launches on each rank at its 12
-    / 4 heads and no other kernel; (b) 2 layers f32 at (1, 2) and (2, 1),
-    and rwkv6, zamba2 and whisper at (1, 2) by gather-on-use, all at
-    their published widths: loss, grad norm and params after 2 steps ==
-    the unsharded step on the CPU within 1e-5 (rwkv6: step 1 and the
-    params after it within 1e-5, step 2 within ``RWKV_STEP2_LIMITS``);
-    (c) whisper's sharded checkpoint == the unsharded run's."""
+    / 4 heads and no other kernel; (b) 2 layers f32, llama3.2-3b at (1,
+    2), smollm-360m at (2, 1), and rwkv6, zamba2 and whisper at (1, 2) by
+    gather-on-use, all at their published widths: loss, grad norm and
+    params after ``SHARD_SMALL_STEPS`` (1) == the unsharded step on the
+    CPU within 1e-5; (c) whisper's sharded checkpoint == the unsharded
+    run's."""
     from repro_torch.launch import mesh as mesh_mod
     _fresh_card(torch, "phase 24")
     t0 = time.perf_counter()
@@ -4590,6 +4490,7 @@ def phase_dryrun(torch):
                                     device="cuda", seed=SEED)
         torch.cuda.synchronize()
         zero_launch_counts()
+        dryrun_mod.warm_caches(case)
         traffic = dryrun_mod.Traffic(dryrun_mod.storages(case.args))
         with FlopCounterMode(display=False) as fc, traffic:
             res = case.fn(*case.args)
@@ -4655,6 +4556,285 @@ def phase_dryrun(torch):
         del case
         gc.collect()
         torch.cuda.empty_cache()
+    return out
+
+
+# --------------------------------------------------------------------------
+# Phase 26: the per-leaf partition of a rank's program on the card
+# --------------------------------------------------------------------------
+PART_ARCH = "smollm-360m"     # H 15 / Hkv 5 divide no model axis > 1
+# (a): (shape, global batch, sequence) at (data 1, model 2), bf16: a
+# prefill of 2 x 2048 (#6 on the rank's (row, head) pairs), a decode of 8
+# rows against 4096 (the cache split on its head dim: no #5), a train step
+# of 2 x 1024 (remat)
+PART_CASES = (("prefill_32k", 2, 2048), ("decode_32k", 8, 4096),
+              ("train_4k", 2, 1024))
+PART_RUNS = 3              # timed by CUDA events after one warm run
+# (b): 2 layers f32 at the same widths: B 2 prompts of 64 tokens into a
+# cache of 80 rows, one decode step, one train step, held to the CPU
+PART_SMALL_B, PART_SMALL_T, PART_SMALL_CACHE = 2, 64, 80
+PART_TOL = 1e-5
+PART_PAIRS_T = 2048        # phase 3's row: #6 on a rank's 15 pairs
+
+
+def part_collectives(L, kind):
+    """A rank's collectives on the model group in one run of smollm's
+    per-leaf program (every weight block split, the core over (row, head)
+    pairs, the decode cache on its head dim), counted from the code of
+    ``models/``: a forward layer makes the q / k / v all-gather, the
+    pairs' all-gather (a decode: the scores' all-reduce and the head
+    dim's all-gather), ``wo``'s all-reduce and the FFN's; the embedding's
+    all-reduce and the logits' all-gather close it. A train step's
+    backward adds four ``copy_to_tp`` all-reduces a layer (x into the q /
+    k / v columns, q / k / v into the core, o into ``wo``'s rows, x into
+    the FFN), remat's second forward stops before the FFN's all-reduce
+    (nothing saves its output); its loss keeps the logits split on the
+    vocabulary (the rows' maxima gathered, the sums of exponentials and
+    the gold logits all-reduced, the logits' copy in backward), and the
+    global norm's all-reduce ends it."""
+    if kind == "prefill":
+        return 4 * L + 2
+    if kind == "decode":
+        return 5 * L + 2
+    return (4 + 3 + 4) * L + 1 + 3 + 1 + 1
+
+
+def _part_trace(shape, B, T):
+    """Rank 0's program of one ``PART_CASES`` case at (data 1, model 2)
+    traced on the CPU under fake meta tensors (``launch.dryrun``), in a
+    process of its own (:func:`start_part_traces`): its plan, counted FLOPs,
+    bytes, peak, collectives and roofline terms, and the trace's
+    seconds."""
+    from repro_torch.launch import cases as cases_mod
+    from repro_torch.launch import dryrun as dryrun_mod
+    from repro_torch.launch.mesh import Layout
+    t0 = time.perf_counter()
+    layout = Layout({"data": 1, "model": 2})
+    fake = cases_mod.build_case(PART_ARCH, shape, layout, batch=B, seq=T)
+    traced = dryrun_mod.trace_case(fake)
+    rl = dryrun_mod.roofline_of(fake, traced, "1x2", layout)
+    return {"mechanism": fake.plan.mechanism,
+            "blocks": dict(fake.plan.blocks), "axes": dict(fake.plan.axes),
+            "layers": fake.cfg.num_layers, "flops": traced["flops"],
+            "bytes": traced["bytes"], "temp_bytes": traced["temp_bytes"],
+            "collectives": len(traced["records"]),
+            "flops_analytic": rl.flops_per_chip, "t_compute": rl.t_compute,
+            "t_memory": rl.t_memory, "t_collective": rl.t_collective,
+            "dominant": rl.dominant,
+            "collective_bytes": rl.collective_bytes_per_chip,
+            "trace_s": time.perf_counter() - t0}
+
+
+def _cpu_only():
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+
+
+def start_part_traces():
+    """Phase 26's (1, 2) traces (:func:`_part_trace`; CPU only, the train
+    step's ~40 s) in two spawned processes that see no card, started
+    before the build so that they run beside it: (the pool, {shape: its
+    pending result})."""
+    import multiprocessing
+    pool = multiprocessing.get_context("spawn").Pool(2, _cpu_only)
+    return pool, {shape: pool.apply_async(_part_trace, (shape, B, T))
+                  for shape, B, T in sorted(
+                      PART_CASES, key=lambda c: c[0] != "train_4k")}
+
+
+def _part_small(np, torch, cfg_mod, model_mod, mesh):
+    """Phase 26 (b): 2 layers f32 of smollm at (data 1, model 2) on the
+    card against the unsharded port on the CPU, the same weights (drawn
+    on the card from ``SEED``): the prefill's logits and each rank's
+    cache slice, a decode step's, and a train step's loss, grad norm and
+    params after it."""
+    from repro_torch.launch import cases as cases_mod
+    from repro_torch.training.data import DataConfig
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.trainer import ShardedRun, train_sharded
+    cfg = dataclasses.replace(cfg_mod.get_config(PART_ARCH), num_layers=2,
+                              dtype=torch.float32)
+    model = model_mod.build_model(cfg)
+    weights = _tree_to(model.init(SEED, device="cuda"), torch.device("cpu"))
+    torch.cuda.empty_cache()
+    B, T, C = PART_SMALL_B, PART_SMALL_T, PART_SMALL_CACHE
+    r = np.random.default_rng(SEED + 26)
+    tokens = torch.from_numpy(r.integers(0, cfg.vocab_size, (B, T),
+                                         dtype=np.int32))
+    token = torch.from_numpy(r.integers(0, cfg.vocab_size, (B,),
+                                        dtype=np.int32))
+    pos = torch.full((B,), T, dtype=torch.int32)
+    got = mesh.run(cases_mod.rank_prefill_decode, cfg, SEED, tokens, C,
+                   token, pos, layout=(1, 2))
+    with torch.no_grad():
+        logits, cache = model.prefill(weights, tokens, cache_len=C)
+        first = type(cache)(*(a.clone() for a in cache))
+        dec, cache = model.decode_step(weights, cache, token, pos)
+
+    def err(a, b):
+        return float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+    d = cfg.head_dim // 2
+    errs = {}
+    for g in got:
+        cols = slice(g["rank"] * d, (g["rank"] + 1) * d)
+        check(g["mechanism"] == "per-leaf" and tuple(g["cache"].k.shape)
+              == (2, B, C, cfg.num_kv_heads, d),
+              f"phase 26 (b): rank {g['rank']} {g['mechanism']}, cache "
+              f"slice {tuple(g['cache'].k.shape)}")
+        e = {"logits": err(g["logits"], logits),
+             "decode_logits": err(g["decode_logits"], dec),
+             "cache": max(err(a, b[..., cols])
+                          for a, b in zip(g["cache"], first)),
+             "decode_cache": max(err(a, b[..., cols])
+                                 for a, b in zip(g["decode_cache"], cache))}
+        errs[g["rank"]] = e
+        check(max(e.values()) <= PART_TOL, f"phase 26 (b): rank "
+              f"{g['rank']} on the card vs the unsharded CPU model: {e} "
+              f"(tolerance {PART_TOL})")
+    opt = AdamWConfig(lr=TRAIN_LR, eps=SHARD_EPS, warmup_steps=1,
+                      total_steps=1)
+    data = DataConfig(batch_size=B, seq_len=T, seed=SEED)
+    res = mesh.run(train_sharded, ShardedRun(cfg, 1, opt, data, init=SEED,
+                                             gather=("params",)),
+                   layout=(1, 2))
+    ref_hist, ref_params = _unsharded_steps(torch, model, opt, data, 1,
+                                            "cpu", params=weights)
+    m_err = max(_metrics_err(g["history"], ref_hist) for g in res)
+    p_err = _params_err(res[0]["params"], ref_params)
+    check(all(g["mechanism"] == "per-leaf" for g in res)
+          and m_err <= PART_TOL and p_err <= PART_TOL,
+          f"phase 26 (b): the train step on the card vs the CPU: "
+          f"{[g['mechanism'] for g in res]}, metrics {m_err:.3e}, params "
+          f"{p_err:.3e} (tolerance {PART_TOL})")
+    log(f"phase 26 (b) ({PART_ARCH}, 2 layers f32, (data 1, model 2) on "
+        f"the card vs unsharded on the CPU): prefill logits / cache, "
+        f"decode logits / cache within "
+        + "; ".join(f"rank {k} " + " / ".join(f"{v:.2e}" for v in e.values())
+                    for k, e in errs.items())
+        + f"; a train step's loss {res[0]['history'][0]['loss']:.6f} (CPU "
+        f"{ref_hist[0]['loss']:.6f}), metrics within {m_err:.2e}, params "
+        f"within {p_err:.2e} (tolerance {PART_TOL})")
+    return {"outputs": errs, "train_metrics_err": m_err,
+            "train_params_err": p_err}
+
+
+def phase_partition(np, torch, cfg_mod, model_mod, traces):
+    """Phase 26: smollm-360m at full width (32 layers, d 960, H 15 / Hkv
+    5, Dh 64) at (data 1, model 2) on two ranks sharing the card over
+    gloo, where its heads divide nothing and every split dim divides: the
+    per-leaf plan. (a) bf16, seeded weights, ``PART_CASES``: each case's
+    program on each rank (``launch.dryrun.run_rank``: one warm run under
+    ``FlopCounterMode`` and ``Traffic``, ``PART_RUNS`` runs timed by CUDA
+    events), its ms, collectives (count, host s) and peak memory a rank
+    (two ranks on one card; not a speedup); the collectives those of
+    :func:`part_collectives` and of the (1, 2) trace; #6 == layers a
+    prefill run, 2 x layers a train step, nothing in a decode; rank 0's
+    counted FLOPs and bytes equal its trace's within ``DRYRUN_REL``
+    (``traces``: :func:`start_part_traces`'s pending results). (b) 2
+    layers f32 (:func:`_part_small`)."""
+    from repro_torch.launch import cases as cases_mod
+    from repro_torch.launch import dryrun as dryrun_mod
+    from repro_torch.launch import mesh as mesh_mod
+    _fresh_card(torch, "phase 26")
+    t0 = time.perf_counter()
+    mesh = mesh_mod.make_train_mesh(2, list(TP_DEVICES), "gloo")
+    log(f"phase 26: a training group of 2 ranks on {list(TP_DEVICES)} over "
+        f"{mesh.backend} (rank 1 joined in {time.perf_counter() - t0:.1f} "
+        f"s); the (1, 2) traces ran beside the build")
+    out = {}
+    try:
+        # the card's runs first, (b) next, and only then the traces they
+        # are held to, which by then have had the card's time to finish
+        ran = {shape: mesh.run(dryrun_mod.run_rank, PART_ARCH, shape,
+                               batch=B, seq=T, seed=SEED, runs=PART_RUNS,
+                               layout=(1, 2))
+               for shape, B, T in PART_CASES}
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["small"] = _part_small(np, torch, cfg_mod, model_mod, mesh)
+        for shape, B, T in PART_CASES:
+            kind = cases_mod.shape_kind(shape)
+            res = ran.pop(shape)
+            traced = traces[shape].get()
+            L = traced["layers"]
+            check(traced["mechanism"] == "per-leaf"
+                  and set(traced["blocks"].values()) == {"split"}
+                  and traced["axes"] == {"core": "pairs",
+                                         "cache": "head_dim"},
+                  f"phase 26 {shape}: plan {traced['mechanism']} "
+                  f"{traced['blocks']} {traced['axes']}")
+            want = part_collectives(L, kind)
+            check(traced["collectives"] == want,
+                  f"phase 26 {shape}: the trace records "
+                  f"{traced['collectives']} collectives, the code {want}")
+            card = res[0]["warm"]
+            rel = {k: abs(card[k] - traced[k]) / traced[k]
+                   for k in ("flops", "bytes")}
+            check(max(rel.values()) <= DRYRUN_REL,
+                  f"phase 26 {shape}: rank 0 counted {card['flops']:.6e} "
+                  f"FLOPs, {card['bytes']:.6e} bytes; its trace "
+                  f"{traced['flops']:.6e}, {traced['bytes']:.6e} (rel {rel})")
+            per = {"prefill": {"contiguous_prefill": L},
+                   "train": {"contiguous_prefill": 2 * L},
+                   "decode": {}}[kind]
+            ranks = []
+            for r in res:
+                warm = {k: n for k, n in r["warm"]["launches"].items() if n}
+                timed = {k: n for k, n in r["launches"].items() if n}
+                check(r["warm"]["finite"], f"phase 26 {shape}: rank "
+                      f"{r['rank']}: non-finite outputs")
+                check(warm == per and timed == {
+                    k: n * PART_RUNS for k, n in per.items()},
+                      f"phase 26 {shape}: rank {r['rank']} launched {warm} "
+                      f"warm, {timed} in {PART_RUNS} runs; want {per} a run")
+                calls, secs = r["collectives"]["model"]
+                check(r["warm"]["collectives"] == {"model": want}
+                      and calls == want * PART_RUNS,
+                      f"phase 26 {shape}: rank {r['rank']}: "
+                      f"{r['warm']['collectives']} warm, {calls} in "
+                      f"{PART_RUNS} runs; the code makes {want} a run")
+                ms = sum(r["ms"]) / len(r["ms"])
+                a_run = {k: n // PART_RUNS for k, n in timed.items()}
+                ranks.append({"rank": r["rank"], "ms": r["ms"],
+                              "ms_mean": ms, "collectives": want,
+                              "collective_s": secs / PART_RUNS,
+                              "peak_memory_gb":
+                              r.get("peak_memory_bytes", 0) / 1e9,
+                              "launches": {k: n + warm.get(k, 0)
+                                           for k, n in timed.items()}})
+                log(f"phase 26 (a) {shape} [{SHARD_NOTE}]: rank "
+                    f"{r['rank']} {ms:.2f} ms a run (events, {PART_RUNS} "
+                    f"runs after a warm one: "
+                    f"{', '.join(f'{x:.2f}' for x in r['ms'])}), {want} "
+                    f"collectives a run on the model group, "
+                    f"{secs / PART_RUNS * 1e3:.1f} ms of host time, peak "
+                    f"memory {ranks[-1]['peak_memory_gb']:.2f} GB, "
+                    f"launches a run {a_run or 'none'}")
+            out[shape] = {
+                "batch": B, "seq": T, "rank_rows": res[0]["rows"],
+                "ranks": ranks, "flops_traced": traced["flops"],
+                "flops_card": card["flops"], "bytes_traced": traced["bytes"],
+                "bytes_card": card["bytes"], "card_vs_trace_rel": rel,
+                "flops_analytic": traced["flops_analytic"],
+                "t_compute": traced["t_compute"],
+                "t_memory": traced["t_memory"],
+                "t_collective": traced["t_collective"],
+                "dominant": traced["dominant"],
+                "collective_bytes": traced["collective_bytes"],
+                "arg_bytes": res[0]["arg_bytes"],
+                "temp_bytes": traced["temp_bytes"],
+                "trace_s": traced["trace_s"], "note": SHARD_NOTE}
+            log(f"phase 26 (a) {shape}: B {B} x T {T}, {res[0]['rows']} "
+                f"rows a rank; rank 0 counted {card['flops']:.6e} FLOPs "
+                f"(analytic share {traced['flops_analytic']:.6e}) and "
+                f"{card['bytes'] / 1e9:.3f} GB == its (1, 2) trace (rel "
+                f"{max(rel.values()):.1e}); {want} collectives "
+                f"({traced['collective_bytes'] / 1e9:.4f} GB on the wire) "
+                f"== the trace's and the code's; traced in "
+                f"{traced['trace_s']:.1f} s beside the build")
+    finally:
+        mesh.close()
+    gc.collect()
+    torch.cuda.empty_cache()
     return out
 
 
@@ -4766,6 +4946,28 @@ def _tree_to(tree, device, copy=False):
             for k, v in tree.items()}
 
 
+# the 2-layer f32 llama3.2-3b that phases 5, 7, 9, 12, 14 and 23 hold on
+# the card against the CPU: drawn once from SEED on the CPU (~10 s there)
+# and shared, since those phases only read it; main() drops it after 23
+_CPU_WEIGHTS = {}
+
+
+def cpu_weights(model):
+    """``model.init(SEED, device="cpu")``, drawn once per config."""
+    key = repr(model.cfg)
+    if key not in _CPU_WEIGHTS:
+        _CPU_WEIGHTS[key] = model.init(SEED, device="cpu")
+    return _CPU_WEIGHTS[key]
+
+
+def progress(t_main, phase):
+    """The time since the start after each phase, on stderr, so that a run
+    cut at its time limit still shows how far it got."""
+    print(f"chip_smoke: phase {phase} done at "
+          f"{time.perf_counter() - t_main:.1f} s", file=sys.stderr,
+          flush=True)
+
+
 def main() -> int:
     t_main = time.perf_counter()
     import numpy as np
@@ -4774,6 +4976,15 @@ def main() -> int:
         print("chip_smoke: no CUDA card; this script runs only on one",
               file=sys.stderr)
         return 1
+    tracer, traces = start_part_traces()
+    try:
+        return phases(t_main, np, torch, traces)
+    finally:
+        tracer.terminate()
+
+
+def phases(t_main, np, torch, traces) -> int:
+    """Phases 1-27 (the module's docstring)."""
     # f32 comparisons (phases 3 and 5) need full-precision f32 products
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4814,15 +5025,18 @@ def main() -> int:
     for k in REDESIGNED:
         check(any(label.startswith(k) for label in ptxas),
               f"no ptxas report for {k}")
-    tc_ops = {}
+    # one cuobjdump a library, all at once
+    with ThreadPoolExecutor(len(TENSOR_CORE)) as pool:
+        tc_ops = dict(zip((k for _, k in TENSOR_CORE), pool.map(
+            lambda lk: tensor_core_count(build, *lk), TENSOR_CORE)))
     for lib, kernel in TENSOR_CORE:
-        tc_ops[kernel] = tensor_core_count(build, lib, kernel)
         log(f"phase 3: tensor-core instructions in the SASS of {kernel} "
             f"({lib}): {tc_ops[kernel]}")
         check(tc_ops[kernel]["HGMMA"] > 0, f"{kernel} has no HGMMA")
     spilled = {label: rep for label, rep in ptxas.items()
                if rep.get("spill_bytes") and not label.startswith(SPLIT_KV)}
     check(not spilled, f"tensor-core kernels spill: {spilled}")
+    progress(t_main, 2)
 
     # 3. kernels vs their plain versions
     flush = torch.empty(128 * 1024 * 1024, dtype=torch.float32,
@@ -4833,6 +5047,7 @@ def main() -> int:
     more = phase_grid_contiguous_kernels(np, torch, F, tk, dk, pk, flush)
     # the same kernels at the MoE and VLM configs' heads (phases 16-17)
     fam = family_kernels(np, torch, F, cfg_mod, tk, dk, pk, flush)
+    progress(t_main, 3)
 
     # 4. the engine's main path at full width (fused backend)
     zero_counts(tk, dk, pk)
@@ -4841,18 +5056,22 @@ def main() -> int:
     others = {k: n for k, n in launch_counts(tk, dk, pk).items()
               if n and k != "fused"}
     check(not others, f"the fused engine ran other kernels: {others}")
+    progress(t_main, 4)
 
     # 5. cuda vs cpu
     phase_devices(np, torch, cfg_mod, model_mod, engine_mod, request_mod)
+    progress(t_main, 5)
 
     # 6. the cluster at full width (flat backend)
     cluster = phase_cluster(np, torch, cfg_mod, model_mod, engine_mod,
                             request_mod, server_mod, serve_mod, qoe_mod, tk,
                             dk, pk)
+    progress(t_main, 6)
 
     # 7. the cluster, cuda vs cpu
     phase_cluster_devices(np, torch, cfg_mod, model_mod, request_mod,
                           server_mod, serve_mod, qoe_mod)
+    progress(t_main, 7)
 
     # 8. int8 pools, preemption, the host tier and faults at full width
     llama = cfg_mod.get_config("llama3.2-3b")
@@ -4860,21 +5079,25 @@ def main() -> int:
         np, torch, dataclasses.replace(llama, dtype=torch.bfloat16),
         model_mod, engine_mod, request_mod, server_mod, serve_mod, qoe_mod,
         tk)
+    progress(t_main, 8)
 
     # 9. the same paths, 2 layers f32, cuda vs cpu
     phase_chaos_devices(np, torch, dataclasses.replace(
         llama, num_layers=2, dtype=torch.float32), model_mod, engine_mod,
         request_mod, server_mod, serve_mod, qoe_mod)
+    progress(t_main, 9)
 
     # 10. the cluster at full width on the grid backend
     grid_cluster = phase_cluster(np, torch, cfg_mod, model_mod, engine_mod,
                                  request_mod, server_mod, serve_mod, qoe_mod,
                                  tk, dk, pk, backend="grid",
                                  label="phase 10")
+    progress(t_main, 10)
 
     # 11. the dense backend on int8 pools at full width (no kernel)
     dense_int8 = phase_dense_int8_engine(np, torch, cfg_mod, model_mod,
                                          engine_mod, request_mod, tk, dk, pk)
+    progress(t_main, 11)
 
     # 12. grid cluster and dense + int8 engine, 2 layers f32, cuda vs cpu
     phase_cluster_devices(np, torch, cfg_mod, model_mod, request_mod,
@@ -4882,6 +5105,7 @@ def main() -> int:
                           label="phase 12")
     phase_devices(np, torch, cfg_mod, model_mod, engine_mod, request_mod,
                   backend="dense", kv_dtype="int8", label="phase 12")
+    progress(t_main, 12)
 
     # 13. the paper's Fig. 2 through kernels.api (the contiguous kernels'
     # main path)
@@ -4894,6 +5118,7 @@ def main() -> int:
                 "contiguous_prefill"):
         check(contiguous[key] > 0, f"phase 13 never launched {key}")
     del flush
+    progress(t_main, 13)
 
     # 14. the engine's other modes at full width (#6 and #5 serving), and
     # at 2 layers f32 on the card and the CPU
@@ -4905,9 +5130,10 @@ def main() -> int:
                                request_mod)
     modes["phase_s"] = time.perf_counter() - t14
     log(f"phase 14: took {modes['phase_s']:.1f} s")
+    progress(t_main, 14)
 
-    # 15. the H100 cost model against the card
-    cost_model = phase_cost_model(torch, fig2["200v10000"]["tax"])
+    # 15. the H100 cost model against the card is tools/calibrate_h100.py,
+    # run on its own
 
     # 16. the MoE family: qwen3-moe-30b-a3b at full width, alone on the
     # card (engine, 2-engine cluster), 2 layers f32 and arctic reduced on
@@ -4917,6 +5143,7 @@ def main() -> int:
                     request_mod, server_mod, serve_mod, qoe_mod, tk, dk, pk)
     moe["phase_s"] = time.perf_counter() - t16
     log(f"phase 16: took {moe['phase_s']:.1f} s")
+    progress(t_main, 16)
 
     # 17. the VLM family: qwen2-vl-7b at full width (flat engine, fused
     # refusing it, the slab with vision extras), 2 layers f32 on the card
@@ -4926,6 +5153,7 @@ def main() -> int:
                     request_mod, tk, dk, pk)
     vlm["phase_s"] = time.perf_counter() - t17
     log(f"phase 17: took {vlm['phase_s']:.1f} s")
+    progress(t_main, 17)
 
     # 18. starcoder2-3b with its 4096-token window: the slab's rings (#6
     # within the window, the banded path beyond it, #5 on the ring), the
@@ -4936,6 +5164,7 @@ def main() -> int:
                           request_mod, tk, dk, pk, ptxas)
     window["phase_s"] = time.perf_counter() - t18
     log(f"phase 18: took {window['phase_s']:.1f} s")
+    progress(t_main, 18)
 
     # 19. rwkv6-7b: the slab's recurrent state, the chunked WKV, a
     # 2-engine cluster migrating whole states, 2 layers f32 on the card
@@ -4946,6 +5175,7 @@ def main() -> int:
                       pk)
     rwkv["phase_s"] = time.perf_counter() - t19
     log(f"phase 19: took {rwkv['phase_s']:.1f} s")
+    progress(t_main, 19)
 
     # 20. zamba2-2.7b: the Mamba2 hybrid at full width (the chunked SSD,
     # the shared block's plain Dh-80 attention), the SSD forms against each
@@ -4954,6 +5184,7 @@ def main() -> int:
     zamba = phase_zamba(np, torch, cfg_mod, model_mod, tk, dk, pk)
     zamba["phase_s"] = time.perf_counter() - t20
     log(f"phase 20: took {zamba['phase_s']:.1f} s")
+    progress(t_main, 20)
 
     # 21. whisper-large-v3: the encoder-decoder at full width (#6 on the
     # decoder prompt, #5 on the self- and cross-KV), 2 + 2 layers f32 on
@@ -4962,6 +5193,7 @@ def main() -> int:
     whisper = phase_whisper(np, torch, cfg_mod, model_mod, tk, dk, pk)
     whisper["phase_s"] = time.perf_counter() - t21
     log(f"phase 21: took {whisper['phase_s']:.1f} s")
+    progress(t_main, 21)
 
     # 22. training: llama3.2-3b at full width (#6 forward under autograd,
     # remat), 2 layers f32 on the card and the CPU, a checkpoint round trip
@@ -4969,6 +5201,7 @@ def main() -> int:
     training = phase_train(np, torch, cfg_mod, model_mod, tk, dk, pk)
     training["phase_s"] = time.perf_counter() - t22
     log(f"phase 22: took {training['phase_s']:.1f} s")
+    progress(t_main, 22)
 
     # 23. tensor-parallel serving: llama3.2-3b as a tp=2 fused engine, two
     # ranks on the card over gloo; 2 layers f32 tp=2 on the card == tp=1
@@ -4980,6 +5213,9 @@ def main() -> int:
     tp["phase_s"] = time.perf_counter() - t23
     log(f"phase 23: took {tp['phase_s']:.1f} s")
 
+    _CPU_WEIGHTS.clear()               # phase 23 was their last reader
+    progress(t_main, 23)
+
     # 24. sharded training: llama3.2-3b at model 2 on two ranks sharing
     # the card (tensor parallelism, #6 at 12 / 4 heads); 2 layers f32
     # sharded on the card == unsharded on the CPU, the gather-on-use
@@ -4989,6 +5225,7 @@ def main() -> int:
                                   training)
     sharded["phase_s"] = time.perf_counter() - t24
     log(f"phase 24: took {sharded['phase_s']:.1f} s")
+    progress(t_main, 24)
 
     # 25. the dry run's llama3.2-3b programs on the card against their
     # roofline (#6 and #5 through build_case's programs)
@@ -4996,8 +5233,17 @@ def main() -> int:
     dry = phase_dryrun(torch)
     dry["phase_s"] = time.perf_counter() - t25
     log(f"phase 25: took {dry['phase_s']:.1f} s")
+    progress(t_main, 25)
 
-    # 26. results
+    # 26. the per-leaf partition: smollm-360m at model 2 (heads that do
+    # not divide), two ranks sharing the card; 2 layers f32 == the CPU
+    t26 = time.perf_counter()
+    part = phase_partition(np, torch, cfg_mod, model_mod, traces)
+    part["phase_s"] = time.perf_counter() - t26
+    log(f"phase 26: took {part['phase_s']:.1f} s")
+    progress(t_main, 26)
+
+    # 27. results
     kernels = [{
         "name": "paged_mixed_attention", "ok": True, "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/mixed_attention.cu",
@@ -5164,20 +5410,39 @@ def main() -> int:
                 "library_ms", "device_ms", "library_device_ms", "tflops",
                 "stream_bound_ms", "plain_rows") if key in k},
             "kernel_ms": k["ms"], "bound_share": k["bound_ms"] / k["ms"]})
+    # #6 on a model-parallel rank's (row, head) pairs, launched by both
+    # ranks' prefill and train runs in phase 26 (a)
+    k = fam["pairs"]
+    pair_launches = [sum(part[shape]["ranks"][i]["launches"].get(
+        "contiguous_prefill", 0) for shape in ("prefill_32k", "train_4k"))
+        for i in range(2)]
+    kernels.append({
+        "name": "prefill_attention_pairs", "ok": True, "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/contiguous_prefill.cu",
+        "replaces": "src/repro/kernels/prefill_attention.py:125",
+        "launches": pair_launches[0], "worker_launches": pair_launches[1],
+        "shape": f"{PART_ARCH} at model 2, a rank: 15 (row, head) pairs of "
+                 f"one head, Dh 64, T {PART_PAIRS_T} (phase 26 (a)'s "
+                 f"prefill)",
+        **{key: k[key] for key in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "device_ms", "library_device_ms", "tflops")
+           if key in k},
+        "kernel_ms": k["ms"], "bound_share": k["bound_ms"] / k["ms"]})
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke_report.json").write_text(json.dumps(
         {"device": smi, "kernels": kernels, "engine": eng_summary,
          "cluster": cluster, "chaos_cluster": chaos,
          "grid_cluster": grid_cluster, "dense_int8": dense_int8,
-         "fig2": fig2, "engine_modes": modes, "cost_model": cost_model,
+         "fig2": fig2, "engine_modes": modes,
          "family_kernels": fam, "moe": moe, "vlm": vlm, "window": window,
          "rwkv": rwkv, "zamba": zamba, "whisper": whisper,
          "training": training, "tp": tp, "sharded_training": sharded,
-         "dryrun": dry},
+         "dryrun": dry, "partition": part},
         indent=1,
         default=str))
-    log(f"chip_smoke: phases 1-25 took {time.perf_counter() - t_main:.1f} s")
+    log(f"chip_smoke: phases 1-26 took {time.perf_counter() - t_main:.1f} s")
     # the card again, so that the end of the output names it beside the
     # numbers
     log(smi)

@@ -23,10 +23,14 @@ has no such compiler, so a case writes rank 0's program out from the
 port's own rules: the params cut by ``launch.shardings.param_shardings``
 on a ``launch.mesh.VirtualRank`` of the layout (its groups record their
 collectives instead of communicating), the model group run by the
-mechanism ``training.trainer.sharding_mechanism`` picks (tensor
-parallelism where the dims divide, else gather-on-use: the split leaves
-all-gathered before use), the batch rows on the data axes (``pod ×
-data``, one group).
+plan ``training.trainer.sharding_mechanism`` makes (tensor parallelism
+where every dim divides; else the per-leaf partition: each block split
+where its dims divide, the rest gathering their split leaves at their
+use, attention on gathered q / k / v with its core split over (row,
+head) pairs; rwkv6, zamba2 and whisper gather the whole tree before
+use), the batch rows on the data axes (``pod × data``, one group).
+Given a rank of a ``launch.mesh.TrainMesh`` instead of a layout, the
+case is that rank's program over its real groups.
 
   * **train**: ``make_sharded_train_step(remat=True)`` on the rank's
     rows, the AdamW moments shaped like the shard (the reference's
@@ -35,11 +39,13 @@ data``, one group).
     rank's rows.
   * **decode**: one ``Model.decode_step`` against a cache of T rows
     (``min(T, W)`` under a window) for the rank's rows, the cache laid
-    out by ``launch.shardings.cache_shardings`` (leaves split on
-    ``model`` gathered first under gather-on-use, the rank's slice kept
-    after). At B 1 (``long_500k``) the cache's sequence shards on
-    ``data`` (context parallelism): each data rank decodes over its keys
-    and the shares merge by log-sum-exp
+    out by ``launch.shardings.cache_shardings``: each leaf stays the
+    rank's slice (on kv heads, or on the head dim, whose decode
+    all-reduces its partial scores: ``models.attention.head_dim_decode``);
+    a family gathered whole gathers its model-split leaves first and
+    keeps the rank's slice after. At B 1 (``long_500k``) the cache's
+    sequence shards on ``data`` (context parallelism): each data rank
+    decodes over its keys and the shares merge by log-sum-exp
     (``models.attention.context_parallel_decode``). rwkv6's state has no
     sequence axis, so every data rank decodes the same state.
 
@@ -87,7 +93,7 @@ SLIDING_WINDOW_LONG = 8192
 OPTIMIZED_REFUSAL = (
     "optimized=True is not in the port yet: its levers (sequence-parallel "
     "activations, ZeRO-1 moments, 2-D experts, the pinned decode cache) "
-    "are ROADMAP Queue 1 item 9")
+    "are the ROADMAP Queue 1 item \"`--opt`'s levers\"")
 
 
 def shape_kind(shape_name: str) -> str:
@@ -125,7 +131,9 @@ def adjusted_config(arch: str, shape_name: str,
 class DryrunCase:
     """One rank's program: ``fn(*args)`` runs it (under ``mode`` when the
     args are fake). ``rank`` is the :class:`~repro_torch.launch.mesh.
-    VirtualRank` whose ``records`` collect its collectives; ``batch`` the
+    VirtualRank` whose ``records`` collect its collectives (or a rank of
+    a ``TrainMesh``, whose groups communicate); ``plan`` the
+    ``training.trainer.Plan`` its model group runs; ``batch`` the
     global batch it was built at, ``rows`` the rank's share of it;
     ``arg_bytes`` what the rank holds before it runs (its shard of the
     params, the moments, its inputs and cache)."""
@@ -142,6 +150,7 @@ class DryrunCase:
     seq: int
     arg_bytes: float
     context_parallel: bool = False
+    plan: Any = None
     mode: Any = None
 
 
@@ -282,18 +291,21 @@ def _build(arch, shape_name, mesh, cfg, batch, seq, dev, gen_dev,
     sp = SHAPES[shape_name]
     B, T = batch or sp["global_batch"], seq or sp["seq_len"]
     kind = shape_kind(shape_name)
-    rank = VirtualRank(mesh, dev)
+    # a training mesh's rank runs its own program over its groups; a
+    # layout is written out as its rank 0
+    rank = mesh if hasattr(mesh, "model_group") else VirtualRank(mesh, dev)
     model = build_model(cfg)
     step = make_sharded_train_step(model, AdamWConfig(), rank,
                                    remat=kind == "train")
     params = step.shard(model.init(
         torch.Generator(device=gen_dev).manual_seed(seed), device=dev))
-    gather = step.mechanism == "gather"
+    gather = step.whole_model
     gen = torch.Generator(device=gen_dev).manual_seed(seed + 1)
 
     def case(fn, args, rows, arg_bytes, cp=False):
         return DryrunCase(arch, shape_name, cfg, fn, args, step.model, rank,
-                          step.mechanism, B, rows, T, arg_bytes, cp)
+                          step.mechanism, B, rows, T, arg_bytes, cp,
+                          plan=step.plan)
 
     if kind == "train":
         local = {k: v.clone() for k, v in step.rows(
@@ -342,7 +354,8 @@ def _build(arch, shape_name, mesh, cfg, batch, seq, dev, gen_dev,
     pos = torch.full((B,), T - 1, dtype=torch.int32, device=dev)
     if B > 1 and B % rank.data == 0:
         n = B // rank.data
-        token, pos = (x[:n].clone() for x in (token, pos))
+        token, pos = (x[rank.d * n:(rank.d + 1) * n].clone()
+                      for x in (token, pos))
     mgroup = rank.model_group
 
     def serve_step(params, cache, token, pos):
@@ -365,3 +378,34 @@ def _build(arch, shape_name, mesh, cfg, batch, seq, dev, gen_dev,
     return case(serve_step, (params, cache, token, pos), token.shape[0],
                 _nbytes(params) + _nbytes([cache, token, pos]),
                 cp=seq_group is not None)
+
+
+def rank_prefill_decode(mesh, cfg: ModelConfig, seed: int, tokens, cache_len,
+                        token, pos) -> dict:
+    """One rank's part of a prefill and one decode step of ``cfg`` on the
+    model group of a ``launch.mesh.TrainMesh`` (every rank runs it:
+    ``mesh.run(rank_prefill_decode, ...)``), on given inputs: the whole
+    tree drawn from ``seed`` on the rank's device and cut by the training
+    rules, the forward on the config's plan (``training.trainer.
+    sharding_mechanism``); ``tokens`` [B, T] and ``token`` / ``pos`` [B]
+    are the whole batch's, of which the rank takes its rows. The decode
+    continues from the prefill's cache (``cache_len`` rows, this rank's
+    slice). Returns on the CPU the mechanism, the prefill's logits [rows,
+    V] and cache slice, then the decode step's logits and cache slice."""
+    model = build_model(cfg)
+    step = make_sharded_train_step(model, AdamWConfig(), mesh)
+    params = step.shard(model.init(seed, device=mesh.device))
+    rows = step.rows({"tokens": tokens, "token": token, "pos": pos})
+
+    def host(cache):
+        return type(cache)(*(a.detach().cpu().clone() for a in cache))
+    with torch.no_grad():
+        logits, cache = step.model.prefill(params, rows["tokens"],
+                                           cache_len=cache_len)
+        out = {"rank": mesh.rank, "mechanism": step.mechanism,
+               "logits": logits.cpu(), "cache": host(cache)}
+        logits, cache = step.model.decode_step(params, cache, rows["token"],
+                                               rows["pos"])
+    out.update(decode_logits=logits.cpu(), decode_cache=host(cache))
+    return out
+

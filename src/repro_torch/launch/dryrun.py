@@ -42,8 +42,11 @@ formula counts in full.
 Rows keep the reference's keys (``launch.roofline.Roofline.row`` plus
 ``status``, ``optimized``, ``output_bytes``); ``t_trace`` (build and
 trace) takes the place of ``t_lower`` + ``t_compile``, and ``args/chip``
-is printed against the card's 80 GB. ``--opt`` is refused: its levers
-are ROADMAP Queue 1 item 9.
+is printed against the card's 80 GB; ``plan`` and ``plan_axes`` carry
+the case's ``training.trainer.Plan`` (each block split or gathered on
+the model axis, where the core and the decode cache split), so a row
+names what its rank still gathers. ``--opt`` is refused: its levers are
+the ROADMAP Queue 1 item "`--opt`'s levers".
 """
 from __future__ import annotations
 
@@ -67,6 +70,7 @@ from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.launch.roofline import (Roofline, analytic_flops_global,
                                          analytic_min_bytes,
                                          collective_wire_bytes, model_flops)
+from repro_torch.models.attention import rope_freqs
 
 ASSIGNED = [a for a in ARCHS if a != "llama3.2-3b"]
 
@@ -153,6 +157,16 @@ def storages(tree) -> set:
     return {t.untyped_storage()._cdata for t in _tensors(tree)}
 
 
+def warm_caches(case) -> None:
+    """Fill the models' caches the case's program reads (the rotary
+    frequencies of its head dim, on its device) before a counted run, so
+    that no counted run pays for them, in whatever process or thread the
+    cache was last cleared (``launch.cases.fake_scope`` clears it)."""
+    if case.cfg.num_heads:
+        dev = _tensors(case.args)[0].device
+        rope_freqs(case.cfg.head_dim, case.cfg.rope_theta, dev)
+
+
 def trace_case(case) -> dict:
     """Run ``case``'s program once under its fake-tensor mode and the
     counting modes. Returns ``flops``, ``bytes`` (operand + result bytes
@@ -162,6 +176,7 @@ def trace_case(case) -> dict:
     from torch.utils.flop_counter import FlopCounterMode
     case.rank.records.clear()
     with fake_scope(case.mode):
+        warm_caches(case)
         traffic = Traffic(storages(case.args))
         with FlopCounterMode(display=False) as fc, traffic:
             out = case.fn(*case.args)
@@ -231,7 +246,9 @@ def run_case(arch: str, shape_name: str, multi_pod: bool,
         row = rl.row()
         row.update(status="ok", optimized=False, t_trace=t_trace,
                    output_bytes=traced["output_bytes"],
-                   mechanism=case.mechanism, rank_rows=case.rows,
+                   mechanism=case.mechanism,
+                   plan=dict(case.plan.blocks),
+                   plan_axes=dict(case.plan.axes), rank_rows=case.rows,
                    context_parallel=case.context_parallel,
                    traced_ops=traced["ops"])
         if verbose:
@@ -249,6 +266,87 @@ def run_case(arch: str, shape_name: str, multi_pod: bool,
             traceback.print_exc()
         return dict(arch=arch, shape=shape_name, mesh=mesh_name,
                     status="fail", error=f"{type(e).__name__}: {e}")
+
+
+def _finite(tree) -> bool:
+    """Every float tensor of ``tree`` finite (one f32 sum a tensor)."""
+    return all(bool(torch.isfinite(t.sum(dtype=torch.float32)))
+               for t in _tensors(tree) if t.is_floating_point())
+
+
+def run_rank(mesh, arch: str, shape_name: str, *, batch: int,
+             seq: Optional[int] = None, seed: int = 0, runs: int = 3,
+             cfg=None) -> dict:
+    """One rank's part of running a case's program for real on a
+    ``launch.mesh.TrainMesh`` (every rank runs it: ``mesh.run(run_rank,
+    ...)``): ``launch.cases.build_case`` on this rank, its groups real,
+    its tensors on its device (weights from ``seed``), at the global
+    ``batch`` and ``seq`` (``cfg`` replaces the case's config). One warm
+    run under ``FlopCounterMode`` and :class:`Traffic` (the counts its
+    trace at the same layout gives), then ``runs`` runs timed by CUDA
+    events on a card (the host clock elsewhere). Returns the rank, its
+    mechanism and plan, the warm run's FLOPs, bytes, launches and
+    collectives a group, whether its outputs are finite, each timed run's
+    ms, the timed runs' launches and collectives a group (count, host
+    seconds), and the peak memory (a card)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.kernels.api import launch_counts, zero_launch_counts
+    dev = mesh.device
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    case = build_case(arch, shape_name, mesh, batch=batch, seq=seq,
+                      cfg=cfg, device=dev, seed=seed)
+    groups = {axis: g for axis, g in (("model", mesh.model_group),
+                                      ("data", mesh.data_group))
+              if g is not None}
+
+    def zero():
+        zero_launch_counts()
+        for g in groups.values():
+            g.coll_calls, g.coll_s = 0, 0.0
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+    sync()
+    zero()
+    warm_caches(case)
+    traffic = Traffic(storages(case.args))
+    with FlopCounterMode(display=False) as fc, traffic:
+        out = case.fn(*case.args)
+    sync()
+    warm = {"flops": float(fc.get_total_flops()), "bytes": traffic.bytes,
+            "launches": launch_counts(),
+            "collectives": {a: g.coll_calls for a, g in groups.items()},
+            "finite": _finite(out)}
+    del out
+    zero()
+    ms = []
+    for _ in range(runs):
+        if cuda:
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            case.fn(*case.args)
+            end.record()
+            sync()
+            ms.append(start.elapsed_time(end))
+        else:
+            t0 = time.perf_counter()
+            case.fn(*case.args)
+            ms.append((time.perf_counter() - t0) * 1e3)
+    out = {"rank": mesh.rank, "mechanism": case.mechanism,
+           "plan": dict(case.plan.blocks), "axes": dict(case.plan.axes),
+           "rows": case.rows, "warm": warm, "ms": ms,
+           "launches": launch_counts(),
+           "collectives": {a: (g.coll_calls, g.coll_s)
+                           for a, g in groups.items()},
+           "arg_bytes": case.arg_bytes}
+    if cuda:
+        out["peak_memory_bytes"] = torch.cuda.max_memory_allocated(dev)
+    return out
 
 
 def _cost_rank(job) -> int:

@@ -57,6 +57,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
+from torch.utils._python_dispatch import _disable_current_modes
 
 BACKENDS = ("gloo", "nccl")
 # every wait of a group: rendezvous, collectives, point-to-point transfers
@@ -162,7 +163,10 @@ class Collectives:
     the group, a sum and a gather over its ranks, and their count and
     host seconds (a gloo collective on CUDA tensors waits for the kernels
     that produce its input, so the seconds include that wait). A model's
-    ``cfg.tp_axis`` holds one."""
+    ``cfg.tp_axis`` holds one. The group's own work (gloo's staging
+    copies) runs outside any dispatch mode, so the dry run's counting
+    modes (``launch.dryrun``) see a rank's program as its trace records
+    it: a gather's concatenation, no reduction op."""
 
     def __init__(self, pg, rank: int, size: int):
         self._act = pg
@@ -174,7 +178,8 @@ class Collectives:
     def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
         """Sum ``x`` over the ranks, in place; returns it."""
         t0 = time.perf_counter()
-        self._act.allreduce([x]).wait()
+        with _disable_current_modes():
+            self._act.allreduce([x]).wait()
         self.coll_calls += 1
         self.coll_s += time.perf_counter() - t0
         return x
@@ -185,7 +190,8 @@ class Collectives:
         t0 = time.perf_counter()
         x = x.contiguous()
         parts = [torch.empty_like(x) for _ in range(self.size)]
-        self._act.allgather([parts], [x]).wait()
+        with _disable_current_modes():
+            self._act.allgather([parts], [x]).wait()
         self.coll_calls += 1
         self.coll_s += time.perf_counter() - t0
         return torch.cat(parts, dim=dim)

@@ -110,7 +110,7 @@ def _main_sharded(args, cfg, devices, model_size, opt_cfg, data,
                   log_every) -> dict:
     from repro_torch.launch.mesh import make_train_mesh
     R = len(devices)
-    _, why = sharding_mechanism(cfg, model_size)
+    why = sharding_mechanism(cfg, model_size).why
     mesh = make_train_mesh(model_size, devices)
     print(f"{R} ranks on {','.join(devices)} over {mesh.backend}: "
           f"(data {mesh.data}, model {mesh.model}); {why}", flush=True)

@@ -30,6 +30,15 @@ window of the whole prompt, decode through the plain padded decode.
 
 The causal prefill is differentiable (:func:`causal_prefill`): the loss
 path runs the kernel forward and differentiates its plain version.
+
+Under a training mesh's per-leaf plan (``cfg.tp_plan``: heads that do
+not divide the model group) the whole-prompt and slab paths keep every
+split leaf split: each rank projects its columns of q / k / v, one
+all-gather puts whole heads on every rank (RoPE runs on them), the
+causal core splits over (row, head) pairs (:func:`_pair_core`, #6 on
+one-head pairs), a decode on a slab split on its head dim all-reduces
+its partial scores (:func:`head_dim_decode`, no kernel), and ``wo``
+takes the rank's rows of the gathered output (:func:`_out_proj`).
 """
 from __future__ import annotations
 
@@ -48,8 +57,9 @@ from repro_torch.kernels.ops import KERNEL_HEAD_DIMS, NEG_INF
 from repro_torch.kernels.prefill_attention import (paged_prefill_attention,
                                                    prefill_attention,
                                                    prefill_attention_plain)
-from repro_torch.models.common import (ModelConfig, copy_to_tp, dense_init,
-                                       psum_if_tp)
+from repro_torch.models.common import (ModelConfig, all_gather, copy_to_tp,
+                                       dense_init, leaf_at_use, psum_if_tp,
+                                       split_block)
 
 # Paged attention backends (the JAX package's four):
 #   dense — gather pool[block_tables] + masked SDPA in plain PyTorch: a
@@ -158,7 +168,16 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig,
     return att
 
 
+def planned(cfg: ModelConfig) -> bool:
+    """Whether the attention runs a training mesh's per-leaf plan
+    (``cfg.tp_plan``): q / k / v on whole heads on every rank, the core
+    split over (row, head) pairs or the cache's head dim."""
+    return cfg.tp_axis is not None and cfg.tp_plan is not None
+
+
 def _project_qkv(p, cfg: ModelConfig, x: torch.Tensor):
+    if planned(cfg):
+        return _project_qkv_whole(p, cfg, x)
     B, T, _ = x.shape
     x = copy_to_tp(x, cfg)     # column-parallel under tensor parallelism
     q = x @ p["wq"]
@@ -169,6 +188,106 @@ def _project_qkv(p, cfg: ModelConfig, x: torch.Tensor):
     dh = cfg.head_dim
     return (q.reshape(B, T, -1, dh), k.reshape(B, T, -1, dh),
             v.reshape(B, T, -1, dh))
+
+
+_QKV = (("wq", "bq"), ("wk", "bk"), ("wv", "bv"))
+
+
+def _project_qkv_whole(p, cfg: ModelConfig, x: torch.Tensor):
+    """q, k, v [B, T, H | Hkv, Dh] on whole heads on every rank under the
+    per-leaf plan. With ``attn`` split each rank projects its columns of
+    the flattened H·Dh and Hkv·Dh (``wq``/``wk``/``wv`` and their biases
+    as ``param_spec`` cuts them, which need not fall on a head's edge),
+    and one all-gather of the three joins them; with ``attn`` gathered
+    the leaves are gathered and every rank projects them whole. Under
+    autograd ``x`` enters the rank's columns through ``copy_to_tp`` and
+    the joined q / k / v enter the split core through it too, so each
+    gradient is the whole one on every rank."""
+    B, T, _ = x.shape
+    g, dh = cfg.tp_axis, cfg.head_dim
+    widths = (cfg.num_heads * dh, cfg.num_kv_heads * dh,
+              cfg.num_kv_heads * dh)
+    split = split_block(cfg, "attn")
+    xc = copy_to_tp(x, cfg) if split else x
+    parts = []
+    for (w, b), n in zip(_QKV, widths):
+        y = xc @ (p[w] if split else leaf_at_use(p[w], cfg, -1, n))
+        if b in p:
+            y = y + (p[b] if split else leaf_at_use(p[b], cfg, -1, n))
+        parts.append(y)
+    qkv = torch.cat(parts, -1)
+    if split:        # [B, T, ranks, the rank's q | k | v columns]
+        qkv = all_gather(qkv, g, -1).reshape(B, T, g.size, -1)
+        sizes = [n // g.size for n in widths]
+    else:
+        qkv, sizes = qkv[:, :, None], list(widths)
+    qkv = copy_to_tp(qkv, cfg)
+    return tuple(t.reshape(B, T, -1, dh) for t in qkv.split(sizes, -1))
+
+
+def _out_proj(p, cfg: ModelConfig, o: torch.Tensor) -> torch.Tensor:
+    """``wo`` on the attention output ``o`` [B, T, H·Dh], whole on every
+    rank under the per-leaf plan: with ``attn`` split the rank's rows of
+    ``wo`` take its columns of ``o`` (a partial product, all-reduced;
+    ``o`` enters through ``copy_to_tp``), with ``attn`` gathered ``wo``
+    is gathered and applied whole."""
+    if split_block(cfg, "attn"):
+        n = p["wo"].shape[-2]
+        o = copy_to_tp(o, cfg).narrow(-1, cfg.tp_axis.rank * n, n)
+        return psum_if_tp(o @ p["wo"], cfg)
+    return o @ leaf_at_use(p["wo"], cfg, -2, cfg.num_heads * cfg.head_dim)
+
+
+def cache_dims(cfg: ModelConfig):
+    """(kv heads, head dim) of this rank's slice of a slab: its kv heads
+    under tensor parallelism; under the per-leaf plan the kv heads where
+    they divide the group, else the head dim where it does (the layout
+    ``launch.shardings.cache_shardings`` gives a decode cache), else the
+    whole."""
+    Hkv, Dh = cfg.num_kv_heads, cfg.head_dim
+    if cfg.tp_axis is None:
+        return Hkv, Dh
+    m = cfg.tp_axis.size
+    if not planned(cfg) or Hkv % m == 0:
+        return Hkv // m, Dh
+    return (Hkv, Dh // m) if Dh % m == 0 else (Hkv, Dh)
+
+
+def _cache_slice(cfg: ModelConfig, k: torch.Tensor, v: torch.Tensor):
+    """This rank's slice (:func:`cache_dims`) of whole-head k, v
+    [B, T, Hkv, Dh]."""
+    hk, d = cache_dims(cfg)
+    r = cfg.tp_axis.rank
+    if hk < k.shape[2]:
+        return k.narrow(2, r * hk, hk), v.narrow(2, r * hk, hk)
+    if d < k.shape[3]:
+        return k.narrow(3, r * d, d), v.narrow(3, r * d, d)
+    return k, v
+
+
+def _pair_core(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
+               v: torch.Tensor) -> torch.Tensor:
+    """Causal attention of whole-head q [B, T, H, Dh], k, v [B, T, Hkv,
+    Dh] (every rank holds them) split over the model group by (row, head)
+    pairs: pair ``i = h·B + b`` (head-major, so where H divides the group
+    a rank takes whole heads), ``ceil(B·H / ranks)`` consecutive pairs a
+    rank (the last rank's tail repeats the last pair), each pair one head
+    over its kv head ``h // G``. The pairs run as a batch of one-head
+    prompts through :func:`_prefill_core` (#6 for a kernel head dim) and
+    one all-gather returns every pair. Returns [B, T, H, Dh]."""
+    g = cfg.tp_axis
+    B, T, H, Dh = q.shape
+    G = H // k.shape[2]
+    P = B * H
+    n = -(-P // g.size)
+    i = torch.arange(g.rank * n, (g.rank + 1) * n,
+                     device=q.device).clamp(max=P - 1)
+    h, b = i // B, i % B
+    qp = q[b, :, h][:, :, None]
+    kp = k[b, :, h // G][:, :, None]
+    vp = v[b, :, h // G][:, :, None]
+    o = all_gather(_prefill_core(cfg, qp, kp, vp), g, 0)[:P]
+    return o.reshape(H, B, T, Dh).permute(1, 2, 0, 3)
 
 
 # --------------------------------------------------------------------------
@@ -280,22 +399,35 @@ def attention_prefill(p, cfg: ModelConfig, x: torch.Tensor,
     masks nothing) and a longer one :func:`window_attention`; so does a
     head dim outside ``KERNEL_HEAD_DIMS`` (zamba2's 80), with a window of
     T, checked before any launch. The kernel runs through
-    :func:`causal_prefill`, so the loss can differentiate it. Returns
-    (out [B, T, D], (k, v) [B, T, Hkv, Dh] after RoPE)."""
+    :func:`causal_prefill`, so the loss can differentiate it. Under the
+    per-leaf plan the core splits over (row, head) pairs
+    (:func:`_pair_core`). Returns (out [B, T, D], (k, v) [B, T, Hkv, Dh]
+    after RoPE; under a group this rank's slice, :func:`cache_dims`)."""
     B, T, _ = x.shape
     q, k, v = _project_qkv(p, cfg, x)
     q, k = _rotate(cfg, q, k, positions, mrope_positions)
+    if planned(cfg):
+        out = _pair_core(cfg, q, k, v).reshape(B, T, -1)
+        return _out_proj(p, cfg, out), _cache_slice(cfg, k, v)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    out = _prefill_core(cfg, q, k, v)
+    return psum_if_tp(out.reshape(B, T, -1) @ p["wo"], cfg), (k, v)
+
+
+def _prefill_core(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
+                  v: torch.Tensor) -> torch.Tensor:
+    """Causal attention over a whole prompt (contiguous q [B, T, H, Dh],
+    k, v [B, T, Hkv, Dh]): the banded plain path beyond a sliding window
+    or for a head dim no kernel takes, else #6."""
+    T = q.shape[1]
     W = cfg.sliding_window
     if W and T > W:
-        out = window_attention(q, k, v, W)
-    elif cfg.head_dim not in KERNEL_HEAD_DIMS:
+        return window_attention(q, k, v, W)
+    if cfg.head_dim not in KERNEL_HEAD_DIMS:
         # no kernel instance for this head dim: the tiled plain path,
         # whose window of T masks nothing beyond causality
-        out = window_attention(q, k, v, T)
-    else:
-        out = causal_prefill(q, k, v)
-    return psum_if_tp(out.reshape(B, T, -1) @ p["wo"], cfg), (k, v)
+        return window_attention(q, k, v, T)
+    return causal_prefill(q, k, v)
 
 
 def make_cache(cfg: ModelConfig, batch: int, seq: int,
@@ -333,30 +465,108 @@ def attention_decode(p, cfg: ModelConfig, x: torch.Tensor, cache_l: KVCache,
     ``KERNEL_HEAD_DIMS`` runs the plain padded decode. With
     ``seq_group`` (a ``launch.mesh.Collectives``) the slab's sequence is
     split over that group, ``cache_l`` holding this rank's consecutive
-    rows: context parallelism, :func:`context_parallel_decode`. Returns
-    (out [B, 1, D], cache_l)."""
+    rows: context parallelism, :func:`context_parallel_decode`. Under the
+    per-leaf plan ``cache_l`` is the rank's slice and the core follows
+    its layout (:func:`_planned_decode`). Returns (out [B, 1, D],
+    cache_l)."""
     B = x.shape[0]
     q, k, v = _project_qkv(p, cfg, x)
     q, k = _rotate(cfg, q, k, pos[:, None], mrope_positions)
-    S = cache_l.k.shape[1]
     W = cfg.sliding_window
     write = torch.remainder(pos, W) if W else pos
+    if planned(cfg):
+        o = _planned_decode(cfg, q[:, 0], k[:, 0], v[:, 0], cache_l, write,
+                            pos, rows, seq_group)
+        return _out_proj(p, cfg, o.reshape(B, 1, -1)), cache_l
+    o = _slab_core(cfg, q[:, 0], k[:, 0], v[:, 0], cache_l, write, pos,
+                   rows, seq_group)
+    return psum_if_tp(o.reshape(B, 1, -1) @ p["wo"], cfg), cache_l
+
+
+def _slab_core(cfg: ModelConfig, q, k, v, cache_l: KVCache, write, pos,
+               rows=None, seq_group=None) -> torch.Tensor:
+    """The new token's k, v [B, Hkv, Dh] written into the slab layer at
+    ``write`` and q [B, H, Dh] attended over it (:func:`attention_decode`
+    after the projections). Returns [B, H, Dh]."""
+    B = q.shape[0]
+    S = cache_l.k.shape[1]
     if seq_group is not None:
         if rows is not None:
             raise ValueError("context-parallel decode takes no row map")
-        o = context_parallel_decode(q[:, 0], k[:, 0], v[:, 0], cache_l,
-                                    write, pos, seq_group)
-        return psum_if_tp(o.reshape(B, 1, -1) @ p["wo"], cfg), cache_l
+        return context_parallel_decode(q, k, v, cache_l, write, pos,
+                                       seq_group)
     slab_row = (torch.arange(B, device=pos.device) if rows is None
                 else rows.long())
     idx = (slab_row, torch.clamp(write, max=S - 1).long())
-    cache_l.k.index_put_(idx, k[:, 0].to(cache_l.k.dtype))
-    cache_l.v.index_put_(idx, v[:, 0].to(cache_l.v.dtype))
+    cache_l.k.index_put_(idx, k.to(cache_l.k.dtype))
+    cache_l.v.index_put_(idx, v.to(cache_l.v.dtype))
     lengths = torch.clamp(pos + 1, max=S).to(torch.int32)
     kv_rows = None if rows is None else rows.to(torch.int32)
-    o = _decode(cfg, q[:, 0].contiguous(), cache_l.k, cache_l.v, lengths,
-                kv_rows)
-    return psum_if_tp(o.reshape(B, 1, -1) @ p["wo"], cfg), cache_l
+    return _decode(cfg, q.contiguous(), cache_l.k, cache_l.v, lengths,
+                   kv_rows)
+
+
+def _planned_decode(cfg: ModelConfig, q, k, v, cache_l: KVCache, write,
+                    pos, rows=None, seq_group=None) -> torch.Tensor:
+    """The decode core under the per-leaf plan, on whole-head q [B, H,
+    Dh] and the new token's k, v [B, Hkv, Dh], by the layout of the
+    rank's slab layer: split on the head dim, :func:`head_dim_decode`
+    (no kernel: plain PyTorch, as the reference's per-chip program is
+    XLA's); split on kv heads, the rank's query heads attend its kv
+    heads (#5) and one all-gather joins the heads; whole, every rank
+    attends all of it. Returns [B, H, Dh]."""
+    g = cfg.tp_axis
+    hk, d = cache_l.k.shape[-2:]
+    if d < cfg.head_dim:
+        if rows is not None:
+            raise ValueError("a slab split on the head dim takes no row "
+                             "map")
+        return head_dim_decode(q, k, v, cache_l, write, pos, g, seq_group)
+    if hk < cfg.num_kv_heads:
+        G = q.shape[1] // cfg.num_kv_heads
+        h0 = g.rank * hk
+        o = _slab_core(cfg, q[:, h0 * G:(h0 + hk) * G], k[:, h0:h0 + hk],
+                       v[:, h0:h0 + hk], cache_l, write, pos, rows,
+                       seq_group)
+        return all_gather(o, g, 1)
+    return _slab_core(cfg, q, k, v, cache_l, write, pos, rows, seq_group)
+
+
+def head_dim_decode(q: torch.Tensor, k_new: torch.Tensor,
+                    v_new: torch.Tensor, cache_l: KVCache, write, pos,
+                    group, seq_group=None) -> torch.Tensor:
+    """Decode against a slab split on its head dim over ``group``: this
+    rank holds columns ``[rank·d, (rank + 1)·d)`` of every key and value
+    (``cache_l`` [B, S, Hkv, d]). It writes its columns of the new
+    token's k, v [B, Hkv, Dh] (after RoPE on the whole head) at ``write``
+    (clamped to the last row), computes the partial scores of its
+    columns of q [B, H, Dh] in f32, all-reduces them once over ``group``,
+    then masks keys ``>= min(pos + 1, S)``, weighs them by softmax and
+    takes P·v on its columns; one all-gather joins the columns. With
+    ``seq_group`` the slab's sequence is also split over that group
+    (:func:`context_parallel_decode`'s layout): each shard's weighted
+    values merge by log-sum-exp before the columns join. Plain PyTorch:
+    no kernel takes a partial head. Returns [B, H, Dh] in q's dtype."""
+    B, H, Dh = q.shape
+    S, Hkv, d = cache_l.k.shape[1:]
+    c0 = group.rank * d
+    k_new, v_new = k_new[..., c0:c0 + d], v_new[..., c0:c0 + d]
+    if seq_group is None:
+        idx = (torch.arange(B, device=pos.device),
+               torch.clamp(write, max=S - 1).long())
+        cache_l.k.index_put_(idx, k_new.to(cache_l.k.dtype))
+        cache_l.v.index_put_(idx, v_new.to(cache_l.v.dtype))
+        lengths = torch.clamp(pos + 1, max=S)
+    else:
+        lengths = _seq_split_write(k_new, v_new, cache_l, write, pos,
+                                   seq_group)
+    qg = q[..., c0:c0 + d].reshape(B, Hkv, H // Hkv, d).float()
+    s = torch.einsum("bhgd,bshd->bhgs", qg, cache_l.k.float())
+    s = group.all_reduce(s) / math.sqrt(Dh)
+    out, lse = _weigh_values(s, cache_l.v, lengths)
+    if seq_group is not None:
+        out = merge_decode_partials(out, lse, seq_group)
+    return all_gather(out.to(q.dtype), group, -1)
 
 
 def _decode(cfg: ModelConfig, q, k, v, lengths, kv_rows=None):
@@ -376,18 +586,26 @@ def decode_attention_partial(q: torch.Tensor, k: torch.Tensor,
     ``exp(0)`` under masked scores of ``NEG_INF``, so its log-sum-exp is
     ``NEG_INF`` up to rounding and the merge gives it no weight."""
     B, H, Dh = q.shape
-    S, Hkv = k.shape[1], k.shape[2]
+    Hkv = k.shape[2]
     qg = q.reshape(B, Hkv, H // Hkv, Dh).float()
     s = torch.einsum("bhgd,bshd->bhgs", qg, k.float()) / math.sqrt(Dh)
-    keep = (torch.arange(S, device=q.device)
+    return _weigh_values(s, v, lengths)
+
+
+def _weigh_values(s: torch.Tensor, v: torch.Tensor, lengths: torch.Tensor):
+    """Scaled f32 scores s [B, Hkv, G, S] over values v [B, S, Hkv, Dv]:
+    keys ``>= lengths`` masked to ``NEG_INF``, weights ``exp(s - max)``.
+    Returns (out [B, H, Dv] f32, the scores' log-sum-exp [B, H] f32)."""
+    B, Hkv, G, S = s.shape
+    keep = (torch.arange(S, device=s.device)
             < lengths.long()[:, None, None, None])
     s = torch.where(keep, s, NEG_INF)
     m = s.amax(-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(-1, keepdim=True)
     acc = torch.einsum("bhgs,bshd->bhgd", p, v.float())
-    return ((acc / l).reshape(B, H, Dh),
-            (m + torch.log(l)).reshape(B, H))
+    return ((acc / l).reshape(B, Hkv * G, -1),
+            (m + torch.log(l)).reshape(B, Hkv * G))
 
 
 def merge_decode_partials(out: torch.Tensor, lse: torch.Tensor,
@@ -420,7 +638,20 @@ def context_parallel_decode(q: torch.Tensor, k_new: torch.Tensor,
     reference's ``long_500k`` decode shards the cache's sequence on
     ``data`` this way (GSPMD writes the merge). Returns [B, H, Dh] in
     q's dtype."""
-    B = q.shape[0]
+    lengths = _seq_split_write(k_new, v_new, cache_l, write, pos, group)
+    out, lse = decode_attention_partial(q, cache_l.k, cache_l.v, lengths)
+    return merge_decode_partials(out, lse, group).to(q.dtype)
+
+
+def _seq_split_write(k_new, v_new, cache_l: KVCache, write, pos,
+                     group) -> torch.Tensor:
+    """The new token's k_new, v_new [B, Hkv, d] written at slab row
+    ``write`` (clamped to the last row) by the rank of ``group`` that
+    holds it, of a slab whose sequence is split over ``group`` (this
+    rank's consecutive rows in ``cache_l``). Returns the count of this
+    rank's rows each query sees, ``min(pos + 1, S·size)`` less its first
+    row, clamped to [0, S]."""
+    B = k_new.shape[0]
     S = cache_l.k.shape[1]
     lo = group.rank * S
     total = S * group.size
@@ -429,9 +660,7 @@ def context_parallel_decode(q: torch.Tensor, k_new: torch.Tensor,
     idx = (torch.arange(B, device=pos.device), torch.clamp(local, 0, S - 1))
     for buf, new in ((cache_l.k, k_new), (cache_l.v, v_new)):
         buf.index_put_(idx, torch.where(own, new.to(buf.dtype), buf[idx]))
-    lengths = torch.clamp(torch.clamp(pos + 1, max=total) - lo, 0, S)
-    out, lse = decode_attention_partial(q, cache_l.k, cache_l.v, lengths)
-    return merge_decode_partials(out, lse, group).to(q.dtype)
+    return torch.clamp(torch.clamp(pos + 1, max=total) - lo, 0, S)
 
 
 # --------------------------------------------------------------------------

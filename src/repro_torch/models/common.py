@@ -79,6 +79,16 @@ class ModelConfig:
     # all-gather of the logits. None: one device, no collective.
     tp_axis: Any = dataclasses.field(default=None, compare=False,
                                      repr=False)
+    # the per-leaf partition of a training mesh's model group (with
+    # ``tp_axis`` its group): block name -> "split" | "gather"
+    # (``training.trainer.sharding_mechanism``). A split block runs on
+    # this rank's shard as above; a gathered block all-gathers its split
+    # leaves at their use and runs whole; attention gathers q / k / v and
+    # splits its core over (row, head) pairs, whatever the heads. None:
+    # every block split on whole heads (serving, and training where every
+    # dim divides).
+    tp_plan: Any = dataclasses.field(default=None, compare=False,
+                                     repr=False)
 
     def __post_init__(self):
         if self.head_dim == 0 and self.num_heads:
@@ -255,6 +265,32 @@ def copy_to_tp(x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return _Copy.apply(x, cfg.tp_axis)
 
 
+def split_block(cfg: ModelConfig, block: str) -> bool:
+    """Whether ``block`` (a key of ``cfg.tp_plan``) runs on this rank's
+    shard over ``cfg.tp_axis``: every block does under a group without a
+    plan, none without a group."""
+    if cfg.tp_axis is None:
+        return False
+    return cfg.tp_plan is None or cfg.tp_plan.get(block) == "split"
+
+
+def unsplit(cfg: ModelConfig) -> ModelConfig:
+    """``cfg`` without its group and plan: the one-device forward a
+    gathered block runs on its whole leaves."""
+    return dataclasses.replace(cfg, tp_axis=None, tp_plan=None)
+
+
+def leaf_at_use(w: torch.Tensor, cfg: ModelConfig, dim: int,
+                full: int) -> torch.Tensor:
+    """``w`` whole where a gathered block uses it: all-gathered over
+    ``cfg.tp_axis`` along ``dim`` where this rank holds a piece of a leaf
+    ``full`` wide there (differentiable: the rank keeps its slice of the
+    gradient), ``w`` itself where it is whole."""
+    if cfg.tp_axis is None or w.shape[dim] == full:
+        return w
+    return all_gather(w, cfg.tp_axis, dim % w.dim())
+
+
 def card_device(device) -> bool:
     """Whether code on ``device`` takes the card's forms (the chunked
     recurrences, the attention kernels' operators): on the card, and on
@@ -298,7 +334,7 @@ def act_fn(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
 # Losses
 # --------------------------------------------------------------------------
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
-                 mask=None, group=None) -> torch.Tensor:
+                 mask=None, group=None, vocab_group=None) -> torch.Tensor:
     """Mean next-token cross-entropy in f32: ``logsumexp(logits)`` minus
     the gold logit, per position of ``logits [..., V]`` / ``labels``
     int [...]; with ``mask`` [...], the masked mean
@@ -306,10 +342,16 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
     ``softmax_xent``). With a data-parallel ``group`` the rows are this
     rank's share: the rank's sum over the group's whole count (mask sum,
     or positions), so the ranks' values add up to the whole batch's
-    mean."""
+    mean. With a ``vocab_group`` the logits are this rank's columns of
+    the vocabulary (rank r: ``[r·V/n, (r + 1)·V/n)``) and stay so: the
+    row's max is gathered, its sum of exponentials and its gold logit
+    are all-reduced (:func:`vocab_split_terms`)."""
     logits = logits.float()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    if vocab_group is None:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    else:
+        logz, gold = vocab_split_terms(logits, labels, vocab_group)
     nll = logz - gold
     if group is not None:
         w = torch.ones_like(nll) if mask is None else mask.float()
@@ -319,3 +361,25 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
         mask = mask.float()
         return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
     return torch.mean(nll)
+
+
+def vocab_split_terms(logits: torch.Tensor, labels: torch.Tensor, group):
+    """``(logsumexp, gold logit)`` per row of f32 logits split on the
+    vocabulary over ``group`` (this rank's ``V / n`` consecutive columns),
+    as a vocab-parallel cross-entropy computes them: the rows' maxima
+    gathered (no gradient: the log-sum-exp does not depend on them), the
+    sums of ``exp(logit - max)`` all-reduced, and the gold logit taken
+    by the rank that holds its column (zeros elsewhere) and
+    all-reduced. Both sums are differentiable (``all_reduce``), so each
+    rank's logits get their columns' gradient."""
+    vl = logits.shape[-1]
+    with torch.no_grad():
+        m = logits.amax(-1, keepdim=True)
+        m = group.all_gather(m, -1).amax(-1, keepdim=True)
+    logz = m[..., 0] + torch.log(all_reduce(
+        torch.exp(logits - m).sum(-1), group))
+    local = labels.long() - group.rank * vl
+    ok = (local >= 0) & (local < vl)
+    g = torch.gather(logits, -1, local.clamp(0, vl - 1)[..., None])[..., 0]
+    return logz, all_reduce(torch.where(ok, g, torch.zeros_like(g)), group)
+

@@ -25,7 +25,10 @@ axis E instead (each rank E / tp whole experts, the router whole):
 ``moe_dense`` sees it in the leaf's shape, runs the rank's experts on
 every row with their combine weights and reduces the same way. In
 training the replicated inputs of the rank's products (the rows, the
-combine weights) enter through ``copy_to_tp``. Under data parallelism
+combine weights) enter through ``copy_to_tp``; a block the training
+mesh's per-leaf plan gathers (``cfg.tp_plan``: the FFN where F does not
+divide, the experts under ``moe_gshard``) all-gathers its split leaves
+at its use and runs whole. Under data parallelism
 (the ``data_group`` argument of :func:`moe`) the aux loss's expert
 fractions and mean probabilities are the whole batch's: sums over the
 data group over its token count.
@@ -38,8 +41,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.common import (ModelConfig, act_fn, all_reduce,
-                                       copy_to_tp, dense_init,
-                                       psum_if_tp)
+                                       copy_to_tp, dense_init, leaf_at_use,
+                                       psum_if_tp, split_block, unsplit)
 
 # moe_dense's temporaries per tile of tokens (inputs broadcast to every
 # expert, the gate/up/down products, the f32 combine): at qwen3-moe's
@@ -71,7 +74,18 @@ def init_ffn(gen: torch.Generator, cfg: ModelConfig,
     }
 
 
+# the dim of each FFN leaf that the training layout splits (F)
+_FFN_SPLIT = {"w_gate": -1, "w_up": -1, "b_up": -1, "w_down": -2}
+
+
 def ffn(p, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """The dense FFN of x [..., D]; under a group, F split (a partial
+    product, all-reduced once), or with the plan's ``mlp`` block gathered
+    the whole FFN on every rank from its leaves gathered at use."""
+    if cfg.tp_axis is not None and not split_block(cfg, "mlp"):
+        whole = {k: leaf_at_use(w, cfg, _FFN_SPLIT[k], cfg.d_ff)
+                 if k in _FFN_SPLIT else w for k, w in p.items()}
+        return ffn(whole, unsplit(cfg), x)
     a = act_fn(cfg.act)
     x = copy_to_tp(x, cfg)
     if "w_gate" in p:
@@ -218,6 +232,16 @@ def moe_gshard(p, cfg: ModelConfig, x: torch.Tensor,
 
 def moe(p, cfg: ModelConfig, x: torch.Tensor, impl: str | None = None,
         data_group=None):
+    """The MoE of x [B, T, D] -> (out, aux) by ``impl`` (default
+    ``cfg.moe_impl``). With the plan's ``experts`` block gathered (no
+    expert-split form of ``moe_gshard`` yet) each layer's expert leaves
+    are all-gathered on E at their use and every rank runs the whole
+    MoE, the router whole."""
+    if cfg.tp_axis is not None and not split_block(cfg, "experts"):
+        whole = {k: w if k == "router" else
+                 leaf_at_use(w, cfg, -3, cfg.num_experts)
+                 for k, w in p.items()}
+        return moe(whole, unsplit(cfg), x, impl, data_group)
     impl = impl or cfg.moe_impl
     if impl == "dense":
         return moe_dense(p, cfg, x, data_group=data_group)

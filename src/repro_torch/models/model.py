@@ -40,7 +40,9 @@ them all.
 
 ``loss`` is the reference's: the next-token cross-entropy of
 ``batch["tokens"]`` (masked by ``loss_mask``), plus an MoE's aux loss
-summed over layers; ``(loss, {"xent", "aux"})``. ``remat`` recomputes
+summed over layers; ``(loss, {"xent", "aux"})``. A decoder whose
+unembedding is split on the vocabulary over its group keeps the logits
+split into the loss (a vocab-parallel cross-entropy). ``remat`` recomputes
 each layer (a zamba2 group) in backward. With a ``data_group`` (data
 parallelism: ``training.trainer.make_sharded_train_step``) the batch is
 this rank's rows and ``xent`` this rank's share of the whole batch's,
@@ -56,7 +58,7 @@ import torch
 
 from repro_torch.models import mamba2, rwkv6, transformer, whisper
 from repro_torch.models.attention import KVCache
-from repro_torch.models.common import ModelConfig, softmax_xent
+from repro_torch.models.common import ModelConfig, softmax_xent, split_block
 
 
 @dataclasses.dataclass(frozen=True)
@@ -136,14 +138,16 @@ def _relay_kv(piece: KVCache, cfg: ModelConfig, cache_len: int) -> KVCache:
     return KVCache(relay(piece.k), relay(piece.v))
 
 
-def _xent(logits: torch.Tensor, batch, group=None) -> torch.Tensor:
+def _xent(logits: torch.Tensor, batch, group=None,
+          vocab_group=None) -> torch.Tensor:
     """Next-token cross-entropy: logits at t predict token t + 1, masked
     by ``loss_mask`` at t + 1 when the batch has one; with a data-parallel
-    ``group`` this rank's share of the whole batch's mean."""
+    ``group`` this rank's share of the whole batch's mean; with a
+    ``vocab_group`` the logits are this rank's vocabulary columns."""
     tokens, mask = batch["tokens"], batch.get("loss_mask")
     return softmax_xent(logits[:, :-1], tokens[:, 1:],
                         None if mask is None else mask[:, 1:],
-                        group=group)
+                        group=group, vocab_group=vocab_group)
 
 
 def _decoder_model(cfg: ModelConfig) -> Model:
@@ -151,13 +155,15 @@ def _decoder_model(cfg: ModelConfig) -> Model:
         return transformer.init_decoder(_seeded(rng, device), cfg)
 
     def loss(params, batch, remat: bool = False, data_group=None):
+        # a vocab-split unembedding keeps its logits split into the loss
+        vocab = cfg.tp_axis if split_block(cfg, "unembed") else None
         logits, _, aux = transformer.forward_full(
             params, cfg, batch["tokens"],
             vision_embeds=batch.get("vision_embeds"),
             vision_mask=batch.get("vision_mask"),
             mrope_positions=batch.get("mrope_positions"), remat=remat,
-            data_group=data_group)
-        xe = _xent(logits, batch, data_group)
+            data_group=data_group, gather_logits=vocab is None)
+        xe = _xent(logits, batch, data_group, vocab)
         return xe + aux, {"xent": xe, "aux": aux}
 
     def init_paged_cache(num_blocks: int, block_size: int, device="cuda",

@@ -23,8 +23,9 @@ from repro_torch.models import attention as attn
 from repro_torch.models.attention import (KVCache, layer_pool, make_cache,
                                          make_paged_pool)
 from repro_torch.models.common import (ModelConfig, all_gather, copy_to_tp,
-                                       dense_init, embed_init, psum_if_tp,
-                                       rms_norm)
+                                       dense_init, embed_init, leaf_at_use,
+                                       psum_if_tp, rms_norm, split_block,
+                                       unsplit)
 from repro_torch.models.mlp import ffn, init_ffn, init_moe, moe
 
 
@@ -75,7 +76,13 @@ def embed_tokens(p, cfg: ModelConfig, tokens: torch.Tensor,
     frontend) replace the masked positions, in order. Under tensor
     parallelism each rank holds V / tp consecutive rows: an id outside
     them reads a clamped row that is zeroed, and the all-reduce
-    assembles the one real row — exact, since one rank contributes it."""
+    assembles the one real row — exact, since one rank contributes it.
+    With the plan's ``embed`` block gathered, the table is gathered at
+    its use and every rank looks up whole rows."""
+    if cfg.tp_axis is not None and not split_block(cfg, "embed"):
+        whole = {"embed": leaf_at_use(p["embed"], cfg, 0, cfg.vocab_size)}
+        return embed_tokens(whole, unsplit(cfg), tokens, vision_embeds,
+                            vision_mask)
     if cfg.tp_axis is not None:
         vloc = p["embed"].shape[0]
         local = tokens.long() - cfg.tp_axis.rank * vloc
@@ -94,17 +101,27 @@ def embed_tokens(p, cfg: ModelConfig, tokens: torch.Tensor,
     return x
 
 
-def unembed(p, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+def unembed(p, cfg: ModelConfig, x: torch.Tensor,
+            gather: bool = True) -> torch.Tensor:
     """Logits [..., V]. Under tensor parallelism each rank computes its
     V / tp columns (tied embeddings split V on dim 0, so the transpose
     lines up) and the all-gather gives every rank the whole vocabulary:
     argmax then runs on each rank and they all hold the same tokens. In
     training ``x`` enters through ``copy_to_tp`` and the gather hands
-    each rank its columns' gradient."""
+    each rank its columns' gradient; ``gather=False`` leaves them this
+    rank's columns (a vocab-parallel loss,
+    ``common.vocab_split_terms``). With the plan's ``unembed`` block
+    gathered, the leaf is gathered at its use and applied whole."""
+    if cfg.tp_axis is not None and not split_block(cfg, "unembed"):
+        V = cfg.vocab_size
+        return x @ (leaf_at_use(p["embed"], cfg, 0, V).T
+                    if cfg.tie_embeddings
+                    else leaf_at_use(p["unembed"], cfg, -1, V))
     w = p["embed"].T if cfg.tie_embeddings else p["unembed"]
     if cfg.tp_axis is None:
         return x @ w
-    return all_gather(copy_to_tp(x, cfg) @ w, cfg.tp_axis)
+    logits = copy_to_tp(x, cfg) @ w
+    return all_gather(logits, cfg.tp_axis) if gather else logits
 
 
 def _mlp_aux(pl, cfg: ModelConfig, x: torch.Tensor, data_group=None):
@@ -148,7 +165,8 @@ def block_full(pl, cfg: ModelConfig, x: torch.Tensor,
 def forward_full(p, cfg: ModelConfig, tokens: torch.Tensor, *,
                  vision_embeds=None, vision_mask=None, mrope_positions=None,
                  return_cache: bool = False, remat: bool = False,
-                 last_only: bool = False, last_index=None, data_group=None):
+                 last_only: bool = False, last_index=None, data_group=None,
+                 gather_logits: bool = True):
     """The train / prefill pass over tokens [B, T] (a VLM's extras: patch
     embeddings placed at ``vision_mask``, M-RoPE ids ``mrope_positions``
     [B, T, 3], by default the text positions on all three streams).
@@ -157,19 +175,21 @@ def forward_full(p, cfg: ModelConfig, tokens: torch.Tensor, *,
     0-d tensor: the bucketed prefill, whose true last token sits before a
     pow2 padding tail; causality keeps the rows and logits below the true
     length independent of that tail) or at the last position
-    (``last_only``); cache leaves [L, B, T, Hkv, Dh], written layer by
+    (``last_only``); cache leaves [L, B, T, Hkv, Dh] (a rank's slice under
+    a group, ``attention.cache_dims``), written layer by
     layer into one buffer (none is made without ``return_cache``); aux
     the MoE aux loss summed over layers, an f32 scalar (0 without
     experts; over ``data_group``'s whole batch with one: the rows are
     this rank's share). ``remat`` recomputes each layer in backward
-    (``torch.utils.checkpoint``), the reference's ``jax.checkpoint``."""
+    (``torch.utils.checkpoint``), the reference's ``jax.checkpoint``.
+    ``gather_logits=False`` leaves a vocab-split unembedding's logits
+    this rank's columns (:func:`unembed`)."""
     B, T = tokens.shape
     x = embed_tokens(p, cfg, tokens, vision_embeds, vision_mask)
     positions = torch.arange(T, device=x.device)[None].expand(B, T)
     # the prompt's T rows, every one written below (under a window too:
     # the caller relays them into its ring)
-    shape = (cfg.num_layers, B, T, cfg.num_kv_heads // cfg.tp_size,
-             cfg.head_dim)
+    shape = (cfg.num_layers, B, T) + attn.cache_dims(cfg)
     cache = (KVCache(x.new_empty(shape), x.new_empty(shape))
              if return_cache else None)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -192,7 +212,7 @@ def forward_full(p, cfg: ModelConfig, tokens: torch.Tensor, *,
     elif last_only:
         x = x[:, -1:]
     x = rms_norm(x, p["ln_f"], cfg.norm_eps)
-    return unembed(p, cfg, x), cache, aux
+    return unembed(p, cfg, x, gather_logits), cache, aux
 
 
 def checkpointed(fn, remat: bool, *args):

@@ -15,19 +15,25 @@ but the logged steps.
 computes the unsharded step's function, up to the order of reductions.
 Parameters are laid out by the training rules
 (``launch.shardings.param_shardings``) on the mesh's ``model`` axis and
-the batch rows on ``data``. Which mechanism runs the model group is
-chosen by config (:func:`sharding_mechanism`):
+the batch rows on ``data``. How each block runs on the model group is
+planned by config (:func:`sharding_mechanism`, a :class:`Plan`):
 
 * **tensor parallelism** (dense, MoE and VLM decoders whose heads, kv
   heads, vocab and d_ff, or experts, divide ``model``): the forward runs
   on the shard with ``cfg.tp_axis`` = the model group; its collectives
   are differentiable (``models.common``: all-reduce, copy, all-gather);
-* **gather-on-use** (every other family, and decoders whose dims do not
-  divide): each step all-gathers every split leaf (forward) and keeps
-  the rank's slice of its gradient (backward), then runs the unsharded
-  ``Model.loss``.
+* **the per-leaf partition** (those decoders where some dim does not
+  divide, which at a model axis of 16 is every one: their heads): each
+  block whose split dims divide runs split, the rest gather their split
+  leaves at their use, in their layer; attention projects its columns
+  and gathers q / k / v on whole heads, then splits its core over (row,
+  head) pairs (``cfg.tp_plan``, ``models.attention``);
+* **gather-on-use of the whole model** (rwkv6, zamba2, whisper: no
+  tensor-parallel forward): each step all-gathers every split leaf
+  (forward) and keeps the rank's slice of its gradient (backward), then
+  runs the unsharded ``Model.loss``.
 
-Under either, the loss takes the data group (``Model.loss(...,
+Under each, the loss takes the data group (``Model.loss(...,
 data_group=)``), which makes it each rank's share of the whole batch's;
 gradients are summed over the data group, the clip's global norm sums
 the split leaves' squares over the model group and counts replicated
@@ -39,7 +45,8 @@ from __future__ import annotations
 import dataclasses
 import sys
 import time
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import (Any, Callable, Dict, List, NamedTuple, Optional,
+                    Tuple)
 
 import numpy as np
 import torch
@@ -142,30 +149,83 @@ def train(model: Model, params, data: TokenStream,
 TP_FAMILIES = ("dense", "moe", "vlm")
 
 
-def sharding_mechanism(cfg: ModelConfig, model: int) -> Tuple[str, str]:
-    """``(mechanism, why)`` for ``cfg`` on a model axis of ``model``
-    ranks: ``"tensor"`` where the family has a tensor-parallel forward
-    and every dim it splits divides ``model``, ``"gather"`` (gather-on-
-    use) otherwise, ``"replicated"`` at model 1. From the config only."""
+class Plan(NamedTuple):
+    """How a config runs on a model axis (:func:`sharding_mechanism`).
+    ``blocks``: each block's mode on the axis, ``"split"`` (it runs on
+    the rank's shard) or ``"gather"`` (its split leaves are all-gathered
+    at their use, in their layer, and it runs whole); ``{"model":
+    "gather"}`` for a family gathered whole up front, empty at model 1.
+    ``axes`` says where the split core and decode cache lie: ``core`` on
+    ``"heads"`` (whole heads a rank) or ``"pairs"`` ((row, head) pairs
+    that cut across heads), ``cache`` on ``"kv heads"``, ``"head_dim"``
+    or ``"none"`` (whole on every rank)."""
+    mechanism: str
+    why: str
+    blocks: Dict[str, str]
+    axes: Dict[str, str]
+
+
+def sharding_mechanism(cfg: ModelConfig, model: int) -> Plan:
+    """The :class:`Plan` of ``cfg`` on a model axis of ``model`` ranks,
+    from the config only: each block split where the dims
+    ``launch.shardings.param_spec`` splits for its leaves divide
+    ``model`` (``embed`` / ``unembed`` V; ``attn``, the projections,
+    H·Dh and Hkv·Dh; ``mlp`` d_ff; ``experts`` E under ``moe_dense``,
+    which has the expert-split form: under ``moe_gshard`` they gather);
+    the attention ``core`` always split, over (row, head) pairs; the
+    decode ``cache`` split on kv heads where they divide, else on the
+    head dim. The mechanism: ``"tensor"`` where every block splits on
+    whole heads (heads and kv heads divide; the serving engine's
+    tensor parallelism), ``"per-leaf"`` where the blocks differ or the
+    heads do not divide, ``"gather"`` where no weight block splits, and
+    for the families with no tensor-parallel forward (gathered whole up
+    front), ``"replicated"`` at model 1."""
     if model == 1:
-        return "replicated", "model 1: every rank holds the whole model"
+        return Plan("replicated", "model 1: every rank holds the whole "
+                    "model", {}, {})
     if cfg.family not in TP_FAMILIES:
-        return "gather", (f"gather-on-use: family {cfg.family} has no "
-                          "tensor-parallel forward")
-    if cfg.num_experts and cfg.moe_impl != "dense":
-        return "gather", (f"gather-on-use: moe_impl {cfg.moe_impl} has no "
-                          "expert-split form yet")
-    dims = {"heads": cfg.num_heads, "kv heads": cfg.num_kv_heads,
-            "vocab": cfg.vocab_size}
-    if cfg.num_experts:
-        dims["experts"] = cfg.num_experts
+        return Plan("gather", f"gather-on-use of the whole model: family "
+                    f"{cfg.family} has no tensor-parallel forward",
+                    {"model": "gather"}, {})
+    H, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    dims = {"embed": {"vocab": cfg.vocab_size},
+            "attn": {"H·Dh": H * Dh, "Hkv·Dh": Hkv * Dh}}
     if not cfg.num_experts or cfg.dense_residual:
-        dims["d_ff"] = cfg.d_ff
-    listed = ", ".join(f"{k} {v}" for k, v in dims.items())
-    if any(v % model for v in dims.values()):
-        return "gather", (f"gather-on-use: not all of {listed} divide "
-                          f"model {model}")
-    return "tensor", (f"tensor parallelism: {listed} divide model {model}")
+        dims["mlp"] = {"d_ff": cfg.d_ff}
+    if cfg.num_experts:
+        dims["experts"] = {"experts": cfg.num_experts}
+    dims["unembed"] = {"vocab": cfg.vocab_size}
+    blocks = {b: "split" if all(n % model == 0 for n in d.values())
+              else "gather" for b, d in dims.items()}
+    notes = []
+    if cfg.num_experts and cfg.moe_impl != "dense":
+        blocks["experts"] = "gather"
+        notes.append(f"experts: moe_impl {cfg.moe_impl} has no "
+                     "expert-split form yet")
+    weights = list(blocks)
+    heads = H % model == 0 and Hkv % model == 0
+    blocks["core"] = "split"
+    blocks["cache"] = ("split" if Hkv % model == 0 or Dh % model == 0
+                       else "gather")
+    axes = {"core": "heads" if H % model == 0 else "pairs",
+            "cache": ("kv heads" if Hkv % model == 0 else "head_dim"
+                      if Dh % model == 0 else "none")}
+    split = [b for b in weights if blocks[b] == "split"]
+    if len(split) == len(weights) and heads:
+        mech = "tensor"
+    elif not split:
+        mech = "gather"
+    else:
+        mech = "per-leaf"
+    listed = "; ".join(f"{b} {blocks[b]} ("
+                       + ", ".join(f"{k} {v}" for k, v in d.items()) + ")"
+                       for b, d in dims.items())
+    name = {"tensor": "tensor parallelism", "per-leaf": "per-leaf "
+            "partition", "gather": "gather-on-use"}[mech]
+    why = (f"{name} at model {model}: {listed}; core over "
+           f"{axes['core']} (H {H}), decode cache on {axes['cache']} "
+           f"(Hkv {Hkv}, Dh {Dh})" + "".join(f"; {n}" for n in notes))
+    return Plan(mech, why, blocks, axes)
 
 
 def _sorted_paths(tree, prefix: str = ""):
@@ -211,10 +271,17 @@ class ShardedTrainStep:
         self.mesh = mesh
         self.opt_cfg = opt_cfg
         self.remat = remat
-        self.mechanism, self.why = sharding_mechanism(model.cfg,
-                                                      mesh.model)
-        tp = mesh.model_group if self.mechanism == "tensor" else None
-        self.model = build_model(dataclasses.replace(model.cfg, tp_axis=tp))
+        self.plan = sharding_mechanism(model.cfg, mesh.model)
+        self.mechanism, self.why = self.plan.mechanism, self.plan.why
+        # a family gathered whole up front; every other runs its blocks
+        # on the model group (no plan: tensor parallelism on whole heads)
+        self.whole_model = "model" in self.plan.blocks
+        on_group = self.plan.blocks and not self.whole_model
+        plan = (self.plan.blocks if on_group and self.mechanism != "tensor"
+                else None)
+        self.model = build_model(dataclasses.replace(
+            model.cfg, tp_axis=mesh.model_group if on_group else None,
+            tp_plan=plan))
         self.split: Dict[str, int] = {}     # path -> dim split on model
 
     def shard(self, params) -> Any:
@@ -279,8 +346,7 @@ class ShardedTrainStep:
         for p in leaves:
             p.requires_grad_()
         with torch.enable_grad():
-            tree = (self.whole(params) if self.mechanism == "gather"
-                    else params)
+            tree = self.whole(params) if self.whole_model else params
             loss, aux = self.model.loss(tree, local, remat=self.remat,
                                         data_group=self.mesh.data_group)
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
@@ -317,8 +383,9 @@ def make_sharded_train_step(model: Model, opt_cfg: AdamWConfig, mesh,
                             remat: bool = False) -> ShardedTrainStep:
     """The sharded counterpart of :func:`make_train_step` on this rank of
     ``mesh`` (every rank makes one and calls it in step). Cut the shard
-    with ``step.shard(whole_params)``; ``step.mechanism`` names the
-    mechanism (:func:`sharding_mechanism`)."""
+    with ``step.shard(whole_params)``; ``step.plan`` is its
+    :class:`Plan` (:func:`sharding_mechanism`), ``step.mechanism`` the
+    plan's mechanism."""
     return ShardedTrainStep(model, opt_cfg, mesh, remat)
 
 
@@ -412,7 +479,8 @@ def train_sharded(mesh, run: ShardedRun) -> dict:
                   f"lr {history[-1]['lr']:.2e}", flush=True)
     out = {"rank": mesh.rank, "coords": dict(mesh.coords),
            "device": str(dev), "mechanism": step.mechanism,
-           "why": step.why, "history": history,
+           "plan": dict(step.plan.blocks), "why": step.why,
+           "history": history,
            "launches": launch_counts(),
            "collectives": {k: (g.coll_calls, g.coll_s)
                            for k, g in groups.items()},

@@ -64,10 +64,11 @@ def test_every_family_and_kind_traces(family, kind):
     assert row["flops_hlo_per_chip"] > 0 and row["bytes_hlo_per_chip"] > 0
     assert row["arg_bytes_per_chip"] > 0 and row["temp_bytes_per_chip"] > 0
     assert row["n_collectives"] > 0         # the model group, at least
-    # the mechanism the sharded trainer picks; long_500k splits the ring
+    # the mechanism the sharded trainer picks (the MoE's gshard experts
+    # gather at use, its other blocks split); long_500k splits the ring
     # (or zamba2's sites) over data, rwkv6's state has no sequence axis
-    assert row["mechanism"] == ("tensor" if family in ("dense", "vlm")
-                                else "gather")
+    assert row["mechanism"] == {"dense": "tensor", "vlm": "tensor",
+                                "moe": "per-leaf"}.get(family, "gather")
     assert row["context_parallel"] == (shape == "long_500k"
                                        and family != "ssm")
 
@@ -227,6 +228,7 @@ def test_the_optimized_levers_are_refused(capsys):
     with pytest.raises(SystemExit) as e:
         dryrun.main(["--arch", "qwen2.5-14b", "--opt"])
     assert e.value.code == 2
-    assert "ROADMAP Queue 1 item 9" in capsys.readouterr().err
-    with pytest.raises(ValueError, match="Queue 1 item 9"):
+    assert ("ROADMAP Queue 1 item \"`--opt`'s levers\""
+            in capsys.readouterr().err)
+    with pytest.raises(ValueError, match="Queue 1 item \"`--opt`'s levers"):
         dryrun.run_case("qwen2.5-14b", "train_4k", False, optimized=True)

@@ -1,6 +1,7 @@
 """Sharded training by gather-on-use, f32 on the CPU: the families with
 no tensor-parallel forward (rwkv6, zamba2, whisper) and a decoder whose
-heads do not divide the model axis, on a data x model
+kv heads do not divide the model axis (the per-leaf partition: its
+blocks split, q / k / v gathered on whole heads), on a data x model
 ``launch.mesh.TrainMesh`` against the port's unsharded step and the
 reference's GSPMD step; and the reference's ``core.bidask`` /
 ``core.refinement`` import paths.
@@ -8,7 +9,8 @@ reference's GSPMD step; and the reference's ``core.bidask`` /
 One 2-rank group serves the module (this process and one
 ``launch.train_worker``). Each family (reduced: 2 layers) takes 2 AdamW
 steps on B 4 x T 32 of ``TokenStream``; every rank stores its shard by
-``param_spec`` and all-gathers the split leaves each step. Tolerances
+``param_spec`` and all-gathers the split leaves each step (the
+decoder: the activations its split blocks need). Tolerances
 as ``tests/test_torch_sharded_training.py`` (AdamW at eps 1e-5, which
 it explains): metrics within 1e-5 (relative; 1e-4 against the
 reference) and equal on every rank, the AdamW moments within 1e-4 of
@@ -53,7 +55,8 @@ STEPS, B, T = 2, 4, 32
 OPT = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=STEPS, eps=1e-5)
 DATA = DataConfig(batch_size=B, seq_len=T)
 # a decoder whose kv heads (3) do not divide 2 while its flattened wq /
-# wk / wv (384 / 192 wide) do: param_spec splits them, so it gathers
+# wk / wv (384 / 192 wide) do: param_spec splits them, and the per-leaf
+# partition runs them split (its decode cache would split on the head dim)
 ODD_HEADS = dict(num_heads=6, num_kv_heads=3)
 FAMILIES = {"rwkv6-7b": {}, "zamba2-2.7b": {}, "whisper-large-v3": {},
             "smollm-360m": ODD_HEADS}
@@ -137,7 +140,9 @@ def _metrics_close(hist, ref, tol, keys=None):
                          ids=[f"{a}-{d}x{m}" for a, (d, m) in RUNS])
 def test_gathered_step_equals_unsharded(runs, arch, layout):
     cfg, res, (ref_hist, ref_params, ref_opt), _ = runs[(arch, layout)]
-    want = "gather" if layout[1] > 1 else "replicated"
+    # the decoder's kv heads do not divide: the per-leaf partition
+    want = ("replicated" if layout[1] == 1 else "per-leaf"
+            if arch == "smollm-360m" else "gather")
     assert [r["mechanism"] for r in res] == [want] * 2
     for r in res:
         _metrics_close(r["history"], ref_hist, METRIC_TOL)

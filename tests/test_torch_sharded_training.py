@@ -259,14 +259,16 @@ def test_layouts_and_mechanisms():
     got = {a: sharding_mechanism(get_config(a), 2)[0] for a in (
         "llama3.2-3b", "smollm-360m", "qwen3-moe-30b-a3b", "qwen2-vl-7b",
         "rwkv6-7b", "zamba2-2.7b", "whisper-large-v3")}
-    # smollm at full width: H 15, Hkv 5 do not divide 2
-    assert got == {"llama3.2-3b": "tensor", "smollm-360m": "gather",
+    # smollm at full width: H 15, Hkv 5 do not divide 2, every split dim
+    # does (the per-leaf partition); qwen3-moe's dense experts divide
+    assert got == {"llama3.2-3b": "tensor", "smollm-360m": "per-leaf",
                    "qwen3-moe-30b-a3b": "tensor", "qwen2-vl-7b": "tensor",
                    "rwkv6-7b": "gather", "zamba2-2.7b": "gather",
                    "whisper-large-v3": "gather"}
     gshard = dataclasses.replace(get_config("qwen3-moe-30b-a3b"),
                                  moe_impl="gshard")
-    assert sharding_mechanism(gshard, 2)[0] == "gather"
+    # gshard's experts gather at use, every other block splits
+    assert sharding_mechanism(gshard, 2)[0] == "per-leaf"
     assert sharding_mechanism(get_config("llama3.2-3b"), 1)[0] == \
         "replicated"
 

@@ -5,8 +5,10 @@ engine's.
 
     python3 tools/calibrate_h100.py [--json PATH] [--fig2-tax X]
 
-Needs one CUDA card; ``chip_smoke.py`` phase 15 runs it in a process of
-its own (late in a long process the profiler has lost kernel records).
+Needs one CUDA card; run it in a process of its own (late in a long
+process the profiler has lost kernel records). Its lines start ``phase
+15:``, its place in ``chip_smoke.py``'s list of phases; ``--fig2-tax``
+takes that script's phase 13 tax.
 Llama3.2-3b at full width, bf16, seeded random weights, block size 16,
 fused backend, preemption off.
 

@@ -28,9 +28,9 @@ of the kernels inside the device-side ranges of a ``record_function``
 put around ``mlp.moe`` for the profiled pass; a dense model has none, an
 MoE step's is printed beside its least time), the attention kernel (#1,
 the kernels named ``mixed_``) and the rest; then device time by kernel,
-largest first. ``--json PATH`` writes these numbers. ``chip_smoke.py``
-phase 16 runs it with ``--arch qwen3-moe-30b-a3b`` in a process of its
-own (a profiler late in a long process lost kernel records). Needs one
+largest first. ``--json PATH`` writes these numbers. Run it in a
+process of its own (a profiler late in a long process lost kernel
+records), e.g. ``--arch qwen3-moe-30b-a3b`` for the MoE layer. Needs one
 CUDA card: exits non-zero without one, if the trace does not drain or if
 the profiler lost records of more than ``MAX_RETAKES`` steps.
 """
