@@ -214,11 +214,11 @@ the last line:
 24. sharded training on the machine's one card: two ranks (this process
     and one ``launch.train_worker``) on ``cuda:0`` over gloo; (a)
     llama3.2-3b at full width, bf16, model 2 (tensor parallelism: 12 / 4
-    heads, half the FFN and vocab a rank), phase 22's setting for 4
+    heads, half the FFN and vocab a rank), phase 22's setting for 2
     steps: loss, gradient norm, wall and tokens/s a step, each rank's
     collectives (count, host seconds) and peak memory (all "two ranks on
     one card; not a speedup"); the ranks' metrics equal, the losses
-    within one bf16 ulp of phase 22's first 4, #6 == 4 x 28 x 2 launches
+    within one bf16 ulp of phase 22's first 2, #6 == 2 x 28 x 2 launches
     on each rank and nothing else; #6 at a rank's heads on that batch is
     measured early, in phase 3's ``family_kernels``; (b) 2 layers f32:
     llama3.2-3b at (data 1, model 2), smollm-360m at (2, 1), and rwkv6,
@@ -234,7 +234,7 @@ the last line:
     8192-row ring, train_4k B 1 x 4096, which must fit by the trace's
     reckoning): each traced on the CPU under fake meta tensors
     (``launch.dryrun``: FLOPs, bytes, the roofline priced on the H100),
-    then one warm run, 3 runs timed by CUDA events and one profiled: ms,
+    then one warm run, 2 runs timed by CUDA events and one profiled: ms,
     t_compute, t_memory, dominant, the roofline's share and the device's
     busy share; outputs finite, #6 == 28 a prefill (56 a train step) and
     #5 == 28 a decode and no other kernel, and the card's counted FLOPs
@@ -250,7 +250,7 @@ the last line:
     B 8 against 4096 rows on the cache split on its head dim (partial
     scores all-reduced in f32, no #5) and a train step of B 2 x 1024
     (remat; the loss on vocab-split logits), each
-    ``launch.dryrun.run_rank`` on both ranks: ms by CUDA events (3 runs
+    ``launch.dryrun.run_rank`` on both ranks: ms by CUDA events (1 run
     after a warm one), each rank's collectives (count, host s) and peak
     memory (all "two ranks on one card; not a speedup"); the collectives
     of a run == ``part_collectives`` (counted from the code) == the (1, 2)
@@ -262,8 +262,28 @@ the last line:
     layers f32: each rank's prefill logits and cache slice, a decode
     step's, and a train step's loss, grad norm and params on the card ==
     the unsharded port on the CPU within 1e-5;
-27. one JSON line of every kernel (the rows of phases 16-18's, 21's,
-    23's, 24's, 25's and 26's shapes added), then, last,
+27. the expert-split MoE: qwen3-moe-30b-a3b at full width (the repo's
+    config: d 2048, H 32 / Hkv 4 / Dh 64, E 128, K 8, d_ff 768),
+    ``moe_impl`` "gshard", at (data 1, model 2) on phase 26's two ranks:
+    tensor parallelism, each rank running its 64 experts on its kept
+    (token, k) pairs (dispatched by index into [64, G, C, D], combined
+    by gather, one f32 all-reduce); (a) 4 layers bf16, seeded weights: a
+    prefill of B 2 x 2048, a decode of B 8 against 4096 rows (#5 on each
+    rank's 2 kv heads) and a train step of B 2 x 1024 (remat), each
+    ``launch.dryrun.run_rank`` with ``cfg=`` on both ranks: ms by CUDA
+    events (1 run after a warm one), collectives (count, host s), peak
+    memory and launches a rank (all "two ranks on one card; not a
+    speedup"); the collectives of a run == ``ep_collectives`` == the
+    (1, 2) trace's, none an all-gather of an expert leaf, #6 == 4 a
+    prefill run and 8 a train step, #5 == 4 a decode run, rank 0's
+    counted FLOPs and bytes == its trace's (1e-9); #6 and #5 at a rank's
+    16 / 2 heads on those shapes are measured early, in phase 3's
+    ``family_kernels``; (b) 2 layers f32: each rank's prefill logits and
+    cache slice, a decode step's, and a train step's loss, grad norm and
+    params == the unsharded port (its one-hot ``moe_gshard``) on the card
+    within 1e-5, with the dropped (token, k) pairs printed (> 0);
+28. one JSON line of every kernel (the rows of phases 16-18's, 21's,
+    23's, 24's, 25's, 26's and 27's shapes added), then, last,
     ``{"ok": true, ...}``.
 
 It needs one CUDA card and fails without one; it imports nothing of JAX.
@@ -2748,7 +2768,9 @@ def family_kernels(np, torch, F, cfg_mod, tk, dk, pk, flush):
     so the engine runs Dh 64), and at a tp=2 rank's llama3.2-3b heads
     (12 / 4, phase 23); #6 at those heads on phase 24 (a)'s training
     batch (B 2, T 1024); #6 and #5 at phase 25's shapes
-    (:func:`dryrun_kernels`); #6 on phase 26's (row, head) pairs."""
+    (:func:`dryrun_kernels`); #6 on phase 26's (row, head) pairs; #6 and
+    #5 at a model-parallel rank's qwen3-moe heads (16 / 2 / 64) on phase
+    27 (a)'s prefill and decode."""
     moe = cfg_mod.get_config(MOE_ARCH)
     vlm = cfg_mod.get_config(VLM_ARCH)
     out = {"moe": phase_kernels(np, torch, F, tk, flush, H=moe.num_heads,
@@ -2815,6 +2837,16 @@ def family_kernels(np, torch, F, cfg_mod, tk, dk, pk, flush):
         flush, -(-2 * sm.num_heads // 2), PART_PAIRS_T, [], [], 0,
         f"phase 3 ({PART_ARCH}, a model-parallel rank's (row, head) pairs)",
         device=True, decode=False)["prefill"]
+    # phase 27 (a): #6 and #5 at a model-parallel rank's heads of
+    # qwen3-moe (16 / 2 / 64): the prefill's B 2 x T 2048, the decode's 8
+    # rows of 4096 keys
+    (_, pb, pt), (_, db, dt) = EP_CASES[:2]
+    out["moe_rank"] = contiguous_kernels_at(
+        torch, dataclasses.replace(moe, num_heads=moe.num_heads // 2,
+                                   num_kv_heads=moe.num_kv_heads // 2),
+        dk, pk, flush, pb, pt, [dt] * db, list(range(db)), dt,
+        f"phase 3 ({MOE_ARCH}, a model-parallel rank, 16 / 2 heads)",
+        device=True)
     return out
 
 
@@ -4031,13 +4063,13 @@ def phase_tp(np, torch, cfg_mod, model_mod, engine_mod, request_mod,
 # Phase 24: sharded training, two ranks on one card
 # --------------------------------------------------------------------------
 SHARD_NOTE = "two ranks on one card; not a speedup"
-SHARD_STEPS = 4            # (a): phase 22's first 4 steps
+SHARD_STEPS = 2            # (a): phase 22's first 2 steps
 # (b): one step. The CPU references are (b)'s critical path, and rwkv6's
 # second step is ill-conditioned in exact arithmetic (bonus_u and the state
 # start at 0: after one step the first token's WKV output has a variance
 # per head of ~3e-8, far below its group norm's eps 1e-5; in f64 a 1e-7
 # move of the weights lands 0.224 away in the step-2 grad norm, while step
-# 1 stays within 6.1e-6: tools/gather_witness.py). Phase 24 (a) runs 4
+# 1 stays within 6.1e-6: tools/gather_witness.py). Phase 24 (a) runs 2
 # steps against phase 22's
 SHARD_SMALL_STEPS = 1
 SHARD_TOL = 1e-5           # (b): loss / grad norm relative; params of
@@ -4076,8 +4108,8 @@ def _unsharded_steps(torch, model, opt_cfg, data_cfg, steps, device,
 
 def _params_err(got, want):
     """The largest |got - want| over the leaves, each over max(1, its
-    largest magnitude)."""
-    return max(float((a.detach().cpu() - b.detach().cpu()).abs().max())
+    largest magnitude), computed where ``want`` lies."""
+    return max(float((a.detach().to(b.device) - b.detach()).abs().max())
                / max(1.0, float(b.detach().abs().max()))
                for a, b in zip(_leaves(got), _leaves(want)))
 
@@ -4275,10 +4307,10 @@ def phase_sharded_train(np, torch, cfg_mod, model_mod, pk, phase22):
     """Phase 24: sharded training on the card's one device, two ranks
     (this process and a ``launch.train_worker``) on ``cuda:0`` over gloo.
     (a) llama3.2-3b at full width, model 2 (tensor parallelism): phase
-    22's setting for 4 steps; per step the loss, gradient norm, wall and
+    22's setting for 2 steps; per step the loss, gradient norm, wall and
     tokens/s, per rank the collectives (count, host seconds) and the peak
     memory; the ranks' metrics equal, the losses within one bf16 ulp of
-    phase 22's first 4; #6 == 4 x 28 x 2 launches on each rank at its 12
+    phase 22's first 2; #6 == 2 x 28 x 2 launches on each rank at its 12
     / 4 heads and no other kernel; (b) 2 layers f32, llama3.2-3b at (1,
     2), smollm-360m at (2, 1), and rwkv6, zamba2 and whisper at (1, 2) by
     gather-on-use, all at their published widths: loss, grad norm and
@@ -4313,7 +4345,7 @@ DRYRUN_ARCH = "llama3.2-3b"
 # (shape, the global batch cut to what one card holds at (data 1, model 1))
 DRYRUN_CUTS = (("prefill_32k", 1), ("decode_32k", 8), ("long_500k", 1),
                ("train_4k", 1))
-DRYRUN_RUNS = 3            # timed by CUDA events after one warm run
+DRYRUN_RUNS = 2            # timed by CUDA events after one warm run
 # #6 at T 32768 is held on blocks of DRYRUN_ROWS query rows at the start,
 # the middle and the end of the prompt, each to atol DRYRUN_TOL_STD x the
 # block's own spread (its plain version's std) and rtol DRYRUN_RTOL (one
@@ -4569,7 +4601,7 @@ PART_ARCH = "smollm-360m"     # H 15 / Hkv 5 divide no model axis > 1
 # of 2 x 1024 (remat)
 PART_CASES = (("prefill_32k", 2, 2048), ("decode_32k", 8, 4096),
               ("train_4k", 2, 1024))
-PART_RUNS = 3              # timed by CUDA events after one warm run
+PART_RUNS = 1              # timed by CUDA events after one warm run
 # (b): 2 layers f32 at the same widths: B 2 prompts of 64 tokens into a
 # cache of 80 rows, one decode step, one train step, held to the CPU
 PART_SMALL_B, PART_SMALL_T, PART_SMALL_CACHE = 2, 64, 80
@@ -4599,18 +4631,22 @@ def part_collectives(L, kind):
     return (4 + 3 + 4) * L + 1 + 3 + 1 + 1
 
 
-def _part_trace(shape, B, T):
-    """Rank 0's program of one ``PART_CASES`` case at (data 1, model 2)
-    traced on the CPU under fake meta tensors (``launch.dryrun``), in a
-    process of its own (:func:`start_part_traces`): its plan, counted FLOPs,
-    bytes, peak, collectives and roofline terms, and the trace's
-    seconds."""
+def _part_trace(arch, shape, B, T, layers=None):
+    """Rank 0's program of one ``PART_CASES`` case (``arch`` smollm) or
+    ``EP_CASES`` case (qwen3-moe cut to ``layers``, :func:`ep_config`) at
+    (data 1, model 2) traced on the CPU under fake meta tensors
+    (``launch.dryrun``), in a process of its own
+    (:func:`start_part_traces`): its plan, counted FLOPs, bytes, peak,
+    collectives (and the bytes each all-gather returns) and roofline
+    terms, and the trace's seconds."""
     from repro_torch.launch import cases as cases_mod
     from repro_torch.launch import dryrun as dryrun_mod
     from repro_torch.launch.mesh import Layout
     t0 = time.perf_counter()
     layout = Layout({"data": 1, "model": 2})
-    fake = cases_mod.build_case(PART_ARCH, shape, layout, batch=B, seq=T)
+    cfg = None if layers is None else ep_config(cases_mod, layers)
+    fake = cases_mod.build_case(arch, shape, layout, batch=B, seq=T,
+                                cfg=cfg)
     traced = dryrun_mod.trace_case(fake)
     rl = dryrun_mod.roofline_of(fake, traced, "1x2", layout)
     return {"mechanism": fake.plan.mechanism,
@@ -4618,6 +4654,8 @@ def _part_trace(shape, B, T):
             "layers": fake.cfg.num_layers, "flops": traced["flops"],
             "bytes": traced["bytes"], "temp_bytes": traced["temp_bytes"],
             "collectives": len(traced["records"]),
+            "gathered_bytes": [r["result_bytes"] for r in traced["records"]
+                               if r["op"] == "all-gather"],
             "flops_analytic": rl.flops_per_chip, "t_compute": rl.t_compute,
             "t_memory": rl.t_memory, "t_collective": rl.t_collective,
             "dominant": rl.dominant,
@@ -4630,15 +4668,17 @@ def _cpu_only():
 
 
 def start_part_traces():
-    """Phase 26's (1, 2) traces (:func:`_part_trace`; CPU only, the train
-    step's ~40 s) in two spawned processes that see no card, started
-    before the build so that they run beside it: (the pool, {shape: its
-    pending result})."""
+    """Phases 26's and 27's (1, 2) traces (:func:`_part_trace`; CPU only,
+    smollm's train step ~40 s) in two spawned processes that see no
+    card, started before the build so that they run beside it: (the
+    pool, {(arch, shape): its pending result}), the train steps first."""
     import multiprocessing
     pool = multiprocessing.get_context("spawn").Pool(2, _cpu_only)
-    return pool, {shape: pool.apply_async(_part_trace, (shape, B, T))
-                  for shape, B, T in sorted(
-                      PART_CASES, key=lambda c: c[0] != "train_4k")}
+    jobs = ([(PART_ARCH, shape, B, T, None) for shape, B, T in PART_CASES]
+            + [(MOE_ARCH, shape, B, T, EP_LAYERS)
+               for shape, B, T in EP_CASES])
+    return pool, {job[:2]: pool.apply_async(_part_trace, job)
+                  for job in sorted(jobs, key=lambda j: j[1] != "train_4k")}
 
 
 def _part_small(np, torch, cfg_mod, model_mod, mesh):
@@ -4717,7 +4757,20 @@ def _part_small(np, torch, cfg_mod, model_mod, mesh):
             "train_params_err": p_err}
 
 
-def phase_partition(np, torch, cfg_mod, model_mod, traces):
+def train_group(torch, label):
+    """Two training ranks on the card over gloo (this process and one
+    ``launch.train_worker``), shared by phases 26 and 27."""
+    from repro_torch.launch import mesh as mesh_mod
+    _fresh_card(torch, label)
+    t0 = time.perf_counter()
+    mesh = mesh_mod.make_train_mesh(2, list(TP_DEVICES), "gloo")
+    log(f"{label}: a training group of 2 ranks on {list(TP_DEVICES)} over "
+        f"{mesh.backend} (rank 1 joined in {time.perf_counter() - t0:.1f} "
+        f"s); the (1, 2) traces ran beside the build")
+    return mesh
+
+
+def phase_partition(np, torch, cfg_mod, model_mod, mesh, traces):
     """Phase 26: smollm-360m at full width (32 layers, d 960, H 15 / Hkv
     5, Dh 64) at (data 1, model 2) on two ranks sharing the card over
     gloo, where its heads divide nothing and every split dim divides: the
@@ -4730,109 +4783,401 @@ def phase_partition(np, torch, cfg_mod, model_mod, traces):
     prefill run, 2 x layers a train step, nothing in a decode; rank 0's
     counted FLOPs and bytes equal its trace's within ``DRYRUN_REL``
     (``traces``: :func:`start_part_traces`'s pending results). (b) 2
-    layers f32 (:func:`_part_small`)."""
+    layers f32 (:func:`_part_small`). ``mesh``: :func:`train_group`'s."""
     from repro_torch.launch import cases as cases_mod
     from repro_torch.launch import dryrun as dryrun_mod
-    from repro_torch.launch import mesh as mesh_mod
-    _fresh_card(torch, "phase 26")
-    t0 = time.perf_counter()
-    mesh = mesh_mod.make_train_mesh(2, list(TP_DEVICES), "gloo")
-    log(f"phase 26: a training group of 2 ranks on {list(TP_DEVICES)} over "
-        f"{mesh.backend} (rank 1 joined in {time.perf_counter() - t0:.1f} "
-        f"s); the (1, 2) traces ran beside the build")
     out = {}
+    # the card's runs first, (b) next, and only then the traces they
+    # are held to, which by then have had the card's time to finish
+    ran = {shape: mesh.run(dryrun_mod.run_rank, PART_ARCH, shape,
+                           batch=B, seq=T, seed=SEED, runs=PART_RUNS,
+                           layout=(1, 2))
+           for shape, B, T in PART_CASES}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["small"] = _part_small(np, torch, cfg_mod, model_mod, mesh)
+    for shape, B, T in PART_CASES:
+        kind = cases_mod.shape_kind(shape)
+        res = ran.pop(shape)
+        traced = traces[PART_ARCH, shape].get()
+        L = traced["layers"]
+        check(traced["mechanism"] == "per-leaf"
+              and set(traced["blocks"].values()) == {"split"}
+              and traced["axes"] == {"core": "pairs",
+                                     "cache": "head_dim"},
+              f"phase 26 {shape}: plan {traced['mechanism']} "
+              f"{traced['blocks']} {traced['axes']}")
+        want = part_collectives(L, kind)
+        check(traced["collectives"] == want,
+              f"phase 26 {shape}: the trace records "
+              f"{traced['collectives']} collectives, the code {want}")
+        card = res[0]["warm"]
+        rel = {k: abs(card[k] - traced[k]) / traced[k]
+               for k in ("flops", "bytes")}
+        check(max(rel.values()) <= DRYRUN_REL,
+              f"phase 26 {shape}: rank 0 counted {card['flops']:.6e} "
+              f"FLOPs, {card['bytes']:.6e} bytes; its trace "
+              f"{traced['flops']:.6e}, {traced['bytes']:.6e} (rel {rel})")
+        per = {"prefill": {"contiguous_prefill": L},
+               "train": {"contiguous_prefill": 2 * L},
+               "decode": {}}[kind]
+        ranks = []
+        for r in res:
+            warm = {k: n for k, n in r["warm"]["launches"].items() if n}
+            timed = {k: n for k, n in r["launches"].items() if n}
+            check(r["warm"]["finite"], f"phase 26 {shape}: rank "
+                  f"{r['rank']}: non-finite outputs")
+            check(warm == per and timed == {
+                k: n * PART_RUNS for k, n in per.items()},
+                  f"phase 26 {shape}: rank {r['rank']} launched {warm} "
+                  f"warm, {timed} in {PART_RUNS} runs; want {per} a run")
+            calls, secs = r["collectives"]["model"]
+            check(r["warm"]["collectives"] == {"model": want}
+                  and calls == want * PART_RUNS,
+                  f"phase 26 {shape}: rank {r['rank']}: "
+                  f"{r['warm']['collectives']} warm, {calls} in "
+                  f"{PART_RUNS} runs; the code makes {want} a run")
+            ms = sum(r["ms"]) / len(r["ms"])
+            a_run = {k: n // PART_RUNS for k, n in timed.items()}
+            ranks.append({"rank": r["rank"], "ms": r["ms"],
+                          "ms_mean": ms, "collectives": want,
+                          "collective_s": secs / PART_RUNS,
+                          "peak_memory_gb":
+                          r.get("peak_memory_bytes", 0) / 1e9,
+                          "launches": {k: n + warm.get(k, 0)
+                                       for k, n in timed.items()}})
+            log(f"phase 26 (a) {shape} [{SHARD_NOTE}]: rank "
+                f"{r['rank']} {ms:.2f} ms a run (events, timed after a "
+                f"warm run: {', '.join(f'{x:.2f}' for x in r['ms'])}), {want} "
+                f"collectives a run on the model group, "
+                f"{secs / PART_RUNS * 1e3:.1f} ms of host time, peak "
+                f"memory {ranks[-1]['peak_memory_gb']:.2f} GB, "
+                f"launches a run {a_run or 'none'}")
+        out[shape] = {
+            "batch": B, "seq": T, "rank_rows": res[0]["rows"],
+            "ranks": ranks, "flops_traced": traced["flops"],
+            "flops_card": card["flops"], "bytes_traced": traced["bytes"],
+            "bytes_card": card["bytes"], "card_vs_trace_rel": rel,
+            "flops_analytic": traced["flops_analytic"],
+            "t_compute": traced["t_compute"],
+            "t_memory": traced["t_memory"],
+            "t_collective": traced["t_collective"],
+            "dominant": traced["dominant"],
+            "collective_bytes": traced["collective_bytes"],
+            "arg_bytes": res[0]["arg_bytes"],
+            "temp_bytes": traced["temp_bytes"],
+            "trace_s": traced["trace_s"], "note": SHARD_NOTE}
+        log(f"phase 26 (a) {shape}: B {B} x T {T}, {res[0]['rows']} "
+            f"rows a rank; rank 0 counted {card['flops']:.6e} FLOPs "
+            f"(analytic share {traced['flops_analytic']:.6e}) and "
+            f"{card['bytes'] / 1e9:.3f} GB == its (1, 2) trace (rel "
+            f"{max(rel.values()):.1e}); {want} collectives "
+            f"({traced['collective_bytes'] / 1e9:.4f} GB on the wire) "
+            f"== the trace's and the code's; traced in "
+            f"{traced['trace_s']:.1f} s beside the build")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+# --------------------------------------------------------------------------
+# Phase 27: the expert-split MoE of a rank's program on the card
+# --------------------------------------------------------------------------
+# (a): qwen3-moe-30b-a3b at full width (the repo's config: d 2048, H 32 /
+# Hkv 4 / Dh 64, E 128, K 8, d_ff 768, vocab 151936), moe_impl "gshard",
+# cut to 4 layers (3.10 B parameters; 48 layers' experts alone are 58 GB
+# of bf16), bf16, at (data 1, model 2): every dim divides, so tensor
+# parallelism with 64 experts a rank. (shape, global batch, sequence):
+EP_LAYERS = 4
+EP_CASES = (("prefill_32k", 2, 2048), ("decode_32k", 8, 4096),
+            ("train_4k", 2, 1024))
+EP_RUNS = 1                # timed by CUDA events after one warm run
+# (b): 2 layers f32 at the same widths: B 2 prompts of 64 tokens into a
+# cache of 80 rows, one decode step, one train step, held to the
+# unsharded port's one-hot moe_gshard on the card; at cf 1.25 a group of
+# 64 tokens fills C = 5 slots an expert (512 pairs over 128 experts), so
+# the seeded routing drops pairs
+EP_SMALL_LAYERS = 2
+EP_SMALL_B, EP_SMALL_T, EP_SMALL_CACHE = 2, 64, 80
+EP_TOL = 1e-5
+
+
+def ep_config(cases_mod, layers, dtype=None):
+    """Phase 27's qwen3-moe: the dry run's config (``moe_impl`` "gshard",
+    bf16) cut to ``layers``, in ``dtype`` when given."""
+    cfg = dataclasses.replace(cases_mod.adjusted_config(MOE_ARCH,
+                                                        "train_4k"),
+                              num_layers=layers)
+    return cfg if dtype is None else dataclasses.replace(cfg, dtype=dtype)
+
+
+def ep_collectives(L, kind):
+    """A rank's collectives on the model group in one run of qwen3-moe's
+    program at model 2 (tensor parallelism: whole heads a rank, the
+    experts split), counted from the code of ``models/``: a forward
+    layer makes ``wo``'s all-reduce and the MoE's one f32 all-reduce of
+    its combined rows; the embedding's all-reduce and the logits'
+    all-gather close it. A train step's backward adds three
+    ``copy_to_tp`` all-reduces a layer (x into the q / k / v columns;
+    the MoE's rows and its combine weights), remat's second forward
+    stops before the MoE's all-reduce (nothing saves its output); its
+    loss keeps the logits split on the vocabulary (the rows' maxima
+    gathered, the sums of exponentials and the gold logits all-reduced,
+    the logits' copy in backward), and the global norm's all-reduce ends
+    it."""
+    if kind == "train":
+        return (2 + 1 + 3) * L + 1 + 3 + 1 + 1
+    return 2 * L + 2
+
+
+def _route_recorder(mlp_mod):
+    """Wrap ``mlp._route`` in this process so that each call's top-K
+    expert ids are kept (``seen``); ``restore()`` puts it back."""
+    real, seen = mlp_mod._route, []
+
+    def route(*a, **k):
+        out = real(*a, **k)
+        seen.append(out[2].detach())
+        return out
+
+    def restore():
+        mlp_mod._route = real
+    mlp_mod._route = route
+    return seen, restore
+
+
+def _dropped(mlp_mod, cfg, seen, G, S):
+    """(token, k) pairs past their expert's capacity over the recorded
+    routings of [G, S] tokens at the default capacity factor."""
+    K, E = cfg.experts_per_token, cfg.num_experts
+    C = max(1, math.ceil(S * K / E * 1.25))
+    return sum(int((mlp_mod.gshard_slots(t.reshape(G, S, K), E) >= C)
+                   .sum()) for t in seen)
+
+
+def _ep_small(np, torch, cfg_mod, model_mod, mesh):
+    """Phase 27 (b): 2 layers f32 of qwen3-moe at (data 1, model 2) on
+    the card against the unsharded port (its one-hot ``moe_gshard``) on
+    the card, the same weights (drawn on the card from ``SEED``): the
+    prefill's logits and each rank's cache slice (its kv heads), a decode
+    step's, and a train step's loss, grad norm and params after it; the
+    dropped (token, k) pairs of the prefill and the train step, counted
+    from the unsharded run's routing, must be > 0."""
+    from repro_torch.launch import cases as cases_mod
+    from repro_torch.models import mlp as mlp_mod
+    from repro_torch.training.data import DataConfig
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.trainer import ShardedRun, train_sharded
+    cfg = ep_config(cases_mod, EP_SMALL_LAYERS, torch.float32)
+    model = model_mod.build_model(cfg)
+    B, T, C = EP_SMALL_B, EP_SMALL_T, EP_SMALL_CACHE
+    r = np.random.default_rng(SEED + 27)
+    tokens = torch.from_numpy(r.integers(0, cfg.vocab_size, (B, T),
+                                         dtype=np.int32))
+    token = torch.from_numpy(r.integers(0, cfg.vocab_size, (B,),
+                                        dtype=np.int32))
+    pos = torch.full((B,), T, dtype=torch.int32)
+    t0 = time.perf_counter()
+    got = mesh.run(cases_mod.rank_prefill_decode, cfg, SEED, tokens, C,
+                   token, pos, layout=(1, 2))
+    opt = AdamWConfig(lr=TRAIN_LR, eps=SHARD_EPS, warmup_steps=1,
+                      total_steps=1)
+    data = DataConfig(batch_size=B, seq_len=T, seed=SEED)
+    res = mesh.run(train_sharded, ShardedRun(cfg, 1, opt, data, init=SEED,
+                                             gather=("params",)),
+                   layout=(1, 2))
+    secs = {"ranks": time.perf_counter() - t0}
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the unsharded port on the card: the prefill and the decode step
+    # first (the train step updates the weights in place)
+    weights = model.init(SEED, device="cuda")
+    seen, restore = _route_recorder(mlp_mod)
     try:
-        # the card's runs first, (b) next, and only then the traces they
-        # are held to, which by then have had the card's time to finish
-        ran = {shape: mesh.run(dryrun_mod.run_rank, PART_ARCH, shape,
-                               batch=B, seq=T, seed=SEED, runs=PART_RUNS,
-                               layout=(1, 2))
-               for shape, B, T in PART_CASES}
-        gc.collect()
-        torch.cuda.empty_cache()
-        out["small"] = _part_small(np, torch, cfg_mod, model_mod, mesh)
-        for shape, B, T in PART_CASES:
-            kind = cases_mod.shape_kind(shape)
-            res = ran.pop(shape)
-            traced = traces[shape].get()
-            L = traced["layers"]
-            check(traced["mechanism"] == "per-leaf"
-                  and set(traced["blocks"].values()) == {"split"}
-                  and traced["axes"] == {"core": "pairs",
-                                         "cache": "head_dim"},
-                  f"phase 26 {shape}: plan {traced['mechanism']} "
-                  f"{traced['blocks']} {traced['axes']}")
-            want = part_collectives(L, kind)
-            check(traced["collectives"] == want,
-                  f"phase 26 {shape}: the trace records "
-                  f"{traced['collectives']} collectives, the code {want}")
-            card = res[0]["warm"]
-            rel = {k: abs(card[k] - traced[k]) / traced[k]
-                   for k in ("flops", "bytes")}
-            check(max(rel.values()) <= DRYRUN_REL,
-                  f"phase 26 {shape}: rank 0 counted {card['flops']:.6e} "
-                  f"FLOPs, {card['bytes']:.6e} bytes; its trace "
-                  f"{traced['flops']:.6e}, {traced['bytes']:.6e} (rel {rel})")
-            per = {"prefill": {"contiguous_prefill": L},
-                   "train": {"contiguous_prefill": 2 * L},
-                   "decode": {}}[kind]
-            ranks = []
-            for r in res:
-                warm = {k: n for k, n in r["warm"]["launches"].items() if n}
-                timed = {k: n for k, n in r["launches"].items() if n}
-                check(r["warm"]["finite"], f"phase 26 {shape}: rank "
-                      f"{r['rank']}: non-finite outputs")
-                check(warm == per and timed == {
-                    k: n * PART_RUNS for k, n in per.items()},
-                      f"phase 26 {shape}: rank {r['rank']} launched {warm} "
-                      f"warm, {timed} in {PART_RUNS} runs; want {per} a run")
-                calls, secs = r["collectives"]["model"]
-                check(r["warm"]["collectives"] == {"model": want}
-                      and calls == want * PART_RUNS,
-                      f"phase 26 {shape}: rank {r['rank']}: "
-                      f"{r['warm']['collectives']} warm, {calls} in "
-                      f"{PART_RUNS} runs; the code makes {want} a run")
-                ms = sum(r["ms"]) / len(r["ms"])
-                a_run = {k: n // PART_RUNS for k, n in timed.items()}
-                ranks.append({"rank": r["rank"], "ms": r["ms"],
-                              "ms_mean": ms, "collectives": want,
-                              "collective_s": secs / PART_RUNS,
-                              "peak_memory_gb":
-                              r.get("peak_memory_bytes", 0) / 1e9,
-                              "launches": {k: n + warm.get(k, 0)
-                                           for k, n in timed.items()}})
-                log(f"phase 26 (a) {shape} [{SHARD_NOTE}]: rank "
-                    f"{r['rank']} {ms:.2f} ms a run (events, {PART_RUNS} "
-                    f"runs after a warm one: "
-                    f"{', '.join(f'{x:.2f}' for x in r['ms'])}), {want} "
-                    f"collectives a run on the model group, "
-                    f"{secs / PART_RUNS * 1e3:.1f} ms of host time, peak "
-                    f"memory {ranks[-1]['peak_memory_gb']:.2f} GB, "
-                    f"launches a run {a_run or 'none'}")
-            out[shape] = {
-                "batch": B, "seq": T, "rank_rows": res[0]["rows"],
-                "ranks": ranks, "flops_traced": traced["flops"],
-                "flops_card": card["flops"], "bytes_traced": traced["bytes"],
-                "bytes_card": card["bytes"], "card_vs_trace_rel": rel,
-                "flops_analytic": traced["flops_analytic"],
-                "t_compute": traced["t_compute"],
-                "t_memory": traced["t_memory"],
-                "t_collective": traced["t_collective"],
-                "dominant": traced["dominant"],
-                "collective_bytes": traced["collective_bytes"],
-                "arg_bytes": res[0]["arg_bytes"],
-                "temp_bytes": traced["temp_bytes"],
-                "trace_s": traced["trace_s"], "note": SHARD_NOTE}
-            log(f"phase 26 (a) {shape}: B {B} x T {T}, {res[0]['rows']} "
-                f"rows a rank; rank 0 counted {card['flops']:.6e} FLOPs "
-                f"(analytic share {traced['flops_analytic']:.6e}) and "
-                f"{card['bytes'] / 1e9:.3f} GB == its (1, 2) trace (rel "
-                f"{max(rel.values()):.1e}); {want} collectives "
-                f"({traced['collective_bytes'] / 1e9:.4f} GB on the wire) "
-                f"== the trace's and the code's; traced in "
-                f"{traced['trace_s']:.1f} s beside the build")
+        with torch.no_grad():
+            logits, cache = model.prefill(weights, tokens.cuda(),
+                                          cache_len=C)
+            first = type(cache)(*(a.clone() for a in cache))
+            dec, cache = model.decode_step(weights, cache, token.cuda(),
+                                           pos.cuda())
+        drops = {"prefill": _dropped(mlp_mod, cfg, seen[:cfg.num_layers],
+                                     B, T)}
+        seen.clear()
+        ref_hist, ref_params = _unsharded_steps(torch, model, opt, data, 1,
+                                                "cuda", params=weights)
+        drops["train"] = _dropped(mlp_mod, cfg, seen, B, T)
     finally:
-        mesh.close()
+        restore()
+    secs["unsharded"] = time.perf_counter() - t0 - secs["ranks"]
+    check(min(drops.values()) > 0, f"phase 27 (b): dropped (token, k) "
+          f"pairs {drops}: the seeded routing must drop some")
+
+    def err(a, b):
+        b = b.detach().cpu()
+        return float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+    h = cfg.num_kv_heads // 2
+    errs = {}
+    for g in got:
+        heads = slice(g["rank"] * h, (g["rank"] + 1) * h)
+        check(g["mechanism"] == "tensor" and tuple(g["cache"].k.shape)
+              == (cfg.num_layers, B, C, h, cfg.head_dim),
+              f"phase 27 (b): rank {g['rank']} {g['mechanism']}, cache "
+              f"slice {tuple(g['cache'].k.shape)}")
+        e = {"logits": err(g["logits"], logits),
+             "decode_logits": err(g["decode_logits"], dec),
+             "cache": max(err(a, b[..., heads, :])
+                          for a, b in zip(g["cache"], first)),
+             "decode_cache": max(err(a, b[..., heads, :])
+                                 for a, b in zip(g["decode_cache"], cache))}
+        errs[g["rank"]] = e
+        check(max(e.values()) <= EP_TOL, f"phase 27 (b): rank {g['rank']} "
+              f"vs the unsharded model on the card: {e} (tolerance "
+              f"{EP_TOL})")
+    del logits, cache, first, dec, weights
+    m_err = max(_metrics_err(g["history"], ref_hist) for g in res)
+    p_err = _params_err(res[0]["params"], ref_params)
+    secs["compare"] = time.perf_counter() - t0 - sum(secs.values())
+    check(all(g["mechanism"] == "tensor" and g["plan"]["experts"] == "split"
+              for g in res) and m_err <= EP_TOL and p_err <= EP_TOL,
+          f"phase 27 (b): the train step vs the unsharded one: "
+          f"{[(g['mechanism'], g['plan']) for g in res]}, metrics "
+          f"{m_err:.3e}, params {p_err:.3e} (tolerance {EP_TOL})")
+    log(f"phase 27 (b) ({MOE_ARCH}, {cfg.num_layers} layers f32, (data 1, "
+        f"model 2) vs unsharded, both on the card): prefill logits / "
+        f"cache, decode logits / cache within "
+        + "; ".join(f"rank {k} " + " / ".join(f"{v:.2e}" for v in e.values())
+                    for k, e in errs.items())
+        + f"; a train step's loss {res[0]['history'][0]['loss']:.6f} "
+        f"(unsharded {ref_hist[0]['loss']:.6f}), metrics within "
+        f"{m_err:.2e}, params within {p_err:.2e} (tolerance {EP_TOL}); "
+        f"dropped (token, k) pairs: prefill {drops['prefill']} of "
+        f"{cfg.num_layers * B * T * cfg.experts_per_token}, train step "
+        f"{drops['train']}; the ranks' jobs {secs['ranks']:.1f} s, the "
+        f"unsharded runs {secs['unsharded']:.1f} s, the comparisons "
+        f"{secs['compare']:.1f} s")
+    del ref_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"outputs": errs, "train_metrics_err": m_err,
+            "train_params_err": p_err, "dropped_pairs": drops,
+            "seconds": secs}
+
+
+def phase_expert_parallel(np, torch, cfg_mod, model_mod, mesh, traces):
+    """Phase 27: the expert-split MoE. qwen3-moe-30b-a3b at full width
+    (the repo's config), ``moe_impl`` "gshard", at (data 1, model 2) on
+    two ranks sharing the card over gloo (phase 26's group): tensor
+    parallelism, each rank running its 64 experts on its kept (token, k)
+    pairs. (a) bf16, ``EP_LAYERS`` layers, seeded weights, ``EP_CASES``:
+    each case's program on each rank (``launch.dryrun.run_rank`` with
+    ``cfg=``: one warm run under ``FlopCounterMode`` and ``Traffic``,
+    ``EP_RUNS`` runs timed by CUDA events), its ms, collectives (count,
+    host s), peak memory and launches a rank (two ranks on one card; not
+    a speedup); the collectives those of :func:`ep_collectives` and of
+    the (1, 2) trace, none an all-gather of an expert leaf; #6 == layers
+    a prefill run, 2 x layers a train step, #5 == layers a decode run (on
+    the rank's 2 kv heads); rank 0's counted FLOPs and bytes equal its
+    trace's within ``DRYRUN_REL``. (b) 2 layers f32
+    (:func:`_ep_small`)."""
+    from repro_torch.launch import cases as cases_mod
+    from repro_torch.launch import dryrun as dryrun_mod
+    _fresh_card(torch, "phase 27")
+    cfg = ep_config(cases_mod, EP_LAYERS)
+    ran = {shape: mesh.run(dryrun_mod.run_rank, MOE_ARCH, shape, batch=B,
+                           seq=T, seed=SEED, runs=EP_RUNS, cfg=cfg,
+                           layout=(1, 2))
+           for shape, B, T in EP_CASES}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"small": _ep_small(np, torch, cfg_mod, model_mod, mesh)}
+    # a layer's expert leaf, a rank's share and whole (bf16)
+    leaf = cfg.num_experts * cfg.d_model * cfg.d_ff * 2
+    for shape, B, T in EP_CASES:
+        kind = cases_mod.shape_kind(shape)
+        res = ran.pop(shape)
+        traced = traces[MOE_ARCH, shape].get()
+        L = traced["layers"]
+        check(traced["mechanism"] == "tensor"
+              and set(traced["blocks"].values()) == {"split"}
+              and "experts" in traced["blocks"]
+              and traced["axes"] == {"core": "heads", "cache": "kv heads"},
+              f"phase 27 {shape}: plan {traced['mechanism']} "
+              f"{traced['blocks']} {traced['axes']}")
+        want = ep_collectives(L, kind)
+        check(traced["collectives"] == want,
+              f"phase 27 {shape}: the trace records "
+              f"{traced['collectives']} collectives, the code {want}")
+        check(not set(traced["gathered_bytes"]) & {leaf / 2, leaf},
+              f"phase 27 {shape}: an all-gather of an expert leaf "
+              f"({traced['gathered_bytes']})")
+        card = res[0]["warm"]
+        rel = {k: abs(card[k] - traced[k]) / traced[k]
+               for k in ("flops", "bytes")}
+        check(max(rel.values()) <= DRYRUN_REL,
+              f"phase 27 {shape}: rank 0 counted {card['flops']:.6e} "
+              f"FLOPs, {card['bytes']:.6e} bytes; its trace "
+              f"{traced['flops']:.6e}, {traced['bytes']:.6e} (rel {rel})")
+        per = {"prefill": {"contiguous_prefill": L},
+               "train": {"contiguous_prefill": 2 * L},
+               "decode": {"contiguous_decode_padded": L}}[kind]
+        ranks = []
+        for r in res:
+            warm = {k: n for k, n in r["warm"]["launches"].items() if n}
+            timed = {k: n for k, n in r["launches"].items() if n}
+            check(r["warm"]["finite"], f"phase 27 {shape}: rank "
+                  f"{r['rank']}: non-finite outputs")
+            check(r["plan"]["experts"] == "split"
+                  and r["mechanism"] == "tensor",
+                  f"phase 27 {shape}: rank {r['rank']} ran {r['mechanism']}"
+                  f" {r['plan']}")
+            check(warm == per and timed == {
+                k: n * EP_RUNS for k, n in per.items()},
+                  f"phase 27 {shape}: rank {r['rank']} launched {warm} "
+                  f"warm, {timed} in {EP_RUNS} runs; want {per} a run")
+            calls, secs = r["collectives"]["model"]
+            check(r["warm"]["collectives"] == {"model": want}
+                  and calls == want * EP_RUNS,
+                  f"phase 27 {shape}: rank {r['rank']}: "
+                  f"{r['warm']['collectives']} warm, {calls} in "
+                  f"{EP_RUNS} runs; the code makes {want} a run")
+            ms = sum(r["ms"]) / len(r["ms"])
+            a_run = {k: n // EP_RUNS for k, n in timed.items()}
+            ranks.append({"rank": r["rank"], "ms": r["ms"],
+                          "ms_mean": ms, "collectives": want,
+                          "collective_s": secs / EP_RUNS,
+                          "peak_memory_gb":
+                          r.get("peak_memory_bytes", 0) / 1e9,
+                          "launches": {k: n + warm.get(k, 0)
+                                       for k, n in timed.items()}})
+            log(f"phase 27 (a) {shape} [{SHARD_NOTE}]: rank {r['rank']} "
+                f"{ms:.2f} ms a run (events, timed after a warm run: "
+                f"{', '.join(f'{x:.2f}' for x in r['ms'])}), {want} "
+                f"collectives a run on the model group, "
+                f"{secs / EP_RUNS * 1e3:.1f} ms of host time, peak memory "
+                f"{ranks[-1]['peak_memory_gb']:.2f} GB, launches a run "
+                f"{a_run}")
+        out[shape] = {
+            "batch": B, "seq": T, "rank_rows": res[0]["rows"],
+            "ranks": ranks, "flops_traced": traced["flops"],
+            "flops_card": card["flops"], "bytes_traced": traced["bytes"],
+            "bytes_card": card["bytes"], "card_vs_trace_rel": rel,
+            "flops_analytic": traced["flops_analytic"],
+            "t_compute": traced["t_compute"],
+            "t_memory": traced["t_memory"],
+            "t_collective": traced["t_collective"],
+            "dominant": traced["dominant"],
+            "collective_bytes": traced["collective_bytes"],
+            "arg_bytes": res[0]["arg_bytes"],
+            "temp_bytes": traced["temp_bytes"],
+            "trace_s": traced["trace_s"], "note": SHARD_NOTE}
+        log(f"phase 27 (a) {shape}: B {B} x T {T}, {res[0]['rows']} rows "
+            f"a rank, {L} layers; rank 0 counted {card['flops']:.6e} FLOPs "
+            f"(analytic share {traced['flops_analytic']:.6e}) and "
+            f"{card['bytes'] / 1e9:.3f} GB == its (1, 2) trace (rel "
+            f"{max(rel.values()):.1e}); {want} collectives "
+            f"({traced['collective_bytes'] / 1e9:.4f} GB on the wire) == "
+            f"the trace's and the code's, no expert leaf gathered; traced "
+            f"in {traced['trace_s']:.1f} s beside the build")
     gc.collect()
     torch.cuda.empty_cache()
     return out
@@ -4984,7 +5329,7 @@ def main() -> int:
 
 
 def phases(t_main, np, torch, traces) -> int:
-    """Phases 1-27 (the module's docstring)."""
+    """Phases 1-28 (the module's docstring)."""
     # f32 comparisons (phases 3 and 5) need full-precision f32 products
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -5238,12 +5583,27 @@ def phases(t_main, np, torch, traces) -> int:
     # 26. the per-leaf partition: smollm-360m at model 2 (heads that do
     # not divide), two ranks sharing the card; 2 layers f32 == the CPU
     t26 = time.perf_counter()
-    part = phase_partition(np, torch, cfg_mod, model_mod, traces)
-    part["phase_s"] = time.perf_counter() - t26
-    log(f"phase 26: took {part['phase_s']:.1f} s")
-    progress(t_main, 26)
+    mesh = train_group(torch, "phases 26-27")
+    try:
+        part = phase_partition(np, torch, cfg_mod, model_mod, mesh, traces)
+        part["phase_s"] = time.perf_counter() - t26
+        log(f"phase 26: took {part['phase_s']:.1f} s")
+        progress(t_main, 26)
 
-    # 27. results
+        # 27. the expert-split MoE: qwen3-moe at model 2 (64 experts a
+        # rank), on the same two ranks; 2 layers f32 == unsharded
+        t27 = time.perf_counter()
+        ep = phase_expert_parallel(np, torch, cfg_mod, model_mod, mesh,
+                                   traces)
+        ep["phase_s"] = time.perf_counter() - t27
+        log(f"phase 27: took {ep['phase_s']:.1f} s")
+        progress(t_main, 27)
+    finally:
+        mesh.close()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 28. results
     kernels = [{
         "name": "paged_mixed_attention", "ok": True, "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/mixed_attention.cu",
@@ -5429,6 +5789,35 @@ def phases(t_main, np, torch, traces) -> int:
             "library_ms", "device_ms", "library_device_ms", "tflops")
            if key in k},
         "kernel_ms": k["ms"], "bound_share": k["bound_ms"] / k["ms"]})
+    # #6 and #5 at a model-parallel rank's heads of qwen3-moe (16 / 2 /
+    # 64, G 8), launched by both ranks' runs in phase 27 (a)
+    ek = fam["moe_rank"]
+    for k, name, key, shapes, shape in (
+            (ek["prefill"], "prefill_attention_moe_rank", "contiguous_prefill",
+             ("prefill_32k", "train_4k"),
+             f"{MOE_ARCH} at model 2, a rank: H 16 / Hkv 2 / Dh 64 (G 8), "
+             f"B 2, T {EP_CASES[0][2]} (phase 27 (a)'s prefill)"),
+            (ek["decode_padded"], "decode_attention_padded_moe_rank",
+             "contiguous_decode_padded", ("decode_32k",),
+             f"{MOE_ARCH} at model 2, a rank: G 8, {EP_CASES[1][1]} rows "
+             f"of {EP_CASES[1][2]} keys (phase 27 (a)'s decode)")):
+        launches = [sum(ep[sh]["ranks"][i]["launches"].get(key, 0)
+                        for sh in shapes) for i in range(2)]
+        kernels.append({
+            "name": name, "ok": True, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/" + (
+                "contiguous_prefill.cu" if key == "contiguous_prefill"
+                else "contiguous_decode.cu"),
+            "replaces": ("src/repro/kernels/prefill_attention.py:125"
+                         if key == "contiguous_prefill" else
+                         "src/repro/kernels/decode_attention.py:291"),
+            "launches": launches[0], "worker_launches": launches[1],
+            "shape": shape,
+            **{kk: k[kk] for kk in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "device_ms", "library_device_ms", "tflops",
+                "stream_bound_ms") if kk in k},
+            "kernel_ms": k["ms"], "bound_share": k["bound_ms"] / k["ms"]})
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke_report.json").write_text(json.dumps(
@@ -5439,10 +5828,10 @@ def phases(t_main, np, torch, traces) -> int:
          "family_kernels": fam, "moe": moe, "vlm": vlm, "window": window,
          "rwkv": rwkv, "zamba": zamba, "whisper": whisper,
          "training": training, "tp": tp, "sharded_training": sharded,
-         "dryrun": dry, "partition": part},
+         "dryrun": dry, "partition": part, "expert_parallel": ep},
         indent=1,
         default=str))
-    log(f"chip_smoke: phases 1-26 took {time.perf_counter() - t_main:.1f} s")
+    log(f"chip_smoke: phases 1-27 took {time.perf_counter() - t_main:.1f} s")
     # the card again, so that the end of the output names it beside the
     # numbers
     log(smi)

@@ -15,7 +15,9 @@ Family adjustments (the reference's):
   * whisper's decoder position table is extended to the exercised decode
     length (synthetic but shape-faithful).
   * MoE archs run the GShard capacity-dispatch path instead of the
-    dense-verification path.
+    dense-verification path; with the experts split on ``model`` (the
+    training rules) each rank runs its E / model experts on its kept
+    (token, k) pairs and all-reduces the combined output once.
 
 **One rank's program.** The reference lowers the global step on 512
 forced host devices and lets GSPMD find the per-chip program. The port

@@ -9,7 +9,12 @@ Two MoE dispatch implementations, as in the reference:
     products stay on the device, so a step keeps its one transfer.
   * ``gshard`` — capacity-based one-hot dispatch / combine (GShard /
     Switch): tokens past an expert's capacity are dropped with their
-    combine weight.
+    combine weight. On a rank's share of the experts (the training
+    layout) it dispatches by index instead (:func:`gshard_cells`): the
+    rank's kept (token, k) pairs are gathered into a ``[E/m, G, C, D]``
+    buffer, its experts run on it, each pair reads its row back, and one
+    f32 all-reduce of ``[G, S, D]`` sums the ranks' shares, as the
+    reference's GSPMD program does. No one-hot ``[G, S, E, C]`` tensor.
 
 The router works in f32 whatever the model dtype (its weight is kept f32),
 and both return the Switch load-balance auxiliary loss beside the output.
@@ -21,14 +26,15 @@ after ``w_down`` in :func:`ffn` (a GELU FFN's replicated ``b_down`` adds
 after it), and after the f32 combine in the MoE (the combine is linear,
 so one reduce of ``[N, D]`` stands for the reference's reduce of every
 expert's ``[E, N, D]`` output). The training layout splits the expert
-axis E instead (each rank E / tp whole experts, the router whole):
-``moe_dense`` sees it in the leaf's shape, runs the rank's experts on
-every row with their combine weights and reduces the same way. In
-training the replicated inputs of the rank's products (the rows, the
-combine weights) enter through ``copy_to_tp``; a block the training
-mesh's per-leaf plan gathers (``cfg.tp_plan``: the FFN where F does not
-divide, the experts under ``moe_gshard``) all-gathers its split leaves
-at its use and runs whole. Under data parallelism
+axis E instead (each rank E / tp whole experts, the router whole): both
+MoEs see it in the leaf's shape — ``moe_dense`` runs the rank's experts
+on every row with their combine weights, ``moe_gshard`` on the rank's
+kept pairs — and reduce the same way. In training the replicated inputs
+of the rank's products (the rows, the combine weights) enter through
+``copy_to_tp``; a block the training mesh's per-leaf plan gathers
+(``cfg.tp_plan``: the FFN where F does not divide, the experts where E
+does not) all-gathers its split leaves at its use and runs whole. Under
+data parallelism
 (the ``data_group`` argument of :func:`moe`) the aux loss's expert
 fractions and mean probabilities are the whole batch's: sums over the
 data group over its token count.
@@ -191,12 +197,85 @@ def moe_dense(p, cfg: ModelConfig, x: torch.Tensor, data_group=None):
     return out.reshape(B, T, D).to(x.dtype), aux
 
 
+def gshard_slots(topi: torch.Tensor, num_experts: int) -> torch.Tensor:
+    """The slot of each (token, k) pair within its expert, per group:
+    topi [G, S, K] -> int32 [G, S, K], the number of the group's earlier
+    pairs (in token order, then k) routed to the same expert. The
+    exclusive cumsum of the pairs' one-hots, as the reference's, but in
+    int32 (exact at any count) and read back by a gather, not a
+    product."""
+    G, S, K = topi.shape
+    idx = topi.reshape(G, S * K, 1)
+    onehot = torch.zeros((G, S * K, num_experts), dtype=torch.int32,
+                         device=topi.device).scatter_(2, idx, 1)
+    seen = torch.cumsum(onehot, dim=1, dtype=torch.int32)   # with itself
+    return (seen.gather(2, idx) - 1).reshape(G, S, K)
+
+
+def gshard_cells(topi: torch.Tensor, slot: torch.Tensor, e0: int,
+                 e_loc: int, capacity: int):
+    """Where each (token, k) pair of topi / slot [G, S, K] lies in a
+    rank's capacity buffer ``[e_loc, G, C]`` of experts ``[e0, e0 +
+    e_loc)``: (cell, keep), ``cell`` the flat index of ``(e - e0, g,
+    slot)``, ``keep`` whether the pair is the rank's (its expert one of
+    the rank's, its slot below C). ``cell`` means something only where
+    ``keep`` holds; there no two pairs share a cell (slots are distinct
+    within a group's expert)."""
+    G = topi.shape[0]
+    local = topi - e0
+    keep = (local >= 0) & (local < e_loc) & (slot < capacity)
+    g = torch.arange(G, device=topi.device).view(G, 1, 1)
+    return (local * G + g) * capacity + slot, keep
+
+
+def _moe_gshard_split(p, cfg: ModelConfig, x: torch.Tensor,
+                      topw: torch.Tensor, topi: torch.Tensor,
+                      C: int) -> torch.Tensor:
+    """GShard on a rank's E / m experts (rank r's start at ``r·E/m``): x
+    [G, S, D] -> out [G, S, D] in x's dtype, the rank's share summed over
+    the model group. Every rank holds the same rows and routing, so all
+    compute the same slots and drops. Dispatch by index: each capacity
+    row ``(e - e0, g, c)`` learns its pair's token from one ``index_put_``
+    of token ids (each kept pair into its own cell; every other pair
+    into a cell of its own past the buffer, so no index repeats), then
+    gathers its row (an empty row gathers zeros). Combine by gather:
+    each kept pair reads its expert's output row back, weighed in f32,
+    summed over k; one f32 all-reduce. The rows and the weights enter
+    through ``copy_to_tp`` (their gradients are summed over the
+    group)."""
+    G, S, D = x.shape
+    K = topi.shape[-1]
+    e_loc = p["w_gate"].shape[-3]
+    n, P = e_loc * G * C, G * S * K            # capacity rows, pairs
+    slot = gshard_slots(topi, cfg.num_experts)
+    cell, keep = gshard_cells(topi, slot, cfg.tp_axis.rank * e_loc, e_loc,
+                              C)
+    pair = torch.arange(P, device=x.device)
+    dest = torch.where(keep.reshape(P), cell.reshape(P), n + pair)
+    token = torch.full((n + P,), G * S, dtype=torch.long, device=x.device)
+    token.index_put_((dest,), pair // K)
+    xf = copy_to_tp(x.reshape(G * S, D), cfg)
+    rows = torch.cat([xf, xf.new_zeros((1, D))])
+    xe = rows[token[:n]].view(e_loc, G, C, D)
+    y = _experts(p, cfg, xe).reshape(n, D)
+    y = torch.cat([y, y.new_zeros((1, D))])     # row n: a dropped pair's
+    at = torch.where(keep, cell, n).reshape(G * S, K)
+    w = torch.where(keep, copy_to_tp(topw, cfg), 0.0).reshape(G * S, K)
+    out = torch.zeros((G * S, D), dtype=torch.float32, device=x.device)
+    for k in range(K):
+        out = out + y[at[:, k]].float() * w[:, k, None]
+    return psum_if_tp(out, cfg).reshape(G, S, D).to(x.dtype)
+
+
 def moe_gshard(p, cfg: ModelConfig, x: torch.Tensor,
                capacity_factor: float = 1.25, data_group=None):
     """Capacity-based dispatch: x [G, S, D] in G groups; each expert takes
     at most ``C = max(1, ceil(S·K/E·cf))`` (token, k) pairs per group, in
     token order, and drops the rest with their combine weight (GShard).
-    Returns (out [G, S, D], aux)."""
+    Returns (out [G, S, D], aux). Expert leaves of fewer than E experts
+    are a rank's share of the expert axis (the training layout): then
+    :func:`_moe_gshard_split`; whole ones take the reference's one-hot
+    dispatch and combine."""
     G, S, D = x.shape
     E, K = cfg.num_experts, cfg.experts_per_token
     C = max(1, math.ceil(S * K / E * capacity_factor))
@@ -205,6 +284,8 @@ def moe_gshard(p, cfg: ModelConfig, x: torch.Tensor,
     _, topw, topi, aux = _route(p, cfg, xf, data_group)
     topw = topw.reshape(G, S, K)
     topi = topi.reshape(G, S, K)
+    if p["w_gate"].shape[-3] < E:
+        return _moe_gshard_split(p, cfg, x, topw, topi, C), aux
 
     # slot of each (token, k) pair within its expert, per group
     onehot = F.one_hot(topi, E).float()                          # [G,S,K,E]
@@ -233,10 +314,10 @@ def moe_gshard(p, cfg: ModelConfig, x: torch.Tensor,
 def moe(p, cfg: ModelConfig, x: torch.Tensor, impl: str | None = None,
         data_group=None):
     """The MoE of x [B, T, D] -> (out, aux) by ``impl`` (default
-    ``cfg.moe_impl``). With the plan's ``experts`` block gathered (no
-    expert-split form of ``moe_gshard`` yet) each layer's expert leaves
-    are all-gathered on E at their use and every rank runs the whole
-    MoE, the router whole."""
+    ``cfg.moe_impl``). With the plan's ``experts`` block gathered (E does
+    not divide the model axis) each layer's expert leaves are
+    all-gathered on E at their use and every rank runs the whole MoE,
+    the router whole."""
     if cfg.tp_axis is not None and not split_block(cfg, "experts"):
         whole = {k: w if k == "router" else
                  leaf_at_use(w, cfg, -3, cfg.num_experts)

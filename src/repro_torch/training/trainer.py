@@ -21,13 +21,17 @@ planned by config (:func:`sharding_mechanism`, a :class:`Plan`):
 * **tensor parallelism** (dense, MoE and VLM decoders whose heads, kv
   heads, vocab and d_ff, or experts, divide ``model``): the forward runs
   on the shard with ``cfg.tp_axis`` = the model group; its collectives
-  are differentiable (``models.common``: all-reduce, copy, all-gather);
+  are differentiable (``models.common``: all-reduce, copy, all-gather).
+  An MoE runs the rank's E / model experts (``moe_dense`` on every row,
+  ``moe_gshard`` on the rank's kept pairs, dispatched by index) and
+  all-reduces the combined output once;
 * **the per-leaf partition** (those decoders where some dim does not
   divide, which at a model axis of 16 is every one: their heads): each
-  block whose split dims divide runs split, the rest gather their split
-  leaves at their use, in their layer; attention projects its columns
-  and gathers q / k / v on whole heads, then splits its core over (row,
-  head) pairs (``cfg.tp_plan``, ``models.attention``);
+  block whose split dims divide runs split (the experts too, under
+  either MoE), the rest gather their split leaves at their use, in
+  their layer; attention projects its columns and gathers q / k / v on
+  whole heads, then splits its core over (row, head) pairs
+  (``cfg.tp_plan``, ``models.attention``);
 * **gather-on-use of the whole model** (rwkv6, zamba2, whisper: no
   tensor-parallel forward): each step all-gathers every split leaf
   (forward) and keeps the rank's slice of its gradient (backward), then
@@ -152,8 +156,9 @@ TP_FAMILIES = ("dense", "moe", "vlm")
 class Plan(NamedTuple):
     """How a config runs on a model axis (:func:`sharding_mechanism`).
     ``blocks``: each block's mode on the axis, ``"split"`` (it runs on
-    the rank's shard) or ``"gather"`` (its split leaves are all-gathered
-    at their use, in their layer, and it runs whole); ``{"model":
+    the rank's shard: ``experts`` on the rank's E / model experts) or
+    ``"gather"`` (its split leaves are all-gathered at their use, in
+    their layer, and it runs whole); ``{"model":
     "gather"}`` for a family gathered whole up front, empty at model 1.
     ``axes`` says where the split core and decode cache lie: ``core`` on
     ``"heads"`` (whole heads a rank) or ``"pairs"`` ((row, head) pairs
@@ -170,8 +175,8 @@ def sharding_mechanism(cfg: ModelConfig, model: int) -> Plan:
     from the config only: each block split where the dims
     ``launch.shardings.param_spec`` splits for its leaves divide
     ``model`` (``embed`` / ``unembed`` V; ``attn``, the projections,
-    H·Dh and Hkv·Dh; ``mlp`` d_ff; ``experts`` E under ``moe_dense``,
-    which has the expert-split form: under ``moe_gshard`` they gather);
+    H·Dh and Hkv·Dh; ``mlp`` d_ff; ``experts`` E, under either MoE,
+    each of which has its expert-split form);
     the attention ``core`` always split, over (row, head) pairs; the
     decode ``cache`` split on kv heads where they divide, else on the
     head dim. The mechanism: ``"tensor"`` where every block splits on
@@ -197,11 +202,6 @@ def sharding_mechanism(cfg: ModelConfig, model: int) -> Plan:
     dims["unembed"] = {"vocab": cfg.vocab_size}
     blocks = {b: "split" if all(n % model == 0 for n in d.values())
               else "gather" for b, d in dims.items()}
-    notes = []
-    if cfg.num_experts and cfg.moe_impl != "dense":
-        blocks["experts"] = "gather"
-        notes.append(f"experts: moe_impl {cfg.moe_impl} has no "
-                     "expert-split form yet")
     weights = list(blocks)
     heads = H % model == 0 and Hkv % model == 0
     blocks["core"] = "split"
@@ -224,7 +224,7 @@ def sharding_mechanism(cfg: ModelConfig, model: int) -> Plan:
             "partition", "gather": "gather-on-use"}[mech]
     why = (f"{name} at model {model}: {listed}; core over "
            f"{axes['core']} (H {H}), decode cache on {axes['cache']} "
-           f"(Hkv {Hkv}, Dh {Dh})" + "".join(f"; {n}" for n in notes))
+           f"(Hkv {Hkv}, Dh {Dh})")
     return Plan(mech, why, blocks, axes)
 
 

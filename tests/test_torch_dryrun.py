@@ -65,10 +65,10 @@ def test_every_family_and_kind_traces(family, kind):
     assert row["arg_bytes_per_chip"] > 0 and row["temp_bytes_per_chip"] > 0
     assert row["n_collectives"] > 0         # the model group, at least
     # the mechanism the sharded trainer picks (the MoE's gshard experts
-    # gather at use, its other blocks split); long_500k splits the ring
-    # (or zamba2's sites) over data, rwkv6's state has no sequence axis
+    # split like its other blocks); long_500k splits the ring (or
+    # zamba2's sites) over data, rwkv6's state has no sequence axis
     assert row["mechanism"] == {"dense": "tensor", "vlm": "tensor",
-                                "moe": "per-leaf"}.get(family, "gather")
+                                "moe": "tensor"}.get(family, "gather")
     assert row["context_parallel"] == (shape == "long_500k"
                                        and family != "ssm")
 

@@ -11,9 +11,9 @@ sharding_mechanism``'s :class:`Plan`), f32 on the CPU.
   cache on its head dim), the same with d_ff and vocab 511, whose MLP and
   vocab the rules leave whole (the blocks gather at use: nothing is
   split, so nothing moves), and the reduced qwen3-moe under
-  ``moe_gshard``, whose expert leaves are split and gathered a layer at
-  a time (its cache split on kv heads); and the first config at (data
-  1, model 3), where H·Dh splits but Hkv·Dh does not: attention gathers
+  ``moe_gshard``, whose every dim divides (tensor parallelism: its
+  experts split, each rank running its E / 2 on its kept pairs, its
+  cache on kv heads); and the first config at (data 1, model 3), where H·Dh splits but Hkv·Dh does not: attention gathers
   ``wq`` and ``wo`` at use and runs whole-leaf projections, the cache
   stays whole. The train step (2 AdamW steps, remat) — loss, grad norm and
   the params after it — the prefill's logits and cache slices, and a
@@ -109,7 +109,7 @@ def one_thread():
 # --------------------------------------------------------------------------
 S, G = "split", "gather"
 DECODER = dict(embed=S, attn=S, mlp=S, unembed=S, core=S, cache=S)
-GSHARD = dict(embed=S, attn=S, experts=G, unembed=S, core=S, cache=S)
+GSHARD = dict(embed=S, attn=S, experts=S, unembed=S, core=S, cache=S)
 WHOLE = ("gather", {"model": G}, {})
 # arch -> {model: (mechanism, blocks, axes)}; MoE archs under gshard (the
 # dry run's impl)
@@ -126,9 +126,9 @@ PLANS = {
                       16: ("per-leaf", DECODER, ("pairs", "head_dim"))},
     "qwen2-vl-7b": {2: ("tensor", DECODER, ("heads", "kv heads")),
                     16: ("per-leaf", DECODER, ("pairs", "head_dim"))},
-    "qwen3-moe-30b-a3b": {2: ("per-leaf", GSHARD, ("heads", "kv heads")),
+    "qwen3-moe-30b-a3b": {2: ("tensor", GSHARD, ("heads", "kv heads")),
                           16: ("per-leaf", GSHARD, ("heads", "head_dim"))},
-    "arctic-480b": {2: ("per-leaf", dict(GSHARD, mlp=S),
+    "arctic-480b": {2: ("tensor", dict(GSHARD, mlp=S),
                         ("heads", "kv heads")),
                     16: ("per-leaf", dict(GSHARD, mlp=S),
                          ("pairs", "head_dim"))},
@@ -162,7 +162,8 @@ def test_plan_of_every_config(arch, model):
     # a weight block splits where param_spec splits every leaf of it that
     # a rule cuts (those it cuts at model 1; a GELU FFN's b_down is
     # whole), on the full-width tree's shapes (fake tensors); gshard's
-    # experts gather
+    # experts split as moe_dense's do, and no plan says they have no
+    # split form
     with FakeTensorMode():
         shapes = build_model(cfg).init(
             torch.Generator(device="cpu").manual_seed(0), device="meta")
@@ -178,10 +179,8 @@ def test_plan_of_every_config(arch, model):
             assert not specs or block == "unembed", block
             continue
         split = bool(specs) and all("model" in sp for sp in specs)
-        if block == "experts" and cfg.moe_impl == "gshard":
-            assert split and plan.blocks[block] == G
-        else:
-            assert (plan.blocks[block] == S) == split, block
+        assert (plan.blocks[block] == S) == split, block
+    assert "no expert-split form" not in plan.why
 
 
 def test_plan_modes_follow_the_dims():
@@ -296,39 +295,48 @@ def _close(got, want, tol=TOL):
 # The hand count: each program's collectives on the model group, from the
 # code of models/ (per layer: attention's q/k/v gather, its pair gather
 # or, in a decode, its score all-reduce and head-dim gather (a kv-head
-# split: its heads' gather), wo's all-reduce; the FFN's all-reduce; a
-# gathered block's split leaves; the vocab-split embedding's all-reduce
-# and the logits' gather (a train step's loss keeps them split); under
-# autograd each copy_to_tp is an all-reduce in backward, and remat runs
-# each layer's forward again up to the last tensor its backward needs)
+# split: its heads' gather), wo's all-reduce — under tensor parallelism
+# (whole heads a rank) wo's all-reduce only; the FFN's all-reduce; the
+# split MoE's one f32 all-reduce of its combined output; a gathered
+# block's split leaves; the vocab-split embedding's all-reduce and the
+# logits' gather (a train step's loss keeps them split); under autograd
+# each copy_to_tp is an all-reduce in backward, and remat runs each
+# layer's forward again up to the last tensor its backward needs)
 # --------------------------------------------------------------------------
 def _hand_count(cfg, plan, kind, model=2):
     L, dh = cfg.num_layers, cfg.head_dim
     H, Hkv = cfg.num_heads * dh, cfg.num_kv_heads * dh
     blocks = plan.blocks
-    if blocks["attn"] == S:
-        # q/k/v gather and wo all-reduce; backward: x into the columns,
-        # q/k/v into the core, o into wo's rows
-        fwd, bwd = 2, 3
+    if plan.mechanism == "tensor":
+        # wo's all-reduce; backward: x into the q/k/v columns; the core
+        # and the cache on the rank's heads move nothing
+        fwd, bwd = 1, 1
     else:
-        # each split leaf (wq, wk, wv, wo) gathered; backward: q/k/v into
-        # the core
-        fwd, bwd = sum(n % model == 0 for n in (H, Hkv, Hkv, H)), 1
-    fwd += ({"head_dim": 2, "kv heads": 1, "none": 0}[plan.axes["cache"]]
-            if kind == "decode" else 1)
+        if blocks["attn"] == S:
+            # q/k/v gather and wo all-reduce; backward: x into the
+            # columns, q/k/v into the core, o into wo's rows
+            fwd, bwd = 2, 3
+        else:
+            # each split leaf (wq, wk, wv, wo) gathered; backward: q/k/v
+            # into the core
+            fwd, bwd = sum(n % model == 0 for n in (H, Hkv, Hkv, H)), 1
+        fwd += ({"head_dim": 2, "kv heads": 1, "none": 0}[
+            plan.axes["cache"]] if kind == "decode" else 1)
     mlp = blocks.get("mlp") == S
-    fwd += 1 if mlp else 0
-    if blocks.get("experts") == G and cfg.num_experts % model == 0:
-        fwd += 3                 # w_gate, w_up, w_down gathered
-    bwd += 1 if mlp else 0
+    experts = blocks.get("experts") == S
+    # the split MoE: its f32 all-reduce; backward: the rows and the
+    # combine weights, each through copy_to_tp
+    fwd += (1 if mlp else 0) + (1 if experts else 0)
+    bwd += (1 if mlp else 0) + (2 if experts else 0)
     vocab = blocks["embed"] == S
     if kind != "train":
         # the embedding's all-reduce, the logits' gather
         return L * fwd + (2 if vocab else 0)
     # remat's second forward stops at the last tensor backward needs
-    # (torch.utils.checkpoint's early stop): the FFN's all-reduce, whose
-    # output nothing saves, is not run again
-    again = fwd - (1 if mlp else 0)
+    # (torch.utils.checkpoint's early stop): the layer's last all-reduce
+    # (the FFN's, or the MoE's where no FFN follows it), whose output
+    # nothing saves, is not run again
+    again = fwd - (1 if mlp or experts else 0)
     # the loss keeps vocab-split logits split: no logits gather, but the
     # rows' maxima gathered and two all-reduces (the sum of exponentials,
     # the gold logit); the logits' copy_to_tp in backward; the global
@@ -432,8 +440,10 @@ def test_train_step_equals_unsharded(runs, case):
     plan = res[0]["plan"]
     model = ranks[0].model
     # at model 3 no weight block splits whole (the mechanism says
-    # "gather"), but wq / wo are split and gathered at use
-    assert plan.mechanism == ("gather" if model == 3 else "per-leaf")
+    # "gather"), but wq / wo are split and gathered at use; the reduced
+    # qwen3-moe's dims all divide 2 (tensor parallelism)
+    assert plan.mechanism == ("gather" if model == 3 else "tensor"
+                              if cfg.num_experts else "per-leaf")
     for r in res:
         for h, want in zip(r["hist"], ref["hist"]):
             for k in ("loss", "xent", "grad_norm", "lr"):

@@ -267,8 +267,9 @@ def test_layouts_and_mechanisms():
                    "whisper-large-v3": "gather"}
     gshard = dataclasses.replace(get_config("qwen3-moe-30b-a3b"),
                                  moe_impl="gshard")
-    # gshard's experts gather at use, every other block splits
-    assert sharding_mechanism(gshard, 2)[0] == "per-leaf"
+    # gshard's experts split as the dense MoE's do (its expert-split
+    # form), so every block splits on whole heads
+    assert sharding_mechanism(gshard, 2)[0] == "tensor"
     assert sharding_mechanism(get_config("llama3.2-3b"), 1)[0] == \
         "replicated"
 

@@ -6,9 +6,10 @@
         [--json PATH]
 
 For each case (``arch:shape``, ``:multi`` for 2x16x16; the default is
-the four cases ROADMAP Queue 3 records and llama3.2-3b train_4k, all at
-16x16) it runs the reference's ``repro.launch.dryrun.run_case(arch,
-shape, multi_pod)`` in a subprocess of its own — that module forces 512
+the cases ROADMAP Queue 3 records — qwen3-moe at decode, train and
+prefill — and llama3.2-3b train_4k, all at 16x16) it runs the
+reference's ``repro.launch.dryrun.run_case(arch, shape, multi_pod)`` in
+a subprocess of its own — that module forces 512
 host devices at import, so it cannot share a process with anything else
 — and the port's ``repro_torch.launch.dryrun`` trace of the same case
 here, and prints both rows: the counted FLOPs (the reference's compiled
@@ -34,7 +35,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 DEFAULT = ("smollm-360m:decode_32k", "qwen2.5-14b:decode_32k",
-           "qwen3-moe-30b-a3b:decode_32k", "qwen2.5-14b:prefill_32k",
+           "qwen3-moe-30b-a3b:decode_32k", "qwen3-moe-30b-a3b:train_4k",
+           "qwen3-moe-30b-a3b:prefill_32k", "qwen2.5-14b:prefill_32k",
            "llama3.2-3b:train_4k")
 
 # run in the reference's own process: its row, and its collectives by op
