@@ -222,7 +222,8 @@ the last line:
     on each rank and nothing else; #6 at a rank's heads on that batch is
     measured early, in phase 3's ``family_kernels``; (b) 2 layers f32:
     llama3.2-3b at (data 1, model 2), smollm-360m at (2, 1), and rwkv6,
-    zamba2 and whisper reduced at (1, 2) by gather-on-use: loss, gradient
+    zamba2 and whisper cut to 2 layers at (1, 2) on their per-leaf plans
+    (the mechanism asserted: tensor, per-leaf, tensor): loss, gradient
     norm and params after one step (AdamW at eps 1e-5) == the unsharded
     step on the CPU on the same weights within 1e-5; (c)
     whisper's (1, 2) checkpoint reads back
@@ -282,8 +283,30 @@ the last line:
     cache slice, a decode step's, and a train step's loss, grad norm and
     params == the unsharded port (its one-hot ``moe_gshard``) on the card
     within 1e-5, with the dropped (token, k) pairs printed (> 0);
-28. one JSON line of every kernel (the rows of phases 16-18's, 21's,
-    23's, 24's, 25's, 26's and 27's shapes added), then, last,
+28. the per-leaf forms of rwkv6-7b (2 layers), zamba2-2.7b (one group of
+    6 Mamba2 blocks and its shared block) and whisper-large-v3 (2 + 2
+    layers) at their published widths, at (data 1, model 2) on phase 26's
+    two ranks: rwkv6's WKV on the rank's 32 heads, its channel mix on
+    half of F; zamba2's Mamba2 blocks split (projection and conv columns
+    joined by all-gathers of activations, the SSD on 40 heads, the gated
+    norm's sum of squares all-reduced); whisper's attention on 10 heads,
+    its cross K/V cache on 750 of the 1500 frames. (a) bf16, seeded
+    weights: a prefill of B 2 x 2048 (whisper: 448 decoder tokens over
+    its 1500 frames), a decode of B 8 against 4096 rows and a train step
+    of B 2 x 1024, each ``launch.dryrun.run_rank`` with ``cfg=`` on both
+    ranks: ms by CUDA events (1 run after a warm one), collectives
+    (count, host s), peak memory and launches a rank (all "two ranks on
+    one card; not a speedup"); the collectives of a run ==
+    ``fam_collectives`` == the (1, 2) trace's, none an all-gather of a
+    weight leaf, whisper's #6 == layers a prefill run and 2 x layers a
+    train step, #5 == layers a decode run, rank 0's counted FLOPs and
+    bytes == its trace's (1e-9); #6 and #5 at a whisper rank's heads on
+    those shapes are measured early, in phase 3's ``family_kernels``;
+    (b) 2 layers f32, B 4: each rank's prefill logits and state slices, and a
+    decode step's, == the unsharded port on the CPU within 1e-5 (the
+    train step at those cuts is phase 24 (b)'s);
+29. one JSON line of every kernel (the rows of phases 16-18's, 21's,
+    23's, 24's, 25's, 26's, 27's and 28's shapes added), then, last,
     ``{"ok": true, ...}``.
 
 It needs one CUDA card and fails without one; it imports nothing of JAX.
@@ -2770,7 +2793,8 @@ def family_kernels(np, torch, F, cfg_mod, tk, dk, pk, flush):
     batch (B 2, T 1024); #6 and #5 at phase 25's shapes
     (:func:`dryrun_kernels`); #6 on phase 26's (row, head) pairs; #6 and
     #5 at a model-parallel rank's qwen3-moe heads (16 / 2 / 64) on phase
-    27 (a)'s prefill and decode."""
+    27 (a)'s prefill and decode, and at its whisper heads (10 / 10 / 64)
+    on phase 28 (a)'s."""
     moe = cfg_mod.get_config(MOE_ARCH)
     vlm = cfg_mod.get_config(VLM_ARCH)
     out = {"moe": phase_kernels(np, torch, F, tk, flush, H=moe.num_heads,
@@ -2847,6 +2871,16 @@ def family_kernels(np, torch, F, cfg_mod, tk, dk, pk, flush):
         dk, pk, flush, pb, pt, [dt] * db, list(range(db)), dt,
         f"phase 3 ({MOE_ARCH}, a model-parallel rank, 16 / 2 heads)",
         device=True)
+    # phase 28 (a): #6 and #5 at a model-parallel rank's heads of whisper
+    # (10 / 10 / 64, G 1): the prefill's B 2 x 448 decoder tokens, the
+    # decode's 8 rows of 4096 self-KV keys
+    (_, pb, _), (_, db, dt) = FAM_CASES[:2]
+    out["whisper_rank"] = contiguous_kernels_at(
+        torch, dataclasses.replace(wh, num_heads=wh.num_heads // 2,
+                                   num_kv_heads=wh.num_kv_heads // 2),
+        dk, pk, flush, pb, FAM_WHISPER_PROMPT, [dt] * db, list(range(db)),
+        dt, f"phase 3 ({WHISPER_ARCH}, a model-parallel rank, 10 / 10 "
+        f"heads)", device=True)
     return out
 
 
@@ -4079,9 +4113,9 @@ SHARD_TOL = 1e-5           # (b): loss / grad norm relative; params of
 # run in another order moves its parameter up to ~8% of lr apart
 # (tests/test_torch_sharded_training.py)
 SHARD_EPS = 1e-5
-# (b) the gather-on-use families at their published widths, cut to 2
+# (b) the families' per-leaf forms at their published widths, cut to 2
 # layers (zamba2: a shared-block site every 2 Mamba2 layers; whisper: 2
-# encoder and 2 decoder layers)
+# encoder and 2 decoder layers); their mechanism is FAM_MECHANISMS's
 SHARD_FAMILIES = {"rwkv6-7b": {"num_layers": 2},
                   "zamba2-2.7b": {"num_layers": 2, "attn_every": 2},
                   "whisper-large-v3": {"num_layers": 2, "encoder_layers": 2}}
@@ -4193,8 +4227,9 @@ def _shard_small(torch, mesh, cfg_mod, model_mod):
     unsharded step on the CPU on the same weights (drawn on the card from
     ``SEED`` by each rank and, for the CPU, once here and copied), all at
     their published widths: llama3.2-3b at (1, 2), smollm-360m at (2, 1)
-    and the gather-on-use families (``SHARD_FAMILIES``) at (1, 2), for
-    ``SHARD_SMALL_STEPS``; the sharded run's checkpoint. The CPU steps run
+    and the families' per-leaf forms (``SHARD_FAMILIES``) at (1, 2), for
+    ``SHARD_SMALL_STEPS``, each rank's mechanism its plan's
+    (``FAM_MECHANISMS``); the sharded run's checkpoint. The CPU steps run
     in a thread of their own while the card runs the sharded jobs (each
     reference needs only its weights, copied first)."""
     from repro_torch.training.checkpoint import load_checkpoint
@@ -4208,7 +4243,7 @@ def _shard_small(torch, mesh, cfg_mod, model_mod):
                      for a in ("llama3.2-3b", PART_ARCH))
     cases = [(llama, (1, 2), "tensor"), (smollm, (2, 1), "replicated")]
     cases += [(dataclasses.replace(cfg_mod.get_config(a), **cut), (1, 2),
-               "gather") for a, cut in SHARD_FAMILIES.items()]
+               FAM_MECHANISMS[a]) for a, cut in SHARD_FAMILIES.items()]
     cases = [(dataclasses.replace(c, dtype=torch.float32), layout, mech)
              for c, layout, mech in cases]
     ckpt_name = cases[-1][0].name          # (c): whisper's tree
@@ -4312,8 +4347,9 @@ def phase_sharded_train(np, torch, cfg_mod, model_mod, pk, phase22):
     memory; the ranks' metrics equal, the losses within one bf16 ulp of
     phase 22's first 2; #6 == 2 x 28 x 2 launches on each rank at its 12
     / 4 heads and no other kernel; (b) 2 layers f32, llama3.2-3b at (1,
-    2), smollm-360m at (2, 1), and rwkv6, zamba2 and whisper at (1, 2) by
-    gather-on-use, all at their published widths: loss, grad norm and
+    2), smollm-360m at (2, 1), and rwkv6, zamba2 and whisper at (1, 2) on
+    their plans (``FAM_MECHANISMS``: every split leaf stays split), all at
+    their published widths: loss, grad norm and
     params after ``SHARD_SMALL_STEPS`` (1) == the unsharded step on the
     CPU within 1e-5; (c) whisper's sharded checkpoint == the unsharded
     run's."""
@@ -4632,19 +4668,22 @@ def part_collectives(L, kind):
 
 
 def _part_trace(arch, shape, B, T, layers=None):
-    """Rank 0's program of one ``PART_CASES`` case (``arch`` smollm) or
-    ``EP_CASES`` case (qwen3-moe cut to ``layers``, :func:`ep_config`) at
-    (data 1, model 2) traced on the CPU under fake meta tensors
+    """Rank 0's program of one ``PART_CASES`` case (``arch`` smollm),
+    ``EP_CASES`` case (qwen3-moe cut to ``layers``, :func:`ep_config`) or
+    ``FAM_CASES`` case (a family cut by ``FAM_CUTS``, :func:`fam_config`)
+    at (data 1, model 2) traced on the CPU under fake meta tensors
     (``launch.dryrun``), in a process of its own
     (:func:`start_part_traces`): its plan, counted FLOPs, bytes, peak,
-    collectives (and the bytes each all-gather returns) and roofline
-    terms, and the trace's seconds."""
+    collectives (the bytes each all-gather returns, and the shape of any
+    whose operand is a weight leaf) and roofline terms, and the trace's
+    seconds."""
     from repro_torch.launch import cases as cases_mod
     from repro_torch.launch import dryrun as dryrun_mod
     from repro_torch.launch.mesh import Layout
     t0 = time.perf_counter()
     layout = Layout({"data": 1, "model": 2})
-    cfg = None if layers is None else ep_config(cases_mod, layers)
+    cfg = (fam_config(cases_mod, arch, shape) if arch in FAM_CUTS
+           else None if layers is None else ep_config(cases_mod, layers))
     fake = cases_mod.build_case(arch, shape, layout, batch=B, seq=T,
                                 cfg=cfg)
     traced = dryrun_mod.trace_case(fake)
@@ -4656,6 +4695,7 @@ def _part_trace(arch, shape, B, T, layers=None):
             "collectives": len(traced["records"]),
             "gathered_bytes": [r["result_bytes"] for r in traced["records"]
                                if r["op"] == "all-gather"],
+            "weight_gathers": traced["weight_gathers"],
             "flops_analytic": rl.flops_per_chip, "t_compute": rl.t_compute,
             "t_memory": rl.t_memory, "t_collective": rl.t_collective,
             "dominant": rl.dominant,
@@ -4668,15 +4708,17 @@ def _cpu_only():
 
 
 def start_part_traces():
-    """Phases 26's and 27's (1, 2) traces (:func:`_part_trace`; CPU only,
-    smollm's train step ~40 s) in two spawned processes that see no
+    """Phases 26's, 27's and 28's (1, 2) traces (:func:`_part_trace`; CPU
+    only, smollm's train step ~40 s) in two spawned processes that see no
     card, started before the build so that they run beside it: (the
     pool, {(arch, shape): its pending result}), the train steps first."""
     import multiprocessing
     pool = multiprocessing.get_context("spawn").Pool(2, _cpu_only)
     jobs = ([(PART_ARCH, shape, B, T, None) for shape, B, T in PART_CASES]
             + [(MOE_ARCH, shape, B, T, EP_LAYERS)
-               for shape, B, T in EP_CASES])
+               for shape, B, T in EP_CASES]
+            + [(arch, shape, B, T, None) for arch in FAM_CUTS
+               for shape, B, T in fam_cases(arch)])
     return pool, {job[:2]: pool.apply_async(_part_trace, job)
                   for job in sorted(jobs, key=lambda j: j[1] != "train_4k")}
 
@@ -5183,6 +5225,290 @@ def phase_expert_parallel(np, torch, cfg_mod, model_mod, mesh, traces):
     return out
 
 
+# --------------------------------------------------------------------------
+# Phase 28: the per-leaf forms of rwkv6, zamba2 and whisper on the card
+# --------------------------------------------------------------------------
+# each family at its published widths, cut in depth: rwkv6-7b 2 layers,
+# zamba2 one group of 6 Mamba2 blocks with its shared block, whisper 2
+# encoder and 2 decoder layers
+FAM_CUTS = {"rwkv6-7b": {"num_layers": 2},
+            "zamba2-2.7b": {"num_layers": 6, "attn_every": 6},
+            "whisper-large-v3": {"num_layers": 2, "encoder_layers": 2}}
+# the mechanism of each at (data 1, model 2): rwkv6 and whisper split
+# every block on whole heads; zamba2's Mamba2 cuts miss its heads' edges
+FAM_MECHANISMS = {"rwkv6-7b": "tensor", "zamba2-2.7b": "per-leaf",
+                  "whisper-large-v3": "tensor"}
+# (a): (shape, global batch, sequence) at (data 1, model 2), bf16; a
+# whisper prefill runs 448 decoder tokens over its 1500 frames
+FAM_CASES = (("prefill_32k", 2, 2048), ("decode_32k", 8, 4096),
+             ("train_4k", 2, 1024))
+FAM_WHISPER_PROMPT = 448
+FAM_RUNS = 1               # timed by CUDA events after one warm run
+# (b): 2 layers f32 (phase 24 (b)'s cuts, ``SHARD_FAMILIES``): B 2
+# prompts of 64 tokens into a cache of 80 rows, one decode step. B 2 is
+# zamba2's attn_every at these cuts: the rule's batch axis is then its
+# blocks' dim, so its conv and SSD states lie on the batch rows, which
+# its split blocks gather at their use
+FAM_SMALL_B, FAM_SMALL_T, FAM_SMALL_CACHE = 2, 64, 80
+FAM_TOL = 1e-5
+
+
+def fam_cases(arch):
+    """``FAM_CASES`` of ``arch`` (whisper's prefill at its 448 tokens)."""
+    return tuple((shape, B, FAM_WHISPER_PROMPT if arch == WHISPER_ARCH
+                  and shape == "prefill_32k" else T)
+                 for shape, B, T in FAM_CASES)
+
+
+def fam_config(cases_mod, arch, shape, dtype=None):
+    """Phase 28's config of ``arch``: the dry run's for ``shape`` (bf16;
+    whisper's position table extended), cut by ``FAM_CUTS``."""
+    cfg = dataclasses.replace(cases_mod.adjusted_config(arch, shape),
+                              **FAM_CUTS[arch])
+    return cfg if dtype is None else dataclasses.replace(cfg, dtype=dtype)
+
+
+def fam_collectives(arch, cfg, kind, seq):
+    """A rank's collectives on the model group in one run of a family's
+    program at model 2 (every block split), counted from the code of
+    ``models/``. rwkv6: a layer's ``w_o`` all-reduce, its channel mix's
+    gate all-gather and all-reduce; a decode step gathers the two
+    token-shift leaves once where the rule splits them on D (not where D
+    is the cache's length ``seq``, a dim the rule skips: decode_32k cut
+    to 4096 rows leaves them whole); a train step reruns each layer (remat),
+    adds a ``copy_to_tp`` all-reduce a block and the logits', the
+    vocab-parallel loss's three, the global norm's and the sum of the
+    shared leaves' gradients. zamba2: a Mamba2 block's projection and
+    conv all-gathers, its gated norm's and ``w_out``'s all-reduces (four
+    ``copy_to_tp`` all-reduces backward); the shared block's per-leaf
+    attention (3) and FFN (1); remat reruns a group but its FFN's
+    all-reduce. whisper (tensor parallelism, the cross K/V cache on the
+    encoder's frames): an encoder layer's ``wo`` and FFN all-reduces, a
+    decoder layer's self, cross and FFN ones (a prefill adds the cross
+    K/V heads' gather for the cache; a decode's cross core gathers q and
+    merges the frames' shares); the vocab-split embedding's all-reduce
+    and the logits' gather close a serving pass."""
+    L = cfg.num_layers
+    if arch == "rwkv6-7b":
+        shift = 2 if cfg.d_model != seq else 0
+        return {"prefill": 3 * L + 2, "decode": 3 * L + 2 + shift,
+                "train": 8 * L + 7}[kind]
+    if arch == "zamba2-2.7b":
+        A, G = cfg.attn_every, cfg.num_layers // cfg.attn_every
+        per = G * (4 * A + 4)
+        return {"prefill": per + 2, "decode": per + 2,
+                "train": per + (per - G) + per + 5 + 1 + 1}[kind]
+    Le = cfg.encoder_layers
+    return {"prefill": 2 * Le + 4 * L + 2, "decode": 5 * L + 2,
+            "train": (2 * Le + 3 * L) + 2 * L + (2 * Le + 4 * L) + 5
+            + 1}[kind]
+
+
+def _fam_small(np, torch, cfg_mod, model_mod, mesh):
+    """Phase 28 (b): each family at 2 layers f32 (its published widths,
+    ``SHARD_FAMILIES``'s cuts) at (data 1, model 2) on the card against
+    the unsharded port on the CPU, the same weights (drawn on the card
+    from ``SEED``): the prefill's logits and every leaf of each rank's
+    state slice (``launch.shardings.cache_shardings``' layout), then a
+    decode step's. The train step at these cuts is phase 24 (b)'s."""
+    from types import SimpleNamespace
+
+    from repro_torch.core.migration import tree_leaves, tree_map
+    from repro_torch.launch import cases as cases_mod
+    from repro_torch.launch.shardings import cache_shardings, local_shard
+    B, T, C = FAM_SMALL_B, FAM_SMALL_T, FAM_SMALL_CACHE
+    out = {}
+
+    def err(a, b):
+        return float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+    for arch, cut in SHARD_FAMILIES.items():
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(cfg_mod.get_config(arch), **cut,
+                                  dtype=torch.float32)
+        model = model_mod.build_model(cfg)
+        weights = _tree_to(model.init(SEED, device="cuda"),
+                           torch.device("cpu"))
+        torch.cuda.empty_cache()
+        r = np.random.default_rng(SEED + 28)
+        tokens = torch.from_numpy(r.integers(0, cfg.vocab_size, (B, T),
+                                             dtype=np.int32))
+        token = torch.from_numpy(r.integers(0, cfg.vocab_size, (B,),
+                                            dtype=np.int32))
+        pos = torch.full((B,), T, dtype=torch.int32)
+        extras = {}
+        if cfg.family == "encdec":
+            extras["audio_embeds"] = torch.from_numpy(r.normal(
+                0, 1, (B, cfg.encoder_seq, cfg.d_model)).astype(np.float32))
+        got = mesh.run(cases_mod.rank_prefill_decode, cfg, SEED, tokens, C,
+                       token, pos, extras, layout=(1, 2))
+        with torch.no_grad():
+            logits, cache = model.prefill(weights, tokens, cache_len=C,
+                                          **extras)
+            first = tree_map(torch.clone, cache)
+            dec, cache = model.decode_step(weights, cache, token, pos)
+        errs = {}
+        for g in got:
+            rank = SimpleNamespace(shape={"data": 1, "model": 2},
+                                   coords={"data": 0, "model": g["rank"]})
+            specs = cache_shardings(first, rank, batch_size=B, cache_seq=C)
+            check(g["mechanism"] == FAM_MECHANISMS[arch],
+                  f"phase 28 (b) {arch}: rank {g['rank']} ran "
+                  f"{g['mechanism']}")
+            e = {"logits": err(g["logits"], logits),
+                 "decode_logits": err(g["decode_logits"], dec)}
+            for key, whole in (("cache", first), ("decode_cache", cache)):
+                want = cases_mod._zip_map(lambda a, sp: local_shard(
+                    a, sp, rank), whole, specs)
+                pairs = list(zip(tree_leaves(g[key]), tree_leaves(want)))
+                check(all(a.shape == b.shape for a, b in pairs),
+                      f"phase 28 (b) {arch}: rank {g['rank']} {key} "
+                      f"shapes {[tuple(a.shape) for a, _ in pairs]} vs "
+                      f"{[tuple(b.shape) for _, b in pairs]}")
+                e[key] = max(err(a, b) for a, b in pairs)
+            errs[g["rank"]] = e
+            check(max(e.values()) <= FAM_TOL, f"phase 28 (b) {arch}: rank "
+                  f"{g['rank']} on the card vs the unsharded CPU model: "
+                  f"{e} (tolerance {FAM_TOL})")
+        secs = time.perf_counter() - t0
+        out[arch] = {"outputs": errs, "seconds": secs}
+        log(f"phase 28 (b) ({arch}, {cut}, f32, (data 1, model 2) on the "
+            f"card vs unsharded on the CPU): prefill logits / state, "
+            f"decode logits / state within "
+            + "; ".join(f"rank {k} " + " / ".join(f"{v:.2e}"
+                                                   for v in e.values())
+                        for k, e in errs.items())
+            + f" (tolerance {FAM_TOL}); {secs:.1f} s")
+        del weights, cache, first
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_families(np, torch, cfg_mod, model_mod, mesh, traces):
+    """Phase 28: the per-leaf forms of rwkv6-7b, zamba2-2.7b and
+    whisper-large-v3 at their published widths cut in depth
+    (``FAM_CUTS``), at (data 1, model 2) on phase 26's two ranks sharing
+    the card over gloo: every leaf the rules split stays split (rwkv6's
+    WKV and zamba2's SSD on the rank's heads, whisper's attention on its
+    heads, its cross K/V cache on the encoder's frames). (a) bf16,
+    seeded weights, ``fam_cases``: each case's program on each rank
+    (``launch.dryrun.run_rank`` with ``cfg=``: one warm run under
+    ``FlopCounterMode`` and ``Traffic``, ``FAM_RUNS`` runs timed by CUDA
+    events), its ms, collectives (count, host s), peak memory and
+    launches a rank (two ranks on one card; not a speedup); the
+    collectives those of :func:`fam_collectives` and of the (1, 2) trace,
+    none an all-gather of a weight leaf; whisper's #6 == layers a prefill
+    run and 2 x layers a train step, #5 == layers a decode run (its
+    self-KV; the cross core on the frames is plain), nothing launched by
+    rwkv6 or zamba2 (Dh 80); rank 0's counted FLOPs and bytes equal its
+    trace's within ``DRYRUN_REL``. (b) 2 layers f32 (:func:`_fam_small`).
+    """
+    from repro_torch.launch import cases as cases_mod
+    from repro_torch.launch import dryrun as dryrun_mod
+    _fresh_card(torch, "phase 28")
+    ran = {}
+    for arch in FAM_CUTS:
+        for shape, B, T in fam_cases(arch):
+            ran[arch, shape] = mesh.run(
+                dryrun_mod.run_rank, arch, shape, batch=B, seq=T, seed=SEED,
+                runs=FAM_RUNS, cfg=fam_config(cases_mod, arch, shape),
+                layout=(1, 2))
+        gc.collect()
+        torch.cuda.empty_cache()
+    out = {"small": _fam_small(np, torch, cfg_mod, model_mod, mesh)}
+    for (arch, shape), res in ran.items():
+        kind = cases_mod.shape_kind(shape)
+        B, T = next((b, t) for sh, b, t in fam_cases(arch) if sh == shape)
+        cfg = fam_config(cases_mod, arch, shape)
+        traced = traces[arch, shape].get(600)
+        L = cfg.num_layers
+        label = f"phase 28 {arch} {shape}"
+        check(traced["mechanism"] == FAM_MECHANISMS[arch]
+              and set(traced["blocks"].values()) == {"split"},
+              f"{label}: plan {traced['mechanism']} {traced['blocks']} "
+              f"{traced['axes']}")
+        want = fam_collectives(arch, cfg, kind, T)
+        check(traced["collectives"] == want,
+              f"{label}: the trace records {traced['collectives']} "
+              f"collectives, the code {want}")
+        check(not traced["weight_gathers"],
+              f"{label}: all-gathers of weight leaves "
+              f"{traced['weight_gathers']}")
+        card = res[0]["warm"]
+        rel = {k: abs(card[k] - traced[k]) / traced[k]
+               for k in ("flops", "bytes")}
+        check(max(rel.values()) <= DRYRUN_REL,
+              f"{label}: rank 0 counted {card['flops']:.6e} FLOPs, "
+              f"{card['bytes']:.6e} bytes; its trace {traced['flops']:.6e}, "
+              f"{traced['bytes']:.6e} (rel {rel})")
+        per = {}
+        if arch == WHISPER_ARCH:
+            per = {"prefill": {"contiguous_prefill": L},
+                   "train": {"contiguous_prefill": 2 * L},
+                   "decode": {"contiguous_decode_padded": L}}[kind]
+        ranks = []
+        for r in res:
+            warm = {k: n for k, n in r["warm"]["launches"].items() if n}
+            timed = {k: n for k, n in r["launches"].items() if n}
+            check(r["warm"]["finite"], f"{label}: rank {r['rank']}: "
+                  f"non-finite outputs")
+            check(r["mechanism"] == FAM_MECHANISMS[arch],
+                  f"{label}: rank {r['rank']} ran {r['mechanism']}")
+            check(warm == per and timed == {
+                k: n * FAM_RUNS for k, n in per.items()},
+                  f"{label}: rank {r['rank']} launched {warm} warm, "
+                  f"{timed} in {FAM_RUNS} runs; want {per} a run")
+            calls, secs = r["collectives"]["model"]
+            check(r["warm"]["collectives"] == {"model": want}
+                  and calls == want * FAM_RUNS,
+                  f"{label}: rank {r['rank']}: {r['warm']['collectives']} "
+                  f"warm, {calls} in {FAM_RUNS} runs; the code makes "
+                  f"{want} a run")
+            ms = sum(r["ms"]) / len(r["ms"])
+            ranks.append({"rank": r["rank"], "ms": r["ms"],
+                          "ms_mean": ms, "collectives": want,
+                          "collective_s": secs / FAM_RUNS,
+                          "peak_memory_gb":
+                          r.get("peak_memory_bytes", 0) / 1e9,
+                          "launches": {k: n + warm.get(k, 0)
+                                       for k, n in timed.items()}})
+            log(f"phase 28 (a) {arch} {shape} [{SHARD_NOTE}]: rank "
+                f"{r['rank']} {ms:.2f} ms a run (events, timed after a "
+                f"warm run), {want} collectives a run on the model group, "
+                f"{secs / FAM_RUNS * 1e3:.1f} ms of host time, peak memory "
+                f"{ranks[-1]['peak_memory_gb']:.2f} GB, launches a run "
+                f"{per or 'none'}")
+        out[f"{arch} {shape}"] = {
+            "arch": arch, "shape": shape, "batch": B, "seq": T,
+            "layers": L, "rank_rows": res[0]["rows"], "ranks": ranks,
+            "mechanism": traced["mechanism"], "axes": traced["axes"],
+            "flops_traced": traced["flops"], "flops_card": card["flops"],
+            "bytes_traced": traced["bytes"], "bytes_card": card["bytes"],
+            "card_vs_trace_rel": rel,
+            "flops_analytic": traced["flops_analytic"],
+            "t_compute": traced["t_compute"],
+            "t_memory": traced["t_memory"],
+            "t_collective": traced["t_collective"],
+            "dominant": traced["dominant"],
+            "collective_bytes": traced["collective_bytes"],
+            "arg_bytes": res[0]["arg_bytes"],
+            "temp_bytes": traced["temp_bytes"],
+            "trace_s": traced["trace_s"], "note": SHARD_NOTE}
+        log(f"phase 28 (a) {arch} {shape}: B {B} x T {T}, "
+            f"{res[0]['rows']} rows a rank, {L} layers, "
+            f"{traced['mechanism']} {traced['axes']}; rank 0 counted "
+            f"{card['flops']:.6e} FLOPs (analytic share "
+            f"{traced['flops_analytic']:.6e}) and {card['bytes'] / 1e9:.3f} "
+            f"GB == its (1, 2) trace (rel {max(rel.values()):.1e}); {want} "
+            f"collectives ({traced['collective_bytes'] / 1e9:.4f} GB on the "
+            f"wire) == the trace's and the code's, no weight leaf "
+            f"gathered; traced in {traced['trace_s']:.1f} s beside the "
+            f"build")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def family_rows(fam, moe, vlm, win, whisper):
     """The kernels JSON rows of the families' shapes (#1 at G 8; #2, #3,
     #5, #6 at G 7; #5 and #6 at G 12 and at G 1, #5 on whisper's self-
@@ -5329,7 +5655,7 @@ def main() -> int:
 
 
 def phases(t_main, np, torch, traces) -> int:
-    """Phases 1-28 (the module's docstring)."""
+    """Phases 1-29 (the module's docstring)."""
     # f32 comparisons (phases 3 and 5) need full-precision f32 products
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -5563,7 +5889,7 @@ def phases(t_main, np, torch, traces) -> int:
 
     # 24. sharded training: llama3.2-3b at model 2 on two ranks sharing
     # the card (tensor parallelism, #6 at 12 / 4 heads); 2 layers f32
-    # sharded on the card == unsharded on the CPU, the gather-on-use
+    # sharded on the card == unsharded on the CPU, the per-leaf forms of the
     # families; the sharded checkpoint
     t24 = time.perf_counter()
     sharded = phase_sharded_train(np, torch, cfg_mod, model_mod, pk,
@@ -5583,7 +5909,7 @@ def phases(t_main, np, torch, traces) -> int:
     # 26. the per-leaf partition: smollm-360m at model 2 (heads that do
     # not divide), two ranks sharing the card; 2 layers f32 == the CPU
     t26 = time.perf_counter()
-    mesh = train_group(torch, "phases 26-27")
+    mesh = train_group(torch, "phases 26-28")
     try:
         part = phase_partition(np, torch, cfg_mod, model_mod, mesh, traces)
         part["phase_s"] = time.perf_counter() - t26
@@ -5598,12 +5924,21 @@ def phases(t_main, np, torch, traces) -> int:
         ep["phase_s"] = time.perf_counter() - t27
         log(f"phase 27: took {ep['phase_s']:.1f} s")
         progress(t_main, 27)
+
+        # 28. the per-leaf forms of rwkv6, zamba2 and whisper at model 2,
+        # on the same two ranks; 2 layers f32 == the CPU
+        t28 = time.perf_counter()
+        families = phase_families(np, torch, cfg_mod, model_mod, mesh,
+                                  traces)
+        families["phase_s"] = time.perf_counter() - t28
+        log(f"phase 28: took {families['phase_s']:.1f} s")
+        progress(t_main, 28)
     finally:
         mesh.close()
     gc.collect()
     torch.cuda.empty_cache()
 
-    # 28. results
+    # 29. results
     kernels = [{
         "name": "paged_mixed_attention", "ok": True, "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/mixed_attention.cu",
@@ -5818,6 +6153,36 @@ def phases(t_main, np, torch, traces) -> int:
                 "library_ms", "device_ms", "library_device_ms", "tflops",
                 "stream_bound_ms") if kk in k},
             "kernel_ms": k["ms"], "bound_share": k["bound_ms"] / k["ms"]})
+    # #6 and #5 at a model-parallel rank's heads of whisper (10 / 10 / 64,
+    # G 1), launched by both ranks' runs in phase 28 (a)
+    wk = fam["whisper_rank"]
+    for k, name, key, shapes, src, tpu, shape in (
+            (wk["prefill"], "prefill_attention_whisper_rank",
+             "contiguous_prefill", ("prefill_32k", "train_4k"),
+             "contiguous_prefill.cu",
+             "src/repro/kernels/prefill_attention.py:125",
+             f"{WHISPER_ARCH} at model 2, a rank: H 10 / Hkv 10 / Dh 64 "
+             f"(G 1), B 2, T {FAM_WHISPER_PROMPT} (phase 28 (a)'s "
+             f"prefill)"),
+            (wk["decode_padded"], "decode_attention_padded_whisper_rank",
+             "contiguous_decode_padded", ("decode_32k",),
+             "contiguous_decode.cu",
+             "src/repro/kernels/decode_attention.py:291",
+             f"{WHISPER_ARCH} at model 2, a rank: G 1, {FAM_CASES[1][1]} "
+             f"rows of {FAM_CASES[1][2]} self-KV keys (phase 28 (a)'s "
+             f"decode)")):
+        launches = [sum(families[f"{WHISPER_ARCH} {sh}"]["ranks"][i][
+            "launches"].get(key, 0) for sh in shapes) for i in range(2)]
+        kernels.append({
+            "name": name, "ok": True, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{src}",
+            "replaces": tpu, "launches": launches[0],
+            "worker_launches": launches[1], "shape": shape,
+            **{kk: k[kk] for kk in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "device_ms", "library_device_ms", "tflops",
+                "stream_bound_ms") if kk in k},
+            "kernel_ms": k["ms"], "bound_share": k["bound_ms"] / k["ms"]})
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke_report.json").write_text(json.dumps(
@@ -5828,10 +6193,11 @@ def phases(t_main, np, torch, traces) -> int:
          "family_kernels": fam, "moe": moe, "vlm": vlm, "window": window,
          "rwkv": rwkv, "zamba": zamba, "whisper": whisper,
          "training": training, "tp": tp, "sharded_training": sharded,
-         "dryrun": dry, "partition": part, "expert_parallel": ep},
+         "dryrun": dry, "partition": part, "expert_parallel": ep,
+         "families": families},
         indent=1,
         default=str))
-    log(f"chip_smoke: phases 1-27 took {time.perf_counter() - t_main:.1f} s")
+    log(f"chip_smoke: phases 1-28 took {time.perf_counter() - t_main:.1f} s")
     # the card again, so that the end of the output names it beside the
     # numbers
     log(smi)

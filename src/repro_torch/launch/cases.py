@@ -29,8 +29,9 @@ plan ``training.trainer.sharding_mechanism`` makes (tensor parallelism
 where every dim divides; else the per-leaf partition: each block split
 where its dims divide, the rest gathering their split leaves at their
 use, attention on gathered q / k / v with its core split over (row,
-head) pairs; rwkv6, zamba2 and whisper gather the whole tree before
-use), the batch rows on the data axes (``pod × data``, one group).
+head) pairs, rwkv6's and zamba2's recurrences on the rank's heads), the
+batch rows on the data axes (``pod × data``, one group). No case
+gathers the tree or the decode state.
 Given a rank of a ``launch.mesh.TrainMesh`` instead of a layout, the
 case is that rank's program over its real groups.
 
@@ -40,14 +41,16 @@ case is that rank's program over its real groups.
   * **prefill**: ``Model.prefill(params, tokens, cache_len=T)`` on the
     rank's rows.
   * **decode**: one ``Model.decode_step`` against a cache of T rows
-    (``min(T, W)`` under a window) for the rank's rows, the cache laid
-    out by ``launch.shardings.cache_shardings``: each leaf stays the
-    rank's slice (on kv heads, or on the head dim, whose decode
-    all-reduces its partial scores: ``models.attention.head_dim_decode``);
-    a family gathered whole gathers its model-split leaves first and
-    keeps the rank's slice after. At B 1 (``long_500k``) the cache's
-    sequence shards on ``data`` (context parallelism): each data rank
-    decodes over its keys and the shares merge by log-sum-exp
+    (``min(T, W)`` under a window) for the rank's rows, the cache laid out by
+    ``launch.shardings.cache_shardings``: each leaf stays the rank's slice (on
+    kv heads, or on the head dim, whose decode all-reduces its partial scores:
+    ``models.attention.head_dim_decode``; rwkv6's state on its heads and its
+    token-shift rows on D, gathered at their use; zamba2's conv state on its
+    channels and SSD state on its heads; whisper's cross K/V on the encoder's
+    frames where they divide, whose shares merge by log-sum-exp). At B 1
+    (``long_500k``) the cache's sequence shards on ``data`` (context
+    parallelism): each data rank decodes over its keys and the shares merge by
+    log-sum-exp
     (``models.attention.context_parallel_decode``). rwkv6's state has no
     sequence axis, so every data rank decodes the same state.
 
@@ -74,7 +77,7 @@ import torch
 from torch._subclasses.fake_tensor import FakeTensor, FakeTensorMode
 
 from repro_torch.configs import get_config
-from repro_torch.core.migration import tree_leaves
+from repro_torch.core.migration import tree_leaves, tree_map
 from repro_torch.launch.mesh import VirtualRank
 from repro_torch.launch.shardings import cache_shardings, local_shard
 from repro_torch.models.attention import rope_freqs
@@ -301,7 +304,6 @@ def _build(arch, shape_name, mesh, cfg, batch, seq, dev, gen_dev,
                                    remat=kind == "train")
     params = step.shard(model.init(
         torch.Generator(device=gen_dev).manual_seed(seed), device=dev))
-    gather = step.whole_model
     gen = torch.Generator(device=gen_dev).manual_seed(seed + 1)
 
     def case(fn, args, rows, arg_bytes, cp=False):
@@ -320,14 +322,14 @@ def _build(arch, shape_name, mesh, cfg, batch, seq, dev, gen_dev,
                     + _nbytes(local))
 
     if kind == "prefill":
+        _rows_divide(rank, B)
         extras = {k: v.clone() for k, v in step.rows(
             _token_batch(cfg, B, T, dev, gen)).items()}
         tokens = extras.pop("tokens")
 
         def prefill_step(params, tokens, extras):
             with torch.no_grad():
-                tree = step.whole(params) if gather else params
-                return step.model.prefill(tree, tokens, cache_len=T,
+                return step.model.prefill(params, tokens, cache_len=T,
                                           **extras)
         return case(prefill_step, (params, tokens, extras), tokens.shape[0],
                     _nbytes(params) + _nbytes([tokens, extras]))
@@ -345,8 +347,6 @@ def _build(arch, shape_name, mesh, cfg, batch, seq, dev, gen_dev,
     if not isinstance(leaves[0], FakeTensor):
         for leaf in leaves:                   # a real run: a random cache
             leaf.normal_(generator=gen)
-    on_model = _zip_map(lambda a, s: s.index("model") if "model" in s
-                        else None, cache, specs)
     seq_group = None
     if context_parallel and any("data" in s for _, s in _pairs(cache,
                                                                 specs)):
@@ -358,52 +358,53 @@ def _build(arch, shape_name, mesh, cfg, batch, seq, dev, gen_dev,
         n = B // rank.data
         token, pos = (x[rank.d * n:(rank.d + 1) * n].clone()
                       for x in (token, pos))
-    mgroup = rank.model_group
 
     def serve_step(params, cache, token, pos):
         with torch.no_grad():
-            tree = step.whole(params) if gather else params
-            run = cache
-            if gather and mgroup is not None:
-                run = _zip_map(lambda a, d: a if d is None else
-                               mgroup.all_gather(a, d), cache, on_model)
             kw = {} if seq_group is None else {"seq_group": seq_group}
-            logits, run = step.model.decode_step(tree, run, token, pos, **kw)
-            if run is not cache:
-                # keep this rank's slice of each gathered leaf
-                for (mine, d), (got, _) in zip(_pairs(cache, on_model),
-                                               _pairs(run, on_model)):
-                    if d is not None:
-                        n = mine.shape[d]
-                        mine.copy_(got.narrow(d, mgroup.rank * n, n))
-            return logits, cache
+            return step.model.decode_step(params, cache, token, pos, **kw)
     return case(serve_step, (params, cache, token, pos), token.shape[0],
                 _nbytes(params) + _nbytes([cache, token, pos]),
                 cp=seq_group is not None)
 
 
+def _rows_divide(rank, B: int) -> None:
+    """Refuse a prefill of ``B`` rows that the data axes do not divide:
+    every rank would hold all of them, where the decode state's layout
+    (``common.state_piece``) takes a rank's rows as its share."""
+    if rank.data > 1 and B % rank.data:
+        raise ValueError(f"a prefill of {B} rows on a data axis of "
+                         f"{rank.data}: the rows must divide it")
+
+
 def rank_prefill_decode(mesh, cfg: ModelConfig, seed: int, tokens, cache_len,
-                        token, pos) -> dict:
+                        token, pos, extras=None) -> dict:
     """One rank's part of a prefill and one decode step of ``cfg`` on the
     model group of a ``launch.mesh.TrainMesh`` (every rank runs it:
     ``mesh.run(rank_prefill_decode, ...)``), on given inputs: the whole
     tree drawn from ``seed`` on the rank's device and cut by the training
     rules, the forward on the config's plan (``training.trainer.
-    sharding_mechanism``); ``tokens`` [B, T] and ``token`` / ``pos`` [B]
-    are the whole batch's, of which the rank takes its rows. The decode
+    sharding_mechanism``); ``tokens`` [B, T], ``token`` / ``pos`` [B]
+    and a family's prefill ``extras`` (whisper's ``audio_embeds``) are
+    the whole batch's, of which the rank takes its rows. The decode
     continues from the prefill's cache (``cache_len`` rows, this rank's
     slice). Returns on the CPU the mechanism, the prefill's logits [rows,
-    V] and cache slice, then the decode step's logits and cache slice."""
+    V] and cache slice, then the decode step's logits and cache slice
+    (each cache in its own structure)."""
+    _rows_divide(mesh, tokens.shape[0])
     model = build_model(cfg)
     step = make_sharded_train_step(model, AdamWConfig(), mesh)
     params = step.shard(model.init(seed, device=mesh.device))
-    rows = step.rows({"tokens": tokens, "token": token, "pos": pos})
+    extras = dict(extras or {})
+    rows = step.rows({"tokens": tokens, "token": token, "pos": pos,
+                      **extras})
 
     def host(cache):
-        return type(cache)(*(a.detach().cpu().clone() for a in cache))
+        return tree_map(lambda a: a.detach().cpu().clone(), cache)
     with torch.no_grad():
-        logits, cache = step.model.prefill(params, rows["tokens"],
-                                           cache_len=cache_len)
+        logits, cache = step.model.prefill(
+            params, rows["tokens"], cache_len=cache_len,
+            **{k: rows[k] for k in extras})
         out = {"rank": mesh.rank, "mechanism": step.mechanism,
                "logits": logits.cpu(), "cache": host(cache)}
         logits, cache = step.model.decode_step(params, cache, rows["token"],

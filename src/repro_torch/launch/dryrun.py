@@ -45,12 +45,14 @@ trace) takes the place of ``t_lower`` + ``t_compile``, and ``args/chip``
 is printed against the card's 80 GB; ``plan`` and ``plan_axes`` carry
 the case's ``training.trainer.Plan`` (each block split or gathered on
 the model axis, where the core and the decode cache split), so a row
-names what its rank still gathers. ``--opt`` is refused: its levers are
-the ROADMAP Queue 1 item "`--opt`'s levers".
+names what its rank still gathers, and ``weight_gathers`` counts the
+all-gathers whose operand is a weight leaf. ``--opt`` is refused: its
+levers are the ROADMAP Queue 1 item "`--opt`'s levers".
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import time
@@ -167,18 +169,43 @@ def warm_caches(case) -> None:
         rope_freqs(case.cfg.head_dim, case.cfg.rope_theta, dev)
 
 
+@contextlib.contextmanager
+def weight_gathers(group, params):
+    """Within it, each all-gather on ``group`` whose operand is (a view
+    of) a leaf of ``params`` appends the operand's shape to the list it
+    yields: the weights a rank's program gathers."""
+    found = []
+    if group is None:
+        yield found
+        return
+    leaves = storages(params)
+    inner = group.all_gather
+
+    def all_gather(x, dim=-1):
+        if x.untyped_storage()._cdata in leaves:
+            found.append(tuple(x.shape))
+        return inner(x, dim)
+    group.all_gather = all_gather
+    try:
+        yield found
+    finally:
+        del group.all_gather
+
+
 def trace_case(case) -> dict:
     """Run ``case``'s program once under its fake-tensor mode and the
     counting modes. Returns ``flops``, ``bytes`` (operand + result bytes
     of every op), ``temp_bytes`` (the peak of live bytes above the
-    arguments), ``output_bytes``, the collective ``records`` and the
+    arguments), ``output_bytes``, the collective ``records``, the shapes
+    of the weight leaves it all-gathers (``weight_gathers``) and the
     number of ``ops``."""
     from torch.utils.flop_counter import FlopCounterMode
     case.rank.records.clear()
     with fake_scope(case.mode):
         warm_caches(case)
         traffic = Traffic(storages(case.args))
-        with FlopCounterMode(display=False) as fc, traffic:
+        with FlopCounterMode(display=False) as fc, traffic, weight_gathers(
+                case.rank.model_group, case.args[0]) as gathered:
             out = case.fn(*case.args)
         seen = set()
         out_bytes = 0
@@ -189,7 +216,8 @@ def trace_case(case) -> dict:
                 out_bytes += st.nbytes()
     return {"flops": float(fc.get_total_flops()), "bytes": traffic.bytes,
             "temp_bytes": float(traffic.peak), "output_bytes": float(out_bytes),
-            "records": list(case.rank.records), "ops": traffic.ops}
+            "records": list(case.rank.records), "ops": traffic.ops,
+            "weight_gathers": gathered}
 
 
 def roofline_of(case, traced: dict, mesh_name: str, layout) -> Roofline:
@@ -250,7 +278,8 @@ def run_case(arch: str, shape_name: str, multi_pod: bool,
                    plan=dict(case.plan.blocks),
                    plan_axes=dict(case.plan.axes), rank_rows=case.rows,
                    context_parallel=case.context_parallel,
-                   traced_ops=traced["ops"])
+                   traced_ops=traced["ops"],
+                   weight_gathers=len(traced["weight_gathers"]))
         if verbose:
             print(f"[ok] {arch:22s} {shape_name:12s} {mesh_name:8s} "
                   f"comp={rl.t_compute:.3e}s mem={rl.t_memory:.3e}s "

@@ -37,6 +37,7 @@ import torch
 
 from repro_torch.core.migration import tree_map
 from repro_torch.launch.mesh import batch_axes
+from repro_torch.models.common import cache_spec
 
 Spec = Tuple[Optional[str], ...]
 
@@ -187,46 +188,20 @@ def cache_shardings(cache, mesh, *, batch_size: int, cache_seq: int,
                     context_parallel: bool = False,
                     seq_on_model: bool = False):
     """The spec of each leaf of a decode cache (a ``KVCache``, a state
-    dict, a ``WhisperCache``: the same structure, a spec per leaf). Axes
-    are found by SIZE (layouts differ per family): the batch axis is the
-    first non-leading dim equal to ``batch_size``, on ``data``; with
-    ``context_parallel`` (one long sequence) the first dim equal to
-    ``cache_seq`` goes on ``data`` instead. Then ``model`` takes the
-    first later dim it divides among the heads (neither the sequence nor
-    the last), the sequence (``seq_on_model`` only) and the last
-    (head_dim)."""
-    data_size = mesh.shape["data"]
-    model_size = mesh.shape["model"]
-
+    dict, a ``WhisperCache``: the same structure, a spec per leaf), by
+    the rule of :func:`~repro_torch.models.common.cache_spec`: axes found
+    by SIZE, the batch on ``data`` (the sequence with
+    ``context_parallel``), ``model`` on the first later dim it divides
+    among the heads, the sequence (``seq_on_model`` only) and the last
+    (head_dim). The model layer lays a rank's decode state out by the
+    same function (``common.state_piece``)."""
     def one(leaf):
         shape = tuple(leaf.shape)
-        r = len(shape)
-        spec: list = [None] * r
-        data_ax = None
-        if context_parallel:
-            for i, d in enumerate(shape):
-                if d == cache_seq and d % data_size == 0:
-                    data_ax = i
-                    break
-        else:
-            for i in range(1, r):
-                if shape[i] == batch_size and shape[i] % data_size == 0:
-                    data_ax = i
-                    break
-        if data_ax is not None:
-            spec[data_ax] = "data"
-        start = (data_ax + 1) if data_ax is not None else 1
-        non_seq = [i for i in range(start, r) if spec[i] is None
-                   and shape[i] != cache_seq]
-        heads = [i for i in non_seq if i < r - 1]
-        seq = ([i for i in range(start, r) if spec[i] is None
-                and shape[i] == cache_seq] if seq_on_model else [])
-        final = [i for i in non_seq if i == r - 1]
-        for i in heads + seq + final:
-            if shape[i] % model_size == 0:
-                spec[i] = "model"
-                break
-        return _guard(shape, spec, mesh)
+        return _guard(shape, cache_spec(
+            shape, batch_size=batch_size, cache_seq=cache_seq,
+            data=mesh.shape["data"], model=mesh.shape["model"],
+            context_parallel=context_parallel, seq_on_model=seq_on_model),
+            mesh)
 
     return tree_map(one, cache)
 

@@ -18,8 +18,9 @@ the rest of the ranks split the batch. More than one rank starts ranks
 1..R-1 as ``launch.train_worker`` processes
 (``launch.mesh.make_train_mesh``: gloo on the CPU or where ranks share a
 card, nccl when each has its own); the mechanism that splits the model
-(tensor parallelism or gather-on-use, ``training.trainer.
-sharding_mechanism``) is printed first. ``--ckpt`` gathers the shards
+(tensor parallelism, the per-leaf partition, or gather-on-use where no
+block's dims divide, ``training.trainer.sharding_mechanism``) is printed
+first. ``--ckpt`` gathers the shards
 and writes the whole tree, which the reference's ``load_checkpoint``
 reads.
 """

@@ -39,6 +39,13 @@ causal core splits over (row, head) pairs (:func:`_pair_core`, #6 on
 one-head pairs), a decode on a slab split on its head dim all-reduces
 its partial scores (:func:`head_dim_decode`, no kernel), and ``wo``
 takes the rank's rows of the gathered output (:func:`_out_proj`).
+Whisper's encoder (:func:`encoder_attention`) and cross-attention take
+the same forms with a non-causal core (plain PyTorch on the pairs, as
+the one-device path: #6 is causal only); the cross K/V's decode slice
+keeps the layout ``launch.shardings.cache_shardings`` gives it
+(:func:`cross_layout`: the encoder's frames where they divide the
+group, else kv heads, else the head dim), and a decode step attends it
+in that layout (:func:`cross_attention_decode`).
 """
 from __future__ import annotations
 
@@ -59,7 +66,8 @@ from repro_torch.kernels.prefill_attention import (paged_prefill_attention,
                                                    prefill_attention_plain)
 from repro_torch.models.common import (ModelConfig, all_gather, copy_to_tp,
                                        dense_init, leaf_at_use, psum_if_tp,
-                                       split_block)
+                                       rank_cols, split_block, split_dim,
+                                       state_axis, state_piece)
 
 # Paged attention backends (the JAX package's four):
 #   dense — gather pool[block_tables] + masked SDPA in plain PyTorch: a
@@ -203,14 +211,24 @@ def _project_qkv_whole(p, cfg: ModelConfig, x: torch.Tensor):
     autograd ``x`` enters the rank's columns through ``copy_to_tp`` and
     the joined q / k / v enter the split core through it too, so each
     gradient is the whole one on every rank."""
+    dh = cfg.head_dim
+    return _project_whole(p, cfg, x, _QKV, (cfg.num_heads * dh,
+                                            cfg.num_kv_heads * dh,
+                                            cfg.num_kv_heads * dh))
+
+
+def _project_whole(p, cfg: ModelConfig, x: torch.Tensor, names, widths,
+                   block: str = "attn"):
+    """:func:`_project_qkv_whole` for any of the projections ``names``
+    (``(weight, bias)`` pairs of ``_QKV``) of ``widths`` columns, of
+    ``block`` (``cross_attn`` projects q from the decoder's rows and k /
+    v from the encoder's)."""
     B, T, _ = x.shape
     g, dh = cfg.tp_axis, cfg.head_dim
-    widths = (cfg.num_heads * dh, cfg.num_kv_heads * dh,
-              cfg.num_kv_heads * dh)
-    split = split_block(cfg, "attn")
+    split = split_block(cfg, block)
     xc = copy_to_tp(x, cfg) if split else x
     parts = []
-    for (w, b), n in zip(_QKV, widths):
+    for (w, b), n in zip(names, widths):
         y = xc @ (p[w] if split else leaf_at_use(p[w], cfg, -1, n))
         if b in p:
             y = y + (p[b] if split else leaf_at_use(p[b], cfg, -1, n))
@@ -225,13 +243,14 @@ def _project_qkv_whole(p, cfg: ModelConfig, x: torch.Tensor):
     return tuple(t.reshape(B, T, -1, dh) for t in qkv.split(sizes, -1))
 
 
-def _out_proj(p, cfg: ModelConfig, o: torch.Tensor) -> torch.Tensor:
+def _out_proj(p, cfg: ModelConfig, o: torch.Tensor,
+              block: str = "attn") -> torch.Tensor:
     """``wo`` on the attention output ``o`` [B, T, H·Dh], whole on every
-    rank under the per-leaf plan: with ``attn`` split the rank's rows of
+    rank under the per-leaf plan: with ``block`` split the rank's rows of
     ``wo`` take its columns of ``o`` (a partial product, all-reduced;
-    ``o`` enters through ``copy_to_tp``), with ``attn`` gathered ``wo``
-    is gathered and applied whole."""
-    if split_block(cfg, "attn"):
+    ``o`` enters through ``copy_to_tp``), with it gathered ``wo`` is
+    gathered and applied whole."""
+    if split_block(cfg, block):
         n = p["wo"].shape[-2]
         o = copy_to_tp(o, cfg).narrow(-1, cfg.tp_axis.rank * n, n)
         return psum_if_tp(o @ p["wo"], cfg)
@@ -266,7 +285,7 @@ def _cache_slice(cfg: ModelConfig, k: torch.Tensor, v: torch.Tensor):
 
 
 def _pair_core(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
-               v: torch.Tensor) -> torch.Tensor:
+               v: torch.Tensor, causal: bool = True) -> torch.Tensor:
     """Causal attention of whole-head q [B, T, H, Dh], k, v [B, T, Hkv,
     Dh] (every rank holds them) split over the model group by (row, head)
     pairs: pair ``i = h·B + b`` (head-major, so where H divides the group
@@ -274,7 +293,10 @@ def _pair_core(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
     rank (the last rank's tail repeats the last pair), each pair one head
     over its kv head ``h // G``. The pairs run as a batch of one-head
     prompts through :func:`_prefill_core` (#6 for a kernel head dim) and
-    one all-gather returns every pair. Returns [B, T, H, Dh]."""
+    one all-gather returns every pair. With ``causal=False`` (whisper's
+    encoder and cross-attention; k, v [B, S, Hkv, Dh] of any S) every
+    query sees every key, in plain PyTorch (``_gqa_sdpa``). Returns
+    [B, T, H, Dh]."""
     g = cfg.tp_axis
     B, T, H, Dh = q.shape
     G = H // k.shape[2]
@@ -286,7 +308,9 @@ def _pair_core(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
     qp = q[b, :, h][:, :, None]
     kp = k[b, :, h // G][:, :, None]
     vp = v[b, :, h // G][:, :, None]
-    o = all_gather(_prefill_core(cfg, qp, kp, vp), g, 0)[:P]
+    core = (_prefill_core(cfg, qp, kp, vp) if causal
+            else _gqa_sdpa(qp, kp, vp, None))
+    o = all_gather(core, g, 0)[:P]
     return o.reshape(H, B, T, Dh).permute(1, 2, 0, 3)
 
 
@@ -560,6 +584,19 @@ def head_dim_decode(q: torch.Tensor, k_new: torch.Tensor,
     else:
         lengths = _seq_split_write(k_new, v_new, cache_l, write, pos,
                                    seq_group)
+    return _head_dim_attend(q, cache_l, lengths, group, seq_group)
+
+
+def _head_dim_attend(q: torch.Tensor, cache_l: KVCache, lengths, group,
+                     seq_group=None) -> torch.Tensor:
+    """:func:`head_dim_decode`'s attention after its write: q [B, H, Dh]
+    over the keys ``< lengths`` of a slab split on its head dim over
+    ``group`` (this rank's columns in ``cache_l`` [B, S, Hkv, d]). Plain
+    PyTorch; the partial scores all-reduced once, the columns joined by
+    one all-gather. Returns [B, H, Dh] in q's dtype."""
+    B, H, Dh = q.shape
+    Hkv, d = cache_l.k.shape[2:]
+    c0 = group.rank * d
     qg = q[..., c0:c0 + d].reshape(B, Hkv, H // Hkv, d).float()
     s = torch.einsum("bhgd,bshd->bhgs", qg, cache_l.k.float())
     s = group.all_reduce(s) / math.sqrt(Dh)
@@ -985,21 +1022,56 @@ def attention_mixed_paged(p, cfg: ModelConfig, x_dec: torch.Tensor,
 
 
 # --------------------------------------------------------------------------
-# Cross-attention (whisper's decoder): K/V computed once from the encoder
+# Whisper's encoder self-attention and its decoder's cross-attention: K/V
+# computed once from the encoder
 # --------------------------------------------------------------------------
+def encoder_attention(p, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """Bidirectional self-attention over x [B, T, D] (no mask, no
+    rotation: whisper's encoder), plain ``_gqa_sdpa`` as the reference's
+    XLA. Under tensor parallelism on the rank's heads (``wo``'s rows
+    all-reduced); under the per-leaf plan q / k / v on whole heads and
+    the core split over (row, head) pairs (:func:`_pair_core`,
+    non-causal). Returns [B, T, D]."""
+    B, T, _ = x.shape
+    q, k, v = _project_qkv(p, cfg, x)
+    if planned(cfg):
+        o = _pair_core(cfg, q, k, v, causal=False)
+        return _out_proj(p, cfg, o.reshape(B, T, -1))
+    o = _gqa_sdpa(q, k, v, None).reshape(B, T, -1)
+    return psum_if_tp(o @ p["wo"], cfg)
+
+
+def _cross_q(p, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """The cross-attention's q [B, T, H | H / n, Dh]: whole heads under
+    the per-leaf plan (:func:`_project_whole`), the rank's heads under
+    tensor parallelism, all of them without a group."""
+    B, T, _ = x.shape
+    if planned(cfg):
+        return _project_whole(p, cfg, x, _QKV[:1],
+                              (cfg.num_heads * cfg.head_dim,),
+                              "cross_attn")[0]
+    q = copy_to_tp(x, cfg) @ p["wq"]
+    if "bq" in p:
+        q = q + p["bq"]
+    return q.reshape(B, T, -1, cfg.head_dim)
+
+
 def cross_attention(p, cfg: ModelConfig, x: torch.Tensor,
                     enc_kv: KVCache) -> torch.Tensor:
     """Decoder queries x [B, T, D] over the encoder's K/V [B, S_enc, Hkv,
-    Dh], every key visible. One token (T = 1, a decode step) runs the
-    contiguous decode kernel in its padded mode with ``lengths = S_enc``
-    (the plain version for CPU tensors or a head dim no kernel takes); a
-    prompt's T queries run the plain ``_gqa_sdpa``, as the reference's XLA
-    does: #6 is causal only. Returns [B, T, D]."""
+    Dh] from :func:`encode_cross_kv` (whole heads under the per-leaf
+    plan, the rank's under tensor parallelism), every key visible. One
+    token (T = 1) runs the contiguous decode kernel in its padded mode
+    with ``lengths = S_enc`` (the plain version for CPU tensors or a head
+    dim no kernel takes); a prompt's T queries run the plain
+    ``_gqa_sdpa``, as the reference's XLA does: #6 is causal only. Under
+    the per-leaf plan the core splits over (row, head) pairs. Returns
+    [B, T, D]."""
     B, T, _ = x.shape
-    q = x @ p["wq"]
-    if "bq" in p:
-        q = q + p["bq"]
-    q = q.reshape(B, T, cfg.num_heads, cfg.head_dim)
+    q = _cross_q(p, cfg, x)
+    if planned(cfg):
+        o = _pair_core(cfg, q, enc_kv.k, enc_kv.v, causal=False)
+        return _out_proj(p, cfg, o.reshape(B, T, -1), "cross_attn")
     if T == 1:
         S = enc_kv.k.shape[1]
         lengths = torch.full((B,), S, dtype=torch.int32, device=x.device)
@@ -1007,16 +1079,114 @@ def cross_attention(p, cfg: ModelConfig, x: torch.Tensor,
                       lengths)[:, None]
     else:
         out = _gqa_sdpa(q, enc_kv.k, enc_kv.v, None)
-    return out.reshape(B, T, -1) @ p["wo"]
+    return psum_if_tp(out.reshape(B, T, -1) @ p["wo"], cfg)
 
 
 def encode_cross_kv(p, cfg: ModelConfig, enc_out: torch.Tensor) -> KVCache:
     """The encoder output [B, S, D] projected to cross-attention K/V
-    [B, S, Hkv, Dh] (with the biases where the layer has them)."""
+    [B, S, Hkv, Dh] (with the biases where the layer has them): under
+    the per-leaf plan on whole heads on every rank (the rank's columns
+    joined by one all-gather, :func:`_project_whole`), under tensor
+    parallelism the rank's kv heads."""
     B, S, _ = enc_out.shape
-    k = enc_out @ p["wk"]
-    v = enc_out @ p["wv"]
+    if planned(cfg):
+        n = cfg.num_kv_heads * cfg.head_dim
+        return KVCache(*_project_whole(p, cfg, enc_out, _QKV[1:], (n, n),
+                                       "cross_attn"))
+    x = copy_to_tp(enc_out, cfg)
+    k = x @ p["wk"]
+    v = x @ p["wv"]
     if "bk" in p:
         k, v = k + p["bk"], v + p["bv"]
-    shape = (B, S, cfg.num_kv_heads, cfg.head_dim)
+    shape = (B, S, -1, cfg.head_dim)
     return KVCache(k.reshape(shape), v.reshape(shape))
+
+
+CROSS_LAYOUTS = ("seq", "kv heads", "head_dim")
+
+
+def cross_layout(cfg: ModelConfig, model: Optional[int] = None,
+                 cache_seq=None) -> Optional[str]:
+    """Where a plan lays a rank's slice of the cross K/V cache
+    [L, B, S_enc, Hkv, Dh] on a model group of ``model`` ranks (default
+    ``cfg.tp_axis``'s): the first of the encoder's frames
+    (``encoder_seq``), the kv heads and the head dim that the group
+    divides, by ``common.state_axis`` (the rule of ``launch.shardings.
+    cache_shardings``) for a decode cache of ``cache_seq`` rows
+    (``"none"``: whole on every rank; None without a group)."""
+    if model is None:
+        if cfg.tp_axis is None:
+            return None
+        model = cfg.tp_axis.size
+    i = state_axis((cfg.encoder_seq, cfg.num_kv_heads, cfg.head_dim),
+                   model, cache_seq)
+    return "none" if i is None else CROSS_LAYOUTS[i]
+
+
+def cross_cache_slice(cfg: ModelConfig, kv: KVCache,
+                      cache_seq=None) -> KVCache:
+    """This rank's slice of :func:`encode_cross_kv`'s K/V [B, S_enc, Hkv,
+    Dh] in the layout ``common.state_piece`` gives the cross cache's leaf
+    for a decode cache of ``cache_seq`` rows (:func:`cross_layout`).
+    Under tensor parallelism a cache split on the frames needs every
+    head: one all-gather of the rank's k and v heads first."""
+    if cfg.tp_axis is None:
+        return kv
+    g = cfg.tp_axis
+    k, v = kv
+    whole = (k.shape[0], cfg.encoder_seq, cfg.num_kv_heads, cfg.head_dim)
+    local = state_piece(cfg, (1,) + whole, cache_seq, 1)[1:]
+    dim = split_dim(local, whole)
+    if dim is None:
+        return kv
+    if not planned(cfg) and dim == 1:
+        k, v = g.all_gather(torch.cat([k, v], -1), 2).split(cfg.head_dim,
+                                                             -1)
+    elif not planned(cfg):
+        return kv                       # the rank's kv heads already
+    n = local[dim]
+    return KVCache(k.narrow(dim, g.rank * n, n).contiguous(),
+                   v.narrow(dim, g.rank * n, n).contiguous())
+
+
+def cross_attention_decode(p, cfg: ModelConfig, x: torch.Tensor,
+                           enc_kv: KVCache) -> torch.Tensor:
+    """One decoder token x [B, 1, D] over the cross K/V cache ``enc_kv``
+    [B, S_enc, Hkv, Dh] (under a group this rank's slice,
+    :func:`cross_layout`, told by its shape), every key visible. Without
+    a group, or on the rank's kv heads, the contiguous decode kernel (#5,
+    padded, ``lengths = S``); on a slice of the head dim the partial
+    scores all-reduced (:func:`_head_dim_attend`); on a slice of the
+    frames each rank attends its keys and the shares merge by
+    log-sum-exp (:func:`merge_decode_partials`). Returns [B, 1, D]."""
+    B = x.shape[0]
+    if cfg.tp_axis is None:
+        return cross_attention(p, cfg, x, enc_kv)
+    S, hk, d = enc_kv.k.shape[1:]
+    heads = cfg.num_kv_heads // (1 if planned(cfg) else cfg.tp_axis.size)
+    layout = ("kv heads" if hk < heads else "head_dim" if d < cfg.head_dim
+              else "seq" if S < cfg.encoder_seq else "none")
+    g = cfg.tp_axis
+    q = _cross_q(p, cfg, x)[:, 0].contiguous()
+    lengths = torch.full((B,), S, dtype=torch.int32, device=x.device)
+    if layout == "seq":
+        if not planned(cfg):            # every head over the rank's keys
+            q = all_gather(q, g, 1)
+        out, lse = decode_attention_partial(q, enc_kv.k, enc_kv.v, lengths)
+        o = merge_decode_partials(out, lse, g).to(q.dtype)
+        if not planned(cfg):
+            o = o[:, rank_cols(cfg, cfg.num_heads // g.size)]
+    elif layout == "head_dim":
+        o = _head_dim_attend(q, enc_kv, lengths, g)
+    elif layout == "kv heads":
+        hk = enc_kv.k.shape[2]
+        G = cfg.num_heads // cfg.num_kv_heads
+        h0 = g.rank * hk
+        o = all_gather(_decode(cfg, q[:, h0 * G:(h0 + hk) * G].contiguous(),
+                               enc_kv.k, enc_kv.v, lengths), g, 1)
+    else:           # the rank's heads (tensor parallelism), or whole
+        o = _decode(cfg, q, enc_kv.k, enc_kv.v, lengths)
+    o = o.reshape(B, 1, -1)
+    if planned(cfg):
+        return _out_proj(p, cfg, o, "cross_attn")
+    return psum_if_tp(o @ p["wo"], cfg)

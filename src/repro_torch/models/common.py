@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Sequence
+from typing import Any, Callable, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -89,6 +89,11 @@ class ModelConfig:
     # dim divides).
     tp_plan: Any = dataclasses.field(default=None, compare=False,
                                      repr=False)
+    # the data ranks a training mesh splits a batch's rows over (its data
+    # axes; 1 without one): a rank's batch is a ``1 / tp_rows`` share of
+    # the whole, which the rule that lays a decode state out
+    # (:func:`cache_spec`) reads by size
+    tp_rows: int = dataclasses.field(default=1, compare=False, repr=False)
 
     def __post_init__(self):
         if self.head_dim == 0 and self.num_heads:
@@ -289,6 +294,141 @@ def leaf_at_use(w: torch.Tensor, cfg: ModelConfig, dim: int,
     if cfg.tp_axis is None or w.shape[dim] == full:
         return w
     return all_gather(w, cfg.tp_axis, dim % w.dim())
+
+
+def rank_cols(cfg: ModelConfig, n: int) -> slice:
+    """This rank's ``n`` consecutive entries of an axis cut into equal
+    pieces over ``cfg.tp_axis`` (rank r: ``[r·n, (r + 1)·n)``)."""
+    r = cfg.tp_axis.rank
+    return slice(r * n, (r + 1) * n)
+
+
+def cache_spec(shape: Sequence[int], *, batch_size: int, cache_seq,
+               data: int = 1, model: int = 1, context_parallel: bool = False,
+               seq_on_model: bool = False) -> Tuple[Optional[str], ...]:
+    """The axis each dim of a decode-cache leaf of ``shape`` lies on
+    (``"data"``, ``"model"`` or None) on a mesh of ``data`` x ``model``:
+    the rule of ``launch.shardings.cache_shardings``, and its one copy.
+    Axes are found by SIZE (layouts differ per family): the batch axis is
+    the first non-leading dim equal to ``batch_size``, on ``data`` where
+    it divides; with ``context_parallel`` (one long sequence) the first
+    dim equal to ``cache_seq`` goes on ``data`` instead. Then ``model``
+    takes the first later dim it divides among the heads (neither the
+    sequence nor the last), the sequence (``seq_on_model`` only) and the
+    last (head_dim)."""
+    shape = tuple(shape)
+    r = len(shape)
+    spec: list = [None] * r
+    if context_parallel:
+        data_ax = next((i for i, d in enumerate(shape)
+                        if d == cache_seq and d % data == 0), None)
+    else:
+        data_ax = next((i for i in range(1, r) if shape[i] == batch_size
+                        and shape[i] % data == 0), None)
+    if data_ax is not None:
+        spec[data_ax] = "data"
+    start = (data_ax + 1) if data_ax is not None else 1
+    non_seq = [i for i in range(start, r) if spec[i] is None
+               and shape[i] != cache_seq]
+    heads = [i for i in non_seq if i < r - 1]
+    seq = ([i for i in range(start, r) if spec[i] is None
+            and shape[i] == cache_seq] if seq_on_model else [])
+    final = [i for i in non_seq if i == r - 1]
+    for i in heads + seq + final:
+        if shape[i] % model == 0:
+            spec[i] = "model"
+            break
+    return tuple(spec)
+
+
+def state_piece(cfg: ModelConfig, whole: Sequence[int], cache_seq,
+                rows_dim: int) -> Tuple[int, ...]:
+    """The shape of this rank's piece of a decode-state leaf whose shape
+    over the rank's batch rows (at dim ``rows_dim``) is ``whole``: the
+    leaf of the whole batch (``cfg.tp_rows`` times the rows) laid out by
+    :func:`cache_spec` for a cache of ``cache_seq`` rows, cut on the dim
+    it puts ``model`` on; ``whole`` itself without a group. A rank holds
+    its rows of the batch, so where the rule puts ``data`` on another dim
+    (a state dim of the whole batch's size) it is refused."""
+    whole = tuple(whole)
+    if cfg.tp_axis is None:
+        return whole
+    d, m = cfg.tp_rows, cfg.tp_axis.size
+    glob = list(whole)
+    glob[rows_dim] *= d
+    spec = cache_spec(glob, batch_size=glob[rows_dim], cache_seq=cache_seq,
+                      data=d, model=m)
+    if d > 1 and spec[rows_dim] != "data":
+        raise ValueError(
+            f"the decode-state rule puts the data axis ({d}) of a leaf "
+            f"{tuple(glob)} on dim {spec.index('data')}, not on its batch "
+            f"rows (dim {rows_dim}): a rank's program holds its own rows")
+    return tuple(n // m if ax == "model" else n
+                 for n, ax in zip(whole, spec))
+
+
+def state_axis(sizes: Sequence[int], model: int,
+               cache_seq=None) -> Optional[int]:
+    """The index in ``sizes`` of the dim :func:`cache_spec` puts ``model``
+    on for a leaf ``[layers, batch, *sizes]`` whose batch no other dim
+    equals (None: whole on every rank): the layout a plan names."""
+    spec = cache_spec((1, 0) + tuple(sizes), batch_size=0,
+                      cache_seq=cache_seq, model=model)
+    return spec.index("model") - 2 if "model" in spec else None
+
+
+def split_dim(local, whole) -> Optional[int]:
+    """The dim where a rank's piece of shape ``local`` is narrower than
+    the leaf's ``whole`` shape (None: it is the whole leaf)."""
+    return next((i for i, (a, b) in enumerate(zip(local, whole)) if a != b),
+                None)
+
+
+def state_at_use(a: torch.Tensor, cfg: ModelConfig, whole) -> torch.Tensor:
+    """A decode-state leaf ``a`` whole on every rank: all-gathered over
+    ``cfg.tp_axis`` along the dim where this rank holds a piece of a
+    leaf of shape ``whole`` (a state is never differentiated), ``a``
+    itself where it is whole."""
+    d = split_dim(a.shape, whole)
+    if d is None:
+        return a
+    return cfg.tp_axis.all_gather(a.contiguous(), d)
+
+
+def state_in(leaf: torch.Tensor, cfg: ModelConfig, whole,
+             want) -> torch.Tensor:
+    """The piece of a decode-state leaf that this rank computes on, of
+    shape ``want`` (``whole``: the leaf's whole shape): ``leaf`` itself
+    where it already is that piece (no collective), else the leaf
+    gathered at its use (:func:`state_at_use`) and cut to ``want`` (a
+    tensor of its own)."""
+    if tuple(leaf.shape) == tuple(want):
+        return leaf
+    return piece_of(state_at_use(leaf, cfg, whole), cfg, want).clone()
+
+
+def state_out(leaf: torch.Tensor, work: torch.Tensor, cfg: ModelConfig,
+              whole) -> None:
+    """Write ``work`` (a rank's piece from :func:`state_in`, the whole
+    value, or the leaf itself) back into the decode-state leaf ``leaf``
+    in its layout: a piece cut on another dim is first gathered over
+    the group."""
+    if work is leaf:
+        return
+    if tuple(work.shape) != tuple(leaf.shape):
+        work = piece_of(state_at_use(work, cfg, whole), cfg, leaf.shape)
+    leaf.copy_(work)
+
+
+def piece_of(x: torch.Tensor, cfg: ModelConfig, local) -> torch.Tensor:
+    """This rank's piece of the whole value ``x`` in a leaf whose rank
+    piece has shape ``local``: ``x`` narrowed at the rank along the dim
+    where they differ (``x`` itself where they do not)."""
+    d = split_dim(local, x.shape)
+    if d is None:
+        return x
+    n = local[d]
+    return x.narrow(d, cfg.tp_axis.rank * n, n)
 
 
 def card_device(device) -> bool:

@@ -26,6 +26,33 @@ and is what a sequence on the card runs (:func:`_ssd` picks by device, as
 ``rwkv6.time_mix_seq`` does). The shared block's head dim (80) has no
 attention kernel instance: ``models.attention`` routes it to its plain
 paths before any launch.
+
+**On a training mesh's model group** (the plan's ``mamba`` block,
+``training.trainer.sharding_mechanism``) every Mamba2 leaf
+``launch.shardings.param_spec`` splits stays split, and the SSD runs on
+the rank's heads. ``w_in``'s cut of ``[z | x | B | C | dt]`` and
+``conv_w`` / ``conv_b``'s cut of ``[x | B | C]`` fall on none of those
+edges, so the rank projects its columns and one all-gather joins them
+(as ``attention._project_qkv_whole`` joins q / k / v); it convolves the
+channels its ``conv_w`` columns hold (the conv is depthwise) and a
+second all-gather joins those. Its heads then take their ``z``, ``x``
+and ``dt`` columns and the whole ``B`` / ``C``; ``A_log``, ``dt_bias``
+and ``D_skip`` (replicated: ``MAMBA_SHARED``, whose rank gradient the
+trainer sums over the group) are sliced to them. The gated RMSNorm
+normalises over the whole ``d_inner``: each rank's per-token sum of
+squares is all-reduced in f32 before its ``ln_gate`` columns, and
+``w_out``'s rows give a partial product, all-reduced. Under autograd the
+block's input and each joined value enter through ``copy_to_tp``. The
+decode state keeps the reference's layout (``launch.shardings.
+cache_shardings``, through ``common.state_piece``): as a rule ``conv``
+on its channels (the same cut as ``conv_w``'s) and ``ssm`` on its
+heads, the shared block's KV as the decoders' (``attention.
+cache_dims``); where the rule lays a leaf out elsewhere (``conv`` on the
+window's K - 1 rows of a group of 3, both on the batch rows where the
+batch equals ``attn_every``) the blocks gather it at its use and write
+their result back in its layout (``common.state_in`` / ``state_out``).
+A block whose dims do not divide gathers its split leaves at their
+use, runs whole and keeps the rank's slice of the state.
 """
 from __future__ import annotations
 
@@ -36,10 +63,15 @@ import torch.nn.functional as F
 
 from repro_torch.models import attention as attn
 from repro_torch.models.attention import KVCache
-from repro_torch.models.common import (ModelConfig, card_device,
-                                       dense_init, embed_init, rms_norm)
+from repro_torch.models.common import (ModelConfig, all_gather, all_reduce,
+                                       card_device, copy_to_tp, dense_init,
+                                       embed_init, leaf_at_use, psum_if_tp,
+                                       rank_cols, rms_norm, split_block,
+                                       state_in, state_out, state_piece,
+                                       unsplit)
 from repro_torch.models.mlp import ffn, init_ffn
-from repro_torch.models.transformer import checkpointed
+from repro_torch.models.transformer import (checkpointed, embed_tokens,
+                                            unembed)
 
 CONV_K = 4
 EXPAND = 2
@@ -49,12 +81,80 @@ EXPAND = 2
 SSD_CHUNK = 128
 
 
+# the replicated leaves a split block uses on the rank's heads only: a
+# rank's gradient of each is its heads' share (``training.trainer`` sums
+# it over the model group)
+MAMBA_SHARED = ("A_log", "dt_bias", "D_skip")
+
+
 def dims(cfg: ModelConfig):
     d_inner = EXPAND * cfg.d_model
     P = cfg.ssm_head_dim
     H = d_inner // P
     N = cfg.ssm_state
     return d_inner, H, P, N
+
+
+def split_widths(cfg: ModelConfig):
+    """Each Mamba2 leaf ``param_spec`` splits: (the dim it cuts, the
+    leaf's width there)."""
+    d_inner, H, P, N = dims(cfg)
+    conv = d_inner + 2 * N
+    return {"w_in": (-1, 2 * d_inner + 2 * N + H), "conv_w": (-1, conv),
+            "conv_b": (-1, conv), "ln_gate": (-1, d_inner),
+            "w_out": (-2, d_inner)}
+
+
+def _at_use(pl, cfg: ModelConfig) -> dict:
+    """A gathered block's leaves whole: each split one all-gathered at
+    its use (``common.leaf_at_use``)."""
+    widths = split_widths(cfg)
+    return {k: leaf_at_use(v, cfg, *widths[k]) if k in widths else v
+            for k, v in pl.items()}
+
+
+def _split(cfg: ModelConfig) -> bool:
+    """Whether the Mamba2 blocks run split on this rank (a group whose
+    plan splits ``mamba``)."""
+    return cfg.tp_axis is not None and split_block(cfg, "mamba")
+
+
+def _in_proj(pl, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
+    """``h @ w_in``, every column on every rank: under the split block
+    the rank's columns, joined by one all-gather (``h`` enters through
+    ``copy_to_tp``, the joined columns leave through it)."""
+    if not _split(cfg):
+        return h @ pl["w_in"]
+    cols = copy_to_tp(h, cfg) @ pl["w_in"]
+    return copy_to_tp(all_gather(cols, cfg.tp_axis, -1), cfg)
+
+
+def _conv_channels(pl, cfg: ModelConfig) -> slice:
+    """The conv channels whose weights this rank holds (all without the
+    split block)."""
+    if not _split(cfg):
+        return slice(None)
+    return rank_cols(cfg, pl["conv_w"].shape[-1])
+
+
+def _join_channels(conv: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The conv output of the rank's channels -> every channel on every
+    rank (one all-gather, leaving through ``copy_to_tp``)."""
+    if not _split(cfg):
+        return conv
+    return copy_to_tp(all_gather(conv, cfg.tp_axis, -1), cfg)
+
+
+def _rank_heads(pl, cfg: ModelConfig, z, xs, dt):
+    """This rank's heads under the split block: its pieces of ``z`` /
+    ``xs`` (``P`` columns a head) and ``dt``, and of the replicated
+    ``A_log`` / ``dt_bias`` / ``D_skip``; all of them otherwise."""
+    if not _split(cfg):
+        return pl, z, xs, dt
+    n = pl["ln_gate"].shape[-1]
+    cols, heads = rank_cols(cfg, n), rank_cols(cfg, n // cfg.ssm_head_dim)
+    pl = dict(pl, **{k: pl[k][heads] for k in MAMBA_SHARED})
+    return pl, z[..., cols], xs[..., cols], dt[..., heads]
 
 
 # --------------------------------------------------------------------------
@@ -106,12 +206,13 @@ def _conv_seq(pl, xbc: torch.Tensor) -> torch.Tensor:
 # The SSD recurrence over a sequence
 # --------------------------------------------------------------------------
 def ssd_inputs(pl, cfg: ModelConfig, x: torch.Tensor, dt: torch.Tensor):
-    """x [B, T, d_inner] -> heads xh [B, T, H, P] in f32; dt [B, T, H] ->
+    """x [B, T, H·P] -> heads xh [B, T, H, P] in f32; dt [B, T, H] ->
     ``dtf = softplus(dt + dt_bias)`` and the log decay ``la = dtf * A``
-    (``A = -exp(A_log)``), f32."""
-    d_inner, H, P, N = dims(cfg)
-    Bb, T, _ = x.shape
-    xh = x.reshape(Bb, T, H, P).float()
+    (``A = -exp(A_log)``), f32. H is ``dt``'s: a rank's heads under the
+    split block."""
+    Bb, T, di = x.shape
+    H = dt.shape[-1]
+    xh = x.reshape(Bb, T, H, di // H).float()
     dtf = F.softplus(dt.float() + pl["dt_bias"])
     return xh, dtf, dtf * -torch.exp(pl["A_log"])
 
@@ -186,24 +287,26 @@ def default_chunk(cfg: ModelConfig, T: int, device) -> int:
 
 def _ssd(pl, cfg: ModelConfig, x, Bm, Cm, dt, S0=None,
          chunk: Optional[int] = None):
-    """The SSD of a block: x [B, T, d_inner], Bm / Cm [B, T, N], dt
-    [B, T, H] -> (y [B, T, d_inner] f32 with the D skip, final S).
+    """The SSD of a block: x [B, T, H·P], Bm / Cm [B, T, N], dt
+    [B, T, H] (every head, or a rank's) -> (y [B, T, H·P] f32 with the D
+    skip, final S).
     ``chunk``: None = on the card :func:`ssd_chunked` (``cfg.ssm_chunk``
     or ``SSD_CHUNK``), elsewhere the reference's choice (chunked only
     when ``cfg.ssm_chunk`` divides T, else token by token); 0 = token by
     token; n = chunks of n."""
-    d_inner, H, P, N = dims(cfg)
-    Bb, T, _ = x.shape
+    Bb, T, di = x.shape
+    H, N = dt.shape[-1], Bm.shape[-1]
     if chunk is None:
         chunk = default_chunk(cfg, T, x.device)
     xh, dtf, la = ssd_inputs(pl, cfg, x, dt)
     if S0 is None:
-        S0 = torch.zeros((Bb, H, P, N), dtype=torch.float32, device=x.device)
+        S0 = torch.zeros((Bb, H, di // H, N), dtype=torch.float32,
+                         device=x.device)
     fn = ssd_chunked if chunk else ssd_sequential
     args = (chunk,) if chunk else ()
     y, S = fn(xh, Bm.float(), Cm.float(), dtf, la, S0, *args)
     y = y + pl["D_skip"][None, None, :, None] * xh
-    return y.reshape(Bb, T, d_inner), S
+    return y.reshape(Bb, T, di), S
 
 
 def _ssd_scan(pl, cfg: ModelConfig, x, Bm, Cm, dt, S0=None):
@@ -224,39 +327,69 @@ def mamba_seq(pl, cfg: ModelConfig, x: torch.Tensor,
               return_state: bool = False, chunk: Optional[int] = None):
     """Full-sequence Mamba2 block: x [B, T, D] -> x + block(x); with
     ``return_state`` also the conv state [B, K-1, Cd] (the last K-1 raw
-    conv inputs, zero rows before the start) and the SSD state."""
+    conv inputs, zero rows before the start) and the SSD state. Under the
+    split block those two are the rank's channels and heads; under a
+    gathered one the leaves are gathered at their use and the states are
+    whole."""
+    if cfg.tp_axis is not None and not split_block(cfg, "mamba"):
+        return mamba_seq(_at_use(pl, cfg), unsplit(cfg), x, return_state,
+                         chunk)
     h = rms_norm(x, pl["ln"], cfg.norm_eps)
-    z, xs, Bm, Cm, dt = _split_proj(cfg, h @ pl["w_in"])
+    z, xs, Bm, Cm, dt = _split_proj(cfg, _in_proj(pl, cfg, h))
     xbc_raw = torch.cat([xs, Bm, Cm], dim=-1)
-    xbc = _conv_seq(pl, xbc_raw)
+    ch = _conv_channels(pl, cfg)
+    xbc = _join_channels(_conv_seq(pl, xbc_raw[..., ch]), cfg)
     d_inner, _, _, N = dims(cfg)
     xs, Bm, Cm = torch.split(xbc, [d_inner, N, N], dim=-1)
-    y, S = _ssd(pl, cfg, xs, Bm, Cm, dt, chunk=chunk)
+    ph, z, xs, dt = _rank_heads(pl, cfg, z, xs, dt)
+    y, S = _ssd(ph, cfg, xs, Bm, Cm, dt, chunk=chunk)
     y = _gated_out(pl, cfg, y, z)
     if return_state:
-        conv_state = F.pad(xbc_raw, (0, 0, CONV_K - 1, 0))[:, -(CONV_K - 1):]
+        conv_state = F.pad(xbc_raw[..., ch],
+                           (0, 0, CONV_K - 1, 0))[:, -(CONV_K - 1):]
         return x + y, conv_state, S
     return x + y
 
 
 def _gated_out(pl, cfg: ModelConfig, y: torch.Tensor, z: torch.Tensor):
-    y = rms_norm(y.to(cfg.dtype) * F.silu(z), pl["ln_gate"], cfg.norm_eps)
-    return y @ pl["w_out"]
+    """``rms_norm(y * silu(z), ln_gate) @ w_out``. Under the split block
+    ``y`` and ``z`` are the rank's heads: the per-token sum of squares
+    over its ``d_inner / n`` columns is all-reduced in f32 (and enters
+    the rank's columns through ``copy_to_tp``), its ``ln_gate`` columns
+    scale them and its ``w_out`` rows give a partial product,
+    all-reduced."""
+    if not _split(cfg):
+        y = rms_norm(y.to(cfg.dtype) * F.silu(z), pl["ln_gate"],
+                     cfg.norm_eps)
+        return y @ pl["w_out"]
+    v = (y.to(cfg.dtype) * F.silu(z)).float()
+    ss = all_reduce(torch.sum(v * v, dim=-1, keepdim=True), cfg.tp_axis)
+    ms = copy_to_tp(ss, cfg) / (EXPAND * cfg.d_model)
+    y = (v * torch.rsqrt(ms + cfg.norm_eps)
+         * pl["ln_gate"].float()).to(cfg.dtype)
+    return psum_if_tp(y @ pl["w_out"], cfg)
 
 
 def mamba_step(pl, cfg: ModelConfig, x: torch.Tensor,
                conv_state: torch.Tensor, S: torch.Tensor):
-    """One decode token: x [B, D]; conv_state [B, K-1, Cd]; S [B, H, P, N].
-    Returns (x + block(x), the new conv state, the new S)."""
+    """One decode token: x [B, D]; conv_state [B, K-1, Cd]; S [B, H, P, N]
+    (under the split block the rank's channels and heads; a gathered
+    block takes them whole and gathers its leaves at their use). Returns
+    (x + block(x), the new conv state, the new S)."""
+    if cfg.tp_axis is not None and not split_block(cfg, "mamba"):
+        return mamba_step(_at_use(pl, cfg), unsplit(cfg), x, conv_state, S)
     d_inner, H, P, N = dims(cfg)
     h = rms_norm(x, pl["ln"], cfg.norm_eps)
-    z, xs, Bm, Cm, dt = _split_proj(cfg, h @ pl["w_in"])
+    z, xs, Bm, Cm, dt = _split_proj(cfg, _in_proj(pl, cfg, h))
     xbc = torch.cat([xs, Bm, Cm], dim=-1)                      # [B, Cd]
-    window = torch.cat([conv_state, xbc[:, None]], dim=1)      # [B, K, Cd]
+    ch = _conv_channels(pl, cfg)
+    window = torch.cat([conv_state, xbc[:, None, ch]], dim=1)  # [B, K, Cd]
     conv = torch.einsum("bkc,kc->bc", window.float(), pl["conv_w"].float())
     conv = F.silu(conv + pl["conv_b"].float())
-    xs, Bm, Cm = torch.split(conv.to(x.dtype), [d_inner, N, N], dim=-1)
-    y, S = _ssd_scan(pl, cfg, xs[:, None], Bm[:, None], Cm[:, None],
+    conv = _join_channels(conv.to(x.dtype), cfg)
+    xs, Bm, Cm = torch.split(conv, [d_inner, N, N], dim=-1)
+    ph, z, xs, dt = _rank_heads(pl, cfg, z, xs, dt)
+    y, S = _ssd_scan(ph, cfg, xs[:, None], Bm[:, None], Cm[:, None],
                      dt[:, None], S0=S)
     y = _gated_out(pl, cfg, y[:, 0], z)
     return x + y, window[:, 1:], S
@@ -316,12 +449,14 @@ def _shared_decode(ps, cfg: ModelConfig, x, cache_site: KVCache, pos,
 
 
 def forward_full(p, cfg: ModelConfig, tokens: torch.Tensor,
-                 remat: bool = False, return_cache: bool = False):
+                 remat: bool = False, return_cache: bool = False,
+                 gather_logits: bool = True):
     """The train pass over tokens [B, T]. Returns (logits [B, T, V], the
     sites' prompt KV ``KVCache([G, B, T, Hkv, Dh])`` or None, aux 0).
     ``remat`` recomputes each group (its Mamba2 blocks and its shared
-    site) in backward."""
-    x = F.embedding(tokens.long(), p["embed"])
+    site) in backward; ``gather_logits=False`` leaves a vocab-split
+    unembedding's logits this rank's columns (``transformer.unembed``)."""
+    x = embed_tokens(p, cfg, tokens)
     B, T = tokens.shape
     positions = torch.arange(T, device=x.device)[None].expand(B, T)
 
@@ -338,7 +473,7 @@ def forward_full(p, cfg: ModelConfig, tokens: torch.Tensor,
     cache = (KVCache(torch.stack([kv.k for kv in kvs]),
                      torch.stack([kv.v for kv in kvs]))
              if return_cache else None)
-    return (x @ p["unembed"], cache,
+    return (unembed(p, cfg, x, gather_logits), cache,
             torch.zeros((), dtype=torch.float32, device=x.device))
 
 
@@ -350,20 +485,49 @@ def init_state(cfg: ModelConfig, batch: int, seq: int, device="cuda",
     """Zeroed decode state: the conv state ``[G, A, batch, K-1, Cd]`` and
     each site's KV ``[G, batch, S, Hkv, Dh]`` in ``dtype`` (default the
     model's; ``S = seq``, or ``min(seq, window)`` under a sliding
-    window), the SSD state ``[G, A, batch, H, P, N]`` in f32."""
-    d_inner, H, P, N = dims(cfg)
-    G, A = _groups(cfg), cfg.attn_every
+    window), the SSD state ``[G, A, batch, H, P, N]`` in f32; under a
+    group this rank's slice of each (:func:`state_shapes`)."""
     dt = dtype or cfg.dtype
-    S = min(seq, cfg.sliding_window) if cfg.sliding_window else seq
-    kv = (G, batch, S, cfg.num_kv_heads, cfg.head_dim)
+    conv, ssm, kv = state_shapes(cfg, batch, seq)
     return {
-        "conv": torch.zeros((G, A, batch, CONV_K - 1, d_inner + 2 * N),
-                            dtype=dt, device=device),
-        "ssm": torch.zeros((G, A, batch, H, P, N), dtype=torch.float32,
-                           device=device),
+        "conv": torch.zeros(conv, dtype=dt, device=device),
+        "ssm": torch.zeros(ssm, dtype=torch.float32, device=device),
         "kv": KVCache(torch.zeros(kv, dtype=dt, device=device),
                       torch.zeros(kv, dtype=dt, device=device)),
     }
+
+
+def state_shapes(cfg: ModelConfig, batch: int, seq: int,
+                 whole: bool = False):
+    """The shapes of the decode state's ``conv``, ``ssm`` and each KV
+    leaf: whole without a group (or with ``whole``), else this rank's
+    slice in the layout ``launch.shardings.cache_shardings`` gives a
+    decode state of ``seq`` rows (``common.state_piece``: ``conv`` on
+    the conv window's K - 1 rows or else its channels, ``ssm`` on its
+    heads, else P, else N, both on the batch rows where the batch equals
+    ``attn_every``; the KV as ``attention.cache_dims``)."""
+    d_inner, H, P, N = dims(cfg)
+    G, A = _groups(cfg), cfg.attn_every
+    S = min(seq, cfg.sliding_window) if cfg.sliding_window else seq
+    conv, ssm = (G, A, batch, CONV_K - 1, d_inner + 2 * N), \
+        (G, A, batch, H, P, N)
+    kv = (G, batch, S, cfg.num_kv_heads, cfg.head_dim)
+    if cfg.tp_axis is not None and not whole:
+        conv, ssm = (state_piece(cfg, conv, S, 2),
+                     state_piece(cfg, ssm, S, 2))
+        kv = kv[:3] + attn.cache_dims(cfg)
+    return conv, ssm, kv
+
+
+def _compute_shapes(cfg: ModelConfig, batch: int):
+    """The shapes of ``conv`` and ``ssm`` that a rank's Mamba2 blocks
+    compute on: under the split block its channels (``conv_w``'s cut) and
+    its heads, else whole."""
+    conv, ssm, _ = state_shapes(cfg, batch, 1, whole=True)
+    if not _split(cfg):
+        return conv, ssm
+    m = cfg.tp_axis.size
+    return conv[:4] + (conv[4] // m,), ssm[:3] + (ssm[3] // m,) + ssm[4:]
 
 
 def prefill(p, cfg: ModelConfig, tokens: torch.Tensor,
@@ -372,12 +536,14 @@ def prefill(p, cfg: ModelConfig, tokens: torch.Tensor,
     the decode state): each block's conv and SSD states, and each site's
     prompt KV relayed into its own buffer of ``cache_len`` rows (default
     T) in the ring layout decode uses (position p at row ``p % W``; the
-    last ``min(T, W)`` positions are kept)."""
+    last ``min(T, W)`` positions are kept). Under a group each leaf is
+    this rank's slice (:func:`state_shapes`)."""
     B, T = tokens.shape
     S = cache_len or T
-    x = F.embedding(tokens.long(), p["embed"])
+    x = embed_tokens(p, cfg, tokens)
     positions = torch.arange(T, device=x.device)[None].expand(B, T)
     state = init_state(cfg, B, S, device=x.device, dtype=x.dtype)
+    wholes = dict(zip(("conv", "ssm"), state_shapes(cfg, B, S, whole=True)))
     W = state["kv"].k.shape[2]
     take = min(T, W)
     rows = torch.arange(T - take, T, device=x.device) % W
@@ -385,13 +551,13 @@ def prefill(p, cfg: ModelConfig, tokens: torch.Tensor,
         for a in range(cfg.attn_every):
             x, conv, Ss = mamba_seq(block_params(p["mamba"], g, a), cfg, x,
                                     return_state=True)
-            state["conv"][g, a].copy_(conv)
-            state["ssm"][g, a].copy_(Ss)
+            for name, src in (("conv", conv), ("ssm", Ss)):
+                state_out(state[name][g, a], src, cfg, wholes[name][2:])
         x, kv = _shared_full(p["shared"], cfg, x, positions)
         state["kv"].k[g][:, rows] = kv.k[:, T - take:]
         state["kv"].v[g][:, rows] = kv.v[:, T - take:]
     x = rms_norm(x[:, -1], p["ln_f"], cfg.norm_eps)
-    return x @ p["unembed"], state
+    return unembed(p, cfg, x), state
 
 
 def forward_decode(p, cfg: ModelConfig, token: torch.Tensor, state,
@@ -399,17 +565,28 @@ def forward_decode(p, cfg: ModelConfig, token: torch.Tensor, state,
     """token [B] int; pos [B] int32 tokens already in the sites' KV (with
     ``seq_group``, this rank's rows of KV whose sequence is split over
     that group: context parallelism). Returns (logits [B, V], state), the
-    state updated IN PLACE."""
-    x = F.embedding(token.long(), p["embed"])
+    state updated IN PLACE. Under a group the state is this rank's slice
+    (:func:`state_shapes`); where its layout is not the one the blocks
+    compute on (:func:`_compute_shapes`), the conv and SSD states are
+    gathered at their use and written back in it (``common.state_in`` /
+    ``state_out``)."""
+    x = embed_tokens(p, cfg, token)
     kv = state["kv"]
+    B = token.shape[0]
+    wholes = dict(zip(("conv", "ssm"), state_shapes(cfg, B, 1, whole=True)))
+    work = {n: state_in(state[n], cfg, wholes[n], want) for n, want in
+            zip(("conv", "ssm"), _compute_shapes(cfg, B))}
     for g in range(_groups(cfg)):
         for a in range(cfg.attn_every):
+            conv_l, ssm_l = work["conv"][g, a], work["ssm"][g, a]
             x, conv, S = mamba_step(block_params(p["mamba"], g, a), cfg, x,
-                                    state["conv"][g, a], state["ssm"][g, a])
-            state["conv"][g, a].copy_(conv)
-            state["ssm"][g, a].copy_(S)
+                                    conv_l, ssm_l)
+            conv_l.copy_(conv)
+            ssm_l.copy_(S)
         x2, _ = _shared_decode(p["shared"], cfg, x[:, None],
                                KVCache(kv.k[g], kv.v[g]), pos, seq_group)
         x = x2[:, 0]
+    for n in ("conv", "ssm"):
+        state_out(state[n], work[n], cfg, wholes[n])
     x = rms_norm(x, p["ln_f"], cfg.norm_eps)
-    return x @ p["unembed"], state
+    return unembed(p, cfg, x), state

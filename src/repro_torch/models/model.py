@@ -39,19 +39,19 @@ slab and the fixed cross-KV). The paged entry points are ``None`` for
 them all.
 
 ``loss`` is the reference's: the next-token cross-entropy of
-``batch["tokens"]`` (masked by ``loss_mask``), plus an MoE's aux loss
-summed over layers; ``(loss, {"xent", "aux"})``. A decoder whose
-unembedding is split on the vocabulary over its group keeps the logits
-split into the loss (a vocab-parallel cross-entropy). ``remat`` recomputes
-each layer (a zamba2 group) in backward. With a ``data_group`` (data
-parallelism: ``training.trainer.make_sharded_train_step``) the batch is
-this rank's rows and ``xent`` this rank's share of the whole batch's,
-while ``aux`` is the whole batch's on every rank.
+``batch["tokens"]`` (masked by ``loss_mask``), plus an MoE's aux loss summed
+over layers; ``(loss, {"xent", "aux"})``. A model whose unembedding (whisper:
+its tied embedding) is split on the vocabulary over its group keeps the logits
+split into the loss (a vocab-parallel cross-entropy). ``remat`` recomputes each
+layer (a zamba2 group) in backward. With a ``data_group`` (data parallelism:
+``training.trainer.make_sharded_train_step``) the batch is this rank's rows and
+``xent`` this rank's share of the whole batch's, while ``aux`` is the whole
+batch's on every rank.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Optional, Union
+from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -150,6 +150,24 @@ def _xent(logits: torch.Tensor, batch, group=None,
                         group=group, vocab_group=vocab_group)
 
 
+def _vocab_group(cfg: ModelConfig, block: str):
+    """The group a vocab-split ``block`` keeps its logits split over into
+    the loss (None: the logits are whole)."""
+    return cfg.tp_axis if split_block(cfg, block) else None
+
+
+def shared_leaves(cfg: ModelConfig) -> Tuple[str, ...]:
+    """The names of the replicated leaves that a split block of ``cfg``
+    uses on this rank's heads only (rwkv6's split time mix, zamba2's
+    split Mamba2 blocks): a rank's gradient of each is its heads' share,
+    which ``training.trainer`` sums over the model group."""
+    if cfg.family == "ssm" and split_block(cfg, "tmix"):
+        return rwkv6.TMIX_SHARED
+    if cfg.family == "hybrid" and split_block(cfg, "mamba"):
+        return mamba2.MAMBA_SHARED
+    return ()
+
+
 def _decoder_model(cfg: ModelConfig) -> Model:
     def init(rng: Union[int, torch.Generator] = 0, device="cuda"):
         return transformer.init_decoder(_seeded(rng, device), cfg)
@@ -234,8 +252,11 @@ def _rwkv_model(cfg: ModelConfig) -> Model:
         return rwkv6.init_model(_seeded(rng, device), cfg)
 
     def loss(params, batch, remat: bool = False, data_group=None):
+        vocab = _vocab_group(cfg, "unembed")
         xe = _xent(rwkv6.forward_full(params, cfg, batch["tokens"],
-                                      remat=remat), batch, data_group)
+                                      remat=remat,
+                                      gather_logits=vocab is None),
+                   batch, data_group, vocab)
         return xe, {"xent": xe}
 
     def prefill(params, tokens, cache_len: Optional[int] = None):
@@ -256,9 +277,11 @@ def _zamba_model(cfg: ModelConfig) -> Model:
         return mamba2.init_zamba(_seeded(rng, device), cfg)
 
     def loss(params, batch, remat: bool = False, data_group=None):
+        vocab = _vocab_group(cfg, "unembed")
         logits, _, _ = mamba2.forward_full(params, cfg, batch["tokens"],
-                                           remat=remat)
-        xe = _xent(logits, batch, data_group)
+                                           remat=remat,
+                                           gather_logits=vocab is None)
+        xe = _xent(logits, batch, data_group, vocab)
         return xe, {"xent": xe}
 
     def prefill(params, tokens, cache_len: Optional[int] = None):
@@ -279,17 +302,19 @@ def _whisper_model(cfg: ModelConfig) -> Model:
         return whisper.init_model(_seeded(rng, device), cfg)
 
     def loss(params, batch, remat: bool = False, data_group=None):
+        vocab = _vocab_group(cfg, "embed")
         logits, _, _ = whisper.forward_full(params, cfg, batch["tokens"],
                                             batch["audio_embeds"],
-                                            remat=remat)
-        xe = _xent(logits, batch, data_group)
+                                            remat=remat,
+                                            gather_logits=vocab is None)
+        xe = _xent(logits, batch, data_group, vocab)
         return xe, {"xent": xe}
 
     def prefill(params, tokens, cache_len: Optional[int] = None, *,
                 audio_embeds):
         logits, cache, _ = whisper.forward_full(
             params, cfg, tokens, audio_embeds, return_cache=True,
-            last_only=True)
+            last_only=True, cache_len=cache_len or tokens.shape[1])
         self_kv = _relay_kv(cache.self_kv, cfg, cache_len or tokens.shape[1])
         return logits[:, -1], whisper.WhisperCache(self_kv, cache.cross_kv)
 

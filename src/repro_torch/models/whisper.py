@@ -17,6 +17,18 @@ encoder's K/V (every key valid). Decode keeps the self-attention KV in a
 slab that grows by a token a step and the cross-attention KV, computed
 once at prefill, fixed; :func:`forward_decode` writes the slab IN PLACE.
 
+On a training mesh's model group (the plan's ``embed``, ``attn``,
+``cross_attn`` and ``mlp`` blocks, ``training.trainer.
+sharding_mechanism``) every split leaf stays split: the encoder's and
+the decoder's attention and cross-attention take ``models.attention``'s
+tensor-parallel or per-leaf forms (:func:`~repro_torch.models.attention.
+encoder_attention`, ``cross_attention``), the FFNs ``mlp.ffn``'s, the
+tied embedding is split on the vocabulary where it divides (the lookup
+all-reduced, the logits gathered or kept split into a vocab-parallel
+loss) and gathered at its use where it does not. The decode cache is
+this rank's slice: the self-KV as the decoders' slab
+(``attention.cache_dims``), the cross-KV as ``attention.cross_layout``.
+
 Positions: the decoder's table has ``max_position`` rows (448). JAX clamps
 a gather past it; torch does not, so :func:`forward_full` refuses a
 longer prompt, and a caller must keep every decode position below it (a
@@ -27,13 +39,15 @@ from __future__ import annotations
 from typing import NamedTuple, Optional
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.models import attention as attn
 from repro_torch.models.attention import KVCache, layer_pool
-from repro_torch.models.common import ModelConfig, embed_init, layer_norm
+from repro_torch.models.common import (ModelConfig, all_gather, copy_to_tp,
+                                       embed_init, layer_norm, leaf_at_use,
+                                       split_block)
 from repro_torch.models.mlp import ffn, init_ffn
-from repro_torch.models.transformer import checkpointed, layer_params
+from repro_torch.models.transformer import (checkpointed, embed_tokens,
+                                            layer_params)
 
 
 def _ln(cfg: ModelConfig, device, lead=()):
@@ -90,14 +104,25 @@ def encode(p, cfg: ModelConfig, audio_embeds: torch.Tensor) -> torch.Tensor:
         + p["enc_pos"][None, :audio_embeds.shape[1]]
     for l in range(cfg.encoder_layers):
         pl = layer_params(p["enc_layers"], l)
-        h = _norm(x, pl["ln1"], cfg)
-        B, T, _ = h.shape
         # bidirectional: no mask, learned positions (no rope)
-        q, k, v = attn._project_qkv(pl["attn"], cfg, h)
-        a = attn._gqa_sdpa(q, k, v, None).reshape(B, T, -1) @ pl["attn"]["wo"]
-        x = x + a
+        x = x + attn.encoder_attention(pl["attn"], cfg,
+                                       _norm(x, pl["ln1"], cfg))
         x = x + ffn(pl["ffn"], cfg, _norm(x, pl["ln2"], cfg))
     return _norm(x, p["enc_ln"], cfg)
+
+
+def logits_of(p, cfg: ModelConfig, x: torch.Tensor,
+              gather: bool = True) -> torch.Tensor:
+    """The tied logits ``x @ embed.T`` [..., V]: under a group whose plan
+    splits ``embed`` each rank's V / n columns (its rows of the table),
+    all-gathered, or with ``gather=False`` left split (a vocab-parallel
+    loss); with ``embed`` gathered, the table gathered at its use."""
+    if cfg.tp_axis is None:
+        return x @ p["embed"].T
+    if not split_block(cfg, "embed"):
+        return x @ leaf_at_use(p["embed"], cfg, 0, cfg.vocab_size).T
+    logits = copy_to_tp(x, cfg) @ p["embed"].T
+    return all_gather(logits, cfg.tp_axis) if gather else logits
 
 
 class WhisperCache(NamedTuple):
@@ -116,19 +141,24 @@ def _dec_block_full(pl, cfg: ModelConfig, x, positions, cross_kv: KVCache):
 
 def forward_full(p, cfg: ModelConfig, tokens: torch.Tensor,
                  audio_embeds: torch.Tensor, return_cache: bool = False,
-                 remat: bool = False, last_only: bool = False):
+                 remat: bool = False, last_only: bool = False,
+                 gather_logits: bool = True, cache_len: Optional[int] = None):
     """The teacher-forced decoder pass over tokens [B, T] (T <=
     ``max_position``) after encoding ``audio_embeds``. Returns (logits
     [B, T, V] or [B, 1, V] with ``last_only``, ``WhisperCache`` of the
     prompt's self-attention KV [L, B, T, ...] and the cross-attention KV
-    [L, B, S_enc, ...] or None, aux 0). ``remat`` recomputes each decoder
-    layer in backward."""
+    [L, B, S_enc, ...] or None, aux 0; under a group this rank's slices).
+    ``remat`` recomputes each decoder layer in backward;
+    ``gather_logits=False`` leaves vocab-split logits this rank's
+    columns (:func:`logits_of`); ``cache_len`` (default T) is the decode
+    cache's length the cross K/V slice is laid out for
+    (``attention.cross_layout``)."""
     B, T = tokens.shape
     if T > p["dec_pos"].shape[0]:
         raise ValueError(f"{T} decoder tokens exceed the "
                          f"{p['dec_pos'].shape[0]}-row position table")
     enc = encode(p, cfg, audio_embeds)
-    x = F.embedding(tokens.long(), p["embed"]) + p["dec_pos"][None, :T]
+    x = embed_tokens(p, cfg, tokens) + p["dec_pos"][None, :T]
     positions = torch.arange(T, device=x.device)[None].expand(B, T)
 
     def layer(x, l):
@@ -141,11 +171,12 @@ def forward_full(p, cfg: ModelConfig, tokens: torch.Tensor,
         x, kv, cross_kv = checkpointed(layer, remat, x, l)
         if return_cache:
             selfs.append(kv)
-            crosses.append(cross_kv)
+            crosses.append(attn.cross_cache_slice(cfg, cross_kv,
+                                                  cache_len or T))
     x = _norm(x, p["dec_ln"], cfg)
     if last_only:         # serving prefill needs next-token logits only
         x = x[:, -1:]
-    logits = x @ p["embed"].T            # whisper ties the embedding
+    logits = logits_of(p, cfg, x, gather_logits)    # tied to the embedding
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if not return_cache:
         return logits, None, aux
@@ -176,8 +207,9 @@ def forward_decode(p, cfg: ModelConfig, token: torch.Tensor,
                    cache: WhisperCache, pos: torch.Tensor):
     """token [B] int; pos [B] int32 decoder tokens already generated
     (each below ``max_position``). Returns (logits [B, V], cache) with
-    the self-attention slab written in place."""
-    x = (F.embedding(token.long(), p["embed"])
+    the self-attention slab written in place (under a group this rank's
+    slices, :func:`forward_full`'s layout)."""
+    x = (embed_tokens(p, cfg, token)
          + p["dec_pos"][pos.long()])[:, None]
     for l in range(cfg.num_layers):
         pl = layer_params(p["dec_layers"], l)
@@ -185,9 +217,9 @@ def forward_decode(p, cfg: ModelConfig, token: torch.Tensor,
         a, _ = attn.attention_decode(pl["self_attn"], cfg, h,
                                      layer_pool(cache.self_kv, l), pos)
         x = x + a
-        x = x + attn.cross_attention(pl["cross_attn"], cfg,
-                                     _norm(x, pl["ln2"], cfg),
-                                     layer_pool(cache.cross_kv, l))
+        x = x + attn.cross_attention_decode(pl["cross_attn"], cfg,
+                                            _norm(x, pl["ln2"], cfg),
+                                            layer_pool(cache.cross_kv, l))
         x = x + ffn(pl["ffn"], cfg, _norm(x, pl["ln3"], cfg))
     x = _norm(x, p["dec_ln"], cfg)
-    return (x @ p["embed"].T)[:, 0], cache
+    return logits_of(p, cfg, x)[:, 0], cache

@@ -26,23 +26,30 @@ planned by config (:func:`sharding_mechanism`, a :class:`Plan`):
   ``moe_gshard`` on the rank's kept pairs, dispatched by index) and
   all-reduces the combined output once;
 * **the per-leaf partition** (those decoders where some dim does not
-  divide, which at a model axis of 16 is every one: their heads): each
-  block whose split dims divide runs split (the experts too, under
-  either MoE), the rest gather their split leaves at their use, in
-  their layer; attention projects its columns and gathers q / k / v on
-  whole heads, then splits its core over (row, head) pairs
-  (``cfg.tp_plan``, ``models.attention``);
-* **gather-on-use of the whole model** (rwkv6, zamba2, whisper: no
-  tensor-parallel forward): each step all-gathers every split leaf
-  (forward) and keeps the rank's slice of its gradient (backward), then
-  runs the unsharded ``Model.loss``.
+  divide, which at a model axis of 16 is every one: their heads; and
+  the other families' blocks): each block whose split dims divide runs
+  split (the experts too, under either MoE), the rest gather their
+  split leaves at their use, in their layer; attention projects its
+  columns and gathers q / k / v on whole heads, then splits its core
+  over (row, head) pairs (``cfg.tp_plan``, ``models.attention``).
+  rwkv6 runs its time mix on the rank's whole heads (the WKV recurrence
+  head-split, ``models.rwkv6``) and its channel mix on the rank's share
+  of F; zamba2 its Mamba2 blocks on the rank's SSD heads
+  (``models.mamba2``: the projection's and the conv's cuts miss the
+  heads' edges, so each is joined by an all-gather of activations) and
+  its shared block as a decoder's; whisper its encoder, decoder and
+  cross-attention on the decoders' forms (``models.whisper``).
 
 Under each, the loss takes the data group (``Model.loss(...,
 data_group=)``), which makes it each rank's share of the whole batch's;
-gradients are summed over the data group, the clip's global norm sums
-the split leaves' squares over the model group and counts replicated
-leaves once, and AdamW updates the shard in place, its moments shaped
-like the shard.
+gradients are summed over the data group, the replicated leaves that a
+split block uses on the rank's heads only (``models.model.
+shared_leaves``) have their gradients summed over the model group, the
+clip's global norm sums the split leaves' squares over the model group
+and counts replicated leaves once, and AdamW updates the shard in
+place, its moments shaped like the shard. No plan gathers the whole
+model: every leaf ``launch.shardings.param_spec`` splits stays split
+but where its block's dims do not divide.
 """
 from __future__ import annotations
 
@@ -59,8 +66,10 @@ from repro_torch.core.migration import tree_leaves
 from repro_torch.kernels.api import launch_counts, zero_launch_counts
 from repro_torch.launch.shardings import (batch_shardings, local_shard,
                                           param_shardings)
-from repro_torch.models.common import ModelConfig, all_gather, all_reduce
-from repro_torch.models.model import Model, build_model
+from repro_torch.models import mamba2, rwkv6
+from repro_torch.models.attention import cross_layout
+from repro_torch.models.common import ModelConfig, all_reduce, state_axis
+from repro_torch.models.model import Model, build_model, shared_leaves
 from repro_torch.training.checkpoint import save_checkpoint
 from repro_torch.training.data import DataConfig, TokenStream
 from repro_torch.training.optimizer import (AdamWConfig, AdamWState,
@@ -150,66 +159,112 @@ def train(model: Model, params, data: TokenStream,
 # --------------------------------------------------------------------------
 # Sharded training on a data x model TrainMesh
 # --------------------------------------------------------------------------
-TP_FAMILIES = ("dense", "moe", "vlm")
-
-
 class Plan(NamedTuple):
     """How a config runs on a model axis (:func:`sharding_mechanism`).
     ``blocks``: each block's mode on the axis, ``"split"`` (it runs on
     the rank's shard: ``experts`` on the rank's E / model experts) or
     ``"gather"`` (its split leaves are all-gathered at their use, in
-    their layer, and it runs whole); ``{"model":
-    "gather"}`` for a family gathered whole up front, empty at model 1.
-    ``axes`` says where the split core and decode cache lie: ``core`` on
-    ``"heads"`` (whole heads a rank) or ``"pairs"`` ((row, head) pairs
-    that cut across heads), ``cache`` on ``"kv heads"``, ``"head_dim"``
-    or ``"none"`` (whole on every rank)."""
+    their layer, and it runs whole); empty at model 1. ``axes`` says
+    where the split core and decode cache lie: ``core`` on ``"heads"``
+    (whole heads a rank) or ``"pairs"`` ((row, head) pairs that cut
+    across heads; rwkv6's recurrence: ``"none"``, every head on every
+    rank), ``cache`` on ``"kv heads"``, ``"head_dim"`` or ``"none"``
+    (whole on every rank; rwkv6's state ``S``: ``"heads"``, ``"K"``);
+    zamba2's ``ssd`` on ``"heads"`` or ``"none"``, whisper's ``cross``
+    cache on ``"seq"`` (the encoder's frames), ``"kv heads"``,
+    ``"head_dim"`` or ``"none"``."""
     mechanism: str
     why: str
     blocks: Dict[str, str]
     axes: Dict[str, str]
 
 
-def sharding_mechanism(cfg: ModelConfig, model: int) -> Plan:
-    """The :class:`Plan` of ``cfg`` on a model axis of ``model`` ranks,
-    from the config only: each block split where the dims
-    ``launch.shardings.param_spec`` splits for its leaves divide
-    ``model`` (``embed`` / ``unembed`` V; ``attn``, the projections,
-    H·Dh and Hkv·Dh; ``mlp`` d_ff; ``experts`` E, under either MoE,
-    each of which has its expert-split form);
-    the attention ``core`` always split, over (row, head) pairs; the
-    decode ``cache`` split on kv heads where they divide, else on the
-    head dim. The mechanism: ``"tensor"`` where every block splits on
-    whole heads (heads and kv heads divide; the serving engine's
-    tensor parallelism), ``"per-leaf"`` where the blocks differ or the
-    heads do not divide, ``"gather"`` where no weight block splits, and
-    for the families with no tensor-parallel forward (gathered whole up
-    front), ``"replicated"`` at model 1."""
-    if model == 1:
-        return Plan("replicated", "model 1: every rank holds the whole "
-                    "model", {}, {})
-    if cfg.family not in TP_FAMILIES:
-        return Plan("gather", f"gather-on-use of the whole model: family "
-                    f"{cfg.family} has no tensor-parallel forward",
-                    {"model": "gather"}, {})
+def _weight_dims(cfg: ModelConfig) -> Dict[str, Dict[str, int]]:
+    """Each weight block of ``cfg`` and the dims ``launch.shardings.
+    param_spec`` splits for its leaves (and, where a block computes on
+    whole heads, its head count), in the forward's order."""
     H, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    dims = {"embed": {"vocab": cfg.vocab_size},
-            "attn": {"H·Dh": H * Dh, "Hkv·Dh": Hkv * Dh}}
+    vocab = {"vocab": cfg.vocab_size}
+    attn = {"H·Dh": H * Dh, "Hkv·Dh": Hkv * Dh}
+    if cfg.family == "ssm":
+        heads, _ = rwkv6._heads(cfg)
+        return {"embed": vocab,
+                "tmix": {"D": cfg.d_model, "heads": heads},
+                "cmix": {"d_ff": cfg.d_ff, "D": cfg.d_model},
+                "unembed": vocab}
+    if cfg.family == "hybrid":
+        d_inner, Hs, _, _ = mamba2.dims(cfg)
+        w = mamba2.split_widths(cfg)
+        return {"embed": vocab,
+                "mamba": {"w_in": w["w_in"][1], "conv": w["conv_w"][1],
+                          "d_inner": d_inner, "heads": Hs},
+                "attn": attn, "mlp": {"d_ff": cfg.d_ff}, "unembed": vocab}
+    if cfg.family == "encdec":
+        return {"embed": vocab, "attn": attn, "cross_attn": attn,
+                "mlp": {"d_ff": cfg.d_ff}}
+    dims = {"embed": vocab, "attn": attn}
     if not cfg.num_experts or cfg.dense_residual:
         dims["mlp"] = {"d_ff": cfg.d_ff}
     if cfg.num_experts:
         dims["experts"] = {"experts": cfg.num_experts}
-    dims["unembed"] = {"vocab": cfg.vocab_size}
+    dims["unembed"] = vocab
+    return dims
+
+
+def sharding_mechanism(cfg: ModelConfig, model: int) -> Plan:
+    """The :class:`Plan` of ``cfg`` on a model axis of ``model`` ranks,
+    from the config only: each weight block split where the dims
+    ``launch.shardings.param_spec`` splits for its leaves divide
+    ``model`` (:func:`_weight_dims`: ``embed`` / ``unembed`` V; ``attn``
+    and whisper's ``cross_attn``, the projections, H·Dh and Hkv·Dh;
+    ``mlp`` d_ff; ``experts`` E, under either MoE, each of which has its
+    expert-split form; rwkv6's ``tmix`` D and its heads, ``cmix`` F and
+    D; zamba2's ``mamba`` its leaves' widths and SSD heads); the
+    attention ``core`` always split, over (row, head) pairs; the decode
+    ``cache`` split on kv heads where they divide, else on the head dim. rwkv6's recurrence (``core``) and its
+    state ``S`` (``cache``) follow ``tmix``. The mechanism:
+    ``"tensor"`` where every block splits on whole heads (heads and kv
+    heads divide; the serving engine's tensor parallelism; zamba2's
+    Mamba2 cuts never do), ``"per-leaf"`` where the blocks differ or the
+    heads do not divide, ``"gather"`` where no weight block splits, and
+    ``"replicated"`` at model 1."""
+    if model == 1:
+        return Plan("replicated", "model 1: every rank holds the whole "
+                    "model", {}, {})
+    H, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    dims = _weight_dims(cfg)
     blocks = {b: "split" if all(n % model == 0 for n in d.values())
               else "gather" for b, d in dims.items()}
     weights = list(blocks)
-    heads = H % model == 0 and Hkv % model == 0
-    blocks["core"] = "split"
-    blocks["cache"] = ("split" if Hkv % model == 0 or Dh % model == 0
-                       else "gather")
-    axes = {"core": "heads" if H % model == 0 else "pairs",
-            "cache": ("kv heads" if Hkv % model == 0 else "head_dim"
-                      if Dh % model == 0 else "none")}
+    if cfg.family == "ssm":
+        _, K = rwkv6._heads(cfg)
+        i = state_axis((dims["tmix"]["heads"], K, K), model)
+        blocks["core"] = blocks["tmix"]
+        blocks["cache"] = "split" if i == 0 else "gather"
+        axes = {"core": "heads" if blocks["tmix"] == "split" else "none",
+                "cache": ("heads", "K", "K", "none")[3 if i is None else i]}
+        heads = blocks["tmix"] == "split"
+        tail = (f"recurrence on {axes['core']} (H {dims['tmix']['heads']}, "
+                f"K {K}), state S on {axes['cache']}")
+    else:
+        heads = H % model == 0 and Hkv % model == 0
+        blocks["core"] = "split"
+        blocks["cache"] = ("split" if Hkv % model == 0 or Dh % model == 0
+                           else "gather")
+        axes = {"core": "heads" if H % model == 0 else "pairs",
+                "cache": ("kv heads" if Hkv % model == 0 else "head_dim"
+                          if Dh % model == 0 else "none")}
+        tail = (f"core over {axes['core']} (H {H}), decode cache on "
+                f"{axes['cache']} (Hkv {Hkv}, Dh {Dh})")
+        if cfg.family == "hybrid":
+            heads = False           # the Mamba2 cuts miss the heads' edges
+            axes["ssd"] = ("heads" if blocks["mamba"] == "split"
+                           else "none")
+            tail += f"; SSD on {axes['ssd']}"
+        if cfg.family == "encdec":
+            axes["cross"] = cross_layout(cfg, model)
+            tail += (f"; cross cache on {axes['cross']} (S_enc "
+                     f"{cfg.encoder_seq})")
     split = [b for b in weights if blocks[b] == "split"]
     if len(split) == len(weights) and heads:
         mech = "tensor"
@@ -222,10 +277,8 @@ def sharding_mechanism(cfg: ModelConfig, model: int) -> Plan:
                        for b, d in dims.items())
     name = {"tensor": "tensor parallelism", "per-leaf": "per-leaf "
             "partition", "gather": "gather-on-use"}[mech]
-    why = (f"{name} at model {model}: {listed}; core over "
-           f"{axes['core']} (H {H}), decode cache on {axes['cache']} "
-           f"(Hkv {Hkv}, Dh {Dh})")
-    return Plan(mech, why, blocks, axes)
+    return Plan(mech, f"{name} at model {model}: {listed}; {tail}", blocks,
+                axes)
 
 
 def _sorted_paths(tree, prefix: str = ""):
@@ -273,16 +326,18 @@ class ShardedTrainStep:
         self.remat = remat
         self.plan = sharding_mechanism(model.cfg, mesh.model)
         self.mechanism, self.why = self.plan.mechanism, self.plan.why
-        # a family gathered whole up front; every other runs its blocks
-        # on the model group (no plan: tensor parallelism on whole heads)
-        self.whole_model = "model" in self.plan.blocks
-        on_group = self.plan.blocks and not self.whole_model
+        # every block runs on the model group (no plan: tensor
+        # parallelism on whole heads)
+        on_group = bool(self.plan.blocks)
         plan = (self.plan.blocks if on_group and self.mechanism != "tensor"
                 else None)
         self.model = build_model(dataclasses.replace(
             model.cfg, tp_axis=mesh.model_group if on_group else None,
-            tp_plan=plan))
+            tp_plan=plan, tp_rows=mesh.data))
         self.split: Dict[str, int] = {}     # path -> dim split on model
+        # replicated leaves whose rank gradient is its heads' share
+        self.shared = (set(shared_leaves(self.model.cfg)) if on_group
+                       else set())
 
     def shard(self, params) -> Any:
         """This rank's shard of the whole tree ``params`` (any device) on
@@ -312,14 +367,6 @@ class ShardedTrainStep:
         return {k: local_shard(v, specs[k], self.mesh).to(self.mesh.device)
                 for k, v in batch.items()}
 
-    def whole(self, params):
-        """The whole tree gathered under autograd (gather-on-use): every
-        split leaf all-gathered over the model group, the rest as they
-        are."""
-        group = self.mesh.model_group
-        return _rebuild(params, lambda path, leaf: all_gather(
-            leaf, group, self.split[path]) if path in self.split else leaf)
-
     def global_norm(self, paths: List[str],
                     grads: List[torch.Tensor]) -> torch.Tensor:
         """The whole model's gradient norm: the split leaves' squares
@@ -346,14 +393,18 @@ class ShardedTrainStep:
         for p in leaves:
             p.requires_grad_()
         with torch.enable_grad():
-            tree = self.whole(params) if self.whole_model else params
-            loss, aux = self.model.loss(tree, local, remat=self.remat,
+            loss, aux = self.model.loss(params, local, remat=self.remat,
                                         data_group=self.mesh.data_group)
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for g, p in zip(grads, leaves)]
         if self.mesh.data_group is not None:
             _sum_over(self.mesh.data_group, grads)
+        shared = [g for path, g in zip(paths, grads)
+                  if path.rsplit("/", 1)[-1] in self.shared
+                  and path not in self.split]
+        if shared:
+            _sum_over(self.mesh.model_group, shared)
         gnorm = self.global_norm(list(paths), grads)
         params, opt_state, info = adamw_update(
             self.opt_cfg, _like(params, iter(grads)), opt_state, params,

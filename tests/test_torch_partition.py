@@ -3,7 +3,8 @@ sharding_mechanism``'s :class:`Plan`), f32 on the CPU.
 
 * **The plan** of every config at model 2 and 16: each block's mode
   (split, or gathered at its use), where the core and the decode cache
-  split, and the mechanism.
+  split, and the mechanism; rwkv6's, zamba2's and whisper's blocks too
+  (``tests/test_torch_partition_families.py`` runs them).
 * **Sharded == unsharded** on a (data 2, model 2) gloo group of four
   ranks (threads of this process): the reduced smollm with 3 heads and
   1 kv head (H·Dh 192, Hkv·Dh 64 and d_ff 512 divide 2, the heads do
@@ -55,15 +56,15 @@ from repro.training.data import DataConfig as JaxDataConfig  # noqa: E402
 from repro.training.data import TokenStream as JaxStream  # noqa: E402
 from repro_torch import bridge  # noqa: E402
 from repro_torch.configs import ARCHS, get_config  # noqa: E402
-from repro_torch.core.migration import tree_leaves  # noqa: E402
+from repro_torch.core.migration import tree_leaves, tree_map  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch import mesh as mesh_mod  # noqa: E402
-from repro_torch.launch.cases import adjusted_config  # noqa: E402
+from repro_torch.launch.cases import _zip_map, adjusted_config  # noqa: E402
 from repro_torch.launch.mesh import Layout  # noqa: E402
 from repro_torch.launch.shardings import (cache_shardings,  # noqa: E402
                                           local_shard, param_leaves,
                                           param_spec)
-from repro_torch.models import build_model  # noqa: E402
+from repro_torch.models import build_model, mamba2  # noqa: E402
 from repro_torch.models.attention import KVCache  # noqa: E402
 from repro_torch.training.data import DataConfig, TokenStream  # noqa: E402
 from repro_torch.training.optimizer import (AdamWConfig,  # noqa: E402
@@ -110,9 +111,11 @@ def one_thread():
 S, G = "split", "gather"
 DECODER = dict(embed=S, attn=S, mlp=S, unembed=S, core=S, cache=S)
 GSHARD = dict(embed=S, attn=S, experts=S, unembed=S, core=S, cache=S)
-WHOLE = ("gather", {"model": G}, {})
+RWKV = dict(embed=S, tmix=S, cmix=S, unembed=S, core=S, cache=S)
+ZAMBA = dict(embed=S, mamba=S, attn=S, mlp=S, unembed=S, core=S, cache=S)
+WHISPER = dict(embed=S, attn=S, cross_attn=S, mlp=S, core=S, cache=S)
 # arch -> {model: (mechanism, blocks, axes)}; MoE archs under gshard (the
-# dry run's impl)
+# dry run's impl); rwkv6's axes are its recurrence's and its state S's
 PLANS = {
     "llama3.2-3b": {2: ("tensor", DECODER, ("heads", "kv heads")),
                     16: ("per-leaf", DECODER, ("pairs", "head_dim"))},
@@ -132,10 +135,31 @@ PLANS = {
                         ("heads", "kv heads")),
                     16: ("per-leaf", dict(GSHARD, mlp=S),
                          ("pairs", "head_dim"))},
-    "rwkv6-7b": {2: WHOLE, 16: WHOLE},
-    "zamba2-2.7b": {2: WHOLE, 16: WHOLE},
-    "whisper-large-v3": {2: WHOLE, 16: WHOLE},
+    "rwkv6-7b": {2: ("tensor", RWKV, ("heads", "heads")),
+                 16: ("tensor", RWKV, ("heads", "heads"))},
+    "zamba2-2.7b": {2: ("per-leaf", ZAMBA, ("heads", "kv heads")),
+                    16: ("per-leaf", ZAMBA, ("heads", "kv heads"))},
+    "whisper-large-v3": {2: ("tensor", WHISPER, ("heads", "kv heads")),
+                         16: ("per-leaf", dict(WHISPER, embed=G),
+                              ("pairs", "head_dim"))},
 }
+# the families' other axes: zamba2's SSD, whisper's cross K/V cache (on
+# the encoder's 1500 frames where they divide, as cache_shardings lays it)
+MORE_AXES = {("zamba2-2.7b", 2): {"ssd": "heads"},
+             ("zamba2-2.7b", 16): {"ssd": "heads"},
+             ("whisper-large-v3", 2): {"cross": "seq"},
+             ("whisper-large-v3", 16): {"cross": "head_dim"}}
+# block -> the paths of its leaves, by family
+BLOCK_LEAVES = {
+    "ssm": {"embed": r"^embed$", "unembed": r"^unembed$",
+            "tmix": r"^layers/w_[rkvgo]$", "cmix": r"^layers/cw_"},
+    "hybrid": {"embed": r"^embed$", "unembed": r"^unembed$",
+               "mamba": r"^mamba/", "attn": r"^shared/attn/",
+               "mlp": r"^shared/ffn/"},
+    "encdec": {"embed": r"^embed$",
+               "attn": r"^(enc_layers/attn|dec_layers/self_attn)/",
+               "cross_attn": r"^dec_layers/cross_attn/",
+               "mlp": r"^(enc|dec)_layers/ffn/"}}
 
 
 @pytest.mark.parametrize("model", [2, 16])
@@ -148,17 +172,11 @@ def test_plan_of_every_config(arch, model):
     plan = sharding_mechanism(cfg, model)
     assert plan.mechanism == want[0]
     assert plan.blocks == want[1]
-    if want[0] == "gather":
-        assert plan.axes == {}
-        assert "no tensor-parallel forward" in plan.why
-    else:
-        assert (plan.axes["core"], plan.axes["cache"]) == want[2]
-        assert plan.why.startswith({"tensor": "tensor parallelism",
-                                    "per-leaf": "per-leaf partition"}[
-            want[0]])
+    assert (plan.axes["core"], plan.axes["cache"]) == want[2]
+    assert MORE_AXES.get((arch, model), {}).items() <= plan.axes.items()
+    assert plan.why.startswith({"tensor": "tensor parallelism",
+                                "per-leaf": "per-leaf partition"}[want[0]])
     assert sharding_mechanism(cfg, 1).mechanism == "replicated"
-    if want[0] == "gather":
-        return
     # a weight block splits where param_spec splits every leaf of it that
     # a rule cuts (those it cuts at model 1; a GELU FFN's b_down is
     # whole), on the full-width tree's shapes (fake tensors); gshard's
@@ -167,9 +185,10 @@ def test_plan_of_every_config(arch, model):
     with FakeTensorMode():
         shapes = build_model(cfg).init(
             torch.Generator(device="cpu").manual_seed(0), device="meta")
-    blocks = {"embed": r"^embed$", "unembed": r"^unembed$",
-              "attn": r"^layers/attn/", "mlp": r"^layers/ffn/",
-              "experts": r"^layers/moe/w_"}
+    blocks = BLOCK_LEAVES.get(cfg.family, {
+        "embed": r"^embed$", "unembed": r"^unembed$",
+        "attn": r"^layers/attn/", "mlp": r"^layers/ffn/",
+        "experts": r"^layers/moe/w_"})
     for block, pat in blocks.items():
         specs = [param_spec(path, tuple(a.shape), model)
                  for path, a in param_leaves(shapes)
@@ -304,6 +323,8 @@ def _close(got, want, tol=TOL):
 # layer's forward again up to the last tensor its backward needs)
 # --------------------------------------------------------------------------
 def _hand_count(cfg, plan, kind, model=2):
+    if cfg.family in FAMILY_COUNTS:
+        return FAMILY_COUNTS[cfg.family](cfg, plan, kind, model)
     L, dh = cfg.num_layers, cfg.head_dim
     H, Hkv = cfg.num_heads * dh, cfg.num_kv_heads * dh
     blocks = plan.blocks
@@ -345,9 +366,129 @@ def _hand_count(cfg, plan, kind, model=2):
     return L * (fwd + again + bwd) + vocab_loss + 1
 
 
+def _rwkv_count(cfg, plan, kind, model):
+    """rwkv6 with every block split: a layer's forward makes ``w_o``'s
+    all-reduce, the channel mix's gate all-gather and ``k @ cw_v``'s
+    all-reduce; a decode step first gathers the state's two token-shift leaves
+    (one all-gather each); the vocab-split embedding's all-reduce and the
+    logits' gather close a serving pass. A train step: remat reruns each layer
+    whole (the channel mix's product saves its all-reduced operand); backward
+    adds a ``copy_to_tp`` all-reduce a block (the time mix's input, the channel
+    mix's two lerps stacked) and the logits'; the vocab-parallel loss's three;
+    the global norm's; the sum
+    of ``TMIX_SHARED``'s gradients."""
+    assert set(plan.blocks.values()) == {S}, plan.blocks
+    L = cfg.num_layers
+    if kind == "prefill":
+        return 3 * L + 2
+    if kind == "decode":
+        return 3 * L + 2 + 2
+    return L * (3 + 3 + 2) + 1 + 1 + 3 + 1 + 1
+
+
+def _zamba_count(cfg, plan, kind, model):
+    """zamba2: a split Mamba2 block makes four collectives forward (the
+    projection's columns joined, the conv's channels joined, the gated
+    norm's sum of squares, ``w_out``'s all-reduce) and four ``copy_to_tp``
+    all-reduces backward; a gathered one gathers each of its split leaves at
+    its use, and a decode step gathers its conv and SSD state leaves once where
+    they are split. The shared block runs the decoders' per-leaf attention (3
+    forward, a decode's on kv heads 3, backward 3) and FFN (1, backward 1). A
+    train step's remat reruns a group up to the last tensor its backward needs:
+    the shared FFN's all-reduce is not rerun (its output only feeds the
+    residual); without a split FFN the attention's is. Then the vocab-parallel
+    loss, the global norm and
+    the sum of ``MAMBA_SHARED``'s gradients."""
+    A, L = cfg.attn_every, cfg.num_layers
+    groups = L // A
+    b = plan.blocks
+    assert b["attn"] == S and plan.axes["cache"] == "kv heads", plan
+    leaves = [n for n, (d, w) in mamba2.split_widths(cfg).items()
+              if w % model == 0]
+    if b["mamba"] == S:
+        m_fwd, m_bwd, states = 4, 4, 0
+    else:
+        d_inner, H, P, N = mamba2.dims(cfg)
+        states = sum(any(n % model == 0 for n in dims) for dims in (
+            (mamba2.CONV_K - 1, d_inner + 2 * N), (H, P, N)))
+        m_fwd, m_bwd = len(leaves), 0
+    mlp = 1 if b["mlp"] == S else 0
+    vocab = b["embed"] == S
+    assert (b["unembed"] == S) == vocab
+    shared_fwd = 3 + mlp
+    if kind != "train":
+        return (groups * (A * m_fwd + shared_fwd) + (2 if vocab else 0)
+                + (states if kind == "decode" else 0))
+    fwd = groups * (A * m_fwd + shared_fwd)
+    again = groups * (A * m_fwd + shared_fwd - mlp)
+    bwd = groups * (A * m_bwd + 3 + mlp)
+    loss = (1 + 1 + 3) if vocab else 0     # embed, logits' copy, loss
+    return fwd + again + bwd + loss + 1 + (1 if b["mamba"] == S else 0)
+
+
+def _whisper_count(cfg, plan, kind, model):
+    """whisper: under tensor parallelism an encoder layer makes ``wo``'s
+    and the FFN's all-reduce (backward: x into q / k / v, x into the
+    FFN), a decoder layer the self-attention's, the cross-attention's
+    and the FFN's (backward: x into the self q / k / v, into the cross
+    q and the encoder output into its k / v, into the FFN); a prefill
+    adds a gather of the cross K/V heads where the cache splits on the
+    encoder's frames. Under the per-leaf plan each attention gathers q /
+    k / v (the cross one its q and its k / v apart), gathers its pairs
+    and all-reduces ``wo``'s product (backward: x into the columns, q /
+    k / v into the core, o into ``wo``'s rows). A decode step: the self
+    core on kv heads gathers its heads (on the head dim: the scores'
+    all-reduce, the columns' gather), the cross core on the frames
+    gathers every head's q (tensor) and merges the shares by one
+    all-gather. The tied embedding: the lookup's all-reduce and the
+    logits' gather where V splits (a train step: the vocab-parallel
+    loss's three and the logits' copy). Remat reruns a decoder layer
+    but its FFN's all-reduce; the global norm closes a step."""
+    Le, L = cfg.encoder_layers, cfg.num_layers
+    b, axes = plan.blocks, plan.axes
+    assert all(b[k] == S for k in ("attn", "cross_attn", "mlp")), b
+    vocab = b["embed"] == S
+    tensor = plan.mechanism == "tensor"
+    seq = axes["cross"] == "seq"
+    if tensor:
+        enc_f, enc_b = 2, 2
+        dec_f, dec_b = 3, 4
+        pre = 1 if seq else 0
+        dec_self = 1 if axes["cache"] == "kv heads" else None
+        cross_dec = 3 if seq else 1
+    else:
+        enc_f, enc_b = 4, 4
+        dec_f, dec_b = 8, 9
+        pre = 0
+        dec_self = {"kv heads": 3, "head_dim": 4}[axes["cache"]]
+        cross_dec = {"seq": 3, "kv heads": 3, "head_dim": 4}[axes["cross"]]
+    if kind == "prefill":
+        return Le * enc_f + L * (dec_f + pre) + (2 if vocab else 0)
+    if kind == "decode":
+        return L * (dec_self + cross_dec + 1) + (2 if vocab else 0)
+    fwd = Le * enc_f + L * dec_f
+    again = L * (dec_f - 1)
+    bwd = Le * enc_b + L * dec_b
+    loss = (1 + 1 + 3) if vocab else 0
+    return fwd + again + bwd + loss + 1
+
+
+FAMILY_COUNTS = {"ssm": _rwkv_count, "hybrid": _zamba_count,
+                 "encdec": _whisper_count}
+
+
 # --------------------------------------------------------------------------
 # Sharded == unsharded at (data 2, model 2)
 # --------------------------------------------------------------------------
+def _extras(cfg):
+    """A family's prefill inputs beside the tokens: whisper's encoder
+    frames [B, S_enc, D], drawn from a seed."""
+    if cfg.family != "encdec":
+        return {}
+    return {"audio_embeds": torch.from_numpy(np.random.default_rng(6).normal(
+        0, 1, (B, cfg.encoder_seq, cfg.d_model)).astype(np.float32))}
+
+
 def _unsharded(cfg):
     model = build_model(cfg)
     params = model.init(0, device="cpu")
@@ -361,22 +502,25 @@ def _unsharded(cfg):
         hist.append({k: float(v) for k, v in m.items()})
     tokens = torch.from_numpy(np.random.default_rng(7).integers(
         0, cfg.vocab_size, (B, T), dtype=np.int32))
+    extras = _extras(cfg)
     with torch.no_grad():
-        logits, cache = model.prefill(whole, tokens, cache_len=CACHE)
+        logits, cache = model.prefill(whole, tokens, cache_len=CACHE,
+                                      **extras)
         token = torch.from_numpy(np.random.default_rng(8).integers(
             0, cfg.vocab_size, (B,), dtype=np.int32))
         pos = torch.full((B,), T, dtype=torch.int32)
-        dec_cache = KVCache(cache.k.clone(), cache.v.clone())
+        dec_cache = tree_map(torch.clone, cache)
         dec_logits, dec_cache = model.decode_step(whole, dec_cache, token,
                                                   pos)
     return dict(whole=whole, hist=hist, params=params, tokens=tokens,
-                logits=logits, cache=cache, token=token, pos=pos,
-                dec_logits=dec_logits, dec_cache=dec_cache)
+                extras=extras, logits=logits, cache=cache, token=token,
+                pos=pos, dec_logits=dec_logits, dec_cache=dec_cache)
 
 
 def _rank_run(mesh, cfg, ref, kinds):
     """One rank's programs: the train step (STEPS steps), the prefill
-    and one decode step; their results and collective counts."""
+    and one decode step; their results, collective counts and the
+    all-gathers of a weight leaf (``gathered_leaves``: the shapes)."""
     out = {}
     model = build_model(cfg)
     step = make_sharded_train_step(model, OPT, mesh, remat=True)
@@ -387,25 +531,36 @@ def _rank_run(mesh, cfg, ref, kinds):
         opt = init_adamw(p)
         it = iter(TokenStream(cfg, DATA))
         hist, counts = [], []
-        for _ in range(STEPS):
-            mesh.zero()
-            p, opt, m = step(p, opt, next(it))
-            counts.append((mesh.calls("model"), mesh.calls("data")))
-            hist.append({k: float(v) for k, v in m.items()})
-        out.update(hist=hist, train_counts=counts, gathered=step.gather(p))
+        with dryrun.weight_gathers(mesh.model_group, p) as found:
+            for _ in range(STEPS):
+                mesh.zero()
+                p, opt, m = step(p, opt, next(it))
+                counts.append((mesh.calls("model"), mesh.calls("data")))
+                hist.append({k: float(v) for k, v in m.items()})
+        out.update(hist=hist, train_counts=counts, gathered=step.gather(p),
+                   gathered_leaves=found)
+    with dryrun.weight_gathers(mesh.model_group, params) as found:
+        _serve_run(mesh, cfg, ref, kinds, step, params, out)
+    out["gathered_leaves"] = out.get("gathered_leaves", []) + found
+    return out
+
+
+def _serve_run(mesh, cfg, ref, kinds, step, params, out):
+    """:func:`_rank_run`'s prefill and decode step, into ``out``."""
     if "prefill" in kinds:
-        tokens = step.rows({"tokens": ref["tokens"]})["tokens"]
+        rows = step.rows({"tokens": ref["tokens"], **ref.get("extras", {})})
+        tokens = rows.pop("tokens")
         mesh.zero()
         with torch.no_grad():
             logits, cache = step.model.prefill(params, tokens,
-                                               cache_len=CACHE)
+                                               cache_len=CACHE, **rows)
         out.update(logits=logits, cache=cache,
                    prefill_counts=(mesh.calls("model"), mesh.calls("data")))
     if "decode" in kinds:
         whole = ref["cache"]
         specs = cache_shardings(whole, mesh, batch_size=B, cache_seq=CACHE)
-        cache = KVCache(*(local_shard(a, s, mesh).clone()
-                          for a, s in zip(whole, specs)))
+        cache = _zip_map(lambda a, s: local_shard(a, s, mesh).clone(),
+                         whole, specs)
         rows = step.rows({"token": ref["token"], "pos": ref["pos"]})
         mesh.zero()
         with torch.no_grad():
@@ -413,7 +568,6 @@ def _rank_run(mesh, cfg, ref, kinds):
                                                rows["pos"])
         out.update(dec_logits=dl, dec_cache=cache, specs=specs,
                    decode_counts=(mesh.calls("model"), mesh.calls("data")))
-    return out
 
 
 @pytest.fixture(scope="module")

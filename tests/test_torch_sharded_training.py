@@ -260,11 +260,13 @@ def test_layouts_and_mechanisms():
         "llama3.2-3b", "smollm-360m", "qwen3-moe-30b-a3b", "qwen2-vl-7b",
         "rwkv6-7b", "zamba2-2.7b", "whisper-large-v3")}
     # smollm at full width: H 15, Hkv 5 do not divide 2, every split dim
-    # does (the per-leaf partition); qwen3-moe's dense experts divide
+    # does (the per-leaf partition); qwen3-moe's dense experts divide;
+    # rwkv6 and whisper split every block on whole heads, zamba2's Mamba2
+    # cuts miss its heads' edges (the per-leaf partition)
     assert got == {"llama3.2-3b": "tensor", "smollm-360m": "per-leaf",
                    "qwen3-moe-30b-a3b": "tensor", "qwen2-vl-7b": "tensor",
-                   "rwkv6-7b": "gather", "zamba2-2.7b": "gather",
-                   "whisper-large-v3": "gather"}
+                   "rwkv6-7b": "tensor", "zamba2-2.7b": "per-leaf",
+                   "whisper-large-v3": "tensor"}
     gshard = dataclasses.replace(get_config("qwen3-moe-30b-a3b"),
                                  moe_impl="gshard")
     # gshard's experts split as the dense MoE's do (its expert-split

@@ -7,7 +7,8 @@
 
 For each case (``arch:shape``, ``:multi`` for 2x16x16; the default is
 the cases ROADMAP Queue 3 records — qwen3-moe at decode, train and
-prefill — and llama3.2-3b train_4k, all at 16x16) it runs the
+prefill — llama3.2-3b train_4k, and rwkv6-7b, zamba2-2.7b and
+whisper-large-v3 at decode_32k and train_4k, all at 16x16) it runs the
 reference's ``repro.launch.dryrun.run_case(arch, shape, multi_pod)`` in
 a subprocess of its own — that module forces 512
 host devices at import, so it cannot share a process with anything else
@@ -37,7 +38,10 @@ ROOT = Path(__file__).resolve().parents[1]
 DEFAULT = ("smollm-360m:decode_32k", "qwen2.5-14b:decode_32k",
            "qwen3-moe-30b-a3b:decode_32k", "qwen3-moe-30b-a3b:train_4k",
            "qwen3-moe-30b-a3b:prefill_32k", "qwen2.5-14b:prefill_32k",
-           "llama3.2-3b:train_4k")
+           "llama3.2-3b:train_4k", "rwkv6-7b:decode_32k",
+           "rwkv6-7b:train_4k", "zamba2-2.7b:decode_32k",
+           "zamba2-2.7b:train_4k", "whisper-large-v3:decode_32k",
+           "whisper-large-v3:train_4k")
 
 # run in the reference's own process: its row, and its collectives by op
 # (the list its run_case parses out of the compiled HLO, kept as it passes)
