@@ -305,9 +305,28 @@ the last line:
     (b) 2 layers f32, B 4: each rank's prefill logits and state slices, and a
     decode step's, == the unsharded port on the CPU within 1e-5 (the
     train step at those cuts is phase 24 (b)'s);
-29. one JSON line of every kernel (the rows of phases 16-18's, 21's,
-    23's, 24's, 25's, 26's, 27's and 28's shapes added), then, last,
-    ``{"ok": true, ...}``.
+29. the optimized program's levers (``launch.cases.build_case(
+    optimized=True)``) on phase 26's two ranks: (a) smollm-360m (phase
+    26's config) at (data 1, model 2): a train step of B 2 x 1024 under
+    sequence parallelism (levers seq_parallel, zero1) and a decode of B 8
+    against 4096 rows on the sequence-split KV cache (seq_cache: Hkv 5
+    does not divide 2; the merge is plain, no #5); (b) qwen3-moe-30b-a3b
+    at (data 2, model 1): a decode with 2-D experts (F on the data axis)
+    at phase 27's 4 layers, beside the baseline at that layout, and a
+    ZeRO-1 train step at 1 layer (at 4 two ranks' state passed the
+    card; at 2 the phase passed its 45 s budget); each
+    ``launch.dryrun.run_rank(optimized=)``:
+    ms, collectives (count, host s), peak memory and #5 / #6 launches a
+    rank, the collectives of a run == ``opt_collectives`` == the trace's
+    (rel 0), the levers those of the reference's rule, rank 0's FLOPs and
+    bytes == its trace's; #6 and #5 at (b)'s rank heads are measured
+    early, in phase 3's ``family_kernels``; (c) each lever at 2 layers
+    f32 (smollm at (1, 2) and (2, 1), qwen3-moe's decode at (2, 1)):
+    optimized == baseline on the same inputs (``launch.dryrun.run_pair``)
+    within 1e-5;
+30. one JSON line of every kernel (the rows of phases 16-18's, 21's,
+    23's, 24's, 25's, 26's, 27's, 28's and 29's shapes added), then,
+    last, ``{"ok": true, ...}``.
 
 It needs one CUDA card and fails without one; it imports nothing of JAX.
 """
@@ -2794,7 +2813,8 @@ def family_kernels(np, torch, F, cfg_mod, tk, dk, pk, flush):
     (:func:`dryrun_kernels`); #6 on phase 26's (row, head) pairs; #6 and
     #5 at a model-parallel rank's qwen3-moe heads (16 / 2 / 64) on phase
     27 (a)'s prefill and decode, and at its whisper heads (10 / 10 / 64)
-    on phase 28 (a)'s."""
+    on phase 28 (a)'s; #6 and #5 at a data rank's qwen3-moe heads (32 /
+    4 / 64) on phase 29 (b)'s train step and decode."""
     moe = cfg_mod.get_config(MOE_ARCH)
     vlm = cfg_mod.get_config(VLM_ARCH)
     out = {"moe": phase_kernels(np, torch, F, tk, flush, H=moe.num_heads,
@@ -2881,6 +2901,17 @@ def family_kernels(np, torch, F, cfg_mod, tk, dk, pk, flush):
         dk, pk, flush, pb, FAM_WHISPER_PROMPT, [dt] * db, list(range(db)),
         dt, f"phase 3 ({WHISPER_ARCH}, a model-parallel rank, 10 / 10 "
         f"heads)", device=True)
+    # phase 29 (b): #6 and #5 at a data rank's heads of qwen3-moe at
+    # (data 2, model 1) (32 / 4 / 64, G 8): the train step's one row of
+    # 1024 tokens, the decode's 4 rows of 4096 keys
+    (_, tb, tt), = OPT_CASES[1][3]
+    (_, db, dt), = OPT_CASES[2][3]
+    n = OPT_CASES[1][2][0]
+    out["moe_data_rank"] = contiguous_kernels_at(
+        torch, moe, dk, pk, flush, tb // n, tt, [dt] * (db // n),
+        list(range(db // n)), dt,
+        f"phase 3 ({MOE_ARCH}, a data rank of (2, 1), 32 / 4 heads)",
+        device=True)
     return out
 
 
@@ -4667,12 +4698,14 @@ def part_collectives(L, kind):
     return (4 + 3 + 4) * L + 1 + 3 + 1 + 1
 
 
-def _part_trace(arch, shape, B, T, layers=None):
+def _part_trace(arch, shape, B, T, layers=None, dm=(1, 2),
+                optimized=False):
     """Rank 0's program of one ``PART_CASES`` case (``arch`` smollm),
     ``EP_CASES`` case (qwen3-moe cut to ``layers``, :func:`ep_config`) or
     ``FAM_CASES`` case (a family cut by ``FAM_CUTS``, :func:`fam_config`)
-    at (data 1, model 2) traced on the CPU under fake meta tensors
-    (``launch.dryrun``), in a process of its own
+    at (data, model) ``dm`` (default (1, 2); ``optimized``: with the
+    levers, phase 29's ``OPT_CASES``) traced on the CPU under fake meta
+    tensors (``launch.dryrun``), in a process of its own
     (:func:`start_part_traces`): its plan, counted FLOPs, bytes, peak,
     collectives (the bytes each all-gather returns, and the shape of any
     whose operand is a weight leaf) and roofline terms, and the trace's
@@ -4681,13 +4714,13 @@ def _part_trace(arch, shape, B, T, layers=None):
     from repro_torch.launch import dryrun as dryrun_mod
     from repro_torch.launch.mesh import Layout
     t0 = time.perf_counter()
-    layout = Layout({"data": 1, "model": 2})
+    layout = Layout({"data": dm[0], "model": dm[1]})
     cfg = (fam_config(cases_mod, arch, shape) if arch in FAM_CUTS
            else None if layers is None else ep_config(cases_mod, layers))
-    fake = cases_mod.build_case(arch, shape, layout, batch=B, seq=T,
-                                cfg=cfg)
+    fake = cases_mod.build_case(arch, shape, layout, optimized, batch=B,
+                                seq=T, cfg=cfg)
     traced = dryrun_mod.trace_case(fake)
-    rl = dryrun_mod.roofline_of(fake, traced, "1x2", layout)
+    rl = dryrun_mod.roofline_of(fake, traced, f"{dm[0]}x{dm[1]}", layout)
     return {"mechanism": fake.plan.mechanism,
             "blocks": dict(fake.plan.blocks), "axes": dict(fake.plan.axes),
             "layers": fake.cfg.num_layers, "flops": traced["flops"],
@@ -4700,6 +4733,7 @@ def _part_trace(arch, shape, B, T, layers=None):
             "t_memory": rl.t_memory, "t_collective": rl.t_collective,
             "dominant": rl.dominant,
             "collective_bytes": rl.collective_bytes_per_chip,
+            "levers": list(fake.levers.taken()) if fake.levers else [],
             "trace_s": time.perf_counter() - t0}
 
 
@@ -4710,17 +4744,31 @@ def _cpu_only():
 def start_part_traces():
     """Phases 26's, 27's and 28's (1, 2) traces (:func:`_part_trace`; CPU
     only, smollm's train step ~40 s) in two spawned processes that see no
-    card, started before the build so that they run beside it: (the
-    pool, {(arch, shape): its pending result}), the train steps first."""
+    card, and phase 29's in a third, all started before the build so that
+    they run beside it (in one queue phase 29's held phases 26-28 up, or
+    were not ready by phase 29): (the pools, {key: its pending result},
+    the key ``(arch, shape)`` for phases 26-28, ``(arch, shape, (data,
+    model), optimized)`` for phase 29), the train steps first."""
     import multiprocessing
-    pool = multiprocessing.get_context("spawn").Pool(2, _cpu_only)
+    ctx = multiprocessing.get_context("spawn")
+    pool, levers = ctx.Pool(2, _cpu_only), ctx.Pool(1, _cpu_only)
     jobs = ([(PART_ARCH, shape, B, T, None) for shape, B, T in PART_CASES]
             + [(MOE_ARCH, shape, B, T, EP_LAYERS)
                for shape, B, T in EP_CASES]
             + [(arch, shape, B, T, None) for arch in FAM_CUTS
                for shape, B, T in fam_cases(arch)])
-    return pool, {job[:2]: pool.apply_async(_part_trace, job)
-                  for job in sorted(jobs, key=lambda j: j[1] != "train_4k")}
+    opt_jobs = [((arch, shape, dm, opt), (arch, shape, B, T, layers, dm,
+                                          opt))
+                for arch, layers, dm, cases in OPT_CASES
+                for shape, B, T in cases for opt in (False, True)
+                if opt or (arch, shape) in OPT_BASELINE]
+    traces = {job[:2]: pool.apply_async(_part_trace, job)
+              for job in sorted(jobs, key=lambda j: j[1] != "train_4k")}
+    traces.update({key: levers.apply_async(_part_trace, job)
+                   for key, job in sorted(opt_jobs,
+                                          key=lambda kj: kj[1][1]
+                                          != "train_4k")})
+    return (pool, levers), traces
 
 
 def _part_small(np, torch, cfg_mod, model_mod, mesh):
@@ -5509,6 +5557,250 @@ def phase_families(np, torch, cfg_mod, model_mod, mesh, traces):
     return out
 
 
+# --------------------------------------------------------------------------
+# Phase 29: the optimized program's levers (build_case(optimized=True)) on
+# the card
+# --------------------------------------------------------------------------
+# (a): smollm-360m at phase 26's config (full width, 32 layers) at (data 1,
+# model 2): a train step under sequence parallelism (ZeRO-1 is inert at
+# data 1) and a decode whose KV cache lies on the sequence (Hkv 5 does not
+# divide 2); (b): qwen3-moe-30b-a3b at (data 2, model 1): a decode with
+# 2-D experts (F on the data axis) at phase 27's 4 layers and a ZeRO-1
+# train step at 1 (at 4, each rank's 3.1 B parameters, their gradients,
+# their ZeRO-1 moments and the reduce-scatter's buffers passed the card's
+# 80 GB for two ranks; at 2 its gloo sums of 3.7 GB a run took the phase
+# to 48.6 s on the H100, for a budget of 45 s); bf16. (arch, layers cut,
+# (data, model), (shape, global batch, sequence)):
+OPT_MOE_TRAIN_LAYERS = 1
+OPT_CASES = ((PART_ARCH, None, (1, 2), (("train_4k", 2, 1024),
+                                        ("decode_32k", 8, 4096))),
+             (MOE_ARCH, OPT_MOE_TRAIN_LAYERS, (2, 1),
+              (("train_4k", 2, 1024),)),
+             (MOE_ARCH, EP_LAYERS, (2, 1), (("decode_32k", 8, 4096),)))
+OPT_RUNS = 1               # timed by CUDA events after one warm run
+# the cases whose baseline runs beside them at their layout: (a)'s is
+# phase 26's; (b)'s train step without ZeRO-1 holds twice its moments
+# (f32, a rank's whole tree), which two ranks on one card cannot
+OPT_BASELINE = ((MOE_ARCH, "decode_32k"),)
+# (c): each lever at 2 layers f32 (published widths): (arch, (data,
+# model), shape, global batch, sequence); a decode's cache holds 80 rows
+OPT_SMALL = ((PART_ARCH, (1, 2), "train_4k", 2, 64),
+             (PART_ARCH, (1, 2), "decode_32k", 2, 80),
+             (PART_ARCH, (2, 1), "train_4k", 2, 64),
+             (MOE_ARCH, (2, 1), "decode_32k", 4, 80))
+OPT_TOL = 1e-5
+
+
+def opt_collectives(arch, L, kind, optimized):
+    """A rank's collectives in one run of phase 29's programs, counted
+    from the code of ``models/`` and ``training/``. smollm at (1, 2) (the
+    model group): the baseline's (:func:`part_collectives`); sequence
+    parallelism adds 6 a layer to a train step (each block's gather and
+    reduce-scatter for one all-reduce, forward, backward and in remat's
+    second forward, which now gathers the FFN's input too) and 3 (the
+    embedding's slice gathers back, the last layer's rows are gathered,
+    the norms' gradients all-reduced); a decode on the sequence-split
+    cache makes one fewer a layer (the log-sum-exp merge's all-gather for
+    the scores' all-reduce and the head dim's all-gather). qwen3-moe at
+    (2, 1) (the data group; bf16 weights and the f32 router, one sum a
+    dtype): a train step's xent count and metric, the MoE aux statistics
+    (2 a layer, twice under remat) and the gradients' all-reduce a dtype,
+    which ZeRO-1 makes a reduce-scatter and an all-gather a dtype and the
+    norm's all-reduce; a decode makes none, with 2-D experts a gather and
+    a reduce-scatter of the dispatched rows a layer."""
+    if arch == PART_ARCH:
+        base = part_collectives(L, kind)
+        if not optimized:
+            return base
+        return base + {"train": 6 * L + 3, "decode": -L}[kind]
+    if kind == "decode":
+        return 2 * L if optimized else 0
+    return 2 + 4 * L + (2 * 2 + 1 if optimized else 2)
+
+
+def _opt_config(cases_mod, arch, layers, shape, dtype=None):
+    if layers is None:
+        cfg = cases_mod.adjusted_config(arch, shape)
+        return cfg if dtype is None else dataclasses.replace(cfg,
+                                                             dtype=dtype)
+    return ep_config(cases_mod, layers, dtype)
+
+
+def _opt_small(torch, mesh):
+    """Phase 29 (c): each lever at 2 layers f32 (published widths) on the
+    same ranks (``OPT_SMALL``: sequence parallelism and the
+    sequence-split cache at (1, 2), ZeRO-1 and 2-D experts at (2, 1)),
+    the baseline and the optimized program on the same inputs
+    (``launch.dryrun.run_pair``): a train step's metrics, params and
+    moments, a decode's logits and cache slice (the baseline's updated
+    cache gathered and cut by the optimized layout) within
+    ``OPT_TOL``."""
+    from repro_torch.launch import cases as cases_mod
+    from repro_torch.launch import dryrun as dryrun_mod
+    out = {}
+    for arch, dm, shape, B, T in OPT_SMALL:
+        cfg = dataclasses.replace(cases_mod.adjusted_config(arch, shape),
+                                  num_layers=2, dtype=torch.float32)
+        res = mesh.run(dryrun_mod.run_pair, arch, shape, batch=B, seq=T,
+                       seed=SEED, cfg=cfg, layout=dm)
+        gaps = {}
+        for r in res:
+            for k, v in r["gaps"].items():
+                gaps[k] = max(gaps.get(k, 0.0), v)
+        check(res[0]["levers"] and max(gaps.values()) <= OPT_TOL,
+              f"phase 29 (c) {arch} {shape} at {dm}: optimized "
+              f"({res[0]['levers']}) vs baseline {gaps} (tolerance "
+              f"{OPT_TOL})")
+        out[f"{arch} {shape} {dm}"] = {"levers": res[0]["levers"],
+                                       "gaps": gaps}
+        log(f"phase 29 (c) ({arch}, 2 layers f32, {shape} B {B} x T {T}, "
+            f"(data, model) {dm}, levers {res[0]['levers']}): optimized "
+            f"== baseline within "
+            + ", ".join(f"{k} {v:.2e}" for k, v in gaps.items())
+            + f" (tolerance {OPT_TOL})")
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_levers(np, torch, mesh, traces, part):
+    """Phase 29: the reference's beyond-paper levers in a rank's program
+    (``launch.cases.build_case(optimized=True)``) on phase 26's two ranks
+    sharing the card over gloo, reshaped per case (``OPT_CASES``). (a) and
+    (b) bf16, seeded weights: each program on each rank
+    (``launch.dryrun.run_rank(optimized=True)``; (b)'s baseline beside it
+    at the same layout where it fits, ``OPT_BASELINE``; (a)'s is phase
+    26's), its ms, collectives (count,
+    host s), peak memory and #5 / #6 launches a rank (two ranks on one
+    card; not a speedup); the levers the rule picks; the collectives equal
+    to its trace's (:func:`start_part_traces`) and to
+    :func:`opt_collectives`; rank 0's counted FLOPs and bytes equal its
+    trace's within ``DRYRUN_REL``. (c) 2 layers f32 (:func:`_opt_small`).
+    ``part``: phase 26's results (None: phase 29 alone)."""
+    from repro_torch.launch import cases as cases_mod
+    from repro_torch.launch import dryrun as dryrun_mod
+    _fresh_card(torch, "phase 29")
+    # the traces first (a process of their own since the build), so
+    # that none shares the host's cores with the ranks' gloo staging
+    t0 = time.perf_counter()
+    traced_all = {key: traces[key].get(600) for key in traces
+                  if len(key) == 4}
+    log(f"phase 29: its traces ready after {time.perf_counter() - t0:.1f} "
+        f"s more")
+    want_levers = {(PART_ARCH, "train_4k"): ["seq_parallel", "zero1"],
+                   (PART_ARCH, "decode_32k"): ["seq_cache"],
+                   (MOE_ARCH, "train_4k"): ["seq_parallel", "zero1"],
+                   (MOE_ARCH, "decode_32k"): ["expert_2d"]}
+    ran = {}
+    for arch, layers, dm, cases in OPT_CASES:
+        for shape, B, T in cases:
+            cfg = _opt_config(cases_mod, arch, layers, shape)
+            for opt in (False, True) if (arch, shape) in OPT_BASELINE \
+                    else (True,):
+                ran[arch, shape, opt] = mesh.run(
+                    dryrun_mod.run_rank, arch, shape, batch=B, seq=T,
+                    seed=SEED, runs=OPT_RUNS, cfg=cfg, optimized=opt,
+                    layout=dm)
+                gc.collect()
+                torch.cuda.empty_cache()
+    out = {"small": _opt_small(torch, mesh)}
+    for arch, layers, dm, cases in OPT_CASES:
+        for shape, B, T in cases:
+            kind = cases_mod.shape_kind(shape)
+            L = _opt_config(cases_mod, arch, layers, shape).num_layers
+            group = "model" if dm[1] > 1 else "data"
+            per = {"train": {"contiguous_prefill": 2 * L},
+                   "decode": ({} if arch == PART_ARCH
+                              else {"contiguous_decode_padded": L})}[kind]
+            for opt in (False, True):
+                label = (f"phase 29 {arch} {shape} at {dm}"
+                         f"{' optimized' if opt else ''}")
+                if not opt and (arch, shape) not in OPT_BASELINE:
+                    continue
+                res = ran.pop((arch, shape, opt))
+                traced = traced_all[arch, shape, dm, opt]
+                want = opt_collectives(arch, L, kind, opt)
+                check(traced["collectives"] == want,
+                      f"{label}: the trace records {traced['collectives']} "
+                      f"collectives, the code {want}")
+                if opt:
+                    check(traced["levers"] == want_levers[arch, shape]
+                          and all(r["levers"] == traced["levers"]
+                                  for r in res),
+                          f"{label}: levers {traced['levers']} traced, "
+                          f"{[r['levers'] for r in res]} run, want "
+                          f"{want_levers[arch, shape]}")
+                card = res[0]["warm"]
+                rel = {k: abs(card[k] - traced[k]) / traced[k]
+                       for k in ("flops", "bytes")}
+                check(max(rel.values()) <= DRYRUN_REL,
+                      f"{label}: rank 0 counted {card['flops']:.6e} FLOPs, "
+                      f"{card['bytes']:.6e} bytes; its trace "
+                      f"{traced['flops']:.6e}, {traced['bytes']:.6e} (rel "
+                      f"{rel})")
+                ranks = []
+                for r in res:
+                    warm = {k: n for k, n in r["warm"]["launches"].items()
+                            if n}
+                    timed = {k: n for k, n in r["launches"].items() if n}
+                    check(r["warm"]["finite"], f"{label}: rank "
+                          f"{r['rank']}: non-finite outputs")
+                    check(warm == per and timed == {
+                        k: n * OPT_RUNS for k, n in per.items()},
+                          f"{label}: rank {r['rank']} launched {warm} "
+                          f"warm, {timed} in {OPT_RUNS} runs; want {per}")
+                    calls, secs = r["collectives"].get(group, (0, 0.0))
+                    check(sum(r["warm"]["collectives"].values()) == want
+                          and calls == want * OPT_RUNS,
+                          f"{label}: rank {r['rank']}: "
+                          f"{r['warm']['collectives']} warm, {calls} in "
+                          f"{OPT_RUNS} runs; the code makes {want} a run")
+                    ms = sum(r["ms"]) / len(r["ms"])
+                    ranks.append({"rank": r["rank"], "ms": r["ms"],
+                                  "ms_mean": ms, "collectives": want,
+                                  "collective_s": secs / OPT_RUNS,
+                                  "peak_memory_gb":
+                                  r.get("peak_memory_bytes", 0) / 1e9,
+                                  "launches": {k: n + warm.get(k, 0)
+                                               for k, n in timed.items()}})
+                    log(f"{label} [{SHARD_NOTE}]: rank {r['rank']} "
+                        f"{ms:.2f} ms a run (events, timed after a warm "
+                        f"run), {want} collectives a run on the {group} "
+                        f"group, {secs / OPT_RUNS * 1e3:.1f} ms of host "
+                        f"time, peak memory {ranks[-1]['peak_memory_gb']:.2f}"
+                        f" GB, launches a run {per or 'none'}")
+                out[f"{arch} {shape} {'opt' if opt else 'base'}"] = {
+                    "arch": arch, "shape": shape, "layout": dm,
+                    "optimized": opt, "levers": traced["levers"],
+                    "batch": B, "seq": T, "layers": L,
+                    "rank_rows": res[0]["rows"], "ranks": ranks,
+                    "flops_traced": traced["flops"],
+                    "flops_card": card["flops"],
+                    "bytes_traced": traced["bytes"],
+                    "bytes_card": card["bytes"], "card_vs_trace_rel": rel,
+                    "collective_bytes": traced["collective_bytes"],
+                    "arg_bytes": res[0]["arg_bytes"],
+                    "temp_bytes": traced["temp_bytes"],
+                    "trace_s": traced["trace_s"], "note": SHARD_NOTE}
+                log(f"{label}: B {B} x T {T}, {res[0]['rows']} rows a rank, "
+                    f"{L} layers, levers {traced['levers']}; rank 0 counted "
+                    f"{card['flops']:.6e} FLOPs and {card['bytes'] / 1e9:.3f} "
+                    f"GB == its trace (rel {max(rel.values()):.1e}); {want} "
+                    f"collectives ({traced['collective_bytes'] / 1e9:.4f} GB "
+                    f"on the wire) == the trace's and the code's")
+            if dm == (1, 2) and part:   # beside phase 26's baseline
+                base = part[shape]["ranks"][0]
+                log(f"phase 29 (a) {shape}: optimized "
+                    f"{out[f'{arch} {shape} opt']['ranks'][0]['ms_mean']:.2f}"
+                    f" ms beside the baseline's {base['ms_mean']:.2f} ms "
+                    f"(phase 26), collectives "
+                    f"{out[f'{arch} {shape} opt']['ranks'][0]['collectives']}"
+                    f" beside {base['collectives']}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def family_rows(fam, moe, vlm, win, whisper):
     """The kernels JSON rows of the families' shapes (#1 at G 8; #2, #3,
     #5, #6 at G 7; #5 and #6 at G 12 and at G 1, #5 on whisper's self-
@@ -5647,11 +5939,12 @@ def main() -> int:
         print("chip_smoke: no CUDA card; this script runs only on one",
               file=sys.stderr)
         return 1
-    tracer, traces = start_part_traces()
+    tracers, traces = start_part_traces()
     try:
         return phases(t_main, np, torch, traces)
     finally:
-        tracer.terminate()
+        for tracer in tracers:
+            tracer.terminate()
 
 
 def phases(t_main, np, torch, traces) -> int:
@@ -5933,12 +6226,22 @@ def phases(t_main, np, torch, traces) -> int:
         families["phase_s"] = time.perf_counter() - t28
         log(f"phase 28: took {families['phase_s']:.1f} s")
         progress(t_main, 28)
+
+        # 29. the optimized program's levers: smollm at (1, 2) (sequence
+        # parallelism, the sequence-split decode cache) and qwen3-moe at
+        # (2, 1) (ZeRO-1, 2-D experts), on the same two ranks; 2 layers
+        # f32: optimized == baseline
+        t29 = time.perf_counter()
+        levers = phase_levers(np, torch, mesh, traces, part)
+        levers["phase_s"] = time.perf_counter() - t29
+        log(f"phase 29: took {levers['phase_s']:.1f} s")
+        progress(t_main, 29)
     finally:
         mesh.close()
     gc.collect()
     torch.cuda.empty_cache()
 
-    # 29. results
+    # 30. results
     kernels = [{
         "name": "paged_mixed_attention", "ok": True, "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/mixed_attention.cu",
@@ -6183,6 +6486,36 @@ def phases(t_main, np, torch, traces) -> int:
                 "library_ms", "device_ms", "library_device_ms", "tflops",
                 "stream_bound_ms") if kk in k},
             "kernel_ms": k["ms"], "bound_share": k["bound_ms"] / k["ms"]})
+    # #6 and #5 at a data rank's heads of qwen3-moe (32 / 4 / 64, G 8)
+    # at (2, 1), launched by both ranks' runs in phase 29 (b)
+    mk = fam["moe_data_rank"]
+    (_, tb, tt), = OPT_CASES[1][3]
+    (_, db, dt), = OPT_CASES[2][3]
+    for k, name, key, shape_name, src, tpu, shape in (
+            (mk["prefill"], "prefill_attention_moe_data_rank",
+             "contiguous_prefill", "train_4k", "contiguous_prefill.cu",
+             "src/repro/kernels/prefill_attention.py:125",
+             f"{MOE_ARCH} at (data 2, model 1), a rank: H 32 / Hkv 4 / Dh "
+             f"64 (G 8), B {tb // 2}, T {tt} (phase 29 (b)'s train step)"),
+            (mk["decode_padded"], "decode_attention_padded_moe_data_rank",
+             "contiguous_decode_padded", "decode_32k",
+             "contiguous_decode.cu",
+             "src/repro/kernels/decode_attention.py:291",
+             f"{MOE_ARCH} at (data 2, model 1), a rank: G 8, {db // 2} rows "
+             f"of {dt} keys (phase 29 (b)'s decode)")):
+        launches = [sum(levers[f"{MOE_ARCH} {shape_name} {v}"]["ranks"][i][
+            "launches"].get(key, 0) for v in ("base", "opt")
+            if f"{MOE_ARCH} {shape_name} {v}" in levers) for i in range(2)]
+        kernels.append({
+            "name": name, "ok": True, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{src}",
+            "replaces": tpu, "launches": launches[0],
+            "worker_launches": launches[1], "shape": shape,
+            **{kk: k[kk] for kk in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "device_ms", "library_device_ms", "tflops",
+                "stream_bound_ms") if kk in k},
+            "kernel_ms": k["ms"], "bound_share": k["bound_ms"] / k["ms"]})
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke_report.json").write_text(json.dumps(
@@ -6194,10 +6527,10 @@ def phases(t_main, np, torch, traces) -> int:
          "rwkv": rwkv, "zamba": zamba, "whisper": whisper,
          "training": training, "tp": tp, "sharded_training": sharded,
          "dryrun": dry, "partition": part, "expert_parallel": ep,
-         "families": families},
+         "families": families, "levers": levers},
         indent=1,
         default=str))
-    log(f"chip_smoke: phases 1-28 took {time.perf_counter() - t_main:.1f} s")
+    log(f"chip_smoke: phases 1-29 took {time.perf_counter() - t_main:.1f} s")
     # the card again, so that the end of the output names it beside the
     # numbers
     log(smi)

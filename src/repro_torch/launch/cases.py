@@ -64,8 +64,23 @@ card runs: the recurrences take their chunked forms, and the attention
 kernels (#5, #6) are their operators' fake versions
 (``kernels.ops.LIBRARY``). Not fake CUDA tensors: a CPU-only build of
 PyTorch has no CUDA device guard, which autograd needs for a train
-step. ``optimized=True`` is refused: its levers are
-not in the port's step. Nothing here runs at import.
+step.
+
+**The levers** (``optimized=True``, the reference's beyond-paper
+program; :func:`choose_levers` picks them per kind as the reference's
+``build_case`` does, and they ride in ``cfg.levers``,
+``models.common.Levers``): sequence-parallel activations in train (the
+residual stream on a rank's T / m rows between layers, Megatron's
+gather / reduce-scatter pair at each block), the chunked SSD (128) for
+the hybrid in train and prefill, 2-D experts (F also on the data axis)
+in every MoE decode and in train and prefill where ``2 · params /
+model`` passes 8 GiB, ZeRO-1 moments in train
+(``training.trainer.ShardedTrainStep``), and the decode KV cache laid
+out by ``cache_shardings(seq_on_model=True)``: where that puts the
+sequence on ``model`` (kv heads that do not divide it) each rank holds
+S / m rows of every head and the shares merge by log-sum-exp
+(``models.attention``). Each computes what the baseline program does.
+Nothing here runs at import.
 """
 from __future__ import annotations
 
@@ -81,9 +96,9 @@ from repro_torch.core.migration import tree_leaves, tree_map
 from repro_torch.launch.mesh import VirtualRank
 from repro_torch.launch.shardings import cache_shardings, local_shard
 from repro_torch.models.attention import rope_freqs
-from repro_torch.models.common import ModelConfig
+from repro_torch.models.common import Levers, ModelConfig
 from repro_torch.models.model import Model, build_model
-from repro_torch.training.optimizer import AdamWConfig, init_adamw
+from repro_torch.training.optimizer import AdamWConfig
 from repro_torch.training.trainer import make_sharded_train_step
 
 SHAPES: Dict[str, Dict[str, int]] = {
@@ -94,11 +109,10 @@ SHAPES: Dict[str, Dict[str, int]] = {
 }
 
 SLIDING_WINDOW_LONG = 8192
-
-OPTIMIZED_REFUSAL = (
-    "optimized=True is not in the port yet: its levers (sequence-parallel "
-    "activations, ZeRO-1 moments, 2-D experts, the pinned decode cache) "
-    "are the ROADMAP Queue 1 item \"`--opt`'s levers\"")
+# 2-D experts in train / prefill only where a chip's bf16 weights would
+# pass this (the reference's rule)
+EXPERT_2D_BYTES = 8 * 2**30
+SSM_CHUNK = 128
 
 
 def shape_kind(shape_name: str) -> str:
@@ -157,6 +171,33 @@ class DryrunCase:
     context_parallel: bool = False
     plan: Any = None
     mode: Any = None
+    levers: Optional[Levers] = None
+    step: Any = None
+
+
+def choose_levers(cfg: ModelConfig, kind: str, model: int,
+                  seq_cache: bool = False) -> Levers:
+    """The reference's beyond-paper levers for a case of ``kind`` on a
+    model axis of ``model`` (its ``build_case(optimized=True)``):
+    sequence-parallel activations and ZeRO-1 in train (in prefill the
+    reference measured sequence parallelism a regression); the chunked
+    SSD for the hybrid in train and prefill; 2-D experts always in
+    decode (weight streaming is the wall), in train and prefill only
+    where ``2 · params_total / model`` (``sim.costmodel.
+    profile_from_config``) passes ``EXPERT_2D_BYTES``; ``seq_cache`` (a
+    decode whose KV leaf the rule lays on the sequence) as given."""
+    from repro_torch.sim.costmodel import profile_from_config
+    expert_2d = False
+    if cfg.num_experts:
+        expert_2d = kind == "decode" or (
+            2.0 * profile_from_config(cfg).params_total / model
+            > EXPERT_2D_BYTES)
+    return Levers(
+        seq_parallel=kind == "train",
+        ssm_chunk=(SSM_CHUNK if cfg.family == "hybrid"
+                   and kind in ("train", "prefill") else 0),
+        expert_2d=expert_2d, zero1=kind == "train",
+        seq_cache=kind == "decode" and seq_cache)
 
 
 def _specs(cfg: ModelConfig, B: int, T: int) -> Dict[str, Tuple[tuple,
@@ -256,10 +297,9 @@ def build_case(arch: str, shape_name: str, mesh, optimized: bool = False,
     :func:`adjusted_config`'s (a reduced config in tests); ``device``
     None builds on fake meta tensors (the dry run), else real tensors
     there: weights from ``seed``, inputs and the cache drawn from ``seed
-    + 1`` (CPU generators under fake tensors). ``optimized=True`` (the reference's beyond-paper
-    levers) is refused with a ValueError."""
-    if optimized:
-        raise ValueError(OPTIMIZED_REFUSAL)
+    + 1`` (CPU generators under fake tensors). ``optimized=True``
+    takes the reference's beyond-paper levers (:func:`choose_levers`,
+    ``case.levers``)."""
     reason = skip_reason(arch, shape_name)
     if reason is not None:
         raise ValueError(f"skipped: {reason}")
@@ -268,7 +308,7 @@ def build_case(arch: str, shape_name: str, mesh, optimized: bool = False,
     gen_dev = "cpu" if device is None else dev
     with fake_scope(mode):
         case = _build(arch, shape_name, mesh, cfg, batch, seq, dev, gen_dev,
-                      seed)
+                      seed, optimized)
     case.mode = mode
     return case
 
@@ -291,7 +331,7 @@ def fake_scope(mode):
 
 
 def _build(arch, shape_name, mesh, cfg, batch, seq, dev, gen_dev,
-           seed) -> DryrunCase:
+           seed, optimized=False) -> DryrunCase:
     cfg = cfg or adjusted_config(arch, shape_name)
     sp = SHAPES[shape_name]
     B, T = batch or sp["global_batch"], seq or sp["seq_len"]
@@ -299,6 +339,22 @@ def _build(arch, shape_name, mesh, cfg, batch, seq, dev, gen_dev,
     # a training mesh's rank runs its own program over its groups; a
     # layout is written out as its rank 0
     rank = mesh if hasattr(mesh, "model_group") else VirtualRank(mesh, dev)
+    S_eff = min(T, cfg.sliding_window) if cfg.sliding_window else T
+    whole = specs = None
+    levers = None
+    if kind == "decode":
+        whole = build_model(cfg).init_cache(B, T, device=dev)
+        specs = cache_shardings(whole, rank, batch_size=B, cache_seq=S_eff,
+                                context_parallel=B == 1,
+                                seq_on_model=optimized)
+    if optimized:
+        seq_cache = bool(cfg.num_heads) and kind == "decode" and any(
+            a.dim() == 5 and a.shape[2] == S_eff and s[2] == "model"
+            for a, s in _pairs(whole, specs))
+        levers = choose_levers(cfg, kind, rank.model, seq_cache)
+        cfg = dataclasses.replace(cfg, levers=levers)
+        if levers.ssm_chunk:
+            cfg = dataclasses.replace(cfg, ssm_chunk=levers.ssm_chunk)
     model = build_model(cfg)
     step = make_sharded_train_step(model, AdamWConfig(), rank,
                                    remat=kind == "train")
@@ -306,15 +362,19 @@ def _build(arch, shape_name, mesh, cfg, batch, seq, dev, gen_dev,
         torch.Generator(device=gen_dev).manual_seed(seed), device=dev))
     gen = torch.Generator(device=gen_dev).manual_seed(seed + 1)
 
+    plan = step.plan
+    if levers is not None and levers.seq_cache:   # the KV on the sequence
+        plan = plan._replace(axes=dict(plan.axes, cache="seq"))
+
     def case(fn, args, rows, arg_bytes, cp=False):
         return DryrunCase(arch, shape_name, cfg, fn, args, step.model, rank,
                           step.mechanism, B, rows, T, arg_bytes, cp,
-                          plan=step.plan)
+                          plan=plan, levers=levers, step=step)
 
     if kind == "train":
         local = {k: v.clone() for k, v in step.rows(
             _token_batch(cfg, B, T, dev, gen)).items()}
-        opt_state = init_adamw(params)
+        opt_state = step.init_moments(params)
 
         return case(step.local_step, (params, opt_state, local),
                     local["tokens"].shape[0],
@@ -335,11 +395,7 @@ def _build(arch, shape_name, mesh, cfg, batch, seq, dev, gen_dev,
                     _nbytes(params) + _nbytes([tokens, extras]))
 
     # decode: one new token against a cache of T tokens
-    S_eff = min(T, cfg.sliding_window) if cfg.sliding_window else T
     context_parallel = B == 1
-    whole = model.init_cache(B, T, device=dev)
-    specs = cache_shardings(whole, rank, batch_size=B, cache_seq=S_eff,
-                            context_parallel=context_parallel)
     cache = _zip_map(lambda a, s: _own(local_shard(a, s, rank), a), whole,
                      specs)
     del whole

@@ -46,8 +46,10 @@ is printed against the card's 80 GB; ``plan`` and ``plan_axes`` carry
 the case's ``training.trainer.Plan`` (each block split or gathered on
 the model axis, where the core and the decode cache split), so a row
 names what its rank still gathers, and ``weight_gathers`` counts the
-all-gathers whose operand is a weight leaf. ``--opt`` is refused: its
-levers are the ROADMAP Queue 1 item "`--opt`'s levers".
+all-gathers whose operand is a weight leaf. ``--opt`` traces the
+optimized program (``launch.cases.build_case(optimized=True)``: the
+reference's beyond-paper levers); its rows carry ``optimized`` true and
+``levers``, the names of the levers the case took.
 """
 from __future__ import annotations
 
@@ -65,14 +67,14 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 
 from repro_torch.configs import ARCHS
-from repro_torch.launch.cases import (OPTIMIZED_REFUSAL, SHAPES,
-                                      adjusted_config, build_case,
+from repro_torch.launch.cases import (SHAPES, adjusted_config, build_case,
                                       fake_scope, shape_kind, skip_reason)
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.launch.roofline import (Roofline, analytic_flops_global,
                                          analytic_min_bytes,
                                          collective_wire_bytes, model_flops)
 from repro_torch.models.attention import rope_freqs
+from repro_torch.models.model import build_model
 
 ASSIGNED = [a for a in ARCHS if a != "llama3.2-3b"]
 
@@ -251,11 +253,9 @@ def run_case(arch: str, shape_name: str, multi_pod: bool,
              layout=None, **case_kwargs) -> dict:
     """One row: rank 0's program of (arch, shape) on the production
     layout (``layout`` overrides it; ``case_kwargs`` go to
-    ``build_case``: ``cfg``, ``seq``, ``batch``) traced and priced.
-    ``optimized=True`` is refused (ValueError); a failure is a row of
-    status ``fail``."""
-    if optimized:
-        raise ValueError(OPTIMIZED_REFUSAL)
+    ``build_case``: ``cfg``, ``seq``, ``batch``) traced and priced;
+    ``optimized`` traces the program with the reference's beyond-paper
+    levers. A failure is a row of status ``fail``."""
     if layout is None:
         layout = make_production_mesh(multi_pod=multi_pod)
         mesh_name = "2x16x16" if multi_pod else "16x16"
@@ -267,12 +267,14 @@ def run_case(arch: str, shape_name: str, multi_pod: bool,
                     status="skipped", reason=reason)
     t0 = time.time()
     try:
-        case = build_case(arch, shape_name, layout, **case_kwargs)
+        case = build_case(arch, shape_name, layout, optimized,
+                          **case_kwargs)
         traced = trace_case(case)
         t_trace = time.time() - t0
         rl = roofline_of(case, traced, mesh_name, layout)
         row = rl.row()
-        row.update(status="ok", optimized=False, t_trace=t_trace,
+        row.update(status="ok", optimized=optimized, t_trace=t_trace,
+                   levers=list(case.levers.taken()) if case.levers else [],
                    output_bytes=traced["output_bytes"],
                    mechanism=case.mechanism,
                    plan=dict(case.plan.blocks),
@@ -281,7 +283,8 @@ def run_case(arch: str, shape_name: str, multi_pod: bool,
                    traced_ops=traced["ops"],
                    weight_gathers=len(traced["weight_gathers"]))
         if verbose:
-            print(f"[ok] {arch:22s} {shape_name:12s} {mesh_name:8s} "
+            print(f"[ok{'/opt' if optimized else ''}] {arch:22s} "
+                  f"{shape_name:12s} {mesh_name:8s} "
                   f"comp={rl.t_compute:.3e}s mem={rl.t_memory:.3e}s "
                   f"coll={rl.t_collective:.3e}s dom={rl.dominant:10s} "
                   f"args/chip={rl.arg_bytes_per_chip / 1e9:.2f} of "
@@ -305,12 +308,13 @@ def _finite(tree) -> bool:
 
 def run_rank(mesh, arch: str, shape_name: str, *, batch: int,
              seq: Optional[int] = None, seed: int = 0, runs: int = 3,
-             cfg=None) -> dict:
+             cfg=None, optimized: bool = False) -> dict:
     """One rank's part of running a case's program for real on a
     ``launch.mesh.TrainMesh`` (every rank runs it: ``mesh.run(run_rank,
     ...)``): ``launch.cases.build_case`` on this rank, its groups real,
     its tensors on its device (weights from ``seed``), at the global
-    ``batch`` and ``seq`` (``cfg`` replaces the case's config). One warm
+    ``batch`` and ``seq`` (``cfg`` replaces the case's config;
+    ``optimized``: the program with the reference's levers). One warm
     run under ``FlopCounterMode`` and :class:`Traffic` (the counts its
     trace at the same layout gives), then ``runs`` runs timed by CUDA
     events on a card (the host clock elsewhere). Returns the rank, its
@@ -325,8 +329,8 @@ def run_rank(mesh, arch: str, shape_name: str, *, batch: int,
     cuda = dev.type == "cuda"
     if cuda:
         torch.cuda.reset_peak_memory_stats(dev)
-    case = build_case(arch, shape_name, mesh, batch=batch, seq=seq,
-                      cfg=cfg, device=dev, seed=seed)
+    case = build_case(arch, shape_name, mesh, optimized, batch=batch,
+                      seq=seq, cfg=cfg, device=dev, seed=seed)
     groups = {axis: g for axis, g in (("model", mesh.model_group),
                                       ("data", mesh.data_group))
               if g is not None}
@@ -367,6 +371,7 @@ def run_rank(mesh, arch: str, shape_name: str, *, batch: int,
             case.fn(*case.args)
             ms.append((time.perf_counter() - t0) * 1e3)
     out = {"rank": mesh.rank, "mechanism": case.mechanism,
+           "levers": list(case.levers.taken()) if case.levers else [],
            "plan": dict(case.plan.blocks), "axes": dict(case.plan.axes),
            "rows": case.rows, "warm": warm, "ms": ms,
            "launches": launch_counts(),
@@ -378,19 +383,108 @@ def run_rank(mesh, arch: str, shape_name: str, *, batch: int,
     return out
 
 
+def _gap(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The largest gap between two tensors over the larger of 1 and
+    ``want``'s largest magnitude."""
+    want = want.float()
+    return float((got.float() - want).abs().max()) / max(
+        1.0, float(want.abs().max()))
+
+
+def _whole_of(piece: torch.Tensor, spec, mesh) -> torch.Tensor:
+    """A cache leaf whole from this rank's ``piece`` of it under ``spec``
+    (each split dim all-gathered over its group)."""
+    for d, ax in enumerate(spec):
+        group = {"model": mesh.model_group, "data": mesh.data_group}.get(ax)
+        if group is not None:
+            piece = group.all_gather(piece.contiguous(), d)
+    return piece
+
+
+def run_pair(mesh, arch: str, shape_name: str, *, batch: int,
+             seq: Optional[int] = None, seed: int = 0, cfg=None) -> dict:
+    """One rank's baseline and optimized programs of a case on a
+    ``launch.mesh.TrainMesh`` (every rank runs it: ``mesh.run(run_pair,
+    ...)``), on the same inputs: the same weights and rows (``seed``), and
+    for a decode one whole cache drawn from ``seed`` on the rank's device
+    and cut by each program's layout (``launch.shardings.cache_shardings``
+    with ``seq_on_model`` the optimized one's). Runs each once and returns
+    the optimized program's levers and the largest gap (relative to the
+    baseline's largest magnitude, at least 1) of each output: a train
+    step's metrics and, on rank 0, its params and moments gathered whole;
+    a decode's logits and its cache slice against the baseline's updated
+    slices gathered whole and cut by the optimized layout."""
+    from repro_torch.launch.cases import _zip_map
+    from repro_torch.launch.shardings import cache_shardings, local_shard
+    dev = mesh.device
+    kind = shape_kind(shape_name)
+    T = seq or SHAPES[shape_name]["seq_len"]
+    outs, levers = {}, None
+    whole = None
+    for optimized in (False, True):
+        case = build_case(arch, shape_name, mesh, optimized, batch=batch,
+                          seq=T, cfg=cfg, device=dev, seed=seed)
+        levers = case.levers
+        if kind == "train":
+            params, opt, m = case.fn(*case.args)
+            outs[optimized] = {
+                "metrics": {k: v.detach().float().cpu()
+                            for k, v in m.items()},
+                "params": case.step.gather(params),
+                "mu": case.step.gather(opt.mu, True),
+                "nu": case.step.gather(opt.nu, True)}
+            del case, params, opt, m      # one program's state at a time
+            continue
+        params, _, token, pos = case.args
+        cfg_ = case.cfg
+        S = min(T, cfg_.sliding_window) if cfg_.sliding_window else T
+        if whole is None:
+            whole = build_model(cfg_).init_cache(batch, T, device=dev)
+            gen = torch.Generator(device=dev).manual_seed(seed + 29)
+            for leaf in tree_leaves(whole):
+                leaf.normal_(generator=gen)
+        specs = cache_shardings(whole, mesh, batch_size=batch, cache_seq=S,
+                                context_parallel=batch == 1,
+                                seq_on_model=optimized)
+        cache = _zip_map(lambda a, s: local_shard(a, s, mesh).clone(),
+                         whole, specs)
+        logits, cache = case.fn(params, cache, token, pos)
+        outs[optimized] = {"logits": logits, "cache": cache,
+                           "specs": specs}
+        del case, params
+    base, opt = outs[False], outs[True]
+    if kind == "train":
+        gaps = {"metrics": max(_gap(opt["metrics"][k], v)
+                               for k, v in base["metrics"].items())}
+        if base["params"] is not None:
+            for part in ("params", "mu", "nu"):
+                gaps[part] = max(_gap(a, b) for a, b in zip(
+                    tree_leaves(opt[part]), tree_leaves(base[part])))
+    else:
+        updated = _zip_map(lambda a, s: _whole_of(a, s, mesh),
+                           base["cache"], base["specs"])
+        want = _zip_map(lambda a, s: local_shard(a, s, mesh), updated,
+                        opt["specs"])
+        gaps = {"logits": _gap(opt["logits"], base["logits"]),
+                "cache": max(_gap(a, b) for a, b in zip(
+                    tree_leaves(opt["cache"]), tree_leaves(want)))}
+    return {"rank": mesh.rank,
+            "levers": list(levers.taken()) if levers else [], "gaps": gaps}
+
+
 def _cost_rank(job) -> int:
     """Longest traces first: the recurrent families' chunk loops, then
     the train steps."""
-    arch, shape, _ = job
+    arch, shape = job[:2]
     family = adjusted_config(arch, shape).family
     return (0 if family in ("hybrid", "ssm") else 1,
             0 if shape_kind(shape) == "train" else 1)
 
 
 def run_cases(jobs, n_jobs: int = 1) -> list:
-    """:func:`run_case` over ``(arch, shape, multi_pod)`` jobs, in their
-    order; with ``n_jobs`` > 1 in that many processes (spawned), the
-    longest first."""
+    """:func:`run_case` over ``(arch, shape, multi_pod[, verbose,
+    optimized])`` jobs, in their order; with ``n_jobs`` > 1 in that many
+    processes (spawned), the longest first."""
     if n_jobs <= 1:
         return [run_case(*job) for job in jobs]
     import multiprocessing
@@ -416,11 +510,9 @@ def main(argv: Optional[list] = None) -> None:
                     help="cases traced at once, each in a process of its "
                          "own (default 1: one after another, here)")
     ap.add_argument("--opt", action="store_true",
-                    help="the beyond-paper sharding levers (refused: not "
-                         "in the port yet)")
+                    help="the reference's beyond-paper sharding levers "
+                         "(launch.cases.choose_levers)")
     args = ap.parse_args(argv)
-    if args.opt:
-        ap.error(OPTIMIZED_REFUSAL)
 
     archs = ASSIGNED if args.arch == "all" else args.arch.split(",")
     shapes = list(SHAPES) if args.shape == "all" else args.shape.split(",")
@@ -428,8 +520,8 @@ def main(argv: Optional[list] = None) -> None:
               "both": [False, True]}[args.mesh]
 
     t0 = time.time()
-    jobs = [(arch, shape, mp) for mp in meshes for arch in archs
-            for shape in shapes]
+    jobs = [(arch, shape, mp, True, args.opt) for mp in meshes
+            for arch in archs for shape in shapes]
     rows = run_cases(jobs, args.jobs)
     ok = sum(1 for r in rows if r["status"] == "ok")
     skip = sum(1 for r in rows if r["status"] == "skipped")

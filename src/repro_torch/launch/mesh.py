@@ -57,6 +57,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
+from torch._subclasses.fake_tensor import FakeTensor
 from torch.utils._python_dispatch import _disable_current_modes
 
 BACKENDS = ("gloo", "nccl")
@@ -186,15 +187,37 @@ class Collectives:
 
     def all_gather(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
         """Every rank's ``x`` concatenated along ``dim`` (default the
-        last), in rank order."""
+        last), in rank order (along dim 0 gathered into one buffer: no
+        concatenation)."""
         t0 = time.perf_counter()
         x = x.contiguous()
-        parts = [torch.empty_like(x) for _ in range(self.size)]
+        if dim == 0:
+            out = x.new_empty((self.size * x.shape[0],) + x.shape[1:])
+            parts = list(out.chunk(self.size, 0))
+        else:
+            parts = [torch.empty_like(x) for _ in range(self.size)]
         with _disable_current_modes():
             self._act.allgather([parts], [x]).wait()
         self.coll_calls += 1
         self.coll_s += time.perf_counter() - t0
-        return torch.cat(parts, dim=dim)
+        return out if dim == 0 else torch.cat(parts, dim=dim)
+
+    def reduce_scatter(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        """The sum of ``x`` over the ranks, of which this rank keeps its
+        equal piece along ``dim`` (rank r: the r-th of ``size`` pieces),
+        into a buffer of its own: one collective (gloo takes CUDA tensors
+        here too, probed on the card under torch 2.11; the pieces' copies
+        are the group's own work)."""
+        t0 = time.perf_counter()
+        shape = list(x.shape)
+        shape[dim] //= self.size
+        out = x.new_empty(shape)
+        with _disable_current_modes():
+            parts = [p.contiguous() for p in x.chunk(self.size, dim)]
+            self._act.reduce_scatter([out], [parts]).wait()
+        self.coll_calls += 1
+        self.coll_s += time.perf_counter() - t0
+        return out
 
 
 class RecordingCollectives:
@@ -229,9 +252,37 @@ class RecordingCollectives:
         return x
 
     def all_gather(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
-        out = torch.cat([x.contiguous()] * self.size, dim=dim)
+        if dim == 0:            # a group gathers into one buffer: no op
+            out = _filled(x.new_empty((self.size * x.shape[0],)
+                                      + x.shape[1:]),
+                          lambda: torch.cat([x] * self.size, 0))
+        else:
+            out = torch.cat([x.contiguous()] * self.size, dim=dim)
         self._record("all-gather", x, out)
         return out
+
+    def reduce_scatter(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        """This rank's piece of ``x`` along ``dim`` (its own partial
+        stands for the sum), recorded as op ``reduce-scatter``; like a
+        group's, the result is a buffer of its own and no op of the
+        program."""
+        n = x.shape[dim] // self.size
+        shape = list(x.shape)
+        shape[dim] = n
+        out = _filled(x.new_empty(shape),
+                      lambda: x.narrow(dim, self.rank * n, n))
+        self._record("reduce-scatter", x, out)
+        return out
+
+
+def _filled(out: torch.Tensor, value) -> torch.Tensor:
+    """``out`` holding ``value()`` written outside any dispatch mode (a
+    recorded collective's result, which no counting mode sees made);
+    under fake tensors ``out`` as it is: only its shape is read."""
+    if not isinstance(out, FakeTensor):
+        with _disable_current_modes():
+            out.copy_(value())
+    return out
 
 
 class VirtualRank:
@@ -242,13 +293,19 @@ class VirtualRank:
     ``axis_names``) with :class:`RecordingCollectives` for groups, which
     share one list of ``records``. The batch axes (``("pod", "data")``,
     :func:`batch_axes`) fold into one data group of ``pod × data`` ranks,
-    since the batch shards over both. No process is started."""
+    since the batch shards over both. No process is started. The levers
+    that split on the ``data`` axis alone (ZeRO-1 moments, 2-D experts'
+    F, as the reference's rules put them) run on ``data_axis_group``
+    (the rank's ``data`` ranks of its pod) and sum across the pods on
+    ``pod_group`` (None without a pod axis; then ``data_axis_group`` is
+    ``data_group``): :func:`lever_groups`."""
 
     def __init__(self, layout, device="cpu"):
         data = 1
         for a in batch_axes(layout):
             data *= layout.shape[a]
         model = layout.shape.get("model", 1)
+        pod = layout.shape.get("pod", 1)
         self.data, self.model = data, model
         self.d = self.m = self.rank = 0
         self.size = data * model
@@ -258,6 +315,12 @@ class VirtualRank:
         self.model_group, self.data_group = (
             None if n == 1 else RecordingCollectives(0, n, axis, self.records)
             for axis, n in (("model", model), ("data", data)))
+        self.data_axis_group, self.pod_group = self.data_group, None
+        if pod > 1:
+            n = data // pod
+            self.data_axis_group = (None if n == 1 else RecordingCollectives(
+                0, n, "data", self.records))
+            self.pod_group = RecordingCollectives(0, pod, "pod", self.records)
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -270,6 +333,16 @@ class VirtualRank:
     def __repr__(self) -> str:
         return (f"VirtualRank(rank {self.rank} of data {self.data} x "
                 f"model {self.model})")
+
+
+def lever_groups(mesh) -> Tuple[Optional[Any], Optional[Any]]:
+    """``(data-axis group, pod group)`` of a rank: the group the levers
+    that split on the ``data`` axis run on, and the group that sums their
+    results across pods (a :class:`VirtualRank` of a multi-pod layout);
+    a mesh with no pod axis (a :class:`TrainMesh`) has its data group and
+    None."""
+    return (getattr(mesh, "data_axis_group", mesh.data_group),
+            getattr(mesh, "pod_group", None))
 
 
 class _Ranks:

@@ -64,10 +64,11 @@ from repro_torch.kernels.ops import KERNEL_HEAD_DIMS, NEG_INF
 from repro_torch.kernels.prefill_attention import (paged_prefill_attention,
                                                    prefill_attention,
                                                    prefill_attention_plain)
-from repro_torch.models.common import (ModelConfig, all_gather, copy_to_tp,
-                                       dense_init, leaf_at_use, psum_if_tp,
-                                       rank_cols, split_block, split_dim,
-                                       state_axis, state_piece)
+from repro_torch.models.common import (ModelConfig, all_gather, block_in,
+                                       block_out, copy_to_tp, dense_init,
+                                       leaf_at_use, psum_if_tp, rank_cols,
+                                       split_block, split_dim, state_axis,
+                                       state_piece)
 
 # Paged attention backends (the JAX package's four):
 #   dense — gather pool[block_tables] + masked SDPA in plain PyTorch: a
@@ -187,7 +188,7 @@ def _project_qkv(p, cfg: ModelConfig, x: torch.Tensor):
     if planned(cfg):
         return _project_qkv_whole(p, cfg, x)
     B, T, _ = x.shape
-    x = copy_to_tp(x, cfg)     # column-parallel under tensor parallelism
+    x = block_in(x, cfg)       # column-parallel under tensor parallelism
     q = x @ p["wq"]
     k = x @ p["wk"]
     v = x @ p["wv"]
@@ -226,7 +227,7 @@ def _project_whole(p, cfg: ModelConfig, x: torch.Tensor, names, widths,
     B, T, _ = x.shape
     g, dh = cfg.tp_axis, cfg.head_dim
     split = split_block(cfg, block)
-    xc = copy_to_tp(x, cfg) if split else x
+    xc = block_in(x, cfg) if split else x
     parts = []
     for (w, b), n in zip(names, widths):
         y = xc @ (p[w] if split else leaf_at_use(p[w], cfg, -1, n))
@@ -253,7 +254,7 @@ def _out_proj(p, cfg: ModelConfig, o: torch.Tensor,
     if split_block(cfg, block):
         n = p["wo"].shape[-2]
         o = copy_to_tp(o, cfg).narrow(-1, cfg.tp_axis.rank * n, n)
-        return psum_if_tp(o @ p["wo"], cfg)
+        return block_out(o @ p["wo"], cfg)
     return o @ leaf_at_use(p["wo"], cfg, -2, cfg.num_heads * cfg.head_dim)
 
 
@@ -435,7 +436,7 @@ def attention_prefill(p, cfg: ModelConfig, x: torch.Tensor,
         return _out_proj(p, cfg, out), _cache_slice(cfg, k, v)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = _prefill_core(cfg, q, k, v)
-    return psum_if_tp(out.reshape(B, T, -1) @ p["wo"], cfg), (k, v)
+    return block_out(out.reshape(B, T, -1) @ p["wo"], cfg), (k, v)
 
 
 def _prefill_core(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
@@ -491,7 +492,8 @@ def attention_decode(p, cfg: ModelConfig, x: torch.Tensor, cache_l: KVCache,
     split over that group, ``cache_l`` holding this rank's consecutive
     rows: context parallelism, :func:`context_parallel_decode`. Under the
     per-leaf plan ``cache_l`` is the rank's slice and the core follows
-    its layout (:func:`_planned_decode`). Returns (out [B, 1, D],
+    its layout (:func:`_planned_decode`; the ``seq_cache`` lever:
+    the slab's sequence split over the group). Returns (out [B, 1, D],
     cache_l)."""
     B = x.shape[0]
     q, k, v = _project_qkv(p, cfg, x)
@@ -537,10 +539,24 @@ def _planned_decode(cfg: ModelConfig, q, k, v, cache_l: KVCache, write,
     rank's slab layer: split on the head dim, :func:`head_dim_decode`
     (no kernel: plain PyTorch, as the reference's per-chip program is
     XLA's); split on kv heads, the rank's query heads attend its kv
-    heads (#5) and one all-gather joins the heads; whole, every rank
-    attends all of it. Returns [B, H, Dh]."""
+    heads (#5) and one all-gather joins the heads; split on the sequence
+    (the ``seq_cache`` lever, ``launch.shardings.cache_shardings(
+    seq_on_model=True)``: the rank's S / m consecutive rows of every kv
+    head), the owning rank writes the new token and each rank attends its
+    keys with every head, the shares merged by log-sum-exp over the group
+    (:func:`context_parallel_decode`: plain PyTorch, as the reference's
+    pinned-scatter program is XLA's); whole, every rank attends all of
+    it. Returns [B, H, Dh]."""
     g = cfg.tp_axis
     hk, d = cache_l.k.shape[-2:]
+    if cfg.levers is not None and cfg.levers.seq_cache:
+        if (hk, d) != (cfg.num_kv_heads, cfg.head_dim) or (
+                seq_group is not None or rows is not None):
+            raise ValueError(
+                f"a slab split on its sequence over the model group holds "
+                f"every kv head whole ({cfg.num_kv_heads} x {cfg.head_dim}, "
+                f"not {hk} x {d}) and takes no row map and no data split")
+        return context_parallel_decode(q, k, v, cache_l, write, pos, g)
     if d < cfg.head_dim:
         if rows is not None:
             raise ValueError("a slab split on the head dim takes no row "
@@ -1050,7 +1066,7 @@ def _cross_q(p, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
         return _project_whole(p, cfg, x, _QKV[:1],
                               (cfg.num_heads * cfg.head_dim,),
                               "cross_attn")[0]
-    q = copy_to_tp(x, cfg) @ p["wq"]
+    q = block_in(x, cfg) @ p["wq"]
     if "bq" in p:
         q = q + p["bq"]
     return q.reshape(B, T, -1, cfg.head_dim)
@@ -1079,7 +1095,7 @@ def cross_attention(p, cfg: ModelConfig, x: torch.Tensor,
                       lengths)[:, None]
     else:
         out = _gqa_sdpa(q, enc_kv.k, enc_kv.v, None)
-    return psum_if_tp(out.reshape(B, T, -1) @ p["wo"], cfg)
+    return block_out(out.reshape(B, T, -1) @ p["wo"], cfg)
 
 
 def encode_cross_kv(p, cfg: ModelConfig, enc_out: torch.Tensor) -> KVCache:

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Optional, Sequence, Tuple
+from typing import Any, Callable, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -94,6 +94,21 @@ class ModelConfig:
     # the whole, which the rule that lays a decode state out
     # (:func:`cache_spec`) reads by size
     tp_rows: int = dataclasses.field(default=1, compare=False, repr=False)
+    # the reference's beyond-paper levers a rank's program takes
+    # (:class:`Levers`, chosen by ``launch.cases.choose_levers``), or None:
+    # the baseline program
+    levers: Any = dataclasses.field(default=None, compare=False, repr=False)
+    # set on the cfg a sequence-parallel layer hands a split block
+    # (:func:`seq_block`): the layer gathered the block's input along T and
+    # the block leaves through a reduce-scatter along T (:func:`block_out`);
+    # where its input enters its products through one copy (:func:`block_in`)
+    # that copy is the layer's gather's, whose backward reduce-scatters
+    seq_parallel: bool = dataclasses.field(default=False, compare=False,
+                                           repr=False)
+    # the data-axis group an expert leaf's F is split over (2-D experts,
+    # :class:`Levers`), or None
+    tp_data: Any = dataclasses.field(default=None, compare=False,
+                                     repr=False)
 
     def __post_init__(self):
         if self.head_dim == 0 and self.num_heads:
@@ -227,6 +242,56 @@ class _Gather(torch.autograd.Function):
         return grad.narrow(ctx.dim, ctx.rank * ctx.n, ctx.n), None, None
 
 
+class _SeqGather(torch.autograd.Function):
+    """Megatron's sequence-parallel gather: every rank's piece along
+    ``dim`` in forward; in backward the gradient summed over the ranks,
+    of which this rank keeps its piece (a reduce-scatter): each rank's
+    gradient of the gathered value is its share of a partial
+    computation."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return group.all_gather(x.contiguous(), dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.group.reduce_scatter(grad.contiguous(), ctx.dim), None, \
+            None
+
+
+class _SeqScatter(torch.autograd.Function):
+    """Megatron's sequence-parallel reduce-scatter: the sum of every
+    rank's partial in forward, of which this rank keeps its piece along
+    ``dim``; in backward every rank's gradient piece gathered (every
+    rank's partial contributed to every piece)."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return group.reduce_scatter(x.contiguous(), dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.group.all_gather(grad.contiguous(), ctx.dim), None, None
+
+
+class _Slice(torch.autograd.Function):
+    """This rank's piece along ``dim`` of a value every rank holds whole:
+    the piece in forward, every rank's gradient piece gathered in backward
+    (:class:`_Gather`'s adjoint)."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        n = x.shape[dim] // group.size
+        return x.narrow(dim, group.rank * n, n).contiguous()
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.group.all_gather(grad.contiguous(), ctx.dim), None, None
+
+
 def _tracked(x: torch.Tensor) -> bool:
     return torch.is_grad_enabled() and x.requires_grad
 
@@ -249,6 +314,113 @@ def all_gather(x: torch.Tensor, group, dim: int = -1) -> torch.Tensor:
     if _tracked(x):
         return _Gather.apply(x, group, dim)
     return group.all_gather(x, dim)
+
+
+def seq_gather(x: torch.Tensor, group, dim: int = 1) -> torch.Tensor:
+    """Every rank's piece of ``x`` along ``dim``, its backward a
+    reduce-scatter (:class:`_SeqGather`); ``x`` without a group."""
+    if group is None:
+        return x
+    if _tracked(x):
+        return _SeqGather.apply(x, group, dim)
+    return group.all_gather(x.contiguous(), dim)
+
+
+def reduce_scatter(x: torch.Tensor, group, dim: int = 1) -> torch.Tensor:
+    """The sum of ``x`` over ``group``, this rank's piece along ``dim``,
+    its backward a gather (:class:`_SeqScatter`); ``x`` without a
+    group."""
+    if group is None:
+        return x
+    if _tracked(x):
+        return _SeqScatter.apply(x, group, dim)
+    return group.reduce_scatter(x.contiguous(), dim)
+
+
+def seq_slice(x: torch.Tensor, group, dim: int = 1) -> torch.Tensor:
+    """This rank's piece along ``dim`` of ``x`` (whole on every rank),
+    its backward a gather (:class:`_Slice`); ``x`` without a group."""
+    if group is None:
+        return x
+    if _tracked(x):
+        return _Slice.apply(x, group, dim)
+    n = x.shape[dim] // group.size
+    return x.narrow(dim, group.rank * n, n).contiguous()
+
+
+class Levers(NamedTuple):
+    """The reference's beyond-paper levers (its ``build_case(optimized=
+    True)``) as a rank's program takes them: ``seq_parallel`` keeps a
+    train step's residual stream split on T over the model group between
+    layers (:func:`seq_block`); ``ssm_chunk`` the hybrid's chunked SSD;
+    ``expert_2d`` splits the expert leaves' F on the data axis
+    (``models.mlp``); ``zero1`` cuts the AdamW moments on the data axis
+    (``training.trainer``); ``seq_cache`` lays the decode KV cache's
+    sequence on the model group (``models.attention``)."""
+    seq_parallel: bool = False
+    ssm_chunk: int = 0
+    expert_2d: bool = False
+    zero1: bool = False
+    seq_cache: bool = False
+
+    def taken(self) -> Tuple[str, ...]:
+        """The names of the levers on."""
+        return tuple(k for k, v in self._asdict().items() if v)
+
+
+def seq_layers(cfg: ModelConfig) -> bool:
+    """Whether a whole-sequence pass keeps its residual stream split on
+    T over ``cfg.tp_axis`` between layers (the ``seq_parallel`` lever,
+    under a group)."""
+    return (cfg.tp_axis is not None and cfg.levers is not None
+            and cfg.levers.seq_parallel)
+
+
+def seq_block(fn, h: torch.Tensor, cfg: ModelConfig, block: str,
+              enters: bool = True):
+    """One block of a sequence-parallel layer: ``h`` [B, T/m, D] this
+    rank's rows of the block's (normalised) input, ``fn(whole, cfg)`` the
+    block on whole rows; returns its output's rows of this rank (with
+    ``fn``'s other outputs, where it returns a tuple). A split ``block``
+    (``cfg.tp_plan``) runs on the rows gathered along T and leaves through
+    a reduce-scatter (``cfg.seq_parallel``: :func:`block_out`); with
+    ``enters`` its input enters its products through one copy
+    (:func:`block_in`), which the gather's backward reduce-scatter stands
+    for, else (the MoE's router, rwkv6's token-shift lerps: work on the
+    whole input before the copy) the gather's backward takes this rank's
+    rows of a whole gradient. A gathered block runs whole on the gathered
+    rows and this rank takes its rows of the output."""
+    g = cfg.tp_axis
+    if not split_block(cfg, block):
+        out = fn(all_gather(h, g, 1), cfg)
+        if isinstance(out, tuple):
+            return (seq_slice(out[0], g),) + tuple(out[1:])
+        return seq_slice(out, g)
+    inner = dataclasses.replace(cfg, seq_parallel=True)
+    return fn(seq_gather(h, g) if enters else all_gather(h, g, 1), inner)
+
+
+def block_in(x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """A split block's input where it enters the rank's products:
+    ``copy_to_tp``, or ``x`` itself under ``cfg.seq_parallel`` (the
+    layer's gather carries the backward sum)."""
+    return x if cfg.seq_parallel else copy_to_tp(x, cfg)
+
+
+def block_out(y: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """A split block's partial output [B, T, ...]: all-reduced
+    (``psum_if_tp``), or under ``cfg.seq_parallel`` reduce-scattered
+    along T (this rank's rows of the sum)."""
+    if cfg.seq_parallel:
+        return reduce_scatter(y, cfg.tp_axis, 1)
+    return psum_if_tp(y, cfg)
+
+
+def seq_piece(x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """A split block's whole value [B, T, ...] where it meets its output:
+    ``x``, or under ``cfg.seq_parallel`` this rank's rows
+    (:func:`seq_slice`)."""
+    return seq_slice(x, cfg.tp_axis, 1) if cfg.seq_parallel else x
 
 
 def psum_if_tp(x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -282,7 +454,8 @@ def split_block(cfg: ModelConfig, block: str) -> bool:
 def unsplit(cfg: ModelConfig) -> ModelConfig:
     """``cfg`` without its group and plan: the one-device forward a
     gathered block runs on its whole leaves."""
-    return dataclasses.replace(cfg, tp_axis=None, tp_plan=None)
+    return dataclasses.replace(cfg, tp_axis=None, tp_plan=None,
+                               seq_parallel=False)
 
 
 def leaf_at_use(w: torch.Tensor, cfg: ModelConfig, dim: int,

@@ -64,14 +64,15 @@ import torch.nn.functional as F
 from repro_torch.models import attention as attn
 from repro_torch.models.attention import KVCache
 from repro_torch.models.common import (ModelConfig, all_gather, all_reduce,
-                                       card_device, copy_to_tp, dense_init,
-                                       embed_init, leaf_at_use, psum_if_tp,
-                                       rank_cols, rms_norm, split_block,
-                                       state_in, state_out, state_piece,
-                                       unsplit)
+                                       block_in, block_out, card_device,
+                                       copy_to_tp, dense_init, embed_init,
+                                       leaf_at_use, rank_cols, rms_norm,
+                                       seq_block, seq_layers, seq_slice,
+                                       split_block, state_in, state_out,
+                                       state_piece, unsplit)
 from repro_torch.models.mlp import ffn, init_ffn
-from repro_torch.models.transformer import (checkpointed, embed_tokens,
-                                            unembed)
+from repro_torch.models.transformer import (block_seq_split, checkpointed,
+                                            embed_tokens, unembed)
 
 CONV_K = 4
 EXPAND = 2
@@ -125,7 +126,7 @@ def _in_proj(pl, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
     ``copy_to_tp``, the joined columns leave through it)."""
     if not _split(cfg):
         return h @ pl["w_in"]
-    cols = copy_to_tp(h, cfg) @ pl["w_in"]
+    cols = block_in(h, cfg) @ pl["w_in"]
     return copy_to_tp(all_gather(cols, cfg.tp_axis, -1), cfg)
 
 
@@ -334,7 +335,20 @@ def mamba_seq(pl, cfg: ModelConfig, x: torch.Tensor,
     if cfg.tp_axis is not None and not split_block(cfg, "mamba"):
         return mamba_seq(_at_use(pl, cfg), unsplit(cfg), x, return_state,
                          chunk)
-    h = rms_norm(x, pl["ln"], cfg.norm_eps)
+    y, conv_in, S = _mamba_mix(pl, cfg, rms_norm(x, pl["ln"], cfg.norm_eps),
+                               chunk)
+    if return_state:
+        conv_state = F.pad(conv_in, (0, 0, CONV_K - 1, 0))[:, -(CONV_K - 1):]
+        return x + y, conv_state, S
+    return x + y
+
+
+def _mamba_mix(pl, cfg: ModelConfig, h: torch.Tensor,
+               chunk: Optional[int] = None):
+    """The block's mixer on its normalised input h [B, T, D]: (its output,
+    the raw conv input of the rank's channels, the SSD state). Under
+    ``cfg.seq_parallel`` (a sequence-parallel layer, ``common.seq_block``)
+    h is the gathered rows and the output this rank's T / m rows."""
     z, xs, Bm, Cm, dt = _split_proj(cfg, _in_proj(pl, cfg, h))
     xbc_raw = torch.cat([xs, Bm, Cm], dim=-1)
     ch = _conv_channels(pl, cfg)
@@ -343,12 +357,21 @@ def mamba_seq(pl, cfg: ModelConfig, x: torch.Tensor,
     xs, Bm, Cm = torch.split(xbc, [d_inner, N, N], dim=-1)
     ph, z, xs, dt = _rank_heads(pl, cfg, z, xs, dt)
     y, S = _ssd(ph, cfg, xs, Bm, Cm, dt, chunk=chunk)
-    y = _gated_out(pl, cfg, y, z)
-    if return_state:
-        conv_state = F.pad(xbc_raw[..., ch],
-                           (0, 0, CONV_K - 1, 0))[:, -(CONV_K - 1):]
-        return x + y, conv_state, S
-    return x + y
+    return _gated_out(pl, cfg, y, z), xbc_raw[..., ch], S
+
+
+def mamba_seq_split(pl, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """:func:`mamba_seq` on this rank's T / m rows of the residual stream
+    (the ``seq_parallel`` lever): the rank's rows normalised, the mixer on
+    the rows gathered along T (its input enters through one copy, so the
+    conv sees its neighbours), its output reduce-scattered back to the
+    rank's rows; a gathered block runs whole and keeps the rank's rows."""
+    def mix(h, c):
+        if c.tp_axis is not None and not split_block(c, "mamba"):
+            return _mamba_mix(_at_use(pl, c), unsplit(c), h)[0]
+        return _mamba_mix(pl, c, h)[0]
+    return x + seq_block(mix, rms_norm(x, pl["ln"], cfg.norm_eps), cfg,
+                         "mamba")
 
 
 def _gated_out(pl, cfg: ModelConfig, y: torch.Tensor, z: torch.Tensor):
@@ -367,7 +390,7 @@ def _gated_out(pl, cfg: ModelConfig, y: torch.Tensor, z: torch.Tensor):
     ms = copy_to_tp(ss, cfg) / (EXPAND * cfg.d_model)
     y = (v * torch.rsqrt(ms + cfg.norm_eps)
          * pl["ln_gate"].float()).to(cfg.dtype)
-    return psum_if_tp(y @ pl["w_out"], cfg)
+    return block_out(y @ pl["w_out"], cfg)
 
 
 def mamba_step(pl, cfg: ModelConfig, x: torch.Tensor,
@@ -427,7 +450,10 @@ def block_params(mamba, g: int, a: int):
     return {k: v[g, a] for k, v in mamba.items()}
 
 
-def _shared_full(ps, cfg: ModelConfig, x, positions):
+def _shared_full(ps, cfg: ModelConfig, x, positions, split: bool = False):
+    if split:           # x this rank's T / m rows: a decoder layer's form
+        x, _, _ = block_seq_split(ps, cfg, x, positions)
+        return x, None
     h = rms_norm(x, ps["ln_attn"], cfg.norm_eps)
     a, (k, v) = attn.attention_prefill(ps["attn"], cfg, h, positions)
     x = x + a
@@ -460,15 +486,22 @@ def forward_full(p, cfg: ModelConfig, tokens: torch.Tensor,
     B, T = tokens.shape
     positions = torch.arange(T, device=x.device)[None].expand(B, T)
 
+    split = seq_layers(cfg) and not return_cache
+    if split:           # the residual stream on this rank's T / m rows
+        x = seq_slice(x, cfg.tp_axis)
+    block = mamba_seq_split if split else mamba_seq
+
     def group(x, g):
         for a in range(cfg.attn_every):
-            x = mamba_seq(block_params(p["mamba"], g, a), cfg, x)
-        return _shared_full(p["shared"], cfg, x, positions)
+            x = block(block_params(p["mamba"], g, a), cfg, x)
+        return _shared_full(p["shared"], cfg, x, positions, split)
     kvs = []
     for g in range(_groups(cfg)):
         x, kv = checkpointed(group, remat, x, g)
         if return_cache:
             kvs.append(kv)
+    if split:
+        x = all_gather(x, cfg.tp_axis, 1)
     x = rms_norm(x, p["ln_f"], cfg.norm_eps)
     cache = (KVCache(torch.stack([kv.k for kv in kvs]),
                      torch.stack([kv.v for kv in kvs]))

@@ -37,18 +37,22 @@ does not) all-gathers its split leaves at its use and runs whole. Under
 data parallelism
 (the ``data_group`` argument of :func:`moe`) the aux loss's expert
 fractions and mean probabilities are the whole batch's: sums over the
-data group over its token count.
+data group over its token count. With 2-D experts (the ``expert_2d``
+lever) each rank also holds only F / d of its experts' FFN dim, split
+on the data axis: :func:`_experts` runs its slice on every data rank's
+dispatched rows and reduce-scatters the partial down-projection back.
 """
 from __future__ import annotations
 
 import math
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.models.common import (ModelConfig, act_fn, all_reduce,
-                                       copy_to_tp, dense_init, leaf_at_use,
-                                       psum_if_tp, split_block, unsplit)
+                                       block_in, block_out, copy_to_tp,
+                                       dense_init, leaf_at_use,
+                                       reduce_scatter, seq_gather,
+                                       split_block, unsplit)
 
 # moe_dense's temporaries per tile of tokens (inputs broadcast to every
 # expert, the gate/up/down products, the f32 combine): at qwen3-moe's
@@ -93,11 +97,11 @@ def ffn(p, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
                  if k in _FFN_SPLIT else w for k, w in p.items()}
         return ffn(whole, unsplit(cfg), x)
     a = act_fn(cfg.act)
-    x = copy_to_tp(x, cfg)
+    x = block_in(x, cfg)
     if "w_gate" in p:
-        return psum_if_tp(
+        return block_out(
             (a(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"], cfg)
-    return psum_if_tp(a(x @ p["w_up"] + p["b_up"]) @ p["w_down"], cfg) \
+    return block_out(a(x @ p["w_up"] + p["b_up"]) @ p["w_down"], cfg) \
         + p["b_down"]
 
 
@@ -145,7 +149,23 @@ def _route(p, cfg: ModelConfig, xf: torch.Tensor, data_group=None):
 
 
 def _experts(p, cfg: ModelConfig, xe: torch.Tensor) -> torch.Tensor:
-    """Batched expert FFN: xe [E, ..., D] -> [E, ..., D]."""
+    """Batched expert FFN: xe [E, ..., D] -> [E, ..., D]. With 2-D
+    experts (``cfg.tp_data``, the data-axis group) expert leaves
+    narrower than ``d_ff`` are this rank's F / d slice: the rows of dim 1
+    (the groups) of every data rank are gathered, the rank's slice runs
+    on them, and the partial down-projection is reduce-scattered back, so
+    each data rank holds its own rows' sum over F (under autograd the
+    gather's backward reduce-scatters and the reduce-scatter's gathers:
+    ``common.seq_gather``, ``common.reduce_scatter``). Serving tensor
+    parallelism's F split is the caller's to all-reduce."""
+    g = cfg.tp_data
+    if g is not None and p["w_gate"].shape[-1] < cfg.d_ff:
+        return reduce_scatter(_expert_ffn(p, cfg, seq_gather(xe, g, 1)), g,
+                              1)
+    return _expert_ffn(p, cfg, xe)
+
+
+def _expert_ffn(p, cfg: ModelConfig, xe: torch.Tensor) -> torch.Tensor:
     a = act_fn(cfg.act)
     E, D = xe.shape[0], xe.shape[-1]
     x3 = xe.reshape(E, -1, D)
@@ -193,8 +213,7 @@ def moe_dense(p, cfg: ModelConfig, x: torch.Tensor, data_group=None):
         y = _experts(p, cfg, xs.expand((e_loc,) + xs.shape))   # [E, n, D]
         out[s:s + tile] = torch.einsum("end,ne->nd", y.float(),
                                        combine[s:s + tile])
-    out = psum_if_tp(out, cfg)
-    return out.reshape(B, T, D).to(x.dtype), aux
+    return block_out(out.reshape(B, T, D), cfg).to(x.dtype), aux
 
 
 def gshard_slots(topi: torch.Tensor, num_experts: int) -> torch.Tensor:
@@ -264,7 +283,17 @@ def _moe_gshard_split(p, cfg: ModelConfig, x: torch.Tensor,
     out = torch.zeros((G * S, D), dtype=torch.float32, device=x.device)
     for k in range(K):
         out = out + y[at[:, k]].float() * w[:, k, None]
-    return psum_if_tp(out, cfg).reshape(G, S, D).to(x.dtype)
+    return block_out(out.reshape(G, S, D), cfg).to(x.dtype)
+
+
+def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """f32 one-hots of ``idx`` over ``n`` classes (``[..., n]``), by one
+    scatter: the same ops on every device (``F.one_hot`` checks its
+    range on the CPU, so a rank's program would count other ops there
+    than in its trace)."""
+    return torch.zeros(idx.shape + (n,), dtype=torch.float32,
+                       device=idx.device).scatter_(-1, idx.long()[..., None],
+                                                   1.0)
 
 
 def moe_gshard(p, cfg: ModelConfig, x: torch.Tensor,
@@ -288,7 +317,7 @@ def moe_gshard(p, cfg: ModelConfig, x: torch.Tensor,
         return _moe_gshard_split(p, cfg, x, topw, topi, C), aux
 
     # slot of each (token, k) pair within its expert, per group
-    onehot = F.one_hot(topi, E).float()                          # [G,S,K,E]
+    onehot = _one_hot(topi, E)                                   # [G,S,K,E]
     flat = onehot.reshape(G, S * K, E)
     prior = torch.cumsum(flat, dim=1) - flat                # earlier pairs
     slot = torch.einsum("gpe,gpe->gp", prior,
@@ -298,8 +327,8 @@ def moe_gshard(p, cfg: ModelConfig, x: torch.Tensor,
     combine = torch.zeros((G, S, E, C), dtype=torch.float32, device=x.device)
     for k in range(K):
         keep = (slot[..., k] < C).float() * topw[..., k]
-        slot_oh = F.one_hot(torch.clamp(slot[..., k], max=C - 1).long(),
-                            C).float()                           # [G,S,C]
+        slot_oh = _one_hot(torch.clamp(slot[..., k], max=C - 1),
+                           C)                                    # [G,S,C]
         combine = combine + (keep[..., None, None]
                              * onehot[:, :, k, :, None]
                              * slot_oh[:, :, None, :])
@@ -307,7 +336,7 @@ def moe_gshard(p, cfg: ModelConfig, x: torch.Tensor,
 
     xe = torch.einsum("gsec,gsd->egcd", dispatch, x)             # [E,G,C,D]
     y = _experts(p, cfg, xe)                                     # [E,G,C,D]
-    out = psum_if_tp(torch.einsum("egcd,gsec->gsd", y.float(), combine), cfg)
+    out = block_out(torch.einsum("egcd,gsec->gsd", y.float(), combine), cfg)
     return out.to(x.dtype), aux
 
 

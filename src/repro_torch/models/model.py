@@ -58,7 +58,8 @@ import torch
 
 from repro_torch.models import mamba2, rwkv6, transformer, whisper
 from repro_torch.models.attention import KVCache
-from repro_torch.models.common import ModelConfig, softmax_xent, split_block
+from repro_torch.models.common import (ModelConfig, seq_layers, softmax_xent,
+                                       split_block)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -166,6 +167,26 @@ def shared_leaves(cfg: ModelConfig) -> Tuple[str, ...]:
     if cfg.family == "hybrid" and split_block(cfg, "mamba"):
         return mamba2.MAMBA_SHARED
     return ()
+
+
+# the norms (and a GELU FFN's output bias, added after its reduce-scatter)
+# a sequence-parallel layer applies on this rank's T / m rows
+_SEQ_NORMS = {"ssm": r"^layers/ln_(att|ffn)$",
+              "hybrid": r"^(mamba/ln|shared/(ln_(attn|mlp)|ffn/b_down))$",
+              "encdec": r"^dec_layers/(ln[123]/[wb]|ffn/b_down)$"}
+
+
+def seq_norm_leaves(cfg: ModelConfig) -> str:
+    """A pattern of the paths of the replicated leaves that the
+    ``seq_parallel`` lever applies on this rank's T / m rows only (each
+    layer's norms and a GELU FFN's output bias, ``common.seq_block``): a rank's gradient of each is its
+    rows' share, which ``training.trainer`` sums over the model group
+    (Megatron's sequence-parallel norm weights); one that matches nothing
+    without the lever."""
+    if not seq_layers(cfg):
+        return r"^$"
+    return _SEQ_NORMS.get(cfg.family,
+                          r"^layers/(ln_(attn|mlp|res)|ffn/b_down)$")
 
 
 def _decoder_model(cfg: ModelConfig) -> Model:

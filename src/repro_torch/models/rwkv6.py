@@ -48,10 +48,12 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import (ModelConfig, all_gather, card_device,
-                                       copy_to_tp, dense_init, embed_init,
-                                       leaf_at_use, psum_if_tp, rank_cols,
-                                       rms_norm, split_block, state_in,
+from repro_torch.models.common import (ModelConfig, all_gather, block_in,
+                                       block_out, card_device, copy_to_tp,
+                                       dense_init, embed_init, leaf_at_use,
+                                       psum_if_tp, rank_cols, rms_norm,
+                                       seq_block, seq_layers, seq_piece,
+                                       seq_slice, split_block, state_in,
                                        state_out, state_piece, unsplit)
 from repro_torch.models.transformer import (checkpointed, embed_tokens,
                                             layer_params, unembed)
@@ -353,7 +355,7 @@ def time_mix_seq(pl, cfg: ModelConfig, x: torch.Tensor, S0=None,
     B, T, D = x.shape
     pl = _local_heads(pl, cfg)
     H = pl["w_r"].shape[-1] // K
-    rf, kf, vf, lw, g = wkv_inputs(pl, cfg, copy_to_tp(x, cfg), x_prev0)
+    rf, kf, vf, lw, g = wkv_inputs(pl, cfg, block_in(x, cfg), x_prev0)
     u = pl["bonus_u"].float()
     if S0 is None:
         S0 = torch.zeros((B, H, K, K), dtype=torch.float32, device=x.device)
@@ -364,7 +366,7 @@ def time_mix_seq(pl, cfg: ModelConfig, x: torch.Tensor, S0=None,
     else:
         y, S = wkv_sequential(rf, kf, vf, torch.exp(lw), u, S0)
     y = _group_norm(y.reshape(B, T, H * K), pl["ln_x"], H, K)
-    out = psum_if_tp((y * g.float()) @ pl["w_o"].float(), cfg).to(x.dtype)
+    out = block_out((y * g.float()) @ pl["w_o"].float(), cfg).to(x.dtype)
     if return_state:
         return out, S, x[:, -1]
     return out
@@ -389,7 +391,7 @@ def channel_mix(pl, cfg: ModelConfig, x: torch.Tensor,
     xk, xr = copy_to_tp(torch.stack([xk, xr]), cfg).unbind(0)
     k = torch.square(torch.relu(xk @ pl["cw_k"]))
     gate = all_gather(torch.sigmoid(xr @ pl["cw_r"]), cfg.tp_axis, -1)
-    return gate * psum_if_tp(k @ pl["cw_v"], cfg)
+    return seq_piece(gate, cfg) * block_out(k @ pl["cw_v"], cfg)
 
 
 def layer_seq(pl, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
@@ -397,6 +399,21 @@ def layer_seq(pl, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     x = x + time_mix_seq(pl, cfg, h)
     h = rms_norm(x, pl["ln_ffn"], cfg.norm_eps)
     return x + channel_mix(pl, cfg, h, _shift(h))
+
+
+def layer_seq_split(pl, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """:func:`layer_seq` on this rank's T / m rows of the residual stream
+    (the ``seq_parallel`` lever, ``common.seq_block``): each mix normalises
+    the rank's rows and runs on the rows gathered along T, so the token
+    shift sees its neighbours. The time mix's input enters through one
+    copy; the channel mix lerps its whole input first, so its gather's
+    backward takes the rank's rows, and its gate meets the reduce-scattered
+    ``k @ cw_v`` on the rank's rows."""
+    x = x + seq_block(lambda h, c: time_mix_seq(pl, c, h),
+                      rms_norm(x, pl["ln_att"], cfg.norm_eps), cfg, "tmix")
+    return x + seq_block(lambda h, c: channel_mix(pl, c, h, _shift(h)),
+                         rms_norm(x, pl["ln_ffn"], cfg.norm_eps), cfg,
+                         "cmix", enters=False)
 
 
 def forward_full(p, cfg: ModelConfig, tokens: torch.Tensor,
@@ -407,9 +424,14 @@ def forward_full(p, cfg: ModelConfig, tokens: torch.Tensor,
     of ``transformer`` (``gather_logits=False``: this rank's columns, for
     a vocab-parallel loss)."""
     x = embed_tokens(p, cfg, tokens)
+    split = seq_layers(cfg)
+    if split:           # the residual stream on this rank's T / m rows
+        x = seq_slice(x, cfg.tp_axis)
+    layer = layer_seq_split if split else layer_seq
     for l in range(cfg.num_layers):
-        x = checkpointed(layer_seq, remat, layer_params(p["layers"], l),
-                         cfg, x)
+        x = checkpointed(layer, remat, layer_params(p["layers"], l), cfg, x)
+    if split:
+        x = all_gather(x, cfg.tp_axis, 1)
     return unembed(p, cfg, rms_norm(x, p["ln_f"], cfg.norm_eps),
                    gather_logits)
 

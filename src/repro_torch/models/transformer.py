@@ -24,7 +24,8 @@ from repro_torch.models.attention import (KVCache, layer_pool, make_cache,
                                          make_paged_pool)
 from repro_torch.models.common import (ModelConfig, all_gather, copy_to_tp,
                                        dense_init, embed_init, leaf_at_use,
-                                       psum_if_tp, rms_norm, split_block,
+                                       psum_if_tp, rms_norm, seq_block,
+                                       seq_layers, seq_slice, split_block,
                                        unsplit)
 from repro_torch.models.mlp import ffn, init_ffn, init_moe, moe
 
@@ -162,6 +163,36 @@ def block_full(pl, cfg: ModelConfig, x: torch.Tensor,
     return x + m, KVCache(k, v), aux
 
 
+def block_seq_split(pl, cfg: ModelConfig, x: torch.Tensor,
+                    positions: torch.Tensor, mrope_positions=None,
+                    data_group=None):
+    """:func:`block_full` on this rank's T / m rows of the residual
+    stream x [B, T/m, D] (the ``seq_parallel`` lever, Megatron's sequence
+    parallelism): each half normalises the rank's rows, runs on the rows
+    gathered along T (``common.seq_block``: attention and the FFN enter
+    through one copy; the MoE routes the gathered rows, so each group
+    keeps its S and its capacities and drops) and adds its output's rows
+    of this rank. Returns (x, None, aux): a train pass keeps no cache."""
+    eps = cfg.norm_eps
+
+    def attention(h, c):
+        return attn.attention_prefill(pl["attn"], c, h, positions,
+                                      mrope_positions=mrope_positions)[0]
+    x = x + seq_block(attention, rms_norm(x, pl["ln_attn"], eps), cfg,
+                      "attn")
+    h = rms_norm(x, pl["ln_mlp"], eps)
+    if not cfg.num_experts:
+        return x + seq_block(lambda hh, c: ffn(pl["ffn"], c, hh), h, cfg,
+                             "mlp"), None, None
+    m, aux = seq_block(lambda hh, c: moe(pl["moe"], c, hh, c.moe_impl,
+                                         data_group), h, cfg, "experts",
+                       enters=False)
+    if cfg.dense_residual:
+        m = m + seq_block(lambda hh, c: ffn(pl["ffn"], c, hh),
+                          rms_norm(x, pl["ln_res"], eps), cfg, "mlp")
+    return x + m, None, aux
+
+
 def forward_full(p, cfg: ModelConfig, tokens: torch.Tensor, *,
                  vision_embeds=None, vision_mask=None, mrope_positions=None,
                  return_cache: bool = False, remat: bool = False,
@@ -193,10 +224,15 @@ def forward_full(p, cfg: ModelConfig, tokens: torch.Tensor, *,
     cache = (KVCache(x.new_empty(shape), x.new_empty(shape))
              if return_cache else None)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    # a train pass keeps its residual stream on this rank's T / m rows
+    split = seq_layers(cfg) and not return_cache
+    block = block_seq_split if split else block_full
+    if split:
+        x = seq_slice(x, cfg.tp_axis)
 
     def layer(x, l):
-        return block_full(layer_params(p["layers"], l), cfg, x, positions,
-                          mrope_positions, data_group)
+        return block(layer_params(p["layers"], l), cfg, x, positions,
+                     mrope_positions, data_group)
     for l in range(cfg.num_layers):
         x, kv, a = checkpointed(layer, remat, x, l)
         if a is not None:
@@ -204,6 +240,8 @@ def forward_full(p, cfg: ModelConfig, tokens: torch.Tensor, *,
         if cache is not None:
             cache.k[l].copy_(kv.k)
             cache.v[l].copy_(kv.v)
+    if split:
+        x = all_gather(x, cfg.tp_axis, 1)
     if last_index is not None:
         if isinstance(last_index, torch.Tensor):
             x = x.index_select(1, last_index.reshape(1).long())

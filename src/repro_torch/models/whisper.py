@@ -44,6 +44,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models.attention import KVCache, layer_pool
 from repro_torch.models.common import (ModelConfig, all_gather, copy_to_tp,
                                        embed_init, layer_norm, leaf_at_use,
+                                       seq_block, seq_layers, seq_slice,
                                        split_block)
 from repro_torch.models.mlp import ffn, init_ffn
 from repro_torch.models.transformer import (checkpointed, embed_tokens,
@@ -139,6 +140,24 @@ def _dec_block_full(pl, cfg: ModelConfig, x, positions, cross_kv: KVCache):
     return x + ffn(pl["ffn"], cfg, _norm(x, pl["ln3"], cfg)), KVCache(k, v)
 
 
+def _dec_block_seq_split(pl, cfg: ModelConfig, x, positions,
+                         cross_kv: KVCache):
+    """:func:`_dec_block_full` on this rank's T / m rows of the residual
+    stream (the ``seq_parallel`` lever, ``common.seq_block``): each of the
+    self-attention, the cross-attention (its queries; the encoder's K/V
+    are whole on every rank) and the FFN normalises the rank's rows, runs
+    on the rows gathered along T and adds its output's rows of this rank.
+    Returns (x, None): a train pass keeps no cache."""
+    x = x + seq_block(lambda h, c: attn.attention_prefill(
+        pl["self_attn"], c, h, positions)[0], _norm(x, pl["ln1"], cfg), cfg,
+        "attn")
+    x = x + seq_block(lambda h, c: attn.cross_attention(
+        pl["cross_attn"], c, h, cross_kv), _norm(x, pl["ln2"], cfg), cfg,
+        "cross_attn")
+    return x + seq_block(lambda h, c: ffn(pl["ffn"], c, h),
+                         _norm(x, pl["ln3"], cfg), cfg, "mlp"), None
+
+
 def forward_full(p, cfg: ModelConfig, tokens: torch.Tensor,
                  audio_embeds: torch.Tensor, return_cache: bool = False,
                  remat: bool = False, last_only: bool = False,
@@ -160,11 +179,16 @@ def forward_full(p, cfg: ModelConfig, tokens: torch.Tensor,
     enc = encode(p, cfg, audio_embeds)
     x = embed_tokens(p, cfg, tokens) + p["dec_pos"][None, :T]
     positions = torch.arange(T, device=x.device)[None].expand(B, T)
+    # a train pass keeps its residual stream on this rank's T / m rows
+    split = seq_layers(cfg) and not return_cache
+    block = _dec_block_seq_split if split else _dec_block_full
+    if split:
+        x = seq_slice(x, cfg.tp_axis)
 
     def layer(x, l):
         pl = layer_params(p["dec_layers"], l)
         cross_kv = attn.encode_cross_kv(pl["cross_attn"], cfg, enc)
-        x, kv = _dec_block_full(pl, cfg, x, positions, cross_kv)
+        x, kv = block(pl, cfg, x, positions, cross_kv)
         return x, kv, cross_kv
     selfs, crosses = [], []
     for l in range(cfg.num_layers):
@@ -173,6 +197,8 @@ def forward_full(p, cfg: ModelConfig, tokens: torch.Tensor,
             selfs.append(kv)
             crosses.append(attn.cross_cache_slice(cfg, cross_kv,
                                                   cache_len or T))
+    if split:
+        x = all_gather(x, cfg.tp_axis, 1)
     x = _norm(x, p["dec_ln"], cfg)
     if last_only:         # serving prefill needs next-token logits only
         x = x[:, -1:]

@@ -54,6 +54,7 @@ but where its block's dims do not divide.
 from __future__ import annotations
 
 import dataclasses
+import re
 import sys
 import time
 from typing import (Any, Callable, Dict, List, NamedTuple, Optional,
@@ -64,12 +65,15 @@ import torch
 
 from repro_torch.core.migration import tree_leaves
 from repro_torch.kernels.api import launch_counts, zero_launch_counts
+from repro_torch.launch.mesh import lever_groups
 from repro_torch.launch.shardings import (batch_shardings, local_shard,
-                                          param_shardings)
+                                          param_shardings, zero1_shardings)
 from repro_torch.models import mamba2, rwkv6
 from repro_torch.models.attention import cross_layout
-from repro_torch.models.common import ModelConfig, all_reduce, state_axis
-from repro_torch.models.model import Model, build_model, shared_leaves
+from repro_torch.models.common import (Levers, ModelConfig, all_reduce,
+                                       state_axis)
+from repro_torch.models.model import (Model, build_model, seq_norm_leaves,
+                                      shared_leaves)
 from repro_torch.training.checkpoint import save_checkpoint
 from repro_torch.training.data import DataConfig, TokenStream
 from repro_torch.training.optimizer import (AdamWConfig, AdamWState,
@@ -169,7 +173,8 @@ class Plan(NamedTuple):
     (whole heads a rank) or ``"pairs"`` ((row, head) pairs that cut
     across heads; rwkv6's recurrence: ``"none"``, every head on every
     rank), ``cache`` on ``"kv heads"``, ``"head_dim"`` or ``"none"``
-    (whole on every rank; rwkv6's state ``S``: ``"heads"``, ``"K"``);
+    (whole on every rank; rwkv6's state ``S``: ``"heads"``, ``"K"``; an
+    optimized case's ``"seq"``: ``launch.cases``' ``seq_cache`` lever);
     zamba2's ``ssd`` on ``"heads"`` or ``"none"``, whisper's ``cross``
     cache on ``"seq"`` (the encoder's frames), ``"kv heads"``,
     ``"head_dim"`` or ``"none"``."""
@@ -309,6 +314,69 @@ def _sum_over(group, tensors: List[torch.Tensor]) -> None:
             t.copy_(part.view_as(t))
 
 
+def _by_dtype(tensors: List[torch.Tensor]) -> List[List[int]]:
+    """The indices of ``tensors`` grouped by dtype, in first-seen
+    order."""
+    groups: Dict[torch.dtype, List[int]] = {}
+    for i, t in enumerate(tensors):
+        groups.setdefault(t.dtype, []).append(i)
+    return list(groups.values())
+
+
+def _scatter_over(group, tensors: List[torch.Tensor],
+                  dims: List[int]) -> List[torch.Tensor]:
+    """Each tensor summed over ``group``, of which this rank keeps its
+    equal piece along its dim in ``dims`` (ZeRO-1's gradient): one
+    reduce-scatter per dtype over the tensors laid side by side, each cut
+    into the ranks' rows first."""
+    n = group.size
+    out: List[Optional[torch.Tensor]] = [None] * len(tensors)
+    for idx in _by_dtype(tensors):
+        moved = [tensors[i].movedim(dims[i], 0) for i in idx]
+        flat = moved[0].new_empty((n, sum(m.numel() // n for m in moved)))
+        o = 0
+        for m in moved:             # each leaf into its columns, no copy
+            k = m.numel() // n      # between
+            flat[:, o:o + k].unflatten(1, (m.shape[0] // n,) + m.shape[
+                1:]).copy_(m.unflatten(0, (n, -1)))
+            o += k
+        mine = group.reduce_scatter(flat, 0)[0]
+        del flat
+        for i, m, part in zip(idx, moved, mine.split(
+                [m.numel() // n for m in moved])):
+            out[i] = part.view((m.shape[0] // n,) + m.shape[1:]).movedim(
+                0, dims[i])
+    return out
+
+
+def _gather_into(group, pieces: List[torch.Tensor], wholes: List[
+        torch.Tensor], dims: List[int]) -> None:
+    """Every rank's piece of each tensor joined along its dim in ``dims``
+    and written into ``wholes`` (ZeRO-1's parameter rebuild): one
+    all-gather per dtype over the pieces laid side by side."""
+    n = group.size
+    for idx in _by_dtype(pieces):
+        moved = [pieces[i].movedim(dims[i], 0) for i in idx]
+        flat = group.all_gather(torch.cat([m.reshape(1, -1) for m in moved],
+                                          1), 0)
+        for i, m, part in zip(idx, moved, flat.split(
+                [m.numel() for m in moved], 1)):
+            whole = part.reshape((n * m.shape[0],) + m.shape[1:])
+            wholes[i].copy_(whole.movedim(0, dims[i]))
+
+
+class _AxisView:
+    """A rank's coordinates on the axes the training rules name, with
+    ``data`` the data axis alone (a multi-pod layout folds ``pod × data``
+    into one data group; the 2-D experts and ZeRO-1 split on ``data``
+    only, as the reference's rules do)."""
+
+    def __init__(self, mesh, data_axis: int):
+        self.axis_names = ("data", "model")
+        self.shape = {"data": data_axis, "model": mesh.model}
+        self.coords = {"data": mesh.d % data_axis, "model": mesh.m}
+
+
 class ShardedTrainStep:
     """One rank's training step on a :class:`~repro_torch.launch.mesh.
     TrainMesh`; made by :func:`make_sharded_train_step`. Call it as
@@ -317,15 +385,32 @@ class ShardedTrainStep:
     :meth:`shard`), moments shaped like it (``init_adamw(shard)``) and
     the whole batch (a ``TokenStream`` batch: this rank takes its rows).
     ``metrics`` (``loss``, ``xent``, an MoE's ``aux``, ``lr``,
-    ``grad_norm``) are the whole batch's and equal on every rank."""
+    ``grad_norm``) are the whole batch's and equal on every rank.
+
+    **The levers** (``model.cfg.levers``, ``models.common.Levers``): with
+    ``expert_2d`` the expert leaves also split their F on the data axis
+    (each rank's gradient of its slice is then every data rank's rows':
+    no data sum, its moments its own slice's); with ``zero1`` each
+    moment is cut on the dim ``launch.shardings.zero1_shardings`` puts
+    ``data`` on, that leaf's gradient is reduce-scattered over the data
+    axis in place of the all-reduce, AdamW updates the rank's slice of
+    the parameter and one all-gather rebuilds it (leaves with no such dim
+    keep the all-reduce); with ``seq_parallel`` the norms a layer applies
+    on the rank's T / m rows (``models.model.seq_norm_leaves``) have
+    their gradients summed over the model group. On a multi-pod layout
+    the data-axis sums also run across the pods."""
 
     def __init__(self, model: Model, opt_cfg: AdamWConfig, mesh,
                  remat: bool = False):
         self.mesh = mesh
         self.opt_cfg = opt_cfg
         self.remat = remat
+        self.levers = model.cfg.levers or Levers()
         self.plan = sharding_mechanism(model.cfg, mesh.model)
         self.mechanism, self.why = self.plan.mechanism, self.plan.why
+        self.data_axis, self.pod = lever_groups(mesh)
+        self.view = _AxisView(mesh, 1 if self.data_axis is None
+                              else self.data_axis.size)
         # every block runs on the model group (no plan: tensor
         # parallelism on whole heads)
         on_group = bool(self.plan.blocks)
@@ -333,28 +418,55 @@ class ShardedTrainStep:
                 else None)
         self.model = build_model(dataclasses.replace(
             model.cfg, tp_axis=mesh.model_group if on_group else None,
-            tp_plan=plan, tp_rows=mesh.data))
+            tp_plan=plan, tp_rows=mesh.data,
+            tp_data=self.data_axis if self.levers.expert_2d else None))
         self.split: Dict[str, int] = {}     # path -> dim split on model
+        self.data_split: Dict[str, int] = {}  # path -> dim split on data
+        self.zero1: Dict[str, int] = {}     # path -> its moments' data dim
         # replicated leaves whose rank gradient is its heads' share
         self.shared = (set(shared_leaves(self.model.cfg)) if on_group
                        else set())
+        self.seq_norms = re.compile(seq_norm_leaves(self.model.cfg))
 
     def shard(self, params) -> Any:
         """This rank's shard of the whole tree ``params`` (any device) on
         the rank's device: split leaves as fresh contiguous tensors,
         whole ones moved (the caller's own where already there)."""
-        specs = param_shardings(params, self.mesh)
+        specs = param_shardings(params, self.view,
+                                expert_2d=self.levers.expert_2d)
         self.split = {path: spec.index("model") for path, spec
                       in specs.items() if "model" in spec
                       and self.mesh.model > 1}
+        n = self.view.shape["data"]
+        self.data_split = {path: spec.index("data") for path, spec
+                           in specs.items() if "data" in spec and n > 1}
+        self.zero1 = {}
+        if self.levers.zero1 and n > 1:
+            self.zero1 = {path: spec.index("data") for path, spec
+                          in zero1_shardings(params, self.view).items()
+                          if "data" in spec and path not in self.data_split}
         dev = self.mesh.device
 
         def cut(path, leaf):
-            if path in self.split:
-                return local_shard(leaf, specs[path], self.mesh).to(
+            if path in self.split or path in self.data_split:
+                return local_shard(leaf, specs[path], self.view).to(
                     dev).clone(memory_format=torch.contiguous_format)
             return leaf.to(dev)
         return _rebuild(params, cut)
+
+    def _moment_piece(self, path: str, leaf: torch.Tensor) -> torch.Tensor:
+        """The rank's slice of a shard leaf that its moments cover: its
+        ZeRO-1 slice on the data axis (a view), or the leaf."""
+        if path not in self.zero1:
+            return leaf
+        d = self.zero1[path]
+        k = leaf.shape[d] // self.view.shape["data"]
+        return leaf.narrow(d, self.view.coords["data"] * k, k)
+
+    def init_moments(self, params) -> AdamWState:
+        """Zero AdamW moments of this rank's shard ``params``: shaped like
+        it, or with ``zero1`` like its slices on the data axis."""
+        return init_adamw(_rebuild(params, self._moment_piece))
 
     def rows(self, batch) -> Dict[str, torch.Tensor]:
         """This rank's rows of a whole batch (numpy arrays or tensors) on
@@ -384,6 +496,52 @@ class ShardedTrainStep:
             split = self.mesh.model_group.all_reduce(split)
         return torch.sqrt(split[0] + rep)
 
+    def _sliced_norm(self, paths: List[str],
+                     grads: List[torch.Tensor]) -> torch.Tensor:
+        """:meth:`global_norm` where some gradients are the rank's slices
+        on the data axis (ZeRO-1, 2-D experts): the squares of the leaves
+        split on the model group summed over it, then those of the leaves
+        split on the data axis summed over that (each slice counted
+        once: the pods hold the same slices)."""
+        dev = grads[0].device
+        acc = torch.zeros((4,), dtype=torch.float32, device=dev)
+        for path, g in zip(paths, grads):
+            on_data = path in self.zero1 or path in self.data_split
+            i = 2 * (path in self.split) + on_data   # rep, data, model, both
+            acc[i] += torch.sum(torch.square(g.float()))
+        rep, data, model, both = acc.unbind(0)
+        if self.split and self.mesh.model_group is not None:
+            model, both = self.mesh.model_group.all_reduce(
+                torch.stack([model, both])).unbind(0)
+        data, both = self.data_axis.all_reduce(
+            torch.stack([data, both])).unbind(0)
+        return torch.sqrt(rep + data + model + both)
+
+    def _reduce_sliced(self, paths: List[str],
+                       grads: List[torch.Tensor]) -> List[torch.Tensor]:
+        """The data sums of a step with leaves split on the data axis:
+        the whole leaves' gradients all-reduced over the data group as
+        without the levers, each ZeRO-1 leaf's reduce-scattered over the
+        data axis to the rank's slice (one collective a dtype), a 2-D
+        expert leaf's kept (its rows are every data rank's already); on a
+        multi-pod layout the slices then summed across the pods."""
+        out = list(grads)
+        whole = [g for p, g in zip(paths, grads)
+                 if p not in self.zero1 and p not in self.data_split]
+        if whole:
+            _sum_over(self.mesh.data_group, whole)
+        z = [i for i, p in enumerate(paths) if p in self.zero1]
+        if z:
+            parts = _scatter_over(self.data_axis, [grads[i] for i in z],
+                                  [self.zero1[paths[i]] for i in z])
+            for i, g in zip(z, parts):
+                out[i] = g
+        across = [g for p, g in zip(paths, out)
+                  if p in self.zero1 or p in self.data_split]
+        if self.pod is not None and across:
+            _sum_over(self.pod, across)
+        return out
+
     def __call__(self, params, opt_state: AdamWState, batch):
         return self.local_step(params, opt_state, self.rows(batch))
 
@@ -398,31 +556,49 @@ class ShardedTrainStep:
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for g, p in zip(grads, leaves)]
-        if self.mesh.data_group is not None:
+        sliced = bool(self.zero1 or self.data_split)
+        if sliced:
+            grads = self._reduce_sliced(list(paths), grads)
+        elif self.mesh.data_group is not None:
             _sum_over(self.mesh.data_group, grads)
         shared = [g for path, g in zip(paths, grads)
-                  if path.rsplit("/", 1)[-1] in self.shared
+                  if (path.rsplit("/", 1)[-1] in self.shared
+                      or self.seq_norms.match(path))
                   and path not in self.split]
         if shared:
             _sum_over(self.mesh.model_group, shared)
-        gnorm = self.global_norm(list(paths), grads)
-        params, opt_state, info = adamw_update(
-            self.opt_cfg, _like(params, iter(grads)), opt_state, params,
-            gnorm=gnorm)
+        gnorm = (self._sliced_norm(list(paths), grads) if sliced
+                 else self.global_norm(list(paths), grads))
+        # AdamW on the slices the moments cover (views of the shard)
+        updated, opt_state, info = adamw_update(
+            self.opt_cfg, _like(params, iter(grads)), opt_state,
+            _rebuild(params, self._moment_piece), gnorm=gnorm)
+        if self.zero1:          # every data rank's updated slice, joined
+            z = [p for p in paths if p in self.zero1]
+            got, full = dict(_sorted_paths(updated)), dict(zip(paths, leaves))
+            with torch.no_grad():
+                _gather_into(self.data_axis, [got[p] for p in z],
+                             [full[p] for p in z], [self.zero1[p] for p in z])
         aux = {k: v.detach() for k, v in aux.items()}
         aux["xent"] = all_reduce(aux["xent"], self.mesh.data_group)
         whole = aux["xent"] + aux["aux"] if "aux" in aux else aux["xent"]
         return params, opt_state, {"loss": whole, **aux, **info}
 
-    def gather(self, params) -> Optional[Dict[str, Any]]:
+    def gather(self, params, moments: bool = False
+               ) -> Optional[Dict[str, Any]]:
         """The whole tree on rank 0 (CPU tensors; None on the other
-        ranks): every split leaf all-gathered over the model group (every
-        rank takes part), leaf by leaf."""
+        ranks): every split leaf all-gathered over the data axis (2-D
+        experts; a moment's ZeRO-1 slice with ``moments``) and the model
+        group (every rank takes part), leaf by leaf."""
         group = self.mesh.model_group
         keep = self.mesh.rank == 0
 
         def one(path, leaf):
             leaf = leaf.detach()
+            for dims, on in ((self.zero1, moments), (self.data_split, True)):
+                if on and path in dims:
+                    leaf = self.data_axis.all_gather(leaf.contiguous(),
+                                                     dims[path])
             if path in self.split:
                 leaf = group.all_gather(leaf, self.split[path])
             return leaf.cpu().clone() if keep else None
@@ -508,7 +684,7 @@ def train_sharded(mesh, run: ShardedRun) -> dict:
         whole = _from_arrays(run.init, dev)
     params = step.shard(whole)
     del whole
-    opt_state = init_adamw(params)
+    opt_state = step.init_moments(params)
     stream = iter(TokenStream(run.cfg, run.data))
     zero_launch_counts()
     groups = mesh.groups()
@@ -548,7 +724,7 @@ def train_sharded(mesh, run: ShardedRun) -> dict:
             save_checkpoint(run.ckpt_path, whole, run.steps)
         for part in run.gather:
             tree = (whole if part == "params"
-                    else step.gather(getattr(opt_state, part)))
+                    else step.gather(getattr(opt_state, part), True))
             if tree is not None:
                 out[part] = tree
     return out

@@ -17,6 +17,7 @@ from repro.configs import ARCHS as JAX_ARCHS  # noqa: E402
 from repro.launch import cases as jcases  # noqa: E402
 from repro.launch import roofline as jroof  # noqa: E402
 from repro_torch.configs import ARCHS, get_config  # noqa: E402
+from repro_torch.core.migration import tree_leaves  # noqa: E402
 from repro_torch.launch.cases import (SHAPES, adjusted_config,  # noqa: E402
                                       build_case, input_specs, shape_kind,
                                       skip_reason)
@@ -106,7 +107,10 @@ def test_case_tables_match_the_reference(arch, shape):
     tc = adjusted_config(arch, shape)
     jc = jcases.adjusted_config(arch, shape)
     for f in dataclasses.fields(tc):
-        if f.name not in ("dtype", "tp_axis", "tp_plan", "tp_rows"):
+        # the port's own runtime fields (a rank's groups, its plan, its
+        # levers), which the reference's config has not
+        if f.name not in ("dtype", "tp_axis", "tp_plan", "tp_rows",
+                          "levers", "seq_parallel", "tp_data"):
             assert getattr(tc, f.name) == getattr(jc, f.name), f.name
     assert tc.dtype == torch.bfloat16 and jc.dtype == jnp.bfloat16
     # input stand-ins: the same names, shapes and dtypes, on no storage
@@ -132,8 +136,17 @@ def test_case_tables_match_the_reference(arch, shape):
 
 
 def test_build_case_refuses_the_optimized_levers_and_skips():
+    """The optimized levers run (no refusal since the port has them):
+    a 16x16 train case takes sequence parallelism and ZeRO-1, whose
+    moments are a sixteenth of the baseline's; the skip stands."""
     mesh = make_production_mesh()
-    with pytest.raises(ValueError, match="Queue 1 item \"`--opt`'s levers"):
-        build_case("qwen2.5-14b", "train_4k", mesh, optimized=True)
+    opt = build_case("qwen2.5-14b", "train_4k", mesh, optimized=True)
+    base = build_case("qwen2.5-14b", "train_4k", mesh)
+    assert opt.levers.taken() == ("seq_parallel", "zero1")
+    assert base.levers is None
+
+    def numel(tree):
+        return sum(a.numel() for a in tree_leaves(tree))
+    assert 16 * numel(opt.args[1].mu) == numel(base.args[1].mu)
     with pytest.raises(ValueError, match="skipped"):
         build_case("whisper-large-v3", "long_500k", mesh)

@@ -8,7 +8,7 @@ the scores that #6 skips); context-parallel decode
 (``models.attention.context_parallel_decode``) over a real 2-rank gloo
 group (two threads of this process) equal to the unsharded
 ``decode_step`` within 1e-5 in f32; the command line on one case; and
-``--opt`` refused."""
+``--opt`` running the levers."""
 import dataclasses
 import json
 import threading
@@ -224,11 +224,21 @@ def test_the_command_line(tmp_path, capsys):
     assert rows[1]["arg_bytes_per_chip"] < rows[0]["arg_bytes_per_chip"]
 
 
-def test_the_optimized_levers_are_refused(capsys):
-    with pytest.raises(SystemExit) as e:
-        dryrun.main(["--arch", "qwen2.5-14b", "--opt"])
-    assert e.value.code == 2
-    assert ("ROADMAP Queue 1 item \"`--opt`'s levers\""
-            in capsys.readouterr().err)
-    with pytest.raises(ValueError, match="Queue 1 item \"`--opt`'s levers"):
-        dryrun.run_case("qwen2.5-14b", "train_4k", False, optimized=True)
+def test_the_optimized_levers_are_refused(tmp_path, capsys):
+    """``--opt`` runs (no refusal since the port has the levers): one
+    sequence-split decode row on the command line, and ``run_case`` of a
+    reduced train case, each row ``optimized`` with its levers."""
+    out = tmp_path / "opt.json"
+    dryrun.main(["--arch", "smollm-360m", "--shape", "decode_32k", "--opt",
+                 "--out", str(out)])
+    assert "1 ok / 0 skipped / 0 FAILED of 1" in capsys.readouterr().out
+    row, = json.loads(out.read_text())
+    assert row["optimized"] is True and row["levers"] == ["seq_cache"]
+    assert row["plan_axes"]["cache"] == "seq"     # Hkv 5 does not divide 16
+    row = dryrun.run_case("qwen2.5-14b", "train_4k", False, verbose=False,
+                          optimized=True, layout=SMALL,
+                          cfg=_reduced("qwen2.5-14b", "train_4k"), batch=4,
+                          seq=16)
+    assert row["status"] == "ok", row.get("error")
+    assert row["optimized"] is True
+    assert row["levers"] == ["seq_parallel", "zero1"]

@@ -100,9 +100,11 @@ def test_config_copies_match_reference():
                        (jax_get_config(name).reduced(),
                         get_config(name).reduced())):
             for f in dataclasses.fields(tc):
-                # tp_plan, tp_rows: the port's per-leaf partition and its
-                # data ranks, no reference fields
-                if f.name not in ("dtype", "tp_plan", "tp_rows"):
+                # tp_plan, tp_rows, levers, seq_parallel, tp_data: the port's
+                # per-leaf partition, its data ranks and its levers, no
+                # reference fields
+                if f.name not in ("dtype", "tp_plan", "tp_rows", "levers",
+                                  "seq_parallel", "tp_data"):
                     assert getattr(tc, f.name) == getattr(jc, f.name), f.name
     with pytest.raises(KeyError):
         get_config("gpt-2")

@@ -168,9 +168,11 @@ def test_config_registry_equals_reference():
     for name in ARCHS:
         tc, jc = get_config(name), jax_get_config(name)
         for f in dataclasses.fields(tc):
-            # tp_plan, tp_rows: the port's per-leaf partition and its
-            # data ranks, no reference fields
-            if f.name not in ("dtype", "tp_plan", "tp_rows"):
+            # tp_plan, tp_rows, levers, seq_parallel, tp_data: the port's
+            # per-leaf partition, its data ranks and its levers, no
+            # reference fields
+            if f.name not in ("dtype", "tp_plan", "tp_rows", "levers",
+                              "seq_parallel", "tp_data"):
                 assert getattr(tc, f.name) == getattr(jc, f.name), \
                     (name, f.name)
     with pytest.raises(KeyError):

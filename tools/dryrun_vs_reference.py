@@ -3,7 +3,7 @@
 
     PYTHONPATH=src python3 tools/dryrun_vs_reference.py \\
         [--cases smollm-360m:decode_32k,qwen2.5-14b:prefill_32k:multi,...] \\
-        [--json PATH]
+        [--opt] [--json PATH]
 
 For each case (``arch:shape``, ``:multi`` for 2x16x16; the default is
 the cases ROADMAP Queue 3 records — qwen3-moe at decode, train and
@@ -22,7 +22,10 @@ the dominant terms are each program's own; the counts are comparable.
 
 Everything runs on the CPU: the reference lowers and compiles XLA on
 512 host devices (seconds to a minute a case), the port traces on fake
-tensors. ``--json`` writes both rows of every case.
+tensors. ``--opt`` runs both sides' optimized programs (the reference's
+``run_case(..., optimized=True)``, the port's ``build_case(optimized=
+True)``: the beyond-paper levers). ``--json`` writes both rows of every
+case.
 """
 from __future__ import annotations
 
@@ -57,7 +60,8 @@ def keep(*a, **k):
     return out
 d.parse_collectives = keep
 arch, shape, multi = sys.argv[1], sys.argv[2], sys.argv[3] == "1"
-row = d.run_case(arch, shape, multi, verbose=False)
+row = d.run_case(arch, shape, multi, verbose=False,
+                 optimized=sys.argv[4] == "1")
 ops = {}
 for c in (seen[-1] if seen else []):
     k = ops.setdefault(c["op"], [0, 0.0])
@@ -68,26 +72,29 @@ print("ROW " + json.dumps(row, default=str))
 """
 
 
-def reference_row(arch: str, shape: str, multi: bool) -> dict:
+def reference_row(arch: str, shape: str, multi: bool,
+                  optimized: bool = False) -> dict:
     env = dict(os.environ, JAX_PLATFORMS="cpu")
     env["PYTHONPATH"] = str(ROOT / "src") + (
         os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
     out = subprocess.run(
         [sys.executable, "-c", _REFERENCE, arch, shape, "1" if multi
-         else "0"], env=env, capture_output=True, text=True, timeout=3600)
+         else "0", "1" if optimized else "0"], env=env,
+        capture_output=True, text=True, timeout=3600)
     for line in out.stdout.splitlines():
         if line.startswith("ROW "):
             return json.loads(line[4:])
     return {"status": "fail", "error": (out.stderr or out.stdout)[-2000:]}
 
 
-def port_row(arch: str, shape: str, multi: bool) -> dict:
+def port_row(arch: str, shape: str, multi: bool,
+             optimized: bool = False) -> dict:
     from repro_torch.launch import dryrun
     from repro_torch.launch.cases import build_case
     from repro_torch.launch.mesh import make_production_mesh
     from repro_torch.launch.roofline import collective_wire_bytes
     layout = make_production_mesh(multi_pod=multi)
-    case = build_case(arch, shape, layout)
+    case = build_case(arch, shape, layout, optimized)
     traced = dryrun.trace_case(case)
     rl = dryrun.roofline_of(case, traced, "2x16x16" if multi else "16x16",
                             layout)
@@ -98,7 +105,8 @@ def port_row(arch: str, shape: str, multi: bool) -> dict:
     row = rl.row()
     row.update(status="ok", mechanism=case.mechanism,
                plan=dict(case.plan.blocks), plan_axes=dict(case.plan.axes),
-               collective_ops=dict(ops))
+               collective_ops=dict(ops), optimized=optimized,
+               levers=list(case.levers.taken()) if case.levers else [])
     return row
 
 
@@ -116,22 +124,27 @@ def _line(side: str, row: dict) -> str:
             f"{row['arg_bytes_per_chip'] / 1e9:.2f} GB a chip; dominant "
             f"{row['dominant']} (its own chip's terms)"
             + (f"; {row['mechanism']} {row['plan_axes']}"
-               if "mechanism" in row else ""))
+               if "mechanism" in row else "")
+            + (f"; levers {row['levers']}" if row.get("levers") else ""))
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--cases", default=",".join(DEFAULT))
     ap.add_argument("--json", default="")
+    ap.add_argument("--opt", action="store_true",
+                    help="both sides' optimized programs (the levers)")
     args = ap.parse_args(argv)
     rows = []
     for spec in args.cases.split(","):
         arch, shape, *rest = spec.split(":")
         multi = rest == ["multi"]
-        ref = reference_row(arch, shape, multi)
-        port = port_row(arch, shape, multi)
-        rows.append({"case": spec, "reference": ref, "port": port})
-        print(f"{arch} {shape} {'2x16x16' if multi else '16x16'}")
+        ref = reference_row(arch, shape, multi, args.opt)
+        port = port_row(arch, shape, multi, args.opt)
+        rows.append({"case": spec, "optimized": args.opt, "reference": ref,
+                     "port": port})
+        print(f"{arch} {shape} {'2x16x16' if multi else '16x16'}"
+              f"{' --opt' if args.opt else ''}")
         print(_line("reference", ref))
         print(_line("port", port), flush=True)
     if args.json:
